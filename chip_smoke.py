@@ -19,7 +19,10 @@ Three phases, each of which exits non-zero on failure:
    kernel's launch count over that run must be exactly 28 x (16 + 32).  The
    same seed-built model cut to 2 layers then prefills one 256-token prompt on
    the card (bf16) and on the CPU (plain path, fp32): the last hidden states
-   must agree within a relative L2 error of 2e-2, a bf16 tolerance.
+   must agree within a relative L2 error of 2e-2, a bf16 tolerance.  Last,
+   outside the counted run, the prefill and 4 decode steps run again under
+   torch.profiler for the device's busy time by kernel group and its idle
+   share against phase 3's wall times.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its check and times.
@@ -229,6 +232,73 @@ def cpu_check(serve, runner, cfg, card):
     return rel
 
 
+def device_time(prof, top: int = 6):
+    """(total device ms, {kernel group: ms}, [(kernel, ms)] of the ``top``
+    kernels) from a torch.profiler run.  Groups: the flash kernel and its
+    merge, cuBLAS matrix products (nvjet / gemm kernels), everything else."""
+    groups = {"attention kernel": 0.0, "matmul": 0.0, "other": 0.0}
+    kernels = []
+    for evt in prof.key_averages():
+        ms = evt.self_device_time_total / 1e3
+        if ms <= 0:
+            continue
+        kernels.append((evt.key[:60], ms))
+        name = evt.key.lower()
+        if "flash_partial" in name or "merge_splits" in name:
+            groups["attention kernel"] += ms
+        elif any(tag in name for tag in ("nvjet", "gemm", "xmma", "cutlass", "matmul")):
+            groups["matmul"] += ms
+        else:
+            groups["other"] += ms
+    return sum(groups.values()), groups, sorted(kernels, key=lambda kv: -kv[1])[:top]
+
+
+def profile_main_path(serve, runner, cfg, prefill_wall_s, decode_wall_ms, card):
+    """Where the time goes: the main path's prefill and 4 decode steps again,
+    under torch.profiler, outside the counted run.  Device busy time over
+    the unprofiled wall time of phase 3 gives the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeConfig
+
+    S, B, steps = PREFILL_LEN, BATCH, 4
+    pre = runner.resolve_cell(cfg, ShapeConfig("profile", S, B, "prefill"),
+                              overrides=dict(pp=1, dp=1, n_chunks=S // 64,
+                                             offload=False, remat="none"))
+    dec = runner.resolve_cell(cfg, ShapeConfig("profile", S, B, "decode"),
+                              overrides=dict(pp=1, dp=1))
+    params = serve.build_params(pre, "cuda", seed=0)
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, size=(B, S))
+    tokens = torch.from_numpy(prompts.astype(np.int32)).cuda()
+    serve_step = runner.make_serve_step(dec)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof_pre:
+        state, _ = runner.make_prefill_step(pre)(params, tokens)
+        torch.cuda.synchronize()
+    cur = tokens[:, -1:]
+    with profile(activities=acts) as prof_dec:
+        for i in range(steps):
+            state, cur = serve_step(params, state, cur, S + i)
+        torch.cuda.synchronize()
+    pre_ms, pre_groups, pre_top = device_time(prof_pre)
+    dec_ms, dec_groups, dec_top = device_time(prof_dec)
+    dec_ms, dec_groups = dec_ms / steps, {k: v / steps for k, v in dec_groups.items()}
+    dec_top = [(name, ms / steps) for name, ms in dec_top]
+    out = {"prefill_device_ms": pre_ms, "prefill_device_ms_by_group": pre_groups,
+           "prefill_idle_share": 1 - pre_ms / (1e3 * prefill_wall_s),
+           "decode_step_device_ms": dec_ms, "decode_step_device_ms_by_group": dec_groups,
+           "decode_idle_share": 1 - dec_ms / decode_wall_ms}
+    print(f"profile ({card}): prefill device busy {pre_ms:.1f} ms of {1e3 * prefill_wall_s:.1f} ms "
+          f"wall, {json.dumps(pre_groups)}; decode step device busy {dec_ms:.3f} ms of "
+          f"{decode_wall_ms:.3f} ms wall, {json.dumps(dec_groups)}")
+    for phase, rows in (("prefill", pre_top), ("decode step", dec_top)):
+        for name, ms in rows:
+            print(f"  {phase} top kernel: {ms:9.3f} ms  {name}")
+    check(pre_ms > 0 and dec_ms > 0, "profiler captured no device time")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -298,6 +368,7 @@ def main():
     del out, hidden
     torch.cuda.empty_cache()
     rel = cpu_check(serve, runner, cfg, card)
+    profile = profile_main_path(serve, runner, cfg, pre_s, 1e3 * dec_s / DECODE_STEPS, card)
 
     main_row = rows[0]
     kernel = {"name": "flash_attention_partial", "route": "cuda",
@@ -311,7 +382,7 @@ def main():
                "decode_ms_per_step": 1e3 * dec_s / DECODE_STEPS,
                "decode_tokens_per_s": BATCH * DECODE_STEPS / dec_s,
                "peak_bytes": peak, "cpu_check_rel_l2": rel,
-               "seconds": time.perf_counter() - t_start}
+               **profile, "seconds": time.perf_counter() - t_start}
     print("summary:", json.dumps(summary))
     print(card)
     print(json.dumps({"kernels": [kernel]}))

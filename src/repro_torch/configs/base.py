@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional
 
 # ---------------------------------------------------------------------------
 # Sub-configs for family-specific blocks
@@ -142,7 +142,7 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Shapes (assigned cells) — LM shapes are seq_len x global_batch
+# Shapes — LM shapes are seq_len x global_batch
 # ---------------------------------------------------------------------------
 
 
@@ -152,14 +152,6 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # train | prefill | decode
-
-
-SHAPES = {
-    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
-    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
-    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
-    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
-}
 
 
 # ---------------------------------------------------------------------------
@@ -274,12 +266,6 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
-
-
-def list_archs() -> Tuple[str, ...]:
-    if not _REGISTRY:
-        _load_all()
-    return tuple(sorted(_REGISTRY))
 
 
 def _load_all() -> None:

@@ -66,18 +66,47 @@ def _load():
         lib = ctypes.CDLL(str(build()[0]))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_partial_fwd.argtypes = (
-            [i32] + [ptr] * 9 + [i32] * 8 + [i64] * 9
+            [i32] + [ptr] * 12 + [i32] * 12 + [i64] * 9
             + [ctypes.c_float, i32, ptr])
         lib.flash_partial_fwd.restype = i32
-        lib.flash_partial_max_rows.argtypes = []
-        lib.flash_partial_max_rows.restype = i32
-        lib.flash_partial_max_hd.argtypes = []
-        lib.flash_partial_max_hd.restype = i32
         _lib = lib
     return _lib
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HD = 128        # largest hd_k / hd_v the kernel takes (csrc kMaxHd)
+MAX_ROWS = 64       # query rows per block: G heads x bq tokens (16 x 4 row groups)
+MAX_SPLITS = 32     # KV splits the merge takes (csrc kMaxSplits)
+BLOCK_K = 64        # KV slots per tile (csrc kBlockK)
+
+
+def _geometry(B: int, Tq: int, S: int, G: int, Hkv: int, n_sm: int):
+    """Launch geometry: (row_groups, bq, nsplit, tiles_per_split).
+
+    A block holds 16 x row_groups query rows, the fewest that fit G x Tq
+    (decode: 16 rows for G = 7), so bq = 16 x row_groups // G tokens.  When
+    (query tiles x KV heads x batch) blocks would leave the card's SMs idle,
+    the KV range is split over more blocks, about two per SM, and the
+    partials merged (flash-decoding); prefill chunks fill the card unsplit.
+    """
+    rows = G * Tq
+    row_groups = 1 if rows <= 16 else 2 if rows <= 32 else 4
+    bq = min(Tq, 16 * row_groups // G)
+    blocks = -(-Tq // bq) * Hkv * B
+    n_tiles = max(1, -(-S // BLOCK_K))
+    per_split = n_tiles
+    if blocks < n_sm:
+        want = min(MAX_SPLITS, n_tiles, -(-2 * n_sm // blocks))
+        per_split = -(-n_tiles // want)
+    return row_groups, bq, -(-n_tiles // per_split), per_split
+
+
+def _vec_ok(t, hd: int) -> bool:
+    """16-byte loads need a 16-byte aligned base and element strides and a
+    head dim that are multiples of one vector."""
+    epv = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0 and hd % epv == 0
+            and all(st % epv == 0 for st in t.stride()[:3]))
 
 
 def _positions(x, B: int, Tq: int, device, name: str):
@@ -124,11 +153,10 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
                          f"H={H}, Hkv={Hkv})")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the last dim of q, k and v must be contiguous")
-    lib = _load()
-    G, max_rows, max_hd = H // Hkv, lib.flash_partial_max_rows(), lib.flash_partial_max_hd()
-    if G > max_rows or hdk > max_hd or hdv > max_hd:
-        raise ValueError(f"kernel takes G <= {max_rows} and head dims <= "
-                         f"{max_hd}; got G={G}, hd_k={hdk}, hd_v={hdv}")
+    G = H // Hkv
+    if G > MAX_ROWS or hdk > MAX_HD or hdv > MAX_HD:
+        raise ValueError(f"kernel takes G <= {MAX_ROWS} and head dims <= "
+                         f"{MAX_HD}; got G={G}, hd_k={hdk}, hd_v={hdv}")
     if kv_pos.device != dev or kv_pos.dim() != 1 or kv_pos.shape[0] != S:
         raise ValueError(f"kv_pos must be [{S}] on {dev}")
     kv_pos = kv_pos.to(torch.int32).contiguous()
@@ -138,16 +166,25 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
     if scale is None:
         scale = 1.0 / (hdk ** 0.5)
 
-    o = torch.empty((B, Tq, H, hdv), dtype=torch.float32, device=dev)
-    m = torch.empty((B, Tq, H), dtype=torch.float32, device=dev)
-    l = torch.empty((B, Tq, H), dtype=torch.float32, device=dev)
+    lib = _load()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    row_groups, bq, nsplit, per_split = _geometry(B, Tq, S, G, Hkv, n_sm)
+    vec = _vec_ok(k, hdk) and _vec_ok(v, hdv)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    o, m, l = out(B, Tq, H, hdv), out(B, Tq, H), out(B, Tq, H)
+    parts = ((out(nsplit, B, Tq, H, hdv), out(nsplit, B, Tq, H),
+              out(nsplit, B, Tq, H)) if nsplit > 1 else ())
     with torch.cuda.device(dev):
         rc = lib.flash_partial_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             q_pos.data_ptr(), kv_pos.data_ptr(), q_start.data_ptr(),
             o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B, Tq, S, H, Hkv, hdk, hdv, min(Tq, max_rows // G),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *([t.data_ptr() for t in parts] or [None] * 3),
+            B, Tq, S, H, Hkv, hdk, hdv, row_groups, bq, nsplit, per_split,
+            int(vec), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             float(scale), int(bool(causal)),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -61,7 +61,14 @@ def dist_attention(q, k_loc, v_loc, q_pos, kv_pos, *, causal=True, scale=None,
     return out.to(q.dtype)
 
 
-def _qkv(x, p, cfg, positions):
+def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
+                       kv_view):
+    """x: [B, T, d]; q_pos: [T] global positions of the tokens, whose KV
+    lands at slot ``cache_offset``; they attend the first ``kv_view`` slots
+    (a prefill chunk) or, with ``kv_view=None``, the whole buffer, empty
+    slots masked by their PAD position (a decode step, T = 1: at sp = 1 this
+    is the reference's ``gqa_decode_attention``).
+    Returns (attn_out [B, T, d], cache)."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"]
@@ -73,30 +80,9 @@ def _qkv(x, p, cfg, positions):
     k = k.reshape(B, T, Hkv, hd)
     v = v.reshape(B, T, Hkv, hd)
     if cfg.rope:
-        q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-        k = L.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
-    return q, k, v
-
-
-def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
-                       kv_view: int):
-    """Prefill chunk. x: [B, T, d]; q_pos: [T] global positions of the chunk;
-    the chunk's KV lands at ``cache_offset`` and the chunk attends the first
-    ``kv_view`` slots.  Returns (attn_out [B, T, d], cache)."""
-    B, T, _ = x.shape
-    q, k, v = _qkv(x, p, cfg, q_pos)
+        q = L.apply_rope(q, q_pos, cfg.rope_theta, cfg.rope_fraction)
+        k = L.apply_rope(k, q_pos, cfg.rope_theta, cfg.rope_fraction)
     cache = cache_append(cache, k, v, q_pos, cache_offset)
     out = dist_attention(q, cache.k, cache.v, q_pos, cache.pos, causal=True,
                          kv_view=kv_view)
-    return out.reshape(B, T, cfg.n_heads * cfg.hd) @ p["wo"], cache
-
-
-def gqa_decode_attention(x, p, cfg, cache: KVCache, step_pos, slot: int):
-    """Single-token decode. x: [B, 1, d]; step_pos: [1] int32 global position;
-    the token's KV lands at cache slot ``slot`` and the query attends the
-    whole buffer (empty slots carry PAD and are masked)."""
-    B = x.shape[0]
-    q, k, v = _qkv(x, p, cfg, step_pos)
-    cache = cache_append(cache, k, v, step_pos, slot)
-    out = dist_attention(q, cache.k, cache.v, step_pos, cache.pos, causal=True)
-    return out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"], cache
+    return out.reshape(B, T, H * hd) @ p["wo"], cache

@@ -14,10 +14,8 @@ from repro_torch.models import layers as L
 
 class ChunkMeta(NamedTuple):
     q_pos: Any           # [T] int32 global positions of the chunk (decode: [1])
-    cache_off: int       # cache write offset of the chunk
-    kv_view: Optional[int]  # visible cache length after the append (None = all)
-    decode: bool = False
-    my_slot: int = -1    # decode: cache write slot
+    cache_off: int       # cache slot of the chunk's first token
+    kv_view: Optional[int]  # visible cache length after the append (decode: None = all)
 
 
 def _res(x, delta, gate):
@@ -27,12 +25,8 @@ def _res(x, delta, gate):
 
 def dense_slot(cfg, p, s, x, meta: ChunkMeta):
     h = L.apply_norm(x, p["ln1"], cfg.norm)
-    if meta.decode:
-        a, kv = A.gqa_decode_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
-                                       meta.my_slot)
-    else:
-        a, kv = A.gqa_self_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
-                                     meta.cache_off, meta.kv_view)
+    a, kv = A.gqa_self_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
+                                 meta.cache_off, meta.kv_view)
     x = _res(x, a, p["gate"])
     h2 = L.apply_norm(x, p["ln2"], cfg.norm)
     m = L.mlp(h2, p["mlp"], cfg.act)

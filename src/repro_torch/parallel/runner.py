@@ -42,10 +42,6 @@ class Cell:
         return self.mdef.cfg
 
     @property
-    def b_loc(self) -> int:
-        return max(1, self.shape.global_batch // self.plan.dp)
-
-    @property
     def cache_loc(self) -> int:
         s = self.shape.seq_len
         # prefill leaves room for the decode appends (same geometry, so a
@@ -127,8 +123,7 @@ def make_serve_step(cell: Cell, *, decode_steps=None):
         g = params["globals"]
         q_pos = torch.full((1,), pos, dtype=torch.int32, device=tokens.device)
         # at sp = 1 token S + i is written at slot S + i: the slot is the position
-        meta = ChunkMeta(q_pos=q_pos, cache_off=0, kv_view=cell.cache_loc,
-                         decode=True, my_slot=pos)
+        meta = ChunkMeta(q_pos=q_pos, cache_off=pos, kv_view=None)
         x = mdef.embed(g, tokens)
         x, state = mdef.stage_apply(params["stages"], state, x, meta)
         logits = mdef.head_logits(g, x)

@@ -134,6 +134,22 @@ def test_partition_schedules_match_jax(arch):
     assert sched.lengths == (128,) * 16
 
 
+@pytest.mark.parametrize("G", [1, 2, 3, 7, 8, 16, 64])
+def test_kernel_geometry(G):
+    """The launch geometry (pure Python, so checked here): rows fit the
+    block, no KV split is empty, splits only where blocks underfill the card."""
+    for B, Tq, S, Hkv in ((4, 128, 2048, 4), (4, 1, 2176, 4), (1, 1, 64, 2),
+                          (1, 17, 33, 1), (2, 1, 5000, 8), (1, 256, 100, 1)):
+        rg, bq, nsplit, per = fa._geometry(B, Tq, S, G, Hkv, 132)
+        n_tiles = -(-S // fa.BLOCK_K)
+        assert rg in (1, 2, 4) and 1 <= bq <= Tq and G * bq <= 16 * rg
+        assert 1 <= nsplit <= fa.MAX_SPLITS and (nsplit - 1) * per < n_tiles <= nsplit * per
+        if -(-Tq // bq) * Hkv * B >= 132:
+            assert nsplit == 1
+    assert fa._geometry(4, 1, 2176, 7, 4, 132) == (1, 1, 17, 2)     # decode step
+    assert fa._geometry(4, 128, 2048, 7, 4, 132) == (4, 9, 1, 32)   # prefill chunk
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The wrapper is the card's path only; CPU tensors reach the plain
     version through ops.attention_partial, never the other way round."""

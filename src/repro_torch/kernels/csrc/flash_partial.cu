@@ -58,13 +58,13 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  const int* q_pos;    // [B, Tq]
+  const int* q_pos;    // [B, Tq], or [Tq] with batch stride 0
   const int* kv_pos;   // [S]
-  const int* q_start;  // [B, Tq]
+  const int* q_start;  // [B, Tq] or [Tq]; null: no window (all zeros)
   float* o;            // [nsplit, B, Tq, H, hdv] (nsplit = 1: the output itself)
   float* m;            // [nsplit, B, Tq, H]
   float* l;            // [nsplit, B, Tq, H]
-  int B, Tq, S, H, Hkv, hdk, hdv, bq, nsplit, tiles_per_split;
+  int B, Tq, S, H, Hkv, hdk, hdv, bq, nsplit, tiles_per_split, qpos_sb, qstart_sb;
   long long q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float scale;
   int causal;
@@ -200,8 +200,8 @@ __global__ void __launch_bounds__(kThreads) flash_partial_fwd_kernel(const Param
     int qp = -1, qs = kPadPos;  // block-padding rows are dead: q_start = PAD
     if (r < nrows) {
       const int t = q0 + r / G;
-      qp = p.q_pos[b * p.Tq + t];
-      qs = p.q_start[b * p.Tq + t];
+      qp = p.q_pos[b * p.qpos_sb + t];
+      qs = p.q_start != nullptr ? p.q_start[b * p.qstart_sb + t] : 0;
     }
     row_qpos[r] = qp;
     row_qstart[r] = qs;
@@ -411,21 +411,22 @@ cudaError_t dispatch(const Params& p, int row_groups, bool vec, cudaStream_t str
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k and v share it).  Strides are in
-// elements; q_pos and q_start are [B, Tq], kv_pos is [S], all int32 and
-// contiguous; o, m and l are contiguous fp32 outputs.  The geometry comes from
-// the caller (kernels/flash_attention.py::_geometry): row_groups (1, 2, 4) of
-// 16 rows, bq tokens per block, nsplit KV splits of tiles_per_split 64-slot
-// tiles, and vec = 1 when K and V allow 16-byte loads.  With nsplit > 1 the
-// partials go to o_part [nsplit, B, Tq, H, hdv], m_part and l_part
-// [nsplit, B, Tq, H] (caller-allocated) and a merge kernel writes o, m, l.
-// Returns a cudaError_t.
+// elements.  q_pos and q_start are int32 rows of Tq with batch strides
+// qpos_sb / qstart_sb (0: one row shared by the batch); q_start may be null
+// (no window).  kv_pos is [S] int32; o, m and l are contiguous fp32 outputs.
+// The geometry comes from the caller (kernels/flash_attention.py::_geometry):
+// row_groups (1, 2, 4) of 16 rows, bq tokens per block, nsplit KV splits of
+// tiles_per_split 64-slot tiles, and vec = 1 when K and V allow 16-byte
+// loads.  With nsplit > 1 the partials go to o_part [nsplit, B, Tq, H, hdv],
+// m_part and l_part [nsplit, B, Tq, H] (caller-allocated) and a merge kernel
+// writes o, m, l.  Returns a cudaError_t.
 extern "C" int flash_partial_fwd(int dtype, const void* q, const void* k, const void* v, const int* q_pos,
                                  const int* kv_pos, const int* q_start, float* o, float* m, float* l, float* o_part,
                                  float* m_part, float* l_part, int B, int Tq, int S, int H, int Hkv, int hdk,
                                  int hdv, int row_groups, int bq, int nsplit, int tiles_per_split, int vec,
-                                 long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_ss,
-                                 long long k_sh, long long v_sb, long long v_ss, long long v_sh, float scale,
-                                 int causal, void* stream) {
+                                 int qpos_sb, int qstart_sb, long long q_sb, long long q_st, long long q_sh,
+                                 long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                                 long long v_sh, float scale, int causal, void* stream) {
   if (B <= 0 || Tq <= 0 || S < 0 || Hkv <= 0 || H % Hkv != 0 || bq <= 0 || hdk <= 0 || hdk > kMaxHd ||
       hdv <= 0 || hdv > kMaxHd || (H / Hkv) * bq > 16 * row_groups || nsplit < 1 || nsplit > kMaxSplits ||
       tiles_per_split < 1 || (nsplit > 1 && (o_part == nullptr || m_part == nullptr || l_part == nullptr)))
@@ -434,6 +435,7 @@ extern "C" int flash_partial_fwd(int dtype, const void* q, const void* k, const 
   const Params p{q,    k,    v,    q_pos, kv_pos, q_start,
                  split ? o_part : o,      split ? m_part : m,     split ? l_part : l,
                  B,    Tq,   S,    H,     Hkv,    hdk,     hdv,   bq,     nsplit, tiles_per_split,
+                 qpos_sb, qstart_sb,
                  q_sb, q_st, q_sh, k_sb,  k_ss,   k_sh,    v_sb,  v_ss,   v_sh,
                  scale, causal};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

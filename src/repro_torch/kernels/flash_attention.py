@@ -66,7 +66,7 @@ def _load():
         lib = ctypes.CDLL(str(build()[0]))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_partial_fwd.argtypes = (
-            [i32] + [ptr] * 12 + [i32] * 12 + [i64] * 9
+            [i32] + [ptr] * 12 + [i32] * 14 + [i64] * 9
             + [ctypes.c_float, i32, ptr])
         lib.flash_partial_fwd.restype = i32
         _lib = lib
@@ -110,15 +110,14 @@ def _vec_ok(t, hd: int) -> bool:
 
 
 def _positions(x, B: int, Tq: int, device, name: str):
-    """[Tq] or [B, Tq] integer positions -> contiguous int32 [B, Tq]."""
+    """[Tq] or [B, Tq] integer positions -> (contiguous int32, batch stride);
+    a [Tq] row is shared by the batch (stride 0), not copied per row."""
     if x.device != device or x.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"{name} must be an integer tensor on {device}")
-    if x.dim() == 1:
-        x = x[None, :].expand(B, Tq)
-    if tuple(x.shape) != (B, Tq):
+    if tuple(x.shape) not in ((Tq,), (B, Tq)):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
                          f"[{Tq}] or [{B}, {Tq}]")
-    return x.to(torch.int32).contiguous()
+    return x.to(torch.int32).contiguous(), (Tq if x.dim() == 2 else 0)
 
 
 def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
@@ -160,9 +159,9 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
     if kv_pos.device != dev or kv_pos.dim() != 1 or kv_pos.shape[0] != S:
         raise ValueError(f"kv_pos must be [{S}] on {dev}")
     kv_pos = kv_pos.to(torch.int32).contiguous()
-    q_pos = _positions(q_pos, B, Tq, dev, "q_pos")
-    q_start = (torch.zeros((B, Tq), dtype=torch.int32, device=dev)
-               if q_start is None else _positions(q_start, B, Tq, dev, "q_start"))
+    q_pos, qpos_sb = _positions(q_pos, B, Tq, dev, "q_pos")
+    q_start, qstart_sb = ((None, 0) if q_start is None
+                          else _positions(q_start, B, Tq, dev, "q_start"))
     if scale is None:
         scale = 1.0 / (hdk ** 0.5)
 
@@ -180,11 +179,13 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
     with torch.cuda.device(dev):
         rc = lib.flash_partial_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            q_pos.data_ptr(), kv_pos.data_ptr(), q_start.data_ptr(),
+            q_pos.data_ptr(), kv_pos.data_ptr(),
+            None if q_start is None else q_start.data_ptr(),
             o.data_ptr(), m.data_ptr(), l.data_ptr(),
             *([t.data_ptr() for t in parts] or [None] * 3),
             B, Tq, S, H, Hkv, hdk, hdv, row_groups, bq, nsplit, per_split,
-            int(vec), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(vec), qpos_sb, qstart_sb,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             float(scale), int(bool(causal)),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

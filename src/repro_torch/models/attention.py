@@ -61,27 +61,27 @@ def dist_attention(q, k_loc, v_loc, q_pos, kv_pos, *, causal=True, scale=None,
     return out.to(q.dtype)
 
 
+def _proj(x, w, b):
+    """x @ w (+ b): one fused matmul-and-bias where there is a bias."""
+    return x @ w if b is None else torch.addmm(b, x.flatten(0, -2), w).view(
+        *x.shape[:-1], w.shape[1])
+
+
 def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
-                       kv_view):
+                       kv_view, rope):
     """x: [B, T, d]; q_pos: [T] global positions of the tokens, whose KV
     lands at slot ``cache_offset``; they attend the first ``kv_view`` slots
     (a prefill chunk) or, with ``kv_view=None``, the whole buffer, empty
     slots masked by their PAD position (a decode step, T = 1: at sp = 1 this
-    is the reference's ``gqa_decode_attention``).
-    Returns (attn_out [B, T, d], cache)."""
+    is the reference's ``gqa_decode_attention``).  ``rope`` is
+    ``layers.rope_tables`` of q_pos.  Returns (attn_out [B, T, d], cache)."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, T, H, hd)
-    k = k.reshape(B, T, Hkv, hd)
-    v = v.reshape(B, T, Hkv, hd)
-    if cfg.rope:
-        q = L.apply_rope(q, q_pos, cfg.rope_theta, cfg.rope_fraction)
-        k = L.apply_rope(k, q_pos, cfg.rope_theta, cfg.rope_fraction)
+    q = _proj(x, p["wq"], p.get("bq")).view(B, T, H, hd)
+    k = _proj(x, p["wk"], p.get("bk")).view(B, T, Hkv, hd)
+    v = _proj(x, p["wv"], p.get("bv")).view(B, T, Hkv, hd)
+    # q and k share positions: one rotation of both
+    q, k = L.rotate(torch.cat([q, k], dim=2), *rope).split([H, Hkv], dim=2)
     cache = cache_append(cache, k, v, q_pos, cache_offset)
     out = dist_attention(q, cache.k, cache.v, q_pos, cache.pos, causal=True,
                          kv_view=kv_view)

@@ -18,18 +18,13 @@ import torch.nn.functional as F
 
 def rms_norm(x, scale, eps: float = 1e-6):
     """RMSNorm with a zero-initialized scale applied as ``(1 + scale)``."""
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.float())).to(x.dtype)
+    d = x.shape[-1]
+    return F.rms_norm(x.float(), (d,), 1.0 + scale.float(), eps).to(x.dtype)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    d = x.shape[-1]
+    return F.layer_norm(x.float(), (d,), scale.float(), bias.float(), eps).to(x.dtype)
 
 
 def apply_norm(x, p, kind: str):
@@ -50,21 +45,30 @@ def rope_freqs(head_dim: int, theta: float, fraction: float = 1.0,
     return 1.0 / (theta ** exps), rot
 
 
-def apply_rope(x, positions, theta: float, fraction: float = 1.0):
-    """x: [B, T, H, hd]; positions: [B, T] or [T] int global positions.
-
-    Rotates *interleaved* pairs (x[..., 0::2], x[..., 1::2]), as the
-    reference does — not the half-split ``rotate_half`` layout."""
-    hd = x.shape[-1]
-    inv, rot = rope_freqs(hd, theta, fraction, device=x.device)
-    if rot == 0:
-        return x
+def rope_tables(positions, head_dim: int, theta: float, fraction: float = 1.0):
+    """(cos, sin, rot) of the angles pos x inv_freq in fp32, cos and sin
+    [B or 1, T, 1, rot/2]: computed once per chunk and shared by q, k and
+    every layer."""
+    inv, rot = rope_freqs(head_dim, theta, fraction, device=positions.device)
     pos = positions.float()
     if pos.dim() == 1:
         pos = pos[None, :]
     ang = pos[..., None] * inv                          # [B, T, rot/2]
-    cos = torch.cos(ang)[:, :, None, :]                 # [B, T, 1, rot/2]
-    sin = torch.sin(ang)[:, :, None, :]
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :], rot
+
+
+def apply_rope(x, positions, theta: float, fraction: float = 1.0):
+    """x: [B, T, H, hd]; positions: [B, T] or [T] int global positions."""
+    return rotate(x, *rope_tables(positions, x.shape[-1], theta, fraction))
+
+
+def rotate(x, cos, sin, rot: int):
+    """RoPE from ``rope_tables``.  Rotates *interleaved* pairs
+    (x[..., 0::2], x[..., 1::2]), as the reference does — not the
+    half-split ``rotate_half`` layout."""
+    hd = x.shape[-1]
+    if rot == 0:
+        return x
     xr = x[..., :rot].float()
     x1, x2 = xr[..., 0::2], xr[..., 1::2]
     r1 = x1 * cos - x2 * sin

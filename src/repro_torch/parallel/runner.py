@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelPlan, ShapeConfig
 from repro_torch.core import partition as part
+from repro_torch.models import layers as L
 from repro_torch.models.model_zoo import ModelDef, build_model
 from repro_torch.models.transformer import ChunkMeta
 from repro_torch.parallel.plans import resolve_plan
@@ -75,6 +76,10 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
                 dtype=dtype)
 
 
+def _rope(cfg, q_pos):
+    return L.rope_tables(q_pos, cfg.hd, cfg.rope_theta, cfg.rope_fraction)
+
+
 def run_pipeline(cell: Cell, stage_p, g, tokens):
     """The pp == 1 chunk loop without loss: returns (state, last hidden)."""
     mdef = cell.mdef
@@ -84,7 +89,8 @@ def run_pipeline(cell: Cell, stage_p, g, tokens):
     for off, ln in zip(cell.sched.offsets, cell.sched.lengths):
         q_pos = off + torch.arange(ln, dtype=torch.int32, device=dev)
         x = mdef.embed(g, tokens[:, off:off + ln])
-        meta = ChunkMeta(q_pos=q_pos, cache_off=off, kv_view=off + ln)
+        meta = ChunkMeta(q_pos=q_pos, cache_off=off, kv_view=off + ln,
+                         rope=_rope(cell.cfg, q_pos))
         x, state = mdef.stage_apply(stage_p, state, x, meta)
     return state, x
 
@@ -123,7 +129,8 @@ def make_serve_step(cell: Cell, *, decode_steps=None):
         g = params["globals"]
         q_pos = torch.full((1,), pos, dtype=torch.int32, device=tokens.device)
         # at sp = 1 token S + i is written at slot S + i: the slot is the position
-        meta = ChunkMeta(q_pos=q_pos, cache_off=pos, kv_view=None)
+        meta = ChunkMeta(q_pos=q_pos, cache_off=pos, kv_view=None,
+                         rope=_rope(cell.cfg, q_pos))
         x = mdef.embed(g, tokens)
         x, state = mdef.stage_apply(params["stages"], state, x, meta)
         logits = mdef.head_logits(g, x)

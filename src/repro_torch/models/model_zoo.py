@@ -74,15 +74,14 @@ def _out_scale(cfg):
     return 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
 
 
-def init_slot(cfg: ModelConfig, gen, slot_idx: int, n_real_slots: int, dtype,
-              device):
-    """One dense slot's params; slots >= n_real_slots are ghosts (gate 0)."""
-    gate = 0.0 if slot_idx >= n_real_slots else 1.0
+def init_slot(cfg: ModelConfig, gen, dtype, device):
+    """One dense slot's params.  The gate is 1 for a real layer; the ghost
+    slots that pad pipeline stages (gate 0) come with the multi-rank slice."""
     os_ = _out_scale(cfg)
     return {"ln1": _norm(cfg, dtype, device), "ln2": _norm(cfg, dtype, device),
             "attn": _attn(gen, cfg, dtype, device, os_),
             "mlp": _mlp(gen, cfg, dtype, device, out_scale=os_),
-            "gate": torch.tensor(gate, dtype=torch.float32, device=device)}
+            "gate": torch.tensor(1.0, dtype=torch.float32, device=device)}
 
 
 def init_globals(cfg: ModelConfig, gen, dtype, device):
@@ -102,8 +101,7 @@ class ModelDef:
     n_slots: int
 
     def init_stage_params(self, gen, dtype=torch.bfloat16, device="cuda"):
-        return [init_slot(self.cfg, gen, i, self.n_slots, dtype, device)
-                for i in range(self.n_slots)]
+        return [init_slot(self.cfg, gen, dtype, device) for _ in range(self.n_slots)]
 
     def init_globals(self, gen, dtype=torch.bfloat16, device="cuda"):
         return init_globals(self.cfg, gen, dtype, device)

@@ -44,12 +44,9 @@ class Cell:
 
     @property
     def cache_loc(self) -> int:
-        s = self.shape.seq_len
         # prefill leaves room for the decode appends (same geometry, so a
         # prefill cache feeds serve_step directly)
-        extra = (DECODE_BUDGET * self.plan.sp
-                 if self.shape.kind in ("decode", "prefill") else 0)
-        return (s + extra) // self.plan.sp
+        return (self.shape.seq_len + DECODE_BUDGET * self.plan.sp) // self.plan.sp
 
 
 def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -40,9 +39,11 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
 
 PAD = 2**30
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+L2_BYTES = 50 * 2**20
 BF16_FLOPS = 989e12         # dense bf16 tensor-core peak, H100 SXM data sheet
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 PREFILL_LEN, BATCH, DECODE_STEPS = 2048, 4, 32
@@ -58,23 +59,46 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
-def time_ms(fn, flush, reps: int = 20) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, each after
-    overwriting a buffer larger than the 50 MB L2 (the serving path finds K
-    and V cold)."""
-    fn()
+def cold_copies(args, n_bytes: int):
+    """Copies of the inputs ``args`` in distinct memory, enough of them to
+    exceed twice the 50 MB L2, so a run that cycles through them finds each
+    call's inputs cold, as the serving path finds K and V.  A view is copied
+    with its whole base buffer, so it keeps its strides."""
+    def copy(t):
+        if t is None:
+            return None
+        if t._base is None:
+            return t.clone()
+        return t._base.clone().as_strided(t.shape, t.stride(), t.storage_offset())
+
+    n = max(2, -(-2 * L2_BYTES // n_bytes))
+    return [args] + [tuple(copy(t) for t in args) for _ in range(n - 1)]
+
+
+def time_ms(fn, copies, reps: int = 24) -> float:
+    """Device time of one call ``fn(*copies[i])``: the mean over ``reps``
+    calls between two CUDA events, cycling through the copies.  A sleep
+    kernel queued first holds the device until the host has queued every
+    call (it is lengthened until it does), so host overhead is not timed."""
+    for args in copies:
+        fn(*args)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
+    cycles = 2_000_000
+    while True:
+        woke = torch.cuda.Event()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        woke.record()
         start.record()
-        fn()
+        for i in range(reps):
+            fn(*copies[i % len(copies)])
         end.record()
+        queued_in_time = not woke.query()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        if queued_in_time:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
 
 
 def visible_mask(q_pos, kv_pos, q_start, causal=True):
@@ -143,7 +167,7 @@ def edge_grid(fa, ref, gen):
     return max(worst, err), len(cases) + 1
 
 
-def measure_shape(name, fa, ref, flush, q, k, v, q_pos, kv_pos, q_start):
+def measure_shape(name, fa, ref, q, k, v, q_pos, kv_pos, q_start):
     """Check one serving shape in bf16 and time kernel, plain version and SDPA."""
     err, _ = kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, 2e-2)
     B, Tq, H, hdk = q.shape
@@ -155,14 +179,14 @@ def measure_shape(name, fa, ref, flush, q, k, v, q_pos, kv_pos, q_start):
                + v.numel() * v.element_size() + 4 * (q_pos.numel() + q_start.numel() + S)
                + 4 * (B * Tq * H * hdv + 2 * B * Tq * H))
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
-    kernel_ms = time_ms(lambda: fa.flash_attention_partial(q, k, v, q_pos, kv_pos,
-                                                           q_start=q_start), flush)
-    plain_ms = time_ms(lambda: ref.attention_partial_ref(q, k, v, q_pos, kv_pos,
-                                                         q_start=q_start), flush, reps=5)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    copies = cold_copies((q, k, v, q_pos, kv_pos, q_start), n_bytes)
+    kernel_ms = time_ms(lambda *a: fa.flash_attention_partial(*a[:5], q_start=a[5]), copies)
+    plain_ms = time_ms(lambda *a: ref.attention_partial_ref(*a[:5], q_start=a[5]), copies,
+                       reps=len(copies))
     mask = vis[:, None]                        # [B, 1, Tq, S]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                            enable_gqa=True), flush)
+    lib_ms = time_ms(lambda *a: F.scaled_dot_product_attention(
+        a[0].transpose(1, 2), a[1].transpose(1, 2), a[2].transpose(1, 2), attn_mask=mask,
+        enable_gqa=True), copies)
     row = {"shape": name, "q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype),
            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
            "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -235,12 +259,14 @@ def cpu_check(serve, runner, cfg, card):
 def device_time(prof, top: int = 6):
     """(total device ms, {kernel group: ms}, [(kernel, ms)] of the ``top``
     kernels) from a torch.profiler run.  Groups: the flash kernel and its
-    merge, cuBLAS matrix products (nvjet / gemm kernels), everything else."""
+    merge, cuBLAS matrix products (nvjet / gemm kernels), everything else.
+    Only device events count: a host op's self device time is the time of
+    the kernels it launched, which are listed as events of their own."""
     groups = {"attention kernel": 0.0, "matmul": 0.0, "other": 0.0}
     kernels = []
     for evt in prof.key_averages():
         ms = evt.self_device_time_total / 1e3
-        if ms <= 0:
+        if evt.device_type == DeviceType.CPU or ms <= 0:
             continue
         kernels.append((evt.key[:60], ms))
         name = evt.key.lower()
@@ -335,11 +361,10 @@ def main():
     grid_err, n_grid = edge_grid(fa, ref, gen)
     print(f"fp32 edge grid: {n_grid} cases within 1e-5 (max err {grid_err:.3e}), "
           "dead rows exact")
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     prefill_in, decode_in = serving_shapes(gen)
-    rows = [measure_shape("prefill chunk", fa, ref, flush, *prefill_in),
-            measure_shape("decode step", fa, ref, flush, *decode_in)]
-    del flush, prefill_in, decode_in
+    rows = [measure_shape("prefill chunk", fa, ref, *prefill_in),
+            measure_shape("decode step", fa, ref, *decode_in)]
+    del prefill_in, decode_in
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path, through the CLI entry point

@@ -56,7 +56,7 @@ def build() -> tuple:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                f"{res.stdout}{res.stderr}")
         log.write_text(res.stdout + res.stderr)
-        os.replace(tmp, so)  # atomic: a concurrent builder never loads half a file
+        os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
     return so, log.read_text() if log.exists() else ""
 
 

@@ -22,9 +22,10 @@
 // What bounds it on an H100: at decode the kernel must read K and V of the
 // whole cache buffer, so device-memory bytes bound it; at a prefill chunk the
 // 4.B.Tq.S.H.hd operations bound it.  What the design does about each:
-// - bytes: K/V tiles are fetched with 16-byte loads where alignment allows,
-//   and the next tile's loads are issued into registers before the current
-//   tile is computed, so their latency hides behind the arithmetic; when
+// - bytes: K/V tiles are fetched with 16-byte loads (K/V whose base, head
+//   dim or strides are not whole 16-byte vectors are refused), and the next
+//   tile's loads are issued into registers before the current tile is
+//   computed, so their latency hides behind the arithmetic; when
 //   (query tiles x KV heads x batch) blocks would leave most of the 132 SMs
 //   idle (decode: 16 blocks), the KV range is split over up to 32 blocks per
 //   group and a second small kernel merges the partials (flash-decoding);
@@ -41,7 +42,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
+#include <cstdint>
 
 namespace {
 
@@ -73,28 +74,15 @@ struct Params {
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename R>
-__device__ __forceinline__ R zero_raw() {
-  if constexpr (std::is_same<R, uint4>::value) {
-    return make_uint4(0u, 0u, 0u, 0u);
-  } else if constexpr (std::is_same<R, float>::value) {
-    return 0.f;
-  } else {
-    return __float2bfloat16(0.f);
-  }
-}
-
 // One KV tile (kBlockK rows x kMaxHd columns) of K or V, held in registers
 // between its global load and its store into shared memory.  Each thread
-// owns kItems items of kW consecutive elements of one row: 16-byte vectors
-// when kVec, single elements otherwise.
-template <typename T, bool kVec>
+// owns kItems 16-byte vectors of kW consecutive elements of one row.
+template <typename T>
 struct TileLoader {
-  static constexpr int kW = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
+  static constexpr int kW = 16 / static_cast<int>(sizeof(T));
   static constexpr int kPerRow = kMaxHd / kW;
   static constexpr int kItems = kBlockK * kPerRow / kThreads;
-  using Raw = typename std::conditional<kVec, uint4, T>::type;
-  Raw raw[kItems];
+  uint4 raw[kItems];
 
   __device__ __forceinline__ void load(const T* base, long long row_stride, int S, int hd, int kv0, int tid) {
 #pragma unroll
@@ -102,7 +90,7 @@ struct TileLoader {
       const int e = tid + it * kThreads;
       const int j = e / kPerRow, d0 = (e % kPerRow) * kW;
       const int s = kv0 + j;
-      raw[it] = (s < S && d0 < hd) ? *reinterpret_cast<const Raw*>(base + s * row_stride + d0) : zero_raw<Raw>();
+      raw[it] = (s < S && d0 < hd) ? *reinterpret_cast<const uint4*>(base + s * row_stride + d0) : make_uint4(0u, 0u, 0u, 0u);
     }
   }
 
@@ -113,14 +101,10 @@ struct TileLoader {
       const int j = e / kPerRow, d0 = (e % kPerRow) * kW;
       const T* vals = reinterpret_cast<const T*>(&raw[it]);
       float* out = dst + j * ld + d0;
-      if constexpr (kW % 4 == 0) {
 #pragma unroll
-        for (int w = 0; w < kW; w += 4)
-          *reinterpret_cast<float4*>(out + w) =
-              make_float4(to_float(vals[w]), to_float(vals[w + 1]), to_float(vals[w + 2]), to_float(vals[w + 3]));
-      } else {
-        out[0] = to_float(vals[0]);
-      }
+      for (int w = 0; w < kW; w += 4)
+        *reinterpret_cast<float4*>(out + w) =
+            make_float4(to_float(vals[w]), to_float(vals[w + 1]), to_float(vals[w + 2]), to_float(vals[w + 3]));
     }
   }
 };
@@ -136,7 +120,7 @@ constexpr size_t smem_bytes() {
          + sizeof(int) * (2 * rows + kBlockK);        // row positions, tile positions
 }
 
-template <typename T, int kRowGroups, bool kVec>
+template <typename T, int kRowGroups>
 __global__ void __launch_bounds__(kThreads) flash_partial_fwd_kernel(const Params p) {
   constexpr int kRows = 16 * kRowGroups;
   extern __shared__ __align__(16) float smem[];
@@ -167,7 +151,7 @@ __global__ void __launch_bounds__(kThreads) flash_partial_fwd_kernel(const Param
   const T* q = static_cast<const T*>(p.q);
   const T* kbase = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* vbase = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  TileLoader<T, kVec> kload, vload;
+  TileLoader<T> kload, vload;
   int kp_next = kPadPos;
   if (tile_begin < tile_end) {  // first tile's loads fly while Q is staged
     kload.load(kbase, p.k_ss, p.S, p.hdk, tile_begin * kBlockK, tid);
@@ -383,27 +367,27 @@ __global__ void merge_splits_kernel(const float* o_part, const float* m_part, co
   }
 }
 
-template <typename T, int kRowGroups, bool kVec>
+template <typename T, int kRowGroups>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<kRowGroups>();
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(flash_partial_fwd_kernel<T, kRowGroups, kVec>,
+    const cudaError_t e = cudaFuncSetAttribute(flash_partial_fwd_kernel<T, kRowGroups>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const dim3 grid(((p.Tq + p.bq - 1) / p.bq) * p.nsplit, p.Hkv, p.B);
-  flash_partial_fwd_kernel<T, kRowGroups, kVec><<<grid, kThreads, smem, stream>>>(p);
+  flash_partial_fwd_kernel<T, kRowGroups><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const Params& p, int row_groups, bool vec, cudaStream_t stream) {
+cudaError_t dispatch(const Params& p, int row_groups, cudaStream_t stream) {
   switch (row_groups) {
-    case 1: return vec ? launch<T, 1, true>(p, stream) : launch<T, 1, false>(p, stream);
-    case 2: return vec ? launch<T, 2, true>(p, stream) : launch<T, 2, false>(p, stream);
-    case 4: return vec ? launch<T, 4, true>(p, stream) : launch<T, 4, false>(p, stream);
+    case 1: return launch<T, 1>(p, stream);
+    case 2: return launch<T, 2>(p, stream);
+    case 4: return launch<T, 4>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -416,14 +400,15 @@ cudaError_t dispatch(const Params& p, int row_groups, bool vec, cudaStream_t str
 // (no window).  kv_pos is [S] int32; o, m and l are contiguous fp32 outputs.
 // The geometry comes from the caller (kernels/flash_attention.py::_geometry):
 // row_groups (1, 2, 4) of 16 rows, bq tokens per block, nsplit KV splits of
-// tiles_per_split 64-slot tiles, and vec = 1 when K and V allow 16-byte
-// loads.  With nsplit > 1 the partials go to o_part [nsplit, B, Tq, H, hdv],
-// m_part and l_part [nsplit, B, Tq, H] (caller-allocated) and a merge kernel
-// writes o, m, l.  Returns a cudaError_t.
+// tiles_per_split 64-slot tiles.  K and V are loaded in 16-byte vectors:
+// their base, their strides and hd_k / hd_v must be whole vectors.  With
+// nsplit > 1 the partials go to o_part [nsplit, B, Tq, H, hdv], m_part and
+// l_part [nsplit, B, Tq, H] (caller-allocated) and a merge kernel writes o,
+// m, l.  Returns a cudaError_t.
 extern "C" int flash_partial_fwd(int dtype, const void* q, const void* k, const void* v, const int* q_pos,
                                  const int* kv_pos, const int* q_start, float* o, float* m, float* l, float* o_part,
                                  float* m_part, float* l_part, int B, int Tq, int S, int H, int Hkv, int hdk,
-                                 int hdv, int row_groups, int bq, int nsplit, int tiles_per_split, int vec,
+                                 int hdv, int row_groups, int bq, int nsplit, int tiles_per_split,
                                  int qpos_sb, int qstart_sb, long long q_sb, long long q_st, long long q_sh,
                                  long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                                  long long v_sh, float scale, int causal, void* stream) {
@@ -431,6 +416,10 @@ extern "C" int flash_partial_fwd(int dtype, const void* q, const void* k, const 
       hdv <= 0 || hdv > kMaxHd || (H / Hkv) * bq > 16 * row_groups || nsplit < 1 || nsplit > kMaxSplits ||
       tiles_per_split < 1 || (nsplit > 1 && (o_part == nullptr || m_part == nullptr || l_part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long vec = dtype == 0 ? 4 : 8;  // elements per 16-byte K/V load
+  if (reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16 || hdk % vec || hdv % vec ||
+      k_sb % vec || k_ss % vec || k_sh % vec || v_sb % vec || v_ss % vec || v_sh % vec)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const bool split = nsplit > 1;
   const Params p{q,    k,    v,    q_pos, kv_pos, q_start,
                  split ? o_part : o,      split ? m_part : m,     split ? l_part : l,
@@ -440,8 +429,8 @@ extern "C" int flash_partial_fwd(int dtype, const void* q, const void* k, const 
                  scale, causal};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == 0) e = dispatch<float>(p, row_groups, vec != 0, s);
-  if (dtype == 1) e = dispatch<__nv_bfloat16>(p, row_groups, vec != 0, s);
+  if (dtype == 0) e = dispatch<float>(p, row_groups, s);
+  if (dtype == 1) e = dispatch<__nv_bfloat16>(p, row_groups, s);
   if (e != cudaSuccess || !split) return static_cast<int>(e);
   const long long rows = static_cast<long long>(B) * Tq * H;
   const int warps_per_block = kThreads / 32;

@@ -26,8 +26,11 @@ _BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel launches made by flash_attention_partial (one per call).
+# Calls of flash_attention_partial that launched the kernel: one per call.
+# A call that splits the KV range launches the merge kernel as well, and
+# merge_launches counts those.
 launches = 0
+merge_launches = 0
 
 _lib = None
 
@@ -66,7 +69,7 @@ def _load():
         lib = ctypes.CDLL(str(build()[0]))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_partial_fwd.argtypes = (
-            [i32] + [ptr] * 12 + [i32] * 14 + [i64] * 9
+            [i32] + [ptr] * 12 + [i32] * 13 + [i64] * 9
             + [ctypes.c_float, i32, ptr])
         lib.flash_partial_fwd.restype = i32
         _lib = lib
@@ -101,12 +104,15 @@ def _geometry(B: int, Tq: int, S: int, G: int, Hkv: int, n_sm: int):
     return row_groups, bq, -(-n_tiles // per_split), per_split
 
 
-def _vec_ok(t, hd: int) -> bool:
-    """16-byte loads need a 16-byte aligned base and element strides and a
-    head dim that are multiples of one vector."""
+def _check_vec(name: str, t, hd: int):
+    """The kernel loads K and V in 16-byte vectors: the base, the strides and
+    the head dim must be whole vectors."""
     epv = 16 // t.element_size()
-    return (t.data_ptr() % 16 == 0 and hd % epv == 0
-            and all(st % epv == 0 for st in t.stride()[:3]))
+    if t.data_ptr() % 16 or hd % epv or any(st % epv for st in t.stride()[:3]):
+        raise ValueError(
+            f"{name} must be 16-byte aligned with head dim and strides that are "
+            f"multiples of {epv} {t.dtype} elements; got head dim {hd}, "
+            f"strides {t.stride()}, address {t.data_ptr():#x}")
 
 
 def _positions(x, B: int, Tq: int, device, name: str):
@@ -126,11 +132,12 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
 
     q: [B, Tq, H, hd_k]; k: [B, S, Hkv, hd_k]; v: [B, S, Hkv, hd_v], all
     float32 or all bfloat16 on one CUDA device, last dim contiguous (other
-    strides are free: K and V may be views of a larger cache);
+    strides are free: K and V may be views of a larger cache, 16-byte
+    aligned, with head dims and strides of whole 16-byte vectors);
     q_pos and q_start: [Tq] or [B, Tq] int; kv_pos: [S] int (2**30 = empty).
     Returns (o [B,Tq,H,hd_v] f32 un-normalized, m [B,Tq,H] f32, l [B,Tq,H] f32).
     """
-    global launches
+    global launches, merge_launches
     if q.device.type != "cuda":
         raise ValueError("flash_attention_partial takes CUDA tensors; the "
                          "plain version is kernels/ref.py")
@@ -156,6 +163,8 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
     if G > MAX_ROWS or hdk > MAX_HD or hdv > MAX_HD:
         raise ValueError(f"kernel takes G <= {MAX_ROWS} and head dims <= "
                          f"{MAX_HD}; got G={G}, hd_k={hdk}, hd_v={hdv}")
+    _check_vec("k", k, hdk)
+    _check_vec("v", v, hdv)
     if kv_pos.device != dev or kv_pos.dim() != 1 or kv_pos.shape[0] != S:
         raise ValueError(f"kv_pos must be [{S}] on {dev}")
     kv_pos = kv_pos.to(torch.int32).contiguous()
@@ -168,7 +177,6 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
     lib = _load()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     row_groups, bq, nsplit, per_split = _geometry(B, Tq, S, G, Hkv, n_sm)
-    vec = _vec_ok(k, hdk) and _vec_ok(v, hdv)
 
     def out(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -184,11 +192,12 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
             o.data_ptr(), m.data_ptr(), l.data_ptr(),
             *([t.data_ptr() for t in parts] or [None] * 3),
             B, Tq, S, H, Hkv, hdk, hdv, row_groups, bq, nsplit, per_split,
-            int(vec), qpos_sb, qstart_sb,
+            qpos_sb, qstart_sb,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             float(scale), int(bool(causal)),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_partial_fwd launch failed: CUDA error {rc}")
     launches += 1
+    merge_launches += int(nsplit > 1)
     return o, m, l

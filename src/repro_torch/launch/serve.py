@@ -6,6 +6,9 @@
 One chunked prefill of a fixed batch of random prompts, then lock-step
 greedy decode.  Weights are random, drawn on the device from a seed.  It runs
 on the CUDA card; ``--device cpu`` runs the plain path on the CPU instead.
+``--repeats N`` serves the same batch N times over and times each run: the
+first run in a process pays one-time costs (library heuristics, allocator
+growth) that the later ones do not.
 """
 from __future__ import annotations
 
@@ -85,15 +88,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--repeats", type=int, default=1,
+                    help="serve the batch this many times, timing each run")
     return ap
 
 
 def main(argv=None):
-    """Run the static serve path.  Returns a dict with the decoded tokens
-    ``[batch, decode_steps]``, the prefill's last hidden state, the prefill
-    and decode wall times (seconds, the device synchronized) and the CUDA
-    peak of allocated bytes (None on the CPU)."""
+    """Run the static serve path ``--repeats`` times.  Returns a dict with
+    the last run's decoded tokens ``[batch, decode_steps]`` and prefill last
+    hidden state, the prefill and decode wall times of every run (seconds,
+    the device synchronized; ``prefill_s`` / ``decode_s`` are the last
+    run's) and the CUDA peak of allocated bytes (None on the CPU)."""
     args = build_parser().parse_args(argv)
+    if args.repeats < 1:
+        raise ValueError(f"--repeats must be >= 1, got {args.repeats}")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -126,38 +134,44 @@ def main(argv=None):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    # step 0 re-feeds the last prompt token at position S
+    last = torch.from_numpy(shard_rows(prompts[:, -1:], dp, pp)[0, 0]).to(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    sync()
-    t0 = time.perf_counter()
-    state, last_hidden = prefill(params, tokens)
-    sync()
-    prefill_s = time.perf_counter() - t0
-    log.info("prefill %d tokens x %d seqs in %d chunks: %.4fs (%.1f tok/s)",
-             S, B, pre_cell.sched.n, prefill_s, S * B / prefill_s)
+    prefill_s, decode_s = [], []
+    for run in range(args.repeats):
+        state = None  # the previous run's cache is freed before the next prefill
+        sync()
+        t0 = time.perf_counter()
+        state, last_hidden = prefill(params, tokens)
+        sync()
+        prefill_s.append(time.perf_counter() - t0)
+        log.info("run %d: prefill %d tokens x %d seqs in %d chunks: %.4fs "
+                 "(%.1f tok/s)", run, S, B, pre_cell.sched.n, prefill_s[-1],
+                 S * B / prefill_s[-1])
 
-    # step 0 re-feeds the last prompt token at position S; the sampled
-    # tokens then feed back device to device, with no host sync in the loop
-    cur = torch.from_numpy(shard_rows(prompts[:, -1:], dp, pp)[0, 0]).to(dev)
-    handles = []
-    t0 = time.perf_counter()
-    for step in range(args.decode_steps):
-        state, cur = serve(params, state, cur, S + step)
-        handles.append(cur)
-    sync()
-    decode_s = time.perf_counter() - t0
+        # the sampled tokens feed back device to device, with no host sync
+        # in the loop
+        cur, handles = last, []
+        t0 = time.perf_counter()
+        for step in range(args.decode_steps):
+            state, cur = serve(params, state, cur, S + step)
+            handles.append(cur)
+        sync()
+        decode_s.append(time.perf_counter() - t0)
+        if args.decode_steps:
+            log.info("run %d: decode %d steps x %d seqs: %.4fs (%.3f ms/step, "
+                     "%.1f tok/s)", run, args.decode_steps, B, decode_s[-1],
+                     1e3 * decode_s[-1] / args.decode_steps,
+                     B * args.decode_steps / decode_s[-1])
     out = np.stack([gather_decode_tokens(h.cpu().numpy()[None], dp, pp, B)
                     for h in handles], axis=1)
-    if args.decode_steps:
-        log.info("decode %d steps x %d seqs: %.4fs (%.3f ms/step, %.1f tok/s)",
-                 args.decode_steps, B, decode_s,
-                 1e3 * decode_s / args.decode_steps,
-                 B * args.decode_steps / decode_s)
     log.info("decoded %s tokens/seq; sample row: %s", out.shape[1], out[0][:16])
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-    return {"tokens": out, "last_hidden": last_hidden, "prefill_s": prefill_s,
-            "decode_s": decode_s, "n_chunks": pre_cell.sched.n,
-            "peak_bytes": peak}
+    return {"tokens": out, "last_hidden": last_hidden,
+            "prefill_s": prefill_s[-1], "decode_s": decode_s[-1],
+            "prefill_s_runs": prefill_s, "decode_s_runs": decode_s,
+            "n_chunks": pre_cell.sched.n, "peak_bytes": peak}
 
 
 if __name__ == "__main__":

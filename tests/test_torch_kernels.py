@@ -157,3 +157,23 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_attention_partial(q, q, q, torch.zeros(1, dtype=torch.int32),
                                    torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype,hd,ok", [
+    (torch.float32, 16, True), (torch.float32, 20, True), (torch.float32, 18, False),
+    (torch.bfloat16, 24, True), (torch.bfloat16, 20, False), (torch.bfloat16, 128, True),
+])
+def test_kernel_wrapper_takes_only_whole_16_byte_vectors(dtype, hd, ok):
+    """The kernel loads K and V in 16-byte vectors: a head dim, stride or
+    base that is not whole vectors is refused before any launch (the check
+    reads only shapes, strides and addresses, so it runs here)."""
+    buf = torch.zeros(2, 40, 2, hd, dtype=dtype)
+    view = buf[:, :33]                      # a cache prefix view keeps its alignment
+    if ok:
+        fa._check_vec("k", view, hd)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._check_vec("k", view, hd)
+    shifted = buf.view(-1)[1:1 + 2 * 33 * 2 * hd].view(2, 33, 2, hd)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._check_vec("k", shifted, hd)

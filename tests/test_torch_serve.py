@@ -215,6 +215,18 @@ def test_cli_serves_on_cpu_and_matches_layout_helpers():
                                       jgather(nxt, dp, pp, 4))
 
 
+def test_cli_repeats_time_each_run_and_serve_the_same_tokens():
+    argv = ["--arch", "qwen2-7b", "--reduced", "--prompt-len", "64", "--batch", "2",
+            "--decode-steps", "2", "--device", "cpu"]
+    once = serve.main(argv)
+    twice = serve.main(argv + ["--repeats", "2"])
+    assert len(twice["prefill_s_runs"]) == len(twice["decode_s_runs"]) == 2
+    assert twice["prefill_s"] == twice["prefill_s_runs"][-1]
+    np.testing.assert_array_equal(twice["tokens"], once["tokens"])
+    with pytest.raises(ValueError, match="repeats"):
+        serve.main(argv + ["--repeats", "0"])
+
+
 def test_entry_points_target_cuda():
     """Asked for nothing, the serve entry point targets the card; with no
     card it fails instead of running on the CPU."""

@@ -2,18 +2,28 @@
 
   python3 chip_smoke.py
 
-Three phases, each of which exits non-zero on failure:
+Four phases, each of which exits non-zero on failure:
 
 1. device and build: the card's name and power limit, then the Hopper
-   attention kernel built for sm_90a from src/repro_torch/kernels/csrc with
+   attention kernels built for sm_90a from src/repro_torch/kernels/csrc (the
+   forward and the backward source, one nvcc each, started together) with
    nvcc's register and shared-memory report;
-2. the kernel against its plain PyTorch version on the card, at the serving
-   path's prefill-chunk and decode shapes (bf16) and on a small grid of edge
-   cases in fp32 and bf16 (fully masked rows exact).  Both sides compute in
-   fp32 from the same inputs, so every case is held to 1e-5.  Beside the
-   kernel's bound: CUDA-event times of the kernel, the plain version and
-   ``F.scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it);
+2. each kernel against its plain PyTorch version on the card.  The forward:
+   at the serving path's prefill-chunk and decode shapes (bf16), at the
+   training cell's first and last chunk shapes (Tq 2560 over 2560 slots,
+   Tq 1664 over 8192, bf16, q a head slice of the fused q|k projection) and
+   on a small grid of edge cases in fp32 and bf16 (fully masked rows exact);
+   both sides compute in fp32 from the same inputs, so every case is held
+   to 1e-5.  The backward (dq and dk/dv): on an edge grid in fp32 and bf16
+   (Tq = 1, ragged sizes, G in {1, 4, 7, 8}, hd_k != hd_v, a q_start window,
+   PAD slots, a strided cache view, fully masked rows given NaN cotangents,
+   whose gradients must be exactly 0) and at the training cell's first and
+   last chunk shapes; each gradient is held to 1e-5 x max |plain gradient|.
+   Beside each kernel's bound: the device times of the kernel (CUDA events;
+   the two backward kernels, launched by one call, each its own time under
+   torch.profiler), the plain version and ``F.scaled_dot_product_attention``
+   (forward, or its backward with the same mask; a yardstick only: the port
+   never calls it);
 3. the static serve path of qwen2-7b through its CLI entry point at full
    width, all 28 layers, bf16, random weights from a seed: B = 4, a
    2048-token prompt (16 prefill chunks of 128) and 32 decode steps, served
@@ -26,13 +36,27 @@ Three phases, each of which exits non-zero on failure:
    run and after a warm-up, a prefill and 4 decode steps run under
    torch.profiler for the device's busy time by kernel group and its idle
    share against the wall time of the same profiled run and against that of
-   the last unprofiled run (the profiler slows the host).
+   the last unprofiled run (the profiler slows the host);
+4. training through ``repro_torch.launch.train.train``: qwen2-7b at full
+   width cut to 4 layers (bf16 parameters, fp32 AdamW moments), B = 1,
+   S = 8192 in 4 FLOPs-balanced chunks (2560, 2048, 1920, 1664), 4 steps.
+   Each step must launch the forward, dq and dk/dv kernels exactly 16 times
+   (4 layers x 4 chunks) and give a finite loss.  Per step: seconds,
+   tokens/s, MFU (6 N T over the bf16 peak, the reference's definition;
+   attention's operations printed beside it), the peak of allocated memory,
+   and for the last (warm) step, run under torch.profiler, the device's busy
+   time by kernel group and its idle share.  Then the same seed-built model
+   cut to 2 layers takes one step's loss and gradients at S = 256 (2 chunks)
+   in fp32 on the card (kernels, no TF32) and on the CPU (plain path): the
+   loss and the gradients of layer 0's wq, wk, wv and the head must agree
+   within a relative L2 error of 1e-4.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its check and times.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -46,12 +70,15 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 PAD = 2**30
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 L2_BYTES = 50 * 2**20
-BF16_FLOPS = 989e12         # dense bf16 tensor-core peak, H100 SXM data sheet
-FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+# the H100's HBM rate and dense bf16 peak, from repro_torch.core.costmodel
+# (data-sheet values) once main() has put the port on the path
+HBM_BYTES_PER_S = BF16_FLOPS = None
+FP32_FLOPS = 67e12          # fp32 outside the tensor cores (data sheet), printed only
 PREFILL_LEN, BATCH, DECODE_STEPS, REPEATS = 2048, 4, 32, 3
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_CHUNKS, TRAIN_STEPS = 4, 8192, 4, 4
 KERNEL_TOL = 1e-5  # kernel vs plain version: both fp32 inside, inputs alike
+GRAD_REL_TOL = 1e-4  # 2-layer fp32 train step, card vs CPU: relative L2
 
 
 def fail(msg: str):
@@ -80,16 +107,19 @@ def cold_copies(args, n_bytes: int):
     return [args] + [tuple(copy(t) for t in args) for _ in range(n - 1)]
 
 
-def time_ms(fn, copies, reps: int = 24) -> float:
+def time_ms(fn, copies, reps: int = 24, label: str = "") -> float:
     """Device time of one call ``fn(*copies[i])``: the mean over ``reps``
     calls between two CUDA events, cycling through the copies.  A sleep
     kernel queued first holds the device until the host has queued every
-    call (it is lengthened until it does), so host overhead is not timed."""
+    call (it is lengthened until it does), so host overhead is not timed.
+    Calls that wait on the device inside (the host can never run ahead of
+    the sleep) are timed instead as the device's busy time under
+    torch.profiler, which also leaves the host's gaps out."""
     for args in copies:
         fn(*args)
     torch.cuda.synchronize()
     cycles = 2_000_000
-    while True:
+    while cycles < 2_000_000_000:  # ~1 s of sleep at most
         woke = torch.cuda.Event()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -104,6 +134,24 @@ def time_ms(fn, copies, reps: int = 24) -> float:
         if queued_in_time:
             return start.elapsed_time(end) / reps
         cycles *= 4
+    ms = profiled_ms(fn, copies, reps)[0]
+    print(f"  note: {label or 'a timed call'} waits on the device inside; timed as "
+          f"the profiler's device busy time, {ms:.4f} ms a call")
+    return ms
+
+
+def profiled_ms(fn, copies, reps: int):
+    """Device busy time of one call ``fn(*copies[i])`` under torch.profiler,
+    cycling through the copies: (ms in all, {kernel group of
+    ``device_time``: ms}).  The host's gaps between kernels are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(*copies[i % len(copies)])
+        torch.cuda.synchronize()
+    total, groups, _ = device_time(prof)
+    return total / reps, {k: v / reps for k, v in groups.items()}
 
 
 def visible_mask(B, q_pos, kv_pos, q_start, causal=True):
@@ -202,7 +250,7 @@ def measure_shape(name, fa, ref, q, k, v, q_pos, kv_pos, q_start):
     copies = cold_copies((q, k, v, q_pos, kv_pos, q_start), footprint)
     kernel_ms = time_ms(lambda *a: fa.flash_attention_partial(*a[:5], q_start=a[5]), copies)
     plain_ms = time_ms(lambda *a: ref.attention_partial_ref(*a[:5], q_start=a[5]), copies,
-                       reps=len(copies))
+                       reps=len(copies), label=f"the plain forward [{name}]")
     mask = vis[:, None]                        # [B, 1, Tq, S]
     lib_ms = time_ms(lambda *a: F.scaled_dot_product_attention(
         a[0].transpose(1, 2), a[1].transpose(1, 2), a[2].transpose(1, 2), attn_mask=mask,
@@ -211,11 +259,12 @@ def measure_shape(name, fa, ref, q, k, v, q_pos, kv_pos, q_start):
            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
            "bound_ms": 1e3 * max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": lib_ms, "bytes": n_bytes, "ops": ops,
-           "fp32_simt_floor_ms": 1e3 * ops / FP32_FLOPS}
+           "library_ms": lib_ms, "bytes": n_bytes, "ops": ops}
     print(f"kernel [{name}] q {tuple(q.shape)} kv {tuple(k.shape)}: err {err:.3e}, "
           f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); fp32 outside the tensor "
+          f"cores at the data sheet's {FP32_FLOPS / 1e12:.0f} TFLOP/s would take "
+          f"{1e3 * ops / FP32_FLOPS:.4f} ms")
     return row
 
 
@@ -278,11 +327,13 @@ def cpu_check(serve, runner, cfg, card):
 
 def device_time(prof, top: int = 6):
     """(total device ms, {kernel group: ms}, [(kernel, ms)] of the ``top``
-    kernels) from a torch.profiler run.  Groups: the flash kernel and its
-    merge, cuBLAS matrix products (nvjet / gemm kernels), everything else.
-    Only device events count: a host op's self device time is the time of
-    the kernels it launched, which are listed as events of their own."""
-    groups = {"attention kernel": 0.0, "matmul": 0.0, "other": 0.0}
+    kernels) from a torch.profiler run.  Groups: the forward flash kernel and
+    its merge, the dq and the dk/dv backward kernels, cuBLAS matrix products
+    (nvjet / gemm kernels), everything else.  Only device events count: a
+    host op's self device time is the time of the kernels it launched, which
+    are listed as events of their own."""
+    groups = {"attention kernel": 0.0, "attention dq kernel": 0.0,
+              "attention dk/dv kernel": 0.0, "matmul": 0.0, "other": 0.0}
     kernels = []
     for evt in prof.key_averages():
         ms = evt.self_device_time_total / 1e3
@@ -290,7 +341,11 @@ def device_time(prof, top: int = 6):
             continue
         kernels.append((evt.key[:60], ms))
         name = evt.key.lower()
-        if "flash_partial" in name or "merge_splits" in name:
+        if "flash_bwd_dq_kernel" in name:      # before "flash_partial": the
+            groups["attention dq kernel"] += ms  # backward source's name has it
+        elif "flash_bwd_dkv_kernel" in name:
+            groups["attention dk/dv kernel"] += ms
+        elif "flash_partial" in name or "merge_splits" in name:
             groups["attention kernel"] += ms
         elif any(tag in name for tag in ("nvjet", "gemm", "xmma", "cutlass", "matmul")):
             groups["matmul"] += ms
@@ -361,18 +416,347 @@ def profile_main_path(serve, runner, cfg, warm_prefill_ms, warm_decode_ms, card)
     return out
 
 
+# ---------------------------------------------------------------------------
+# The backward kernels (phase 2) and the training path (phase 4)
+# ---------------------------------------------------------------------------
+
+
+def bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, do, dl, causal=True):
+    """Both backward kernels and the plain backward on the same inputs (m
+    from the plain forward); fails unless each gradient is within 1e-5 x
+    max |plain gradient| and finite.  Returns ({name: max |diff|},
+    {name: max |diff| / max |plain|}, kernel gradients)."""
+    _, m, _ = ref.attention_partial_ref(q, k, v, q_pos, kv_pos, causal=causal,
+                                        q_start=q_start)
+    got = fa.flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl,
+                                         causal=causal, q_start=q_start)
+    want = ref.attention_partial_bwd_ref(q, k, v, q_pos, kv_pos, q_start, do, m, dl,
+                                         causal=causal)
+    torch.cuda.synchronize()
+    err, rel = {}, {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = b.abs().max().item()
+        err[name] = (a - b).abs().max().item()
+        rel[name] = err[name] / scale if scale > 0 else err[name]
+        check(bool(torch.isfinite(a).all()) and err[name] <= KERNEL_TOL * scale,
+              f"{name} kernel disagrees with plain version: max err {err[name]}, "
+              f"max |plain| {scale} (tol {KERNEL_TOL} x max |plain|) at q "
+              f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
+    return err, rel, got
+
+
+def bwd_edge_grid(fa, ref, gen):
+    """fp32 and bf16: Tq = 1, ragged Tq / S, G in {1, 4, 7, 8}, hd_k !=
+    hd_v, non-causal, PAD slots, a q_start window with fully masked rows
+    given NaN cotangents (their dq must be exactly 0), a strided cache
+    view.  Returns (worst relative error, cases)."""
+    dev = "cuda"
+    cases = [  # B, Tq, S, H, Hkv, hdk, hdv, causal
+        (2, 17, 33, 6, 2, 16, 16, True), (1, 8, 128, 8, 1, 64, 32, True),
+        (1, 16, 48, 4, 4, 32, 32, False), (2, 9, 100, 28, 4, 128, 128, True),
+        (1, 1, 64, 4, 1, 32, 32, True), (3, 70, 200, 28, 4, 128, 128, True),
+        (2, 5, 77, 8, 2, 24, 8, True), (1, 1, 2000, 14, 2, 128, 128, True),
+        (2, 37, 150, 16, 2, 64, 32, True)]
+    worst, n = 0.0, 0
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Tq, S, H, Hkv, hdk, hdv, causal in cases:
+            q, k, v = rand(B, Tq, H, hdk, dtype=dtype), rand(B, S, Hkv, hdk, dtype=dtype), \
+                rand(B, S, Hkv, hdv, dtype=dtype)
+            q_pos = (torch.arange(Tq, dtype=torch.int32, device=dev) + S - Tq)[None].repeat(B, 1)
+            kv_pos = torch.arange(S, dtype=torch.int32, device=dev)
+            kv_pos[S - S // 10:] = PAD
+            _, rel, _ = bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None,
+                                     rand(B, Tq, H, hdv), rand(B, Tq, H), causal)
+            worst, n = max(worst, *rel.values()), n + 1
+        # a q_start window with dead rows (PAD windows, a row that sees only
+        # future slots), PAD cache slots, NaN cotangents on the dead rows
+        B, Tq, S, H, Hkv, hd = 2, 8, 200, 14, 2, 128
+        q, k, v = rand(B, Tq, H, hd, dtype=dtype), rand(B, S, Hkv, hd, dtype=dtype), \
+            rand(B, S, Hkv, hd, dtype=dtype)
+        q_pos = torch.tensor([[16 + i for i in range(Tq)], [1] + [9 + i for i in range(Tq - 1)]],
+                             dtype=torch.int32, device=dev)
+        q_start = torch.tensor([[0, 0, 4, 4, 4, 20, 20, PAD], [0, 3, 3, 3, 9, 9, PAD, PAD]],
+                               dtype=torch.int32, device=dev)
+        kv_pos = torch.arange(S, dtype=torch.int32, device=dev) + 2
+        kv_pos[-3:] = PAD
+        dead = ~visible_mask(B, q_pos, kv_pos, q_start).any(dim=-1)
+        check(int(dead.sum()) == 4, f"expected 4 dead rows, got {int(dead.sum())}")
+        do, dl = rand(B, Tq, H, hd), rand(B, Tq, H)
+        do[dead], dl[dead] = float("nan"), float("nan")
+        _, rel, (dq, _, _) = bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, do, dl)
+        check(bool((dq[dead] == 0).all()), "fully masked rows' dq is not exactly 0")
+        worst, n = max(worst, *rel.values()), n + 1
+        # a strided prefix view of a cache buffer, q a head slice of the
+        # fused q|k projection, as the training path passes them
+        B, Tq, S, buf, H, Hkv, hd = 2, 24, 70, 96, 14, 2, 128
+        qk = rand(B, Tq, H + Hkv, hd, dtype=dtype)
+        kbuf, vbuf = rand(B, buf, Hkv, hd, dtype=dtype), rand(B, buf, Hkv, hd, dtype=dtype)
+        q_pos = torch.arange(Tq, dtype=torch.int32, device=dev) + S - Tq
+        _, rel, _ = bwd_vs_plain(fa, ref, qk[:, :, :H], kbuf[:, :S], vbuf[:, :S], q_pos,
+                                 torch.arange(S, dtype=torch.int32, device=dev), None,
+                                 rand(B, Tq, H, hd), rand(B, Tq, H))
+        worst, n = max(worst, *rel.values()), n + 1
+    return worst, n
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend PyTorch's scaled_dot_product_attention picks for these
+    inputs (its own dispatch query), for the record."""
+    names = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn", 4: "overrideable"}
+    if not hasattr(torch, "_fused_sdp_choice"):
+        return "not reported by this torch"
+    return names.get(int(torch._fused_sdp_choice(q, k, v, mask, 0.0, False,
+                                                  enable_gqa=True)), "unknown")
+
+
+def train_chunk_shapes(gen, runner, cfg):
+    """The backward kernels' inputs at the training cell's first and last
+    chunks, as the path passes them: q a head slice of the fused q|k
+    projection output, K and V prefix views of the S-slot cache buffer,
+    one position row shared by the batch, fp32 do and dl; the chunk plan is
+    the cell's own."""
+    from repro_torch.configs.base import ShapeConfig
+
+    cell = runner.resolve_cell(dataclasses.replace(cfg, n_layers=TRAIN_LAYERS),
+                               ShapeConfig("train", TRAIN_SEQ, 1, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=TRAIN_CHUNKS,
+                                              offload=False, remat="none"))
+    dev, bf16 = "cuda", torch.bfloat16
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kbuf = torch.randn(1, TRAIN_SEQ, Hkv, hd, generator=gen, device=dev).to(bf16)
+    vbuf = torch.randn(1, TRAIN_SEQ, Hkv, hd, generator=gen, device=dev).to(bf16)
+    pos = torch.arange(TRAIN_SEQ, dtype=torch.int32, device=dev)
+    shapes = {}
+    for name, c in (("first chunk", 0), ("last chunk", cell.sched.n - 1)):
+        off, ln = cell.sched.offsets[c], cell.sched.lengths[c]
+        qk = torch.randn(1, ln, H + Hkv, hd, generator=gen, device=dev).to(bf16)
+        do = torch.randn(1, ln, H, hd, generator=gen, device=dev)
+        dl = torch.randn(1, ln, H, generator=gen, device=dev)
+        shapes[name] = (qk[:, :, :H], kbuf[:, :off + ln], vbuf[:, :off + ln],
+                        pos[off:off + ln], pos[:off + ln], do, dl)
+    return cell, shapes
+
+
+def measure_bwd_shape(name, fa, ref, q, k, v, q_pos, kv_pos, do, dl):
+    """Check the forward kernel (``measure_shape``: held to 1e-5, timed,
+    bounded) and both backward kernels at one training shape, and time each
+    backward kernel (its own device time under torch.profiler, both launched
+    by one wrapper call), the plain backward and the backward of SDPA with
+    the same mask.  Returns (the forward's row, {"dq": row, "dkv": row}).
+    Bounds
+    count what this data needs: per visible (query, slot) pair and head, the
+    dq kernel does s = q.k, dp = do.v and dq (three products), the dk/dv
+    kernel s, dp, dk and dv (four); the pair's five products are 2.5x the
+    forward's operations.  Bytes: the query-side rows and the K/V rows some
+    query sees, read once; each output written once."""
+    fwd_row = measure_shape(f"train {name}", fa, ref, q, k, v, q_pos, kv_pos, None)
+    err, rel, _ = bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None, do, dl)
+    B, Tq, H, hdk = q.shape
+    S, Hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    vis = visible_mask(B, q_pos, kv_pos, None)
+    n_vis = int(vis.sum())
+    live_rows, kv_rows = int(vis.any(dim=2).sum()), int(vis.any(dim=1).sum())
+    esz = q.element_size()
+    rows_in = live_rows * H * (esz * hdk + 4 * (hdv + 2)) + kv_rows * Hkv * esz * (hdk + hdv)
+    pos_bytes = 4 * (q_pos.numel() + S)
+    ops = {"dq": 2 * H * n_vis * (hdk + hdv + hdk),
+           "dkv": 2 * H * n_vis * (hdk + hdv + hdk + hdv)}
+    out_bytes = {"dq": 4 * B * Tq * H * hdk, "dkv": 4 * B * S * Hkv * (hdk + hdv)}
+    _, m, _ = ref.attention_partial_ref(q, k, v, q_pos, kv_pos)
+    footprint = sum(t.numel() * t.element_size() for t in (q, k, v, do))
+    copies = cold_copies((q, k, v, q_pos, kv_pos, do, m, dl), footprint)
+    for args in copies:
+        fa.flash_attention_partial_bwd(*args)
+    torch.cuda.synchronize()
+    _, by_group = profiled_ms(fa.flash_attention_partial_bwd, copies, reps=6)
+    kernel_ms = {"dq": by_group["attention dq kernel"], "dkv": by_group["attention dk/dv kernel"]}
+    check(kernel_ms["dq"] > 0 and kernel_ms["dkv"] > 0,
+          f"the profiler saw no backward kernel at [{name}]: {by_group}")
+    rows = {}
+    for part in ("dq", "dkv"):
+        t_bytes = (rows_in + pos_bytes + out_bytes[part]) / HBM_BYTES_PER_S
+        t_ops = ops[part] / BF16_FLOPS
+        rows[part] = {"shape": name, "q": list(q.shape), "kv": list(k.shape),
+                      "dtype": str(q.dtype), "ms": kernel_ms[part],
+                      "bound_ms": 1e3 * max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                      "ops": ops[part]}
+    rows["dq"]["max_abs_err"] = err["dq"]
+    rows["dq"]["rel_err"] = rel["dq"]
+    rows["dkv"]["max_abs_err"] = max(err["dk"], err["dv"])
+    rows["dkv"]["rel_err"] = max(rel["dk"], rel["dv"])
+    plain_ms = time_ms(lambda *a: ref.attention_partial_bwd_ref(*a[:5], None, *a[5:]),
+                       copies, reps=len(copies), label=f"the plain backward [{name}]")
+    # SDPA's backward with the same mask: a graph per input copy, then the
+    # timed calls run only the backward
+    mask = vis[:, None]
+    backend = sdpa_backend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask)
+    graphs = []
+    for cq, ck, cv, *_rest in copies:
+        leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (cq, ck, cv)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
+        graphs.append((out, leaves, torch.randn_like(out)))
+    lib_ms = time_ms(lambda out, leaves, g: torch.autograd.grad(out, leaves, g,
+                                                                retain_graph=True),
+                     graphs, reps=6, label=f"the sdpa backward [{name}]")
+    del graphs
+    for part in ("dq", "dkv"):
+        rows[part].update(plain_ms=plain_ms, library_ms=lib_ms, library=f"sdpa backward ({backend})")
+    pair_ops = 2 * H * n_vis * (3 * hdk + 2 * hdv)
+    print(f"bwd kernels [{name}] q {tuple(q.shape)} kv {tuple(k.shape)}: dq {rows['dq']['ms']:.3f} "
+          f"ms (err {err['dq']:.3e}, rel {rel['dq']:.2e}), dk/dv {rows['dkv']['ms']:.3f} ms "
+          f"(err {max(err['dk'], err['dv']):.3e}, rel {rows['dkv']['rel_err']:.2e}), plain "
+          f"{plain_ms:.3f} ms, sdpa backward ({backend}) {lib_ms:.3f} ms; bounds "
+          f"{rows['dq']['bound_ms']:.4f} / {rows['dkv']['bound_ms']:.4f} ms "
+          f"({rows['dq']['bound_by']}), the pair's five products {pair_ops:.3e} ops "
+          f"= {1e3 * pair_ops / BF16_FLOPS:.4f} ms; fp32 outside the tensor cores at the "
+          f"data sheet's {FP32_FLOPS / 1e12:.0f} TFLOP/s would take "
+          f"{1e3 * ops['dq'] / FP32_FLOPS:.4f} / {1e3 * ops['dkv'] / FP32_FLOPS:.4f} ms")
+    return fwd_row, rows
+
+
+def attention_ops(cell) -> float:
+    """Operations of a training step's attention that the data needs:
+    per layer and chunk, the visible (query, slot) pairs x heads x (the
+    forward's q.k and p.v, 4 hd, plus the backward's five products, 10 hd)."""
+    cfg = cell.cfg
+    pairs = sum(ln * off + ln * (ln + 1) // 2
+                for off, ln in zip(cell.sched.offsets, cell.sched.lengths))
+    return cell.shape.global_batch * pairs * cfg.n_heads * 14 * cfg.hd * cfg.n_layers
+
+
+def train_phase(fa, train_mod, cfg, card):
+    """Phase 4: the training path through ``launch.train.train``, counted
+    and timed; the last (warm) step runs under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    after, prof = [], {}
+
+    def on_step(step, rec):
+        after.append(fa.counts())
+
+    def step_context(step):
+        if step != TRAIN_STEPS - 1:
+            return contextlib.nullcontext()
+        prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+        return prof["p"]
+
+    fa.reset_counts()
+    out = train_mod.train(cfg4, steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=1,
+                          n_chunks=TRAIN_CHUNKS, log_every=1, device="cuda",
+                          on_step=on_step, step_context=step_context)
+    totals = fa.counts()
+    cell, hist = out["cell"], out["history"]
+    check(cell.sched.lengths == (2560, 2048, 1920, 1664),
+          f"train chunks {cell.sched.lengths}, expected (2560, 2048, 1920, 1664)")
+    per_step = [{k: a[k] - b.get(k, 0) for k in a} for a, b in zip(after, [{}] + after[:-1])]
+    want = TRAIN_LAYERS * TRAIN_CHUNKS
+    for step, c in enumerate(per_step):
+        check(c["fwd"] == want and c["bwd_dq"] == want and c["bwd_dkv"] == want,
+              f"step {step} launched {c}; expected {want} forward, dq and dk/dv launches")
+    losses = [r["loss"] for r in hist]
+    check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+    tokens = TRAIN_SEQ
+    attn = attention_ops(cell)
+    for r in hist:
+        r["mfu_with_attention"] = (6 * out["n_active_params"] * tokens + attn) / r["dt"] / BF16_FLOPS
+        print(f"train step {r['step']} ({card}): loss {r['loss']:.4f}, {r['dt']:.4f} s, "
+              f"{r['tgs']:.1f} tokens/s, MFU {r['mfu']:.4f} (6 N T, N = "
+              f"{out['n_active_params']:.4e}), with attention's {attn:.4e} ops "
+              f"{r['mfu_with_attention']:.4f}" + (" [profiled]" if r["step"] == TRAIN_STEPS - 1
+                                                  else ""))
+    busy, groups, top = device_time(prof["p"])
+    prof_wall = 1e3 * hist[-1]["dt"]
+    warm = [1e3 * r["dt"] for r in hist[1:-1]]
+    warm_ms = sum(warm) / len(warm)
+    print(f"train profile ({card}): warm step device busy {busy:.1f} ms of {prof_wall:.1f} ms "
+          f"profiled wall (idle {1 - busy / prof_wall:.3f}); unprofiled warm wall "
+          f"{warm_ms:.1f} ms (idle {1 - busy / warm_ms:.3f}); {json.dumps(groups)}")
+    for name, ms in top:
+        print(f"  train step top kernel: {ms:9.3f} ms  {name}")
+    print(f"train launches: {totals} in {TRAIN_STEPS} steps, per step {per_step[0]}; "
+          f"peak memory ({card}) {out['peak_bytes'] / 2**30:.3f} GiB")
+    check(busy > 0, "profiler captured no device time in the training step")
+    summary = {"train_losses": losses, "train_step_s": [r["dt"] for r in hist],
+               "train_tokens_per_s": [r["tgs"] for r in hist],
+               "train_mfu": [r["mfu"] for r in hist],
+               "train_mfu_with_attention": [r["mfu_with_attention"] for r in hist],
+               "train_attention_ops_per_step": attn,
+               "train_n_active_params": out["n_active_params"],
+               "train_peak_bytes": out["peak_bytes"],
+               "train_step_device_ms": busy, "train_step_device_ms_by_group": groups,
+               "train_step_profiled_wall_ms": prof_wall,
+               "train_idle_share": 1 - busy / prof_wall,
+               "train_idle_share_vs_unprofiled_wall": 1 - busy / warm_ms}
+    return totals, summary
+
+
+def train_cpu_check(fa, serve, runner, cfg, card):
+    """The seed-built model cut to 2 layers: one step's loss and gradients
+    at S = 256 (2 chunks), fp32, on the card (kernels, no TF32) and on the
+    CPU (plain path); relative L2 within 1e-4 for the loss and the
+    gradients of layer 0's wq, wk, wv and the head."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+
+    S = 256
+    cell = runner.resolve_cell(dataclasses.replace(cfg, n_layers=2),
+                               ShapeConfig("train_check", S, 1, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=2, offload=False,
+                                              remat="none"), dtype=torch.float32)
+    check(cell.sched.n == 2, f"check ran {cell.sched.n} chunks, expected 2")
+    tokens, labels = (torch.from_numpy(a) for a in SyntheticLM(cfg.vocab_size, S, 1)
+                      .sample_step(0))
+    params = serve.build_params(cell, "cuda", seed=0)
+
+    def pick(g):
+        layer = g["stages"][0]["attn"]
+        return {"loss": None, "wq": layer["wq"], "wk": layer["wk"], "wv": layer["wv"],
+                "head": g["globals"]["head"]["w"]}
+
+    before = fa.counts()
+    loss, grads = runner.loss_and_grads(cell, params, tokens.cuda(), labels.cuda())
+    on_card = {k: (loss if v is None else v).cpu() for k, v in pick(grads).items()}
+    launched = {k: fa.counts()[k] - before[k] for k in before}
+    check(launched["fwd"] == launched["bwd_dq"] == launched["bwd_dkv"] == 4,
+          f"the card's step launched {launched}, expected 4 of each kernel")
+    del grads
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    loss, grads = runner.loss_and_grads(cell, params_cpu, tokens, labels)
+    on_cpu = {k: (loss if v is None else v) for k, v in pick(grads).items()}
+    rel = {k: ((on_card[k] - on_cpu[k]).norm() / on_cpu[k].norm()).item() for k in on_cpu}
+    print(f"2-layer train check ({card}): fp32 loss card {float(on_card['loss']):.6f} vs CPU "
+          f"{float(on_cpu['loss']):.6f}; relative L2 " + ", ".join(
+              f"{k} {v:.3e}" for k, v in rel.items()))
+    check(all(torch.isfinite(v).all() for v in on_card.values()) and
+          all(v <= GRAD_REL_TOL for v in rel.values()),
+          f"card and CPU training steps disagree: relative L2 {rel} (tol {GRAD_REL_TOL})")
+    return rel
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
     src = Path(__file__).resolve().parent / "src"
     check((src / "repro_torch").is_dir(), f"no port sources under {src}")
     sys.path.insert(0, str(src))
+    global HBM_BYTES_PER_S, BF16_FLOPS
     from repro_torch.configs.base import get_config
+    from repro_torch.core.costmodel import H100
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.launch import serve
+    from repro_torch.launch import train as train_mod
     from repro_torch.parallel import runner
 
+    HBM_BYTES_PER_S, BF16_FLOPS = H100.hbm_bw, H100.peak_flops_bf16
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -386,13 +770,15 @@ def main():
     print(f"device: {kind}, count {count}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
     t0 = time.perf_counter()
-    _, build_log = fa.build()
-    print(f"built {fa._SRC.name} for sm_90a in {time.perf_counter() - t0:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "bytes stack frame" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
+    built = fa.build()
+    print(f"built {', '.join(fa.SOURCES[n].name for n in built)} for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for name, (_, build_log) in built.items():
+        for line in build_log.splitlines():
+            if "registers" in line or "bytes stack frame" in line or "Compiling entry" in line:
+                print(f"  ptxas [{name}]:", line.strip())
 
-    # ---- phase 2: kernel against its plain version
+    # ---- phase 2: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     grid_err, n_grid = edge_grid(fa, ref, gen)
     print(f"edge grid: {n_grid} cases (fp32 and bf16) within {KERNEL_TOL} "
@@ -401,18 +787,27 @@ def main():
     rows = [measure_shape("prefill chunk", fa, ref, *prefill_in),
             measure_shape("decode step", fa, ref, *decode_in)]
     del prefill_in, decode_in
+    bwd_err, n_bwd = bwd_edge_grid(fa, ref, gen)
+    print(f"backward edge grid: {n_bwd} cases (fp32 and bf16), each gradient within "
+          f"{KERNEL_TOL} x max |plain| (worst {bwd_err:.3e}), dead rows' dq exactly 0")
+    cfg = get_config("qwen2-7b")
+    train_cell, bwd_in = train_chunk_shapes(gen, runner, cfg)
+    measured = [measure_bwd_shape(name, fa, ref, *args) for name, args in bwd_in.items()]
+    rows += [fwd_row for fwd_row, _ in measured]
+    bwd_rows = [bwd for _, bwd in measured]
+    del bwd_in, measured
     torch.cuda.empty_cache()
 
-    # ---- phase 3: the main path, through the CLI entry point
-    cfg = get_config("qwen2-7b")
-    fa.launches = fa.merge_launches = 0
+    # ---- phase 3: the serving path, through the CLI entry point
+    fa.reset_counts()
     out = serve.main(["--arch", "qwen2-7b", "--prompt-len", str(PREFILL_LEN),
                       "--batch", str(BATCH), "--decode-steps", str(DECODE_STEPS),
                       "--repeats", str(REPEATS)])
-    launches, merges = fa.launches, fa.merge_launches
+    serve_counts = fa.counts()
+    launches, merges = serve_counts["fwd"], serve_counts["merge"]
     n_chunks = out["n_chunks"]
     expected = REPEATS * cfg.n_layers * (n_chunks + DECODE_STEPS)
-    print(f"main path: {cfg.name} {cfg.n_layers} layers, {REPEATS} runs of prefill "
+    print(f"serve path: {cfg.name} {cfg.n_layers} layers, {REPEATS} runs of prefill "
           f"{n_chunks} chunks + {DECODE_STEPS} decode steps: kernel calls {launches} "
           f"(expected {expected}), merge launches {merges} (one per decode call), "
           f"{launches + merges} device launches in all")
@@ -420,6 +815,8 @@ def main():
     check(launches == expected, f"kernel called {launches} times, expected {expected}")
     check(merges == REPEATS * cfg.n_layers * DECODE_STEPS,
           f"merge launched {merges} times, expected one per decode call")
+    check(serve_counts["bwd_dq"] == serve_counts["bwd_dkv"] == 0,
+          f"serving launched backward kernels: {serve_counts}")
     toks, hidden = out["tokens"], out["last_hidden"]
     check(toks.shape == (BATCH, DECODE_STEPS), f"tokens shape {toks.shape}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token ids out of range")
@@ -438,24 +835,47 @@ def main():
     rel = cpu_check(serve, runner, cfg, card)
     profile = profile_main_path(serve, runner, cfg, 1e3 * pre_s, 1e3 * dec_s / DECODE_STEPS,
                                 card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 4: the training path, through the train CLI's function
+    train_counts, train_summary = train_phase(fa, train_mod, cfg, card)
+    torch.cuda.empty_cache()
+    train_rel = train_cpu_check(fa, serve, runner, cfg, card)
 
     main_row = rows[0]
-    kernel = {"name": "flash_attention_partial", "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/flash_partial.cu",
-              "replaces": "src/repro/kernels/flash_attention.py:260",
-              "launches": launches, "merge_launches": merges,
-              **{key: main_row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")},
-              "edge_grid_max_abs_err": grid_err, "shapes": rows}
+    common = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [
+        {"name": "flash_attention_partial", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_partial.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:260",
+         "launches": launches + train_counts["fwd"],
+         "launches_by_path": {"serve": launches, "train": train_counts["fwd"]},
+         "merge_launches": merges + train_counts["merge"],
+         **{key: main_row[key] for key in common},
+         "edge_grid_max_abs_err": grid_err, "shapes": rows},
+    ]
+    for part, name, line in (("dq", "flash_attention_partial_bwd_dq", 331),
+                             ("dkv", "flash_attention_partial_bwd_dkv", 355)):
+        head = bwd_rows[-1][part]      # the last chunk: the most visible pairs
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_partial_bwd.cu",
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "launches": train_counts["bwd_" + part],
+            "launches_by_path": {"serve": 0, "train": train_counts["bwd_" + part]},
+            **{key: head[key] for key in common}, "library": head["library"],
+            "edge_grid_max_rel_err": bwd_err, "shapes": [r[part] for r in bwd_rows]})
     summary = {"prefill_s_runs": pre_runs, "decode_s_runs": dec_runs,
                "prefill_s": pre_s, "prefill_tokens_per_s": BATCH * PREFILL_LEN / pre_s,
                "decode_ms_per_step": 1e3 * dec_s / DECODE_STEPS,
                "decode_tokens_per_s": BATCH * DECODE_STEPS / dec_s,
                "peak_bytes": peak, "cpu_check_rel_l2": rel,
-               **profile, "seconds": time.perf_counter() - t_start}
+               **profile, **train_summary, "train_cpu_check_rel_l2": train_rel,
+               "train_chunks": list(train_cell.sched.lengths),
+               "seconds": time.perf_counter() - t_start}
     print("summary:", json.dumps(summary))
     print(card)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

@@ -1,14 +1,23 @@
-"""Hopper kernel for the forward partial flash attention, bound through ctypes.
+"""Hopper kernels for the partial flash attention, bound through ctypes.
 
-The kernel (csrc/flash_partial.cu) replaces the Pallas TPU kernel
-``_flash_partial_kernel`` / ``_fwd_impl`` of ``repro/kernels/flash_attention.py``
-and returns the same un-normalized ``(o, m, l)`` triple as
-``kernels/ref.py::attention_partial_ref``, its plain version.
+Two CUDA sources replace the three Pallas TPU kernels of
+``repro/kernels/flash_attention.py``:
 
-The CUDA source is compiled with ``nvcc`` for ``sm_90a`` at first use into
+- ``csrc/flash_partial.cu``: the forward ``_flash_partial_kernel`` /
+  ``_fwd_impl``, returning the un-normalized ``(o, m, l)`` triple of
+  ``kernels/ref.py::attention_partial_ref``, its plain version;
+- ``csrc/flash_partial_bwd.cu``: the backward ``_flash_bwd_dq_kernel`` and
+  ``_flash_bwd_dkv_kernel`` (``_bwd_impl``), whose plain version is
+  ``kernels/ref.py::attention_partial_bwd_ref``.
+
+``FlashPartial`` ties them together as the counterpart of the reference's
+``custom_vjp`` (``_flash_partial`` / ``_fwd`` / ``_bwd``).
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` beside this file (one shared library per source content, with the
-``-Xptxas -v`` report kept next to it) and loaded with ``ctypes``.  Nothing is
-compiled or loaded at import, so the module imports on a machine without CUDA.
+``-Xptxas -v`` report kept next to it; sources not yet built are compiled in
+parallel) and loaded with ``ctypes``.  Nothing is compiled or loaded at
+import, so the module imports on a machine without CUDA.
 """
 from __future__ import annotations
 
@@ -21,59 +30,93 @@ from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).parent / "csrc" / "flash_partial.cu"
+from repro_torch.kernels import ref as _ref
+
+_CSRC = Path(__file__).parent / "csrc"
+SOURCES = {"fwd": _CSRC / "flash_partial.cu", "bwd": _CSRC / "flash_partial_bwd.cu"}
 _BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Calls of flash_attention_partial that launched the kernel: one per call.
-# A call that splits the KV range launches the merge kernel as well, and
-# merge_launches counts those.
+# Launches of each kernel, counted by the wrappers where they launch it:
+# ``launches`` the forward (one per flash_attention_partial call),
+# ``merge_launches`` its split-KV merge, ``bwd_dq_launches`` and
+# ``bwd_dkv_launches`` the two backward kernels.
 launches = 0
 merge_launches = 0
+bwd_dq_launches = 0
+bwd_dkv_launches = 0
 
-_lib = None
+_libs = {}
+
+
+def reset_counts():
+    global launches, merge_launches, bwd_dq_launches, bwd_dkv_launches
+    launches = merge_launches = bwd_dq_launches = bwd_dkv_launches = 0
+
+
+def counts() -> dict:
+    return {"fwd": launches, "merge": merge_launches, "bwd_dq": bwd_dq_launches,
+            "bwd_dkv": bwd_dkv_launches}
 
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: building the flash-attention "
-                           "kernel needs the CUDA toolkit")
+                           "kernels needs the CUDA toolkit")
     return path
 
 
-def build() -> tuple:
-    """Compile the kernel unless this source was already built; returns
-    ``(library path, nvcc's register / shared-memory report)``."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"libflash_partial_{tag}.so"
-    log = so.with_suffix(".log")
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}{res.stderr}")
-        log.write_text(res.stdout + res.stderr)
+def _target(src: Path) -> Path:
+    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _BUILD_DIR / f"lib{src.stem}_{tag}.so"
+
+
+def build(names=tuple(SOURCES)) -> dict:
+    """Compile the named sources unless this content was already built, all
+    nvcc processes started together; returns ``{name: (library path,
+    nvcc's register / shared-memory report)}``."""
+    jobs = {}
+    for name in names:
+        src, so = SOURCES[name], _target(SOURCES[name])
+        if not so.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            jobs[name] = (tmp, so, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, (tmp, so, proc) in jobs.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCES[name].name} "
+                               f"({proc.returncode}):\n{out}")
+        so.with_suffix(".log").write_text(out)
         os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
-    return so, log.read_text() if log.exists() else ""
+    result = {}
+    for name in names:
+        so = _target(SOURCES[name])
+        log = so.with_suffix(".log")
+        result[name] = (so, log.read_text() if log.exists() else "")
+    return result
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()[0]))
+def _load(name: str):
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build((name,))[name][0]))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_partial_fwd.argtypes = (
-            [i32] + [ptr] * 12 + [i32] * 13 + [i64] * 9
-            + [ctypes.c_float, i32, ptr])
-        lib.flash_partial_fwd.restype = i32
-        _lib = lib
-    return _lib
+        if name == "fwd":
+            lib.flash_partial_fwd.argtypes = (
+                [i32] + [ptr] * 12 + [i32] * 13 + [i64] * 9
+                + [ctypes.c_float, i32, ptr])
+            lib.flash_partial_fwd.restype = i32
+        else:
+            lib.flash_partial_bwd.argtypes = (
+                [i32, i32] + [ptr] * 12 + [i32] * 11 + [i64] * 9
+                + [ctypes.c_float, i32, ptr])
+            lib.flash_partial_bwd.restype = i32
+        _libs[name] = lib
+    return _libs[name]
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,18 +126,24 @@ MAX_SPLITS = 32     # KV splits the merge takes (csrc kMaxSplits)
 BLOCK_K = 64        # KV slots per tile (csrc kBlockK)
 
 
-def _geometry(B: int, Tq: int, S: int, G: int, Hkv: int, n_sm: int):
-    """Launch geometry: (row_groups, bq, nsplit, tiles_per_split).
+def _rows(Tq: int, G: int):
+    """(row_groups, bq): a block holds 16 x row_groups query rows, the fewest
+    that fit G x Tq (decode: 16 rows for G = 7), so bq = 16 x row_groups // G
+    tokens."""
+    rows = G * Tq
+    row_groups = 1 if rows <= 16 else 2 if rows <= 32 else 4
+    return row_groups, min(Tq, 16 * row_groups // G)
 
-    A block holds 16 x row_groups query rows, the fewest that fit G x Tq
-    (decode: 16 rows for G = 7), so bq = 16 x row_groups // G tokens.  When
+
+def _geometry(B: int, Tq: int, S: int, G: int, Hkv: int, n_sm: int):
+    """Forward launch geometry: (row_groups, bq, nsplit, tiles_per_split).
+
+    Query tiles as ``_rows``.  When
     (query tiles x KV heads x batch) blocks would leave the card's SMs idle,
     the KV range is split over more blocks, about two per SM, and the
     partials merged (flash-decoding); prefill chunks fill the card unsplit.
     """
-    rows = G * Tq
-    row_groups = 1 if rows <= 16 else 2 if rows <= 32 else 4
-    bq = min(Tq, 16 * row_groups // G)
+    row_groups, bq = _rows(Tq, G)
     blocks = -(-Tq // bq) * Hkv * B
     n_tiles = max(1, -(-S // BLOCK_K))
     per_split = n_tiles
@@ -105,7 +154,7 @@ def _geometry(B: int, Tq: int, S: int, G: int, Hkv: int, n_sm: int):
 
 
 def _check_vec(name: str, t, hd: int):
-    """The kernel loads K and V in 16-byte vectors: the base, the strides and
+    """The kernels load K and V (the backward Q too) in 16-byte vectors: the base, the strides and
     the head dim must be whole vectors."""
     epv = 16 // t.element_size()
     if t.data_ptr() % 16 or hd % epv or any(st % epv for st in t.stride()[:3]):
@@ -126,21 +175,12 @@ def _positions(x, B: int, Tq: int, device, name: str):
     return x.to(torch.int32).contiguous(), (Tq if x.dim() == 2 else 0)
 
 
-def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
-                            scale=None, q_start=None):
-    """Partial flash attention on the card.
-
-    q: [B, Tq, H, hd_k]; k: [B, S, Hkv, hd_k]; v: [B, S, Hkv, hd_v], all
-    float32 or all bfloat16 on one CUDA device, last dim contiguous (other
-    strides are free: K and V may be views of a larger cache, 16-byte
-    aligned, with head dims and strides of whole 16-byte vectors);
-    q_pos and q_start: [Tq] or [B, Tq] int; kv_pos: [S] int (2**30 = empty).
-    Returns (o [B,Tq,H,hd_v] f32 un-normalized, m [B,Tq,H] f32, l [B,Tq,H] f32).
-    """
-    global launches, merge_launches
+def _check_inputs(q, k, v, q_pos, kv_pos, q_start, fn: str):
+    """Validate what both kernels take; returns ((B, Tq, S, H, Hkv, hdk,
+    hdv), kv_pos, (q_pos, batch stride), (q_start, batch stride))."""
     if q.device.type != "cuda":
-        raise ValueError("flash_attention_partial takes CUDA tensors; the "
-                         "plain version is kernels/ref.py")
+        raise ValueError(f"{fn} takes CUDA tensors; the plain version is "
+                         "kernels/ref.py")
     dev = q.device
     for name, t in (("k", k), ("v", v)):
         if t.device != dev or t.dtype != q.dtype:
@@ -168,13 +208,31 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
     if kv_pos.device != dev or kv_pos.dim() != 1 or kv_pos.shape[0] != S:
         raise ValueError(f"kv_pos must be [{S}] on {dev}")
     kv_pos = kv_pos.to(torch.int32).contiguous()
-    q_pos, qpos_sb = _positions(q_pos, B, Tq, dev, "q_pos")
-    q_start, qstart_sb = ((None, 0) if q_start is None
-                          else _positions(q_start, B, Tq, dev, "q_start"))
+    qp = _positions(q_pos, B, Tq, dev, "q_pos")
+    qs = (None, 0) if q_start is None else _positions(q_start, B, Tq, dev, "q_start")
+    return (B, Tq, S, H, Hkv, hdk, hdv), kv_pos, qp, qs
+
+
+def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
+                            scale=None, q_start=None):
+    """Partial flash attention on the card.
+
+    q: [B, Tq, H, hd_k]; k: [B, S, Hkv, hd_k]; v: [B, S, Hkv, hd_v], all
+    float32 or all bfloat16 on one CUDA device, last dim contiguous (other
+    strides are free: K and V may be views of a larger cache, 16-byte
+    aligned, with head dims and strides of whole 16-byte vectors);
+    q_pos and q_start: [Tq] or [B, Tq] int; kv_pos: [S] int (2**30 = empty).
+    Returns (o [B,Tq,H,hd_v] f32 un-normalized, m [B,Tq,H] f32, l [B,Tq,H] f32).
+    """
+    global launches, merge_launches
+    dims, kv_pos, (q_pos, qpos_sb), (q_start, qstart_sb) = _check_inputs(
+        q, k, v, q_pos, kv_pos, q_start, "flash_attention_partial")
+    B, Tq, S, H, Hkv, hdk, hdv = dims
+    dev, G = q.device, H // Hkv
     if scale is None:
         scale = 1.0 / (hdk ** 0.5)
 
-    lib = _load()
+    lib = _load("fwd")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     row_groups, bq, nsplit, per_split = _geometry(B, Tq, S, G, Hkv, n_sm)
 
@@ -201,3 +259,128 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
     launches += 1
     merge_launches += int(nsplit > 1)
     return o, m, l
+
+
+def flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl, *,
+                                causal=True, scale=None, q_start=None):
+    """Backward of ``flash_attention_partial`` on the card: the dq kernel,
+    then the dk/dv kernel.
+
+    q, k, v, positions: as the forward takes them, except that q too is
+    loaded in 16-byte vectors (base and strides whole vectors); do: [B, Tq,
+    H, hd_v], m and dl: [B, Tq, H], the cotangents of the forward's o and l
+    and its saved max (any float dtype and layout: they are made contiguous
+    fp32).  Rows with m = -1e30 contribute nothing, whatever their do, dl.
+    Returns fp32 (dq [B,Tq,H,hd_k], dk [B,S,Hkv,hd_k], dv [B,S,Hkv,hd_v]).
+    """
+    global bwd_dq_launches, bwd_dkv_launches
+    dims, kv_pos, (q_pos, qpos_sb), (q_start, qstart_sb) = _check_inputs(
+        q, k, v, q_pos, kv_pos, q_start, "flash_attention_partial_bwd")
+    B, Tq, S, H, Hkv, hdk, hdv = dims
+    dev, G = q.device, H // Hkv
+    if S == 0:
+        raise ValueError("the backward needs S >= 1 KV slots")
+    _check_vec("q", q, hdk)
+    want = {"do": (B, Tq, H, hdv), "m": (B, Tq, H), "dl": (B, Tq, H)}
+    got = {"do": do, "m": m, "dl": dl}
+    for name, shape in want.items():
+        t = got[name]
+        if t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)} on {dev}, got "
+                             f"{list(t.shape)} on {t.device}")
+    do, m, dl = (t.to(torch.float32).contiguous() for t in (do, m, dl))
+    if scale is None:
+        scale = 1.0 / (hdk ** 0.5)
+
+    lib = _load("bwd")
+    row_groups, bq = _rows(Tq, G)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dq, dk, dv = out(B, Tq, H, hdk), out(B, S, Hkv, hdk), out(B, S, Hkv, hdv)
+    for which, name in enumerate(("dq", "dkv")):
+        with torch.cuda.device(dev):
+            rc = lib.flash_partial_bwd(
+                which, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                do.data_ptr(), m.data_ptr(), dl.data_ptr(),
+                q_pos.data_ptr(), kv_pos.data_ptr(),
+                None if q_start is None else q_start.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, Tq, S, H, Hkv, hdk, hdv, row_groups, bq, qpos_sb, qstart_sb,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                float(scale), int(bool(causal)),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"flash_partial_bwd ({name}) launch failed: "
+                               f"CUDA error {rc}")
+        if name == "dq":
+            bwd_dq_launches += 1
+        else:
+            bwd_dkv_launches += 1
+    return dq, dk, dv
+
+
+def partial_forward(q, k, v, q_pos, kv_pos, q_start, *, causal, scale,
+                    block_k=512):
+    """(o, m, l) by the tensor's device: the forward kernel for CUDA tensors
+    (which raises on what it does not take), the plain version for CPU
+    tensors.  ``block_k`` is the plain version's KV block."""
+    if q.device.type == "cuda":
+        return flash_attention_partial(q, k, v, q_pos, kv_pos, causal=causal,
+                                       scale=scale, q_start=q_start)
+    if q.device.type == "cpu":
+        return _ref.attention_partial_ref(q, k, v, q_pos, kv_pos, causal=causal,
+                                          scale=scale, block_k=block_k,
+                                          q_start=q_start)
+    raise ValueError(f"attention runs on cuda or cpu, not {q.device}")
+
+
+def partial_backward(q, k, v, q_pos, kv_pos, q_start, do, m, dl, *, causal,
+                     scale, block_k=512):
+    """fp32 (dq, dk, dv) by the tensor's device, as ``partial_forward``: the
+    two backward kernels, or ``attention_partial_bwd_ref``."""
+    if q.device.type == "cuda":
+        return flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl,
+                                           causal=causal, scale=scale,
+                                           q_start=q_start)
+    if q.device.type == "cpu":
+        return _ref.attention_partial_bwd_ref(q, k, v, q_pos, kv_pos, q_start,
+                                              do, m, dl, causal=causal,
+                                              scale=scale, block_k=block_k)
+    raise ValueError(f"attention runs on cuda or cpu, not {q.device}")
+
+
+class FlashPartial(torch.autograd.Function):
+    """Differentiable partial flash attention: the counterpart of the
+    reference's ``custom_vjp`` (``_flash_partial`` with ``_fwd`` / ``_bwd``).
+
+    ``FlashPartial.apply(q, k, v, q_pos, kv_pos, q_start, causal, scale,
+    block_k)`` returns the un-normalized (o, m, l).  The residuals are
+    (q, k, v, q_pos, kv_pos, q_start, o, m, l), as in the reference; the
+    backward reads m only.  m is gradient-frozen (its cotangent is dropped),
+    the integer positions get no gradient, and dq, dk, dv come back in the
+    dtypes of q, k, v.  Ragged Tq and S need no padding: the kernels and the
+    plain version mask them.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, q_start, causal, scale, block_k):
+        if scale is None:
+            scale = 1.0 / (q.shape[-1] ** 0.5)
+        o, m, l = partial_forward(q, k, v, q_pos, kv_pos, q_start,
+                                  causal=causal, scale=scale, block_k=block_k)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, q_start, o, m, l)
+        ctx.opts = dict(causal=causal, scale=scale, block_k=block_k)
+        ctx.mark_non_differentiable(m)
+        return o, m, l
+
+    @staticmethod
+    def backward(ctx, do, _dm, dl):
+        # an output the loss does not read arrives as zeros (autograd
+        # materializes undefined grads of a Function)
+        q, k, v, q_pos, kv_pos, q_start, _o, m, _l = ctx.saved_tensors
+        dq, dk, dv = partial_backward(q, k, v, q_pos, kv_pos, q_start, do, m,
+                                      dl, **ctx.opts)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None)

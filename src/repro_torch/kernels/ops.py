@@ -1,27 +1,30 @@
-"""Dispatch for the attention kernel (port of ``repro/kernels/ops.py``).
+"""Dispatch for the attention kernels (port of ``repro/kernels/ops.py``).
 
-The tensor's device decides, and nothing else: a CUDA tensor goes to the
-Hopper kernel (which raises on anything it does not take), a CPU tensor to
-the plain version.  There is no switch that could send CUDA tensors to the
-plain path.
+``attention_partial`` goes through ``flash_attention.FlashPartial`` on both
+devices whenever a gradient is wanted, so its backward is the same Function
+everywhere; a call that needs none (serving) runs the forward directly and
+pays no Function on the host.  The tensor's device decides, and nothing
+else: for a CUDA tensor the forward and backward are the Hopper kernels
+(which raise on anything they do not take), for a CPU tensor the plain
+versions in kernels/ref.py.  There is no switch that could send CUDA tensors
+to the plain path.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import ref as _ref
 
 
 def attention_partial(q, k, v, q_pos, kv_pos, *, causal=True, scale=None,
                       block_k=512, q_start=None):
     """Partial flash attention against a local KV shard (see kernels/ref.py):
-    returns the un-normalized (o, m, l).  ``block_k`` is the plain version's
-    KV block; the kernel tiles on its own."""
-    if q.device.type == "cuda":
-        return _fa.flash_attention_partial(q, k, v, q_pos, kv_pos,
-                                           causal=causal, scale=scale,
-                                           q_start=q_start)
-    if q.device.type == "cpu":
-        return _ref.attention_partial_ref(q, k, v, q_pos, kv_pos,
-                                          causal=causal, scale=scale,
-                                          block_k=block_k, q_start=q_start)
-    raise ValueError(f"attention_partial runs on cuda or cpu, not {q.device}")
+    returns the un-normalized (o, m, l), differentiable in q, k and v with
+    the max statistic m gradient-frozen.  ``block_k`` is the plain version's
+    KV block; the kernels tile on their own."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _fa.FlashPartial.apply(q, k, v, q_pos, kv_pos, q_start, causal,
+                                      scale, block_k)
+    return _fa.partial_forward(q, k, v, q_pos, kv_pos, q_start, causal=causal,
+                               scale=scale, block_k=block_k)

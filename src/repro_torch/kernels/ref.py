@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the attention kernel (port of ``repro/kernels/ref.py``).
 
 ``attention_partial_ref`` is the CPU execution path of the models and the
-version the Hopper kernel (kernels/flash_attention.py) is held against on the
-card.  It is blockwise: the full score matrix is never materialized.
+version the Hopper forward kernel (kernels/flash_attention.py) is held
+against on the card; ``attention_partial_bwd_ref`` is the same for the two
+backward kernels.  Both are blockwise: the full score matrix is never
+materialized.
 
 Partial-softmax convention (flash-decoding style): given queries and a *local*
 KV shard, return
@@ -89,6 +91,58 @@ def attention_partial_ref(q, k, v, q_pos, kv_pos, *, causal=True, scale=None,
         m = m_new
     return (acc.reshape(B, Tq, H, hdv), m.reshape(B, Tq, H),
             l.reshape(B, Tq, H))
+
+
+def attention_partial_bwd_ref(q, k, v, q_pos, kv_pos, q_start, do, m, dl, *,
+                              causal=True, scale=None, block_k=512):
+    """Backward of ``attention_partial_ref`` given the cotangents (do, dl) of
+    its (o, l) outputs and its saved max statistic m: the plain version of the
+    two backward kernels (reference ``_recompute_p_ds`` / ``_bwd_impl``).
+
+    Block by block over the KV range: p = exp(s - m) recomputed from the
+    saved m (a constant: the max statistic is gradient-frozen, so its
+    cotangent dm is dropped), dS = p * (do . v^T + dl), then
+    dq += dS . k * scale, dk = dS^T . q * scale and dv = p^T . do, the
+    G grouped heads summed into their KV head.  (o, l) are un-normalized,
+    so there is no D = rowsum(do * o) term.  Fully masked rows (m = -1e30)
+    have o = l = 0 whatever the inputs, and their cotangents may be inf or
+    NaN (the downstream 1/l), so do and dl are zeroed there first.
+
+    Returns fp32 (dq [B,Tq,H,hd_k], dk [B,S,Hkv,hd_k], dv [B,S,Hkv,hd_v]).
+    """
+    B, Tq, H, hdk = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    hdv = v.shape[-1]
+    G = H // Hkv
+    if scale is None:
+        scale = 1.0 / (hdk ** 0.5)
+    q_pos = _rows(q_pos, B, Tq)
+    if q_start is not None:
+        q_start = _rows(q_start, B, Tq)
+    live = m > NEG_INF / 2
+    do = torch.where(live[..., None], do.float(), 0.0)
+    dl = torch.where(live, dl.float(), 0.0)
+
+    qf = q.float().reshape(B, Tq, Hkv, G, hdk)
+    dof = do.reshape(B, Tq, Hkv, G, hdv)
+    mr = m.reshape(B, Tq, Hkv, G)[..., None]
+    dlr = dl.reshape(B, Tq, Hkv, G)[..., None]
+    safe = mr > NEG_INF / 2
+    dq = torch.zeros_like(qf)
+    dk = torch.empty((B, S, Hkv, hdk), dtype=torch.float32, device=q.device)
+    dv = torch.empty((B, S, Hkv, hdv), dtype=torch.float32, device=q.device)
+    for j in range(0, max(S, 1), block_k):
+        sl = slice(j, min(S, j + block_k))
+        kblk, vblk = k[:, sl].float(), v[:, sl].float()
+        s = torch.einsum("btkgh,bskh->btkgs", qf, kblk) * scale
+        s = s.masked_fill(~_visible(q_pos, kv_pos[sl], q_start, causal),
+                          NEG_INF)
+        p = torch.where(safe, torch.exp(s - mr), 0.0)
+        ds = p * (torch.einsum("btkgv,bskv->btkgs", dof, vblk) + dlr)
+        dq += torch.einsum("btkgs,bskh->btkgh", ds, kblk) * scale
+        dk[:, sl] = torch.einsum("btkgs,btkgh->bskh", ds, qf) * scale
+        dv[:, sl] = torch.einsum("btkgs,btkgv->bskv", p, dof)
+    return dq.reshape(B, Tq, H, hdk), dk, dv
 
 
 def merge_partials(parts):

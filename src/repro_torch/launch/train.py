@@ -1,0 +1,172 @@
+"""Training CLI on one device (port of ``repro/launch/train.py`` at pp = 1).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \
+      --reduced --steps 12 --seq 256 --batch 8 --device cpu
+
+SPPO's chunked pipeline at pp = sp = dp = 1, with activation offload off and
+every residual kept (remat "none"), AdamW with fp32 moments on the device,
+the reference's synthetic token stream, and TGS / MFU metering on the H100's
+peak.  Weights are random, drawn on the device from a seed.  It runs on the
+CUDA card; ``--device cpu`` runs the plain path on the CPU instead.
+
+The reference CLI's other flags belong to later slices of the port and are
+refused with the ROADMAP item that brings them.  ``train(cfg, ...)`` is the
+body, for callers that pass a config of their own (a depth-cut model).
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import logging
+
+import torch
+
+from repro_torch.configs.base import ShapeConfig, get_config
+from repro_torch.core import costmodel as cm
+from repro_torch.core import tree
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch.serve import build_params, resolve_device
+from repro_torch.models.model_zoo import build_model
+from repro_torch.optim import adamw
+from repro_torch.parallel.runner import make_train_step, resolve_cell
+from repro_torch.runtime.metrics import Meter
+
+log = logging.getLogger("repro_torch.train")
+
+# flag -> (what it asks for, ROADMAP Queue 1 item that ports it)
+LATER = {
+    "mesh": ("a device mesh beyond 1x1", 8),
+    "pp": ("pipeline stages (pp > 1)", 8),
+    "offload_moments": ("optimizer-moment offload", 6),
+    "moments_mode": ("optimizer-moment offload", 6),
+    "moments_dtype": ("the compressed moment codec", 6),
+    "offload_dtype": ("the compressed activation-offload codec", 6),
+    "prefetch": ("executed offload and its backward prefetch", 5),
+    "attn_mode": ("sequence-parallel attention schedules", 8),
+    "msp": ("multiplexed sequence partitioning (pp > 1)", 8),
+    "msp_split": ("multiplexed sequence partitioning (pp > 1)", 8),
+    "audit": ("the trace-time contract auditor", 12),
+    "ckpt_dir": ("checkpointing", 12),
+    "ckpt_every": ("checkpointing", 12),
+    "resume": ("checkpointing", 12),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-7b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--n-chunks", type=int, default=None)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--metrics-out", default=None)
+    ap.add_argument("--device", default="cuda")
+    # the reference CLI's flags of later slices: refused when given
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--pp", type=int, default=None)
+    ap.add_argument("--offload-moments", action="store_true", default=None)
+    ap.add_argument("--moments-mode", default=None)
+    ap.add_argument("--moments-dtype", default=None)
+    ap.add_argument("--offload-dtype", default=None)
+    ap.add_argument("--prefetch", default=None)
+    ap.add_argument("--attn-mode", default=None)
+    ap.add_argument("--msp", action="store_true", default=None)
+    ap.add_argument("--msp-split", type=int, default=None)
+    ap.add_argument("--audit", action="store_true", default=None)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=None)
+    ap.add_argument("--resume", default=None)
+    return ap
+
+
+def _refuse_later_flags(ap, args):
+    for dest, (what, item) in LATER.items():
+        val = getattr(args, dest)
+        # the single-device values of the reference's flags are what runs here
+        if val is None or (dest == "mesh" and val == "1x1") or (dest == "pp" and val == 1):
+            continue
+        ap.error(f"--{dest.replace('_', '-')}: {what} comes with a later slice "
+                 f"of the port (ROADMAP Queue 1, item {item})")
+
+
+def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
+          lr: float = 3e-4, log_every: int = 10, metrics_out=None,
+          device="cuda", on_step=None, step_context=None):
+    """Train ``cfg`` for ``steps`` steps on ``device``.
+
+    ``on_step(step, record)``, when given, is called after each step, the
+    device synchronized; ``step_context(step)``, when given, returns a
+    context manager wrapped around that step (a profiler, say).  Returns
+    dict(history: the meter's per-step records (loss, dt seconds, tgs
+    tokens/s per chip, mfu), cell, n_active_params, peak_bytes: the CUDA
+    peak of allocated bytes over the steps, None on the CPU)."""
+    dev = resolve_device(str(device))
+    mdef = build_model(cfg)
+    overrides = dict(pp=1, dp=1, offload=False, remat="none")
+    if n_chunks:
+        overrides["n_chunks"] = n_chunks
+    cell = resolve_cell(mdef, ShapeConfig("cli_train", seq, batch, "train"),
+                        overrides=overrides)
+    log.info("plan: %s  chunks=%s", cell.plan, cell.sched.lengths)
+
+    params = build_params(cell, dev, seed=0)
+    opt_state = adamw.init_state(params)
+    step_fn = make_train_step(cell, lr_kwargs=dict(peak=lr, warmup=20,
+                                                   total=max(steps, 100)))
+    data = SyntheticLM(cfg.vocab_size, seq, batch)
+    n_active = cm.count_active_params(params)
+    meter = Meter(tokens_per_step=batch * seq, n_active_params=n_active)
+    log.info("%s: %d parameters (%d without the embedding), %d layers, "
+             "%.2f GB of moments", cfg.name, sum(t.numel() for t in tree.leaves(params)),
+             n_active, cfg.n_layers,
+             2 * sum(t.numel() * t.element_size() for t in tree.leaves(opt_state.m)) / 1e9)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for step in range(steps):
+        tokens, labels = (torch.from_numpy(a).to(dev) for a in data.sample_step(step))
+        ctx = step_context(step) if step_context else contextlib.nullcontext()
+        with ctx:
+            sync()
+            meter.start()
+            params, opt_state, metrics = step_fn(params, opt_state, tokens, labels)
+            sync()
+            rec = meter.stop(step, float(metrics["loss"]))
+        if on_step is not None:
+            on_step(step, rec)
+        if step % log_every == 0 or step == steps - 1:
+            log.info("step %4d  loss %.4f  %.3fs  tgs %.1f  mfu %.3e  gnorm %.3f",
+                     step, rec["loss"], rec["dt"], rec["tgs"], rec["mfu"],
+                     float(metrics["grad_norm"]))
+    if metrics_out:
+        meter.dump(metrics_out)
+    log.info("done: final loss %.4f (first %.4f)", meter.history[-1]["loss"],
+             meter.history[0]["loss"])
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    return dict(history=meter.history, cell=cell, n_active_params=n_active,
+                peak_bytes=peak)
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    _refuse_later_flags(ap, args)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    return train(cfg, steps=args.steps, seq=args.seq, batch=args.batch,
+                 n_chunks=args.n_chunks, lr=args.lr, log_every=args.log_every,
+                 metrics_out=args.metrics_out, device=args.device)["history"]
+
+
+if __name__ == "__main__":
+    main()

@@ -9,10 +9,11 @@ identity, so attention is one ``attention_partial`` call and a normalize.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
@@ -25,14 +26,18 @@ class KVCache(NamedTuple):
     k: torch.Tensor     # [B, S_loc, Hkv, hd_k]
     v: torch.Tensor     # [B, S_loc, Hkv, hd_v]
     pos: torch.Tensor   # [S_loc] int32 global positions (PAD = empty)
+    # training only: the (k, v) of every chunk appended so far, in slot
+    # order; None for a serving cache
+    chunks: Optional[list] = None
 
 
 def init_cache(batch: int, s_local: int, h_kv: int, hd_k: int, hd_v: int,
-               dtype, device) -> KVCache:
+               dtype, device, *, train: bool = False) -> KVCache:
     return KVCache(
         k=torch.zeros((batch, s_local, h_kv, hd_k), dtype=dtype, device=device),
         v=torch.zeros((batch, s_local, h_kv, hd_v), dtype=dtype, device=device),
         pos=torch.full((s_local,), PAD, dtype=torch.int32, device=device),
+        chunks=[] if train else None,
     )
 
 
@@ -61,6 +66,71 @@ def dist_attention(q, k_loc, v_loc, q_pos, kv_pos, *, causal=True, scale=None,
     return out.to(q.dtype)
 
 
+class _ChunkAttention(torch.autograd.Function):
+    """One chunk's queries against the cache prefix that holds every chunk
+    so far, differentiable in q and in each chunk's (k, v).
+
+    ``apply(q, q_pos, cache, kv_view, causal, k_0, ..., k_c, v_0, ..., v_c)``
+    writes chunk c's k, v and positions into the buffer (the other chunks
+    are there already), runs the partial attention on the prefix view
+    ``[:kv_view]`` and returns (o, m, l).  The backward splits the view's
+    dk, dv by chunk length; autograd sums each chunk's share over every
+    later chunk that attended it.  Nothing is copied: the buffer holds O(S)
+    K/V per layer, as in serving.
+    """
+
+    @staticmethod
+    def forward(ctx, q, q_pos, cache, kv_view, causal, *kvs):
+        n = len(kvs) // 2
+        k_c, v_c = kvs[n - 1], kvs[-1]
+        lengths = [k.shape[1] for k in kvs[:n]]
+        if sum(lengths) != kv_view:
+            raise ValueError(f"chunk lengths {lengths} do not fill the view "
+                             f"of {kv_view} slots")
+        off = kv_view - lengths[-1]
+        cache.k[:, off:kv_view] = k_c
+        cache.v[:, off:kv_view] = v_c
+        cache.pos[off:kv_view] = q_pos
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+        k, v, pos = cache.k[:, :kv_view], cache.v[:, :kv_view], cache.pos[:kv_view]
+        o, m, l = fa.partial_forward(q, k, v, q_pos, pos, None, causal=causal,
+                                     scale=scale)
+        ctx.save_for_backward(q, q_pos, m)
+        # The buffer is kept on ctx, not saved: later chunks write it in place,
+        # which would fail save_for_backward's version check, but they write
+        # only slots >= kv_view, so this view reads back unchanged.
+        ctx.cache, ctx.kv_view, ctx.lengths = cache, kv_view, lengths
+        ctx.opts = dict(causal=causal, scale=scale)
+        ctx.mark_non_differentiable(m)
+        return o, m, l
+
+    @staticmethod
+    def backward(ctx, do, _dm, dl):
+        q, q_pos, m = ctx.saved_tensors
+        c, n = ctx.cache, ctx.kv_view
+        dq, dk, dv = fa.partial_backward(q, c.k[:, :n], c.v[:, :n], q_pos,
+                                         c.pos[:n], None, do, m, dl, **ctx.opts)
+        dks = [d.to(c.k.dtype) for d in dk.split(ctx.lengths, dim=1)]
+        dvs = [d.to(c.v.dtype) for d in dv.split(ctx.lengths, dim=1)]
+        return (dq.to(q.dtype), None, None, None, None, *dks, *dvs)
+
+
+def chunk_attention(q, k, v, q_pos, cache: KVCache, cache_offset: int,
+                    kv_view: int, *, causal=True):
+    """Training counterpart of ``cache_append`` + ``dist_attention``: appends
+    the chunk's (k, v) to the cache's chunk list and attends the first
+    ``kv_view`` slots through ``_ChunkAttention``.  The chunks must tile the
+    slots in order: this chunk lands at ``cache_offset = kv_view - T``."""
+    if cache_offset != kv_view - k.shape[1]:
+        raise ValueError(f"a training chunk of {k.shape[1]} tokens at slot "
+                         f"{cache_offset} must end the view of {kv_view} slots")
+    cache.chunks.append((k.to(cache.k.dtype), v.to(cache.v.dtype)))
+    ks, vs = zip(*cache.chunks)
+    o, _, l = _ChunkAttention.apply(q, q_pos.to(torch.int32), cache, kv_view,
+                                    causal, *ks, *vs)
+    return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
 def _proj(x, w, b):
     """x @ w (+ b): one fused matmul-and-bias where there is a bias."""
     return x @ w if b is None else torch.addmm(b, x.flatten(0, -2), w).view(
@@ -74,7 +144,8 @@ def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
     (a prefill chunk) or, with ``kv_view=None``, the whole buffer, empty
     slots masked by their PAD position (a decode step, T = 1: at sp = 1 this
     is the reference's ``gqa_decode_attention``).  ``rope`` is
-    ``layers.rope_tables`` of q_pos.  Returns (attn_out [B, T, d], cache)."""
+    ``layers.rope_tables`` of q_pos.  A training cache (``chunks`` set)
+    attends through ``chunk_attention``.  Returns (attn_out [B, T, d], cache)."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _proj(x, p["wq"], p.get("bq")).view(B, T, H, hd)
@@ -82,6 +153,9 @@ def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
     v = _proj(x, p["wv"], p.get("bv")).view(B, T, Hkv, hd)
     # q and k share positions: one rotation of both
     q, k = L.rotate(torch.cat([q, k], dim=2), *rope).split([H, Hkv], dim=2)
+    if cache.chunks is not None:
+        out = chunk_attention(q, k, v, q_pos, cache, cache_offset, kv_view)
+        return out.reshape(B, T, H * hd) @ p["wo"], cache
     cache = cache_append(cache, k, v, q_pos, cache_offset)
     out = dist_attention(q, cache.k, cache.v, q_pos, cache.pos, causal=True,
                          kv_view=kv_view)

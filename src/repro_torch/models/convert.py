@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.tree import leaves
+
 
 def _tensor(a, name: str, dtype, device):
     a = np.asarray(a)
@@ -34,18 +36,10 @@ def _map(tree, fn, prefix=""):
 
 def params_from_numpy(tree, *, dtype=torch.bfloat16, device="cuda"):
     stages = tree["stages"]
-    n_slots = {np.shape(a)[0] for a in _leaves(stages)}
+    n_slots = {np.shape(a)[0] for a in leaves(stages)}
     if len(n_slots) != 1:
         raise ValueError(f"stage leaves disagree on the slot dim: {n_slots}")
     slots = [_map(stages, lambda a, name, i=i: _tensor(a[i], name, dtype, device))
              for i in range(n_slots.pop())]
     glob = _map(tree["globals"], lambda a, name: _tensor(a, name, dtype, device))
     return {"stages": slots, "globals": glob}
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree

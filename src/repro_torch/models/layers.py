@@ -127,3 +127,29 @@ def embed_tokens(ids, table, *, out_dtype=torch.bfloat16):
     hit = ((ids >= 0) & (ids < vp))[..., None]
     rows = table.index_select(0, idx.reshape(-1)).reshape(*ids.shape, -1)
     return torch.where(hit, rows, 0).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# LM head + cross entropy
+# ---------------------------------------------------------------------------
+
+
+def vocab_parallel_xent(x, head, labels, mask, *, real_vocab: int):
+    """The reference's vocab-parallel cross entropy at one vocab shard.
+
+    x: [B, T, d]; head: [d, Vp]; labels, mask: [B, T].  Logits are fp32 with
+    the padded vocab columns masked to -1e30; the row max is
+    gradient-frozen (it cancels in the softmax ratio).  Returns
+    (sum of (log l + m - logit[label]) * mask, sum of mask); a label outside
+    the table contributes no logit, as in the reference's masked pick."""
+    logits = (x @ head).float()                                # [B, T, Vp]
+    vp = logits.shape[-1]
+    col = torch.arange(vp, device=logits.device)
+    logits = torch.where(col < real_vocab, logits, -1e30)
+    m = logits.detach().amax(dim=-1)
+    l = torch.exp(logits - m[..., None]).sum(dim=-1)         # [B, T]
+    idx = labels.clamp(0, vp - 1).long()
+    picked = logits.gather(-1, idx[..., None])[..., 0]
+    hit = torch.where((labels >= 0) & (labels < vp), picked, 0.0)
+    tok_loss = (torch.log(l) + m - hit) * mask
+    return tok_loss.sum(), mask.sum()

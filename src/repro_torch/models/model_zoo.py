@@ -110,20 +110,29 @@ class ModelDef:
         table = g["embed"]["table"]
         return L.embed_tokens(ids, table, out_dtype=table.dtype)
 
+    def head_loss(self, g, x, labels, mask):
+        """(sum of token losses, sum of weights) of one chunk: the final
+        norm, then the fp32 cross entropy over the real vocab."""
+        x = L.apply_norm(x, g["final_norm"], self.cfg.norm)
+        return L.vocab_parallel_xent(x, g["head"]["w"], labels, mask,
+                                     real_vocab=self.cfg.vocab_size)
+
     def head_logits(self, g, x):
         """Full-vocab fp32 logits (padding columns sliced off) for sampling."""
         x = L.apply_norm(x, g["final_norm"], self.cfg.norm)
         logits = (x @ g["head"]["w"]).float()
         return logits[..., :self.cfg.vocab_size]
 
-    def init_state(self, batch: int, cache_loc: int, dtype, device):
+    def init_state(self, batch: int, cache_loc: int, dtype, device, *,
+                   train: bool = False):
         cfg = self.cfg
         return [{"kv": A.init_cache(batch, cache_loc, cfg.n_kv_heads, cfg.hd,
-                                    cfg.hd, dtype, device)}
+                                    cfg.hd, dtype, device, train=train)}
                 for _ in range(self.n_slots)]
 
-    def stage_apply(self, stage_params, state, x, meta):
-        return T.stage_apply(self.cfg, stage_params, state, x, meta)
+    def stage_apply(self, stage_params, state, x, meta, *, remat="none"):
+        return T.stage_apply(self.cfg, stage_params, state, x, meta,
+                             remat=remat)
 
 
 def build_model(name_or_cfg) -> ModelDef:

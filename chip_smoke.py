@@ -6,8 +6,9 @@ Four phases, each of which exits non-zero on failure:
 
 1. device and build: the card's name and power limit, then the Hopper
    attention kernels built for sm_90a from src/repro_torch/kernels/csrc (the
-   forward and the backward source, one nvcc each, started together) with
-   nvcc's register and shared-memory report;
+   forward, the fp32 CUDA-core backward and the bf16 tensor-core backward
+   sources, one nvcc each, started together) with nvcc's register and
+   shared-memory report;
 2. each kernel against its plain PyTorch version on the card.  The forward:
    at the serving path's prefill-chunk and decode shapes (bf16), at the
    training cell's first and last chunk shapes (Tq 2560 over 2560 slots,
@@ -19,11 +20,18 @@ Four phases, each of which exits non-zero on failure:
    PAD slots, a strided cache view, fully masked rows given NaN cotangents,
    whose gradients must be exactly 0) and at the training cell's first and
    last chunk shapes; each gradient is held to 1e-5 x max |plain gradient|.
-   Beside each kernel's bound: the device times of the kernel (CUDA events;
-   the two backward kernels, launched by one call, each its own time under
-   torch.profiler), the plain version and ``F.scaled_dot_product_attention``
-   (forward, or its backward with the same mask; a yardstick only: the port
-   never calls it);
+   bf16 inputs run the tensor-core kernels and fp32 inputs the CUDA-core
+   ones (the wrapper's dispatch).  The 2-layer fp32 train check's two chunk
+   shapes (phase 4) run in fp32 too, forward (with its split-KV merge) and
+   backward (CUDA cores), each held to the same bounds; at the chunk shapes
+   of the bf16 training cell the CUDA-core kernels
+   also run on the same bf16 inputs, held to the same bound, and the two
+   pairs are timed in turns (CUDA cores, tensor cores, tensor cores, CUDA
+   cores).  Beside each kernel's bound: the device times of the kernel (CUDA
+   events; each backward kernel and the forward's split-KV merge its own
+   time under torch.profiler), the plain version and
+   ``F.scaled_dot_product_attention`` (forward, or its backward with the same
+   mask; a yardstick only: the port never calls it);
 3. the static serve path of qwen2-7b through its CLI entry point at full
    width, all 28 layers, bf16, random weights from a seed: B = 4, a
    2048-token prompt (16 prefill chunks of 128) and 32 decode steps, served
@@ -40,19 +48,25 @@ Four phases, each of which exits non-zero on failure:
 4. training through ``repro_torch.launch.train.train``: qwen2-7b at full
    width cut to 4 layers (bf16 parameters, fp32 AdamW moments), B = 1,
    S = 8192 in 4 FLOPs-balanced chunks (2560, 2048, 1920, 1664), 4 steps.
-   Each step must launch the forward, dq and dk/dv kernels exactly 16 times
-   (4 layers x 4 chunks) and give a finite loss.  Per step: seconds,
+   Each step must launch the forward and the tensor-core dq and dk/dv
+   kernels exactly 16 times (4 layers x 4 chunks), the CUDA-core backward
+   kernels never, and give a finite loss.  Per step: seconds,
    tokens/s, MFU (6 N T over the bf16 peak, the reference's definition;
    attention's operations printed beside it), the peak of allocated memory,
    and for the last (warm) step, run under torch.profiler, the device's busy
    time by kernel group and its idle share.  Then the same seed-built model
    cut to 2 layers takes one step's loss and gradients at S = 256 (2 chunks)
-   in fp32 on the card (kernels, no TF32) and on the CPU (plain path): the
-   loss and the gradients of layer 0's wq, wk, wv and the head must agree
-   within a relative L2 error of 1e-4.
+   in fp32 on the card (kernels, no TF32: 4 launches each of the forward
+   and the CUDA-core dq and dk/dv kernels, none of the tensor-core ones)
+   and on the CPU (plain path): the loss and the gradients of layer 0's
+   wq, wk, wv and the head must agree within a relative L2 error of 1e-4.
+   Every path's launches are counted from 0 just before it runs.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-each kernel with its check and times.
+each kernel with its check and times: the forward, its merge, and the
+tensor-core and CUDA-core backward pairs, each kernel's ``launches`` counted
+on the path that runs it (bf16 training for the tensor cores, the fp32
+training check for the CUDA cores) with its counts on every path beside.
 """
 from __future__ import annotations
 
@@ -265,6 +279,32 @@ def measure_shape(name, fa, ref, q, k, v, q_pos, kv_pos, q_start):
           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); fp32 outside the tensor "
           f"cores at the data sheet's {FP32_FLOPS / 1e12:.0f} TFLOP/s would take "
           f"{1e3 * ops / FP32_FLOPS:.4f} ms")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    nsplit = fa._geometry(B, Tq, S, H // Hkv, Hkv, n_sm)[2]
+    if nsplit > 1:
+        row["merge"] = measure_merge(name, fa, ref, copies, nsplit, (B, Tq, H, hdv))
+    return row
+
+
+def measure_merge(name, fa, ref, copies, nsplit, shape):
+    """The forward's split-KV merge at one shape: its own device time under
+    torch.profiler (the forward call launches it), the plain merge
+    (``merge_partials`` over as many partials) and its bound, the bytes of
+    the partials read and of (o, m, l) written."""
+    _, by_group = profiled_ms(lambda *a: fa.flash_attention_partial(*a[:5], q_start=a[5]),
+                              copies, reps=24)
+    ms = by_group["attention merge kernel"]
+    check(ms > 0, f"the profiler saw no merge kernel at [{name}]: {by_group}")
+    B, Tq, H, hdv = shape
+    parts = tuple(torch.randn(*dims, device="cuda")
+                  for _ in range(nsplit) for dims in ((B, Tq, H, hdv), (B, Tq, H), (B, Tq, H)))
+    plain_ms = time_ms(lambda *a: ref.merge_partials([a[3 * i:3 * i + 3] for i in range(nsplit)]),
+                       cold_copies(parts, sum(t.numel() * 4 for t in parts)))
+    n_bytes = 4 * (nsplit + 1) * B * Tq * H * (hdv + 2)
+    row = {"shape": name, "nsplit": nsplit, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S, "bound_by": "bytes", "bytes": n_bytes}
+    print(f"merge [{name}] {nsplit} partials of {(B, Tq, H, hdv)}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {row['bound_ms']:.5f} ms (bytes)")
     return row
 
 
@@ -327,13 +367,16 @@ def cpu_check(serve, runner, cfg, card):
 
 def device_time(prof, top: int = 6):
     """(total device ms, {kernel group: ms}, [(kernel, ms)] of the ``top``
-    kernels) from a torch.profiler run.  Groups: the forward flash kernel and
-    its merge, the dq and the dk/dv backward kernels, cuBLAS matrix products
-    (nvjet / gemm kernels), everything else.  Only device events count: a
-    host op's self device time is the time of the kernels it launched, which
-    are listed as events of their own."""
-    groups = {"attention kernel": 0.0, "attention dq kernel": 0.0,
-              "attention dk/dv kernel": 0.0, "matmul": 0.0, "other": 0.0}
+    kernels) from a torch.profiler run.  Groups: the forward flash kernel,
+    its split-KV merge, the tensor-core and the CUDA-core dq and dk/dv
+    backward kernels, cuBLAS matrix products (nvjet / gemm kernels),
+    everything else.  Only device events count: a host op's self device time
+    is the time of the kernels it launched, which are listed as events of
+    their own."""
+    groups = {"attention kernel": 0.0, "attention merge kernel": 0.0,
+              "attention dq tc kernel": 0.0, "attention dk/dv tc kernel": 0.0,
+              "attention dq kernel": 0.0, "attention dk/dv kernel": 0.0,
+              "matmul": 0.0, "other": 0.0}
     kernels = []
     for evt in prof.key_averages():
         ms = evt.self_device_time_total / 1e3
@@ -341,11 +384,18 @@ def device_time(prof, top: int = 6):
             continue
         kernels.append((evt.key[:60], ms))
         name = evt.key.lower()
-        if "flash_bwd_dq_kernel" in name:      # before "flash_partial": the
-            groups["attention dq kernel"] += ms  # backward source's name has it
+        # the backward names first: their sources' names hold "flash_partial"
+        if "flash_bwd_dq_tc_kernel" in name:
+            groups["attention dq tc kernel"] += ms
+        elif "flash_bwd_dkv_tc_kernel" in name:
+            groups["attention dk/dv tc kernel"] += ms
+        elif "flash_bwd_dq_kernel" in name:
+            groups["attention dq kernel"] += ms
         elif "flash_bwd_dkv_kernel" in name:
             groups["attention dk/dv kernel"] += ms
-        elif "flash_partial" in name or "merge_splits" in name:
+        elif "merge_splits" in name:
+            groups["attention merge kernel"] += ms
+        elif "flash_partial" in name:
             groups["attention kernel"] += ms
         elif any(tag in name for tag in ("nvjet", "gemm", "xmma", "cutlass", "matmul")):
             groups["matmul"] += ms
@@ -421,15 +471,23 @@ def profile_main_path(serve, runner, cfg, warm_prefill_ms, warm_decode_ms, card)
 # ---------------------------------------------------------------------------
 
 
-def bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, do, dl, causal=True):
-    """Both backward kernels and the plain backward on the same inputs (m
-    from the plain forward); fails unless each gradient is within 1e-5 x
-    max |plain gradient| and finite.  Returns ({name: max |diff|},
-    {name: max |diff| / max |plain|}, kernel gradients)."""
+def bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, do, dl, causal=True,
+                 kernels=None):
+    """A pair of backward kernels (``kernels``: the wrapper's choice, None =
+    by dtype) and the plain backward on the same inputs (m from the plain
+    forward); fails unless that pair launched once each and each gradient is
+    within 1e-5 x max |plain gradient| and finite.  Returns ({name: max
+    |diff|}, {name: max |diff| / max |plain|}, kernel gradients)."""
     _, m, _ = ref.attention_partial_ref(q, k, v, q_pos, kv_pos, causal=causal,
                                         q_start=q_start)
+    before = fa.counts()
     got = fa.flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl,
-                                         causal=causal, q_start=q_start)
+                                         causal=causal, q_start=q_start, kernels=kernels)
+    moved = {key: n - before[key] for key, n in fa.counts().items() if n != before[key]}
+    tc = kernels == "tensor_cores" or (kernels is None and q.dtype == torch.bfloat16)
+    want_moved = {"bwd_dq_tc": 1, "bwd_dkv_tc": 1} if tc else {"bwd_dq": 1, "bwd_dkv": 1}
+    check(moved == want_moved, f"the backward launched {moved}, expected {want_moved} "
+          f"({q.dtype}, kernels={kernels})")
     want = ref.attention_partial_bwd_ref(q, k, v, q_pos, kv_pos, q_start, do, m, dl,
                                          causal=causal)
     torch.cuda.synchronize()
@@ -446,18 +504,19 @@ def bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, do, dl, causal=True):
 
 
 def bwd_edge_grid(fa, ref, gen):
-    """fp32 and bf16: Tq = 1, ragged Tq / S, G in {1, 4, 7, 8}, hd_k !=
-    hd_v, non-causal, PAD slots, a q_start window with fully masked rows
-    given NaN cotangents (their dq must be exactly 0), a strided cache
-    view.  Returns (worst relative error, cases)."""
+    """fp32 (the CUDA-core kernels) and bf16 (the tensor-core kernels): Tq =
+    1, ragged Tq / S, G in {1, 4, 7, 8}, hd_k != hd_v, head dims 8 to 128,
+    non-causal, PAD slots, a q_start window with fully masked rows given NaN
+    cotangents (their dq must be exactly 0), a strided cache view.  Returns
+    ({dtype: worst relative error}, cases)."""
     dev = "cuda"
     cases = [  # B, Tq, S, H, Hkv, hdk, hdv, causal
         (2, 17, 33, 6, 2, 16, 16, True), (1, 8, 128, 8, 1, 64, 32, True),
         (1, 16, 48, 4, 4, 32, 32, False), (2, 9, 100, 28, 4, 128, 128, True),
         (1, 1, 64, 4, 1, 32, 32, True), (3, 70, 200, 28, 4, 128, 128, True),
         (2, 5, 77, 8, 2, 24, 8, True), (1, 1, 2000, 14, 2, 128, 128, True),
-        (2, 37, 150, 16, 2, 64, 32, True)]
-    worst, n = 0.0, 0
+        (2, 37, 150, 16, 2, 64, 32, True), (2, 37, 150, 14, 2, 64, 32, True)]
+    worst, n = {}, 0
 
     def rand(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -471,7 +530,7 @@ def bwd_edge_grid(fa, ref, gen):
             kv_pos[S - S // 10:] = PAD
             _, rel, _ = bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None,
                                      rand(B, Tq, H, hdv), rand(B, Tq, H), causal)
-            worst, n = max(worst, *rel.values()), n + 1
+            worst[str(dtype)], n = max(worst.get(str(dtype), 0.0), *rel.values()), n + 1
         # a q_start window with dead rows (PAD windows, a row that sees only
         # future slots), PAD cache slots, NaN cotangents on the dead rows
         B, Tq, S, H, Hkv, hd = 2, 8, 200, 14, 2, 128
@@ -489,7 +548,7 @@ def bwd_edge_grid(fa, ref, gen):
         do[dead], dl[dead] = float("nan"), float("nan")
         _, rel, (dq, _, _) = bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, do, dl)
         check(bool((dq[dead] == 0).all()), "fully masked rows' dq is not exactly 0")
-        worst, n = max(worst, *rel.values()), n + 1
+        worst[str(dtype)], n = max(worst[str(dtype)], *rel.values()), n + 1
         # a strided prefix view of a cache buffer, q a head slice of the
         # fused q|k projection, as the training path passes them
         B, Tq, S, buf, H, Hkv, hd = 2, 24, 70, 96, 14, 2, 128
@@ -499,7 +558,7 @@ def bwd_edge_grid(fa, ref, gen):
         _, rel, _ = bwd_vs_plain(fa, ref, qk[:, :, :H], kbuf[:, :S], vbuf[:, :S], q_pos,
                                  torch.arange(S, dtype=torch.int32, device=dev), None,
                                  rand(B, Tq, H, hd), rand(B, Tq, H))
-        worst, n = max(worst, *rel.values()), n + 1
+        worst[str(dtype)], n = max(worst[str(dtype)], *rel.values()), n + 1
     return worst, n
 
 
@@ -513,27 +572,28 @@ def sdpa_backend(q, k, v, mask) -> str:
                                                   enable_gqa=True)), "unknown")
 
 
-def train_chunk_shapes(gen, runner, cfg):
-    """The backward kernels' inputs at the training cell's first and last
+def train_chunk_shapes(gen, runner, cfg, n_layers=TRAIN_LAYERS, seq=TRAIN_SEQ,
+                       n_chunks=TRAIN_CHUNKS, dtype=torch.bfloat16):
+    """The attention kernels' inputs at a training cell's first and last
     chunks, as the path passes them: q a head slice of the fused q|k
-    projection output, K and V prefix views of the S-slot cache buffer,
+    projection output, K and V prefix views of the seq-slot cache buffer,
     one position row shared by the batch, fp32 do and dl; the chunk plan is
-    the cell's own."""
+    the cell's own.  The default is the bf16 training cell of phase 4."""
     from repro_torch.configs.base import ShapeConfig
 
-    cell = runner.resolve_cell(dataclasses.replace(cfg, n_layers=TRAIN_LAYERS),
-                               ShapeConfig("train", TRAIN_SEQ, 1, "train"),
-                               overrides=dict(pp=1, dp=1, n_chunks=TRAIN_CHUNKS,
-                                              offload=False, remat="none"))
-    dev, bf16 = "cuda", torch.bfloat16
+    cell = runner.resolve_cell(dataclasses.replace(cfg, n_layers=n_layers),
+                               ShapeConfig("train", seq, 1, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=n_chunks,
+                                              offload=False, remat="none"), dtype=dtype)
+    dev = "cuda"
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    kbuf = torch.randn(1, TRAIN_SEQ, Hkv, hd, generator=gen, device=dev).to(bf16)
-    vbuf = torch.randn(1, TRAIN_SEQ, Hkv, hd, generator=gen, device=dev).to(bf16)
-    pos = torch.arange(TRAIN_SEQ, dtype=torch.int32, device=dev)
+    kbuf = torch.randn(1, seq, Hkv, hd, generator=gen, device=dev).to(dtype)
+    vbuf = torch.randn(1, seq, Hkv, hd, generator=gen, device=dev).to(dtype)
+    pos = torch.arange(seq, dtype=torch.int32, device=dev)
     shapes = {}
     for name, c in (("first chunk", 0), ("last chunk", cell.sched.n - 1)):
         off, ln = cell.sched.offsets[c], cell.sched.lengths[c]
-        qk = torch.randn(1, ln, H + Hkv, hd, generator=gen, device=dev).to(bf16)
+        qk = torch.randn(1, ln, H + Hkv, hd, generator=gen, device=dev).to(dtype)
         do = torch.randn(1, ln, H, hd, generator=gen, device=dev)
         dl = torch.randn(1, ln, H, generator=gen, device=dev)
         shapes[name] = (qk[:, :, :H], kbuf[:, :off + ln], vbuf[:, :off + ln],
@@ -541,20 +601,92 @@ def train_chunk_shapes(gen, runner, cfg):
     return cell, shapes
 
 
+# the two backward pairs: the kernels' keys in counts() and in the kernels
+# line, and their kernel groups in device_time
+BWD_PAIRS = {"tensor_cores": ("dq_tc", "dkv_tc"), "cuda_cores": ("dq", "dkv")}
+BWD_GROUPS = {"dq_tc": "attention dq tc kernel", "dkv_tc": "attention dk/dv tc kernel",
+              "dq": "attention dq kernel", "dkv": "attention dk/dv kernel"}
+
+
+def fp32_check_shapes(fa, ref, gen, runner, cfg):
+    """The kernels at the chunk shapes of phase 4's 2-layer fp32 train check
+    (S = 256 in 2 chunks, B 1, H 28, Hkv 4, hd 128, fp32): the forward with
+    its split-KV merge, then the CUDA-core backward pair (the fp32 dispatch),
+    each held to the bounds of phase 2.  Returns (forward's worst error,
+    backward's worst relative error, {shape: launches})."""
+    cell, shapes = train_chunk_shapes(gen, runner, cfg, n_layers=2, seq=256, n_chunks=2,
+                                      dtype=torch.float32)
+    check(cell.sched.n == 2, f"fp32 check plan has {cell.sched.n} chunks, expected 2")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    fwd_err, bwd_rel, moved = 0.0, 0.0, {}
+    for name, (q, k, v, q_pos, kv_pos, do, dl) in shapes.items():
+        B, Tq, H, _ = q.shape
+        S, Hkv = k.shape[1], k.shape[2]
+        nsplit = fa._geometry(B, Tq, S, H // Hkv, Hkv, n_sm)[2]
+        before = fa.counts()
+        err, _ = kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None)
+        _, rel, _ = bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None, do, dl)
+        moved[name] = {key: n - before[key] for key, n in fa.counts().items() if n != before[key]}
+        want = {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1, **({"merge": 1} if nsplit > 1 else {})}
+        check(moved[name] == want, f"fp32 check shape [{name}] launched {moved[name]}, "
+              f"expected {want}")
+        fwd_err, bwd_rel = max(fwd_err, err), max(bwd_rel, *rel.values())
+        print(f"fp32 check shape [{name}] q {tuple(q.shape)} kv {tuple(k.shape)}: forward err "
+              f"{err:.3e} ({nsplit} KV splits), backward rel err "
+              + ", ".join(f"{key} {val:.2e}" for key, val in rel.items()) + f"; launched {moved[name]}")
+    return fwd_err, bwd_rel, moved
+
+
+def tc_issued_ops(fa, vis, G, Hkv, hdk, hdv):
+    """Operations the tensor-core kernels issue for this data, split terms
+    included, as modelled from their tiling in csrc/flash_partial_bwd_tc.cu
+    (a model, not a reading of the card: keep it in step with the source;
+    printed only, beside the bound's operations), counted over the tiles
+    they visit: the dq
+    kernel's (G x bq-row query tile, 64-slot KV tile) pairs that some row
+    sees, 448 m16n8k16 MMAs (at hd 128: s 64, dp 3 x 64, dq 3 x 64) per
+    warp of 16 live rows; the dk/dv kernel's (32 fold-order rows, 64 slots)
+    pairs, 208 MMAs (s^T 16, dp^T 48, dv 96, dk 48) per 16-slot warp and
+    16-row step.  Each MMA is 2 x 16 x 8 x 16 operations."""
+    B, Tq, S = vis.shape
+    nk, nv = -(-hdk // 16), -(-hdv // 16)
+    n_kv = -(-S // 64)
+    pad = torch.zeros(B, Tq, n_kv * 64, dtype=torch.bool, device=vis.device)
+    pad[:, :, :S] = vis
+    seen = pad.view(B, Tq, n_kv, 64).any(-1)            # [B, Tq, KV tile]
+    kv_warps = torch.tensor([-(-min(64, S - 64 * j) // 16) for j in range(n_kv)],
+                            device=vis.device)
+    bq = min(Tq, fa.TC_DQ_ROWS // G)
+    dq_mma = 0
+    for q0 in range(0, Tq, bq):
+        warps = -(-G * min(bq, Tq - q0) // 16)
+        dq_mma += int(seen[:, q0:q0 + bq].any(1).sum()) * warps * (8 * nk + 24 * nv + 24 * nk)
+    rows, dkv_mma = Tq * G, 0
+    for r0 in range(0, rows, 32):
+        tiles = seen[:, r0 // G:(min(r0 + 32, rows) - 1) // G + 1].any(1)   # [B, KV tile]
+        steps = -(-min(32, rows - r0) // 16)
+        dkv_mma += int((tiles * kv_warps).sum()) * steps * (2 * nk + 6 * nv + 12 * nv + 6 * nk)
+    return {"dq_tc": 4096 * dq_mma * Hkv, "dkv_tc": 4096 * dkv_mma * Hkv}
+
+
 def measure_bwd_shape(name, fa, ref, q, k, v, q_pos, kv_pos, do, dl):
     """Check the forward kernel (``measure_shape``: held to 1e-5, timed,
-    bounded) and both backward kernels at one training shape, and time each
-    backward kernel (its own device time under torch.profiler, both launched
-    by one wrapper call), the plain backward and the backward of SDPA with
-    the same mask.  Returns (the forward's row, {"dq": row, "dkv": row}).
-    Bounds
-    count what this data needs: per visible (query, slot) pair and head, the
-    dq kernel does s = q.k, dp = do.v and dq (three products), the dk/dv
+    bounded) and both backward pairs at one training shape on the same bf16
+    inputs, and time each backward kernel (its own device time under
+    torch.profiler; one wrapper call launches a pair) with the pairs in
+    turns (CUDA cores, tensor cores, tensor cores, CUDA cores), the plain
+    backward and the backward of SDPA with the same mask.  Returns (the
+    forward's row, {"dq_tc", "dkv_tc", "dq", "dkv": row}).  Bounds count
+    what this data needs: per visible (query, slot) pair and head, the dq
+    kernel does s = q.k, dp = do.v and dq (three products), the dk/dv
     kernel s, dp, dk and dv (four); the pair's five products are 2.5x the
     forward's operations.  Bytes: the query-side rows and the K/V rows some
-    query sees, read once; each output written once."""
+    query sees, read once; each output written once.  Beside the bound's
+    operations, the printed line gives the operations the tensor-core
+    kernels issue as modelled from their tiling (``tc_issued_ops``)."""
     fwd_row = measure_shape(f"train {name}", fa, ref, q, k, v, q_pos, kv_pos, None)
-    err, rel, _ = bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None, do, dl)
+    errs = {kernels: bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None, do, dl,
+                                  kernels=kernels)[:2] for kernels in BWD_PAIRS}
     B, Tq, H, hdk = q.shape
     S, Hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
     vis = visible_mask(B, q_pos, kv_pos, None)
@@ -566,29 +698,36 @@ def measure_bwd_shape(name, fa, ref, q, k, v, q_pos, kv_pos, do, dl):
     ops = {"dq": 2 * H * n_vis * (hdk + hdv + hdk),
            "dkv": 2 * H * n_vis * (hdk + hdv + hdk + hdv)}
     out_bytes = {"dq": 4 * B * Tq * H * hdk, "dkv": 4 * B * S * Hkv * (hdk + hdv)}
+    issued = tc_issued_ops(fa, vis, H // Hkv, Hkv, hdk, hdv)
     _, m, _ = ref.attention_partial_ref(q, k, v, q_pos, kv_pos)
     footprint = sum(t.numel() * t.element_size() for t in (q, k, v, do))
     copies = cold_copies((q, k, v, q_pos, kv_pos, do, m, dl), footprint)
-    for args in copies:
-        fa.flash_attention_partial_bwd(*args)
-    torch.cuda.synchronize()
-    _, by_group = profiled_ms(fa.flash_attention_partial_bwd, copies, reps=6)
-    kernel_ms = {"dq": by_group["attention dq kernel"], "dkv": by_group["attention dk/dv kernel"]}
-    check(kernel_ms["dq"] > 0 and kernel_ms["dkv"] > 0,
-          f"the profiler saw no backward kernel at [{name}]: {by_group}")
+    turns = {part: [] for part in BWD_GROUPS}
+    for kernels in ("cuda_cores", "tensor_cores", "tensor_cores", "cuda_cores"):
+        def call(*a, kernels=kernels):
+            return fa.flash_attention_partial_bwd(*a, kernels=kernels)
+
+        for args in copies:
+            call(*args)
+        torch.cuda.synchronize()
+        _, by_group = profiled_ms(call, copies, reps=6)
+        for part in BWD_PAIRS[kernels]:
+            turns[part].append(by_group[BWD_GROUPS[part]])
+    check(all(t > 0 for ts in turns.values() for t in ts),
+          f"the profiler missed a backward kernel at [{name}]: {turns}")
     rows = {}
-    for part in ("dq", "dkv"):
-        t_bytes = (rows_in + pos_bytes + out_bytes[part]) / HBM_BYTES_PER_S
-        t_ops = ops[part] / BF16_FLOPS
-        rows[part] = {"shape": name, "q": list(q.shape), "kv": list(k.shape),
-                      "dtype": str(q.dtype), "ms": kernel_ms[part],
-                      "bound_ms": 1e3 * max(t_bytes, t_ops),
-                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                      "ops": ops[part]}
-    rows["dq"]["max_abs_err"] = err["dq"]
-    rows["dq"]["rel_err"] = rel["dq"]
-    rows["dkv"]["max_abs_err"] = max(err["dk"], err["dv"])
-    rows["dkv"]["rel_err"] = max(rel["dk"], rel["dv"])
+    for kernels, parts in BWD_PAIRS.items():
+        err, rel = errs[kernels]
+        for part, base in zip(parts, ("dq", "dkv")):
+            t_bytes = (rows_in + pos_bytes + out_bytes[base]) / HBM_BYTES_PER_S
+            t_ops = ops[base] / BF16_FLOPS
+            rows[part] = {"shape": name, "q": list(q.shape), "kv": list(k.shape),
+                          "dtype": str(q.dtype), "ms": sum(turns[part]) / len(turns[part]),
+                          "ms_turns": turns[part], "bound_ms": 1e3 * max(t_bytes, t_ops),
+                          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                          "ops": ops[base],
+                          "max_abs_err": err["dq"] if base == "dq" else max(err["dk"], err["dv"]),
+                          "rel_err": rel["dq"] if base == "dq" else max(rel["dk"], rel["dv"])}
     plain_ms = time_ms(lambda *a: ref.attention_partial_bwd_ref(*a[:5], None, *a[5:]),
                        copies, reps=len(copies), label=f"the plain backward [{name}]")
     # SDPA's backward with the same mask: a graph per input copy, then the
@@ -604,17 +743,24 @@ def measure_bwd_shape(name, fa, ref, q, k, v, q_pos, kv_pos, do, dl):
                                                                 retain_graph=True),
                      graphs, reps=6, label=f"the sdpa backward [{name}]")
     del graphs
-    for part in ("dq", "dkv"):
-        rows[part].update(plain_ms=plain_ms, library_ms=lib_ms, library=f"sdpa backward ({backend})")
+    for row in rows.values():
+        row.update(plain_ms=plain_ms, library_ms=lib_ms, library=f"sdpa backward ({backend})")
     pair_ops = 2 * H * n_vis * (3 * hdk + 2 * hdv)
-    print(f"bwd kernels [{name}] q {tuple(q.shape)} kv {tuple(k.shape)}: dq {rows['dq']['ms']:.3f} "
-          f"ms (err {err['dq']:.3e}, rel {rel['dq']:.2e}), dk/dv {rows['dkv']['ms']:.3f} ms "
-          f"(err {max(err['dk'], err['dv']):.3e}, rel {rows['dkv']['rel_err']:.2e}), plain "
-          f"{plain_ms:.3f} ms, sdpa backward ({backend}) {lib_ms:.3f} ms; bounds "
-          f"{rows['dq']['bound_ms']:.4f} / {rows['dkv']['bound_ms']:.4f} ms "
-          f"({rows['dq']['bound_by']}), the pair's five products {pair_ops:.3e} ops "
-          f"= {1e3 * pair_ops / BF16_FLOPS:.4f} ms; fp32 outside the tensor cores at the "
-          f"data sheet's {FP32_FLOPS / 1e12:.0f} TFLOP/s would take "
+    for kernels, (dq, dkv) in BWD_PAIRS.items():
+        a, b = rows[dq], rows[dkv]
+        print(f"bwd kernels [{name}] {kernels} ({q.dtype}) q {tuple(q.shape)} kv {tuple(k.shape)}: "
+              f"dq {a['ms']:.3f} ms (turns {', '.join(f'{t:.3f}' for t in a['ms_turns'])}; err "
+              f"{a['max_abs_err']:.3e}, rel {a['rel_err']:.2e}), dk/dv {b['ms']:.3f} ms (turns "
+              f"{', '.join(f'{t:.3f}' for t in b['ms_turns'])}; err {b['max_abs_err']:.3e}, rel "
+              f"{b['rel_err']:.2e})" + (f"; modelled from the tiling, issued {issued[dq]:.3e} / "
+                                        f"{issued[dkv]:.3e} ops against the bound's {a['ops']:.3e}"
+                                        f" / {b['ops']:.3e}" if dq in issued else ""))
+    print(f"bwd [{name}]: tensor cores / CUDA cores: dq {rows['dq_tc']['ms'] / rows['dq']['ms']:.3f}, "
+          f"dk/dv {rows['dkv_tc']['ms'] / rows['dkv']['ms']:.3f}; plain {plain_ms:.3f} ms, sdpa "
+          f"backward ({backend}) {lib_ms:.3f} ms; bounds {rows['dq']['bound_ms']:.4f} / "
+          f"{rows['dkv']['bound_ms']:.4f} ms ({rows['dq']['bound_by']}), the pair's five products "
+          f"{pair_ops:.3e} ops = {1e3 * pair_ops / BF16_FLOPS:.4f} ms; fp32 outside the tensor "
+          f"cores at the data sheet's {FP32_FLOPS / 1e12:.0f} TFLOP/s would take "
           f"{1e3 * ops['dq'] / FP32_FLOPS:.4f} / {1e3 * ops['dkv'] / FP32_FLOPS:.4f} ms")
     return fwd_row, rows
 
@@ -657,8 +803,10 @@ def train_phase(fa, train_mod, cfg, card):
     per_step = [{k: a[k] - b.get(k, 0) for k in a} for a, b in zip(after, [{}] + after[:-1])]
     want = TRAIN_LAYERS * TRAIN_CHUNKS
     for step, c in enumerate(per_step):
-        check(c["fwd"] == want and c["bwd_dq"] == want and c["bwd_dkv"] == want,
-              f"step {step} launched {c}; expected {want} forward, dq and dk/dv launches")
+        check(c["fwd"] == want and c["bwd_dq_tc"] == want and c["bwd_dkv_tc"] == want
+              and c["bwd_dq"] == c["bwd_dkv"] == c["merge"] == 0,
+              f"step {step} launched {c}; expected {want} forward and {want} tensor-core dq and "
+              f"dk/dv launches, and no CUDA-core backward or merge launch")
     losses = [r["loss"] for r in hist]
     check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
     tokens = TRAIN_SEQ
@@ -719,12 +867,14 @@ def train_cpu_check(fa, serve, runner, cfg, card):
         return {"loss": None, "wq": layer["wq"], "wk": layer["wk"], "wv": layer["wv"],
                 "head": g["globals"]["head"]["w"]}
 
-    before = fa.counts()
+    fa.reset_counts()
     loss, grads = runner.loss_and_grads(cell, params, tokens.cuda(), labels.cuda())
     on_card = {k: (loss if v is None else v).cpu() for k, v in pick(grads).items()}
-    launched = {k: fa.counts()[k] - before[k] for k in before}
-    check(launched["fwd"] == launched["bwd_dq"] == launched["bwd_dkv"] == 4,
-          f"the card's step launched {launched}, expected 4 of each kernel")
+    launched = fa.counts()
+    check(launched["fwd"] == launched["bwd_dq"] == launched["bwd_dkv"] == 4
+          and launched["bwd_dq_tc"] == launched["bwd_dkv_tc"] == 0,
+          f"the card's fp32 step launched {launched}, expected 4 of the forward and of the "
+          f"CUDA-core dq and dk/dv kernels, and no tensor-core one")
     del grads
     params_cpu = tree_map(lambda t: t.cpu(), params)
     del params
@@ -738,7 +888,7 @@ def train_cpu_check(fa, serve, runner, cfg, card):
     check(all(torch.isfinite(v).all() for v in on_card.values()) and
           all(v <= GRAD_REL_TOL for v in rel.values()),
           f"card and CPU training steps disagree: relative L2 {rel} (tol {GRAD_REL_TOL})")
-    return rel
+    return rel, launched
 
 
 def main():
@@ -788,8 +938,10 @@ def main():
             measure_shape("decode step", fa, ref, *decode_in)]
     del prefill_in, decode_in
     bwd_err, n_bwd = bwd_edge_grid(fa, ref, gen)
-    print(f"backward edge grid: {n_bwd} cases (fp32 and bf16), each gradient within "
-          f"{KERNEL_TOL} x max |plain| (worst {bwd_err:.3e}), dead rows' dq exactly 0")
+    print(f"backward edge grid: {n_bwd} cases (fp32 on the CUDA cores, bf16 on the tensor "
+          f"cores), each gradient within {KERNEL_TOL} x max |plain| (worst "
+          f"{json.dumps(bwd_err)}), dead rows' dq exactly 0")
+    fp32_fwd_err, fp32_bwd_rel, _ = fp32_check_shapes(fa, ref, gen, runner, get_config("qwen2-7b"))
     cfg = get_config("qwen2-7b")
     train_cell, bwd_in = train_chunk_shapes(gen, runner, cfg)
     measured = [measure_bwd_shape(name, fa, ref, *args) for name, args in bwd_in.items()]
@@ -815,7 +967,7 @@ def main():
     check(launches == expected, f"kernel called {launches} times, expected {expected}")
     check(merges == REPEATS * cfg.n_layers * DECODE_STEPS,
           f"merge launched {merges} times, expected one per decode call")
-    check(serve_counts["bwd_dq"] == serve_counts["bwd_dkv"] == 0,
+    check(all(serve_counts[k] == 0 for k in ("bwd_dq", "bwd_dkv", "bwd_dq_tc", "bwd_dkv_tc")),
           f"serving launched backward kernels: {serve_counts}")
     toks, hidden = out["tokens"], out["last_hidden"]
     check(toks.shape == (BATCH, DECODE_STEPS), f"tokens shape {toks.shape}")
@@ -840,31 +992,50 @@ def main():
     # ---- phase 4: the training path, through the train CLI's function
     train_counts, train_summary = train_phase(fa, train_mod, cfg, card)
     torch.cuda.empty_cache()
-    train_rel = train_cpu_check(fa, serve, runner, cfg, card)
+    train_rel, fp32_counts = train_cpu_check(fa, serve, runner, cfg, card)
 
-    main_row = rows[0]
+    main_row, decode_row = rows[0], rows[1]
     common = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    paths = {"serve": serve_counts, "train": train_counts, "train_fp32": fp32_counts}
+
+    def by_path(key):
+        return {path: c[key] for path, c in paths.items()}
+
     kernels = [
         {"name": "flash_attention_partial", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_partial.cu",
          "replaces": "src/repro/kernels/flash_attention.py:260",
-         "launches": launches + train_counts["fwd"],
-         "launches_by_path": {"serve": launches, "train": train_counts["fwd"]},
-         "merge_launches": merges + train_counts["merge"],
+         "launches": launches + train_counts["fwd"], "launches_by_path": by_path("fwd"),
          **{key: main_row[key] for key in common},
-         "edge_grid_max_abs_err": grid_err, "shapes": rows},
+         "edge_grid_max_abs_err": grid_err, "fp32_check_shapes_max_abs_err": fp32_fwd_err,
+         "shapes": rows},
+        # the forward's split-KV merge (decode), launched by the same wrapper
+        # call; its output is what the decode shape's check holds
+        {"name": "flash_attention_partial_merge", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_partial.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:260",
+         "launches": merges + train_counts["merge"], "launches_by_path": by_path("merge"),
+         "max_abs_err": decode_row["max_abs_err"],
+         **{key: decode_row["merge"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "shapes": [decode_row["merge"]]},
     ]
-    for part, name, line in (("dq", "flash_attention_partial_bwd_dq", 331),
-                             ("dkv", "flash_attention_partial_bwd_dkv", 355)):
+    # launches: on the path that runs each pair (bf16 training for the
+    # tensor cores, the fp32 training check for the CUDA cores)
+    for part, name, line, source, path in (
+            ("dq_tc", "flash_attention_partial_bwd_dq_tc", 331, "flash_partial_bwd_tc.cu", "train"),
+            ("dkv_tc", "flash_attention_partial_bwd_dkv_tc", 355, "flash_partial_bwd_tc.cu", "train"),
+            ("dq", "flash_attention_partial_bwd_dq", 331, "flash_partial_bwd.cu", "train_fp32"),
+            ("dkv", "flash_attention_partial_bwd_dkv", 355, "flash_partial_bwd.cu", "train_fp32")):
         head = bwd_rows[-1][part]      # the last chunk: the most visible pairs
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_partial_bwd.cu",
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
-            "launches": train_counts["bwd_" + part],
-            "launches_by_path": {"serve": 0, "train": train_counts["bwd_" + part]},
+            "launches": paths[path]["bwd_" + part], "launches_by_path": by_path("bwd_" + part),
             **{key: head[key] for key in common}, "library": head["library"],
-            "edge_grid_max_rel_err": bwd_err, "shapes": [r[part] for r in bwd_rows]})
+            "edge_grid_max_rel_err": bwd_err["torch.bfloat16" if part.endswith("_tc")
+                                             else "torch.float32"],
+            **({} if part.endswith("_tc") else {"fp32_check_shapes_max_rel_err": fp32_bwd_rel}),
+            "shapes": [r[part] for r in bwd_rows]})
     summary = {"prefill_s_runs": pre_runs, "decode_s_runs": dec_runs,
                "prefill_s": pre_s, "prefill_tokens_per_s": BATCH * PREFILL_LEN / pre_s,
                "decode_ms_per_step": 1e3 * dec_s / DECODE_STEPS,

@@ -29,11 +29,13 @@
 // What bounds them on an H100: the five products per visible score tile
 // (s = q.k^T, dp = dO.v^T, dq, dk, dv: 2.5x the forward's operations), at
 // every shape the training path gives them (query tiles of thousands of rows
-// against thousands of slots), so operations.  This first version computes
-// in fp32 on the CUDA cores, as the forward kernel does (inputs upcast into
+// against thousands of slots), so operations.  These kernels compute in
+// fp32 on the CUDA cores, as the forward kernel does (inputs upcast into
 // shared memory, 16-byte loads), which holds fp32 inputs within 1e-5 of the
-// plain version; its ceiling is the fp32 FMA rate, far below the bf16
-// tensor-core peak the bound uses.  mma.sync / wgmma are the next step.
+// plain version; their ceiling is the fp32 FMA rate, far below the bf16
+// tensor-core peak the bound uses.  They serve fp32 inputs; bf16 inputs take
+// the tensor-core kernels of flash_partial_bwd_tc.cu (these run bf16 only
+// when the caller asks, to compare the two).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (kernels/flash_attention.py does this at first use).  Plain C interface,

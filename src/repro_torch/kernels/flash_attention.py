@@ -1,14 +1,21 @@
 """Hopper kernels for the partial flash attention, bound through ctypes.
 
-Two CUDA sources replace the three Pallas TPU kernels of
+Three CUDA sources replace the three Pallas TPU kernels of
 ``repro/kernels/flash_attention.py``:
 
 - ``csrc/flash_partial.cu``: the forward ``_flash_partial_kernel`` /
   ``_fwd_impl``, returning the un-normalized ``(o, m, l)`` triple of
   ``kernels/ref.py::attention_partial_ref``, its plain version;
-- ``csrc/flash_partial_bwd.cu``: the backward ``_flash_bwd_dq_kernel`` and
-  ``_flash_bwd_dkv_kernel`` (``_bwd_impl``), whose plain version is
-  ``kernels/ref.py::attention_partial_bwd_ref``.
+- ``csrc/flash_partial_bwd_tc.cu``: the backward ``_flash_bwd_dq_kernel``
+  and ``_flash_bwd_dkv_kernel`` (``_bwd_impl``) on the tensor cores, for
+  bf16 inputs, with every fp32 operand split into three bf16 terms;
+- ``csrc/flash_partial_bwd.cu``: the same two kernels in fp32 on the CUDA
+  cores, for fp32 inputs.
+
+Both backward pairs have the plain version
+``kernels/ref.py::attention_partial_bwd_ref`` and are held to it at 1e-5 x
+max |plain gradient|.  ``flash_attention_partial_bwd`` picks the pair by
+dtype and raises on what a pair does not take.
 
 ``FlashPartial`` ties them together as the counterpart of the reference's
 ``custom_vjp`` (``_flash_partial`` / ``_fwd`` / ``_bwd``).
@@ -33,7 +40,8 @@ import torch
 from repro_torch.kernels import ref as _ref
 
 _CSRC = Path(__file__).parent / "csrc"
-SOURCES = {"fwd": _CSRC / "flash_partial.cu", "bwd": _CSRC / "flash_partial_bwd.cu"}
+SOURCES = {"fwd": _CSRC / "flash_partial.cu", "bwd": _CSRC / "flash_partial_bwd.cu",
+           "bwd_tc": _CSRC / "flash_partial_bwd_tc.cu"}
 _BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,23 +49,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launches of each kernel, counted by the wrappers where they launch it:
 # ``launches`` the forward (one per flash_attention_partial call),
 # ``merge_launches`` its split-KV merge, ``bwd_dq_launches`` and
-# ``bwd_dkv_launches`` the two backward kernels.
+# ``bwd_dkv_launches`` the two fp32 CUDA-core backward kernels,
+# ``bwd_dq_tc_launches`` and ``bwd_dkv_tc_launches`` the two tensor-core ones.
 launches = 0
 merge_launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+bwd_dq_tc_launches = 0
+bwd_dkv_tc_launches = 0
 
 _libs = {}
 
 
 def reset_counts():
     global launches, merge_launches, bwd_dq_launches, bwd_dkv_launches
+    global bwd_dq_tc_launches, bwd_dkv_tc_launches
     launches = merge_launches = bwd_dq_launches = bwd_dkv_launches = 0
+    bwd_dq_tc_launches = bwd_dkv_tc_launches = 0
 
 
 def counts() -> dict:
     return {"fwd": launches, "merge": merge_launches, "bwd_dq": bwd_dq_launches,
-            "bwd_dkv": bwd_dkv_launches}
+            "bwd_dkv": bwd_dkv_launches, "bwd_dq_tc": bwd_dq_tc_launches,
+            "bwd_dkv_tc": bwd_dkv_tc_launches}
 
 
 def _nvcc() -> str:
@@ -101,21 +115,23 @@ def build(names=tuple(SOURCES)) -> dict:
     return result
 
 
+def _bind(name: str, path) -> ctypes.CDLL:
+    """Load the shared library built from source ``name`` at ``path`` and
+    declare its entry point's C signature."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    head, n_ptr, n_int = {"fwd": ([i32], 12, 13), "bwd": ([i32, i32], 12, 11),
+                          "bwd_tc": ([i32], 15, 10)}[name]
+    fn = getattr(lib, {"fwd": "flash_partial_fwd", "bwd": "flash_partial_bwd",
+                       "bwd_tc": "flash_partial_bwd_tc"}[name])
+    fn.argtypes = head + [ptr] * n_ptr + [i32] * n_int + [i64] * 9 + [ctypes.c_float, i32, ptr]
+    fn.restype = i32
+    return lib
+
+
 def _load(name: str):
     if name not in _libs:
-        lib = ctypes.CDLL(str(build((name,))[name][0]))
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == "fwd":
-            lib.flash_partial_fwd.argtypes = (
-                [i32] + [ptr] * 12 + [i32] * 13 + [i64] * 9
-                + [ctypes.c_float, i32, ptr])
-            lib.flash_partial_fwd.restype = i32
-        else:
-            lib.flash_partial_bwd.argtypes = (
-                [i32, i32] + [ptr] * 12 + [i32] * 11 + [i64] * 9
-                + [ctypes.c_float, i32, ptr])
-            lib.flash_partial_bwd.restype = i32
-        _libs[name] = lib
+        _libs[name] = _bind(name, build((name,))[name][0])
     return _libs[name]
 
 
@@ -124,6 +140,9 @@ MAX_HD = 128        # largest hd_k / hd_v the kernel takes (csrc kMaxHd)
 MAX_ROWS = 64       # query rows per block: G heads x bq tokens (16 x 4 row groups)
 MAX_SPLITS = 32     # KV splits the merge takes (csrc kMaxSplits)
 BLOCK_K = 64        # KV slots per tile (csrc kBlockK)
+TC_DQ_ROWS = 128    # query rows of a tensor-core dq block (csrc kDqRows)
+SPLIT_TERMS = 3     # bf16 terms of a split fp32 operand (csrc kTerms)
+BWD_KERNELS = ("tensor_cores", "cuda_cores")
 
 
 def _rows(Tq: int, G: int):
@@ -262,22 +281,35 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
 
 
 def flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl, *,
-                                causal=True, scale=None, q_start=None):
-    """Backward of ``flash_attention_partial`` on the card: the dq kernel,
-    then the dk/dv kernel.
+                                causal=True, scale=None, q_start=None,
+                                kernels=None):
+    """Backward of ``flash_attention_partial`` on the card: a dq kernel, then
+    a dk/dv kernel.
 
     q, k, v, positions: as the forward takes them, except that q too is
     loaded in 16-byte vectors (base and strides whole vectors); do: [B, Tq,
     H, hd_v], m and dl: [B, Tq, H], the cotangents of the forward's o and l
     and its saved max (any float dtype and layout: they are made contiguous
-    fp32).  Rows with m = -1e30 contribute nothing, whatever their do, dl.
+    fp32, and do is copied to a 16-byte aligned buffer if it is not one).
+    Rows with m = -1e30 contribute nothing, whatever their do, dl.
+    ``kernels`` picks the pair: ``"tensor_cores"`` (csrc/flash_partial_bwd_tc.cu,
+    bf16 inputs only) or ``"cuda_cores"`` (csrc/flash_partial_bwd.cu, fp32
+    and bf16); None, the default and the only choice of the model's paths,
+    takes the tensor cores for bf16 and the CUDA cores for fp32.
     Returns fp32 (dq [B,Tq,H,hd_k], dk [B,S,Hkv,hd_k], dv [B,S,Hkv,hd_v]).
     """
-    global bwd_dq_launches, bwd_dkv_launches
+    global bwd_dq_launches, bwd_dkv_launches, bwd_dq_tc_launches, bwd_dkv_tc_launches
     dims, kv_pos, (q_pos, qpos_sb), (q_start, qstart_sb) = _check_inputs(
         q, k, v, q_pos, kv_pos, q_start, "flash_attention_partial_bwd")
     B, Tq, S, H, Hkv, hdk, hdv = dims
     dev, G = q.device, H // Hkv
+    if kernels is None:
+        kernels = "tensor_cores" if q.dtype == torch.bfloat16 else "cuda_cores"
+    if kernels not in BWD_KERNELS:
+        raise ValueError(f"kernels must be one of {BWD_KERNELS}, got {kernels!r}")
+    if kernels == "tensor_cores" and q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core backward takes bfloat16 q, k and v, got "
+                        f"{q.dtype}; fp32 runs on the CUDA cores")
     if S == 0:
         raise ValueError("the backward needs S >= 1 KV slots")
     _check_vec("q", q, hdk)
@@ -289,28 +321,55 @@ def flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl, *,
             raise ValueError(f"{name} must be {list(shape)} on {dev}, got "
                              f"{list(t.shape)} on {t.device}")
     do, m, dl = (t.to(torch.float32).contiguous() for t in (do, m, dl))
+    if do.data_ptr() % 16:  # both pairs read do's rows in 16-byte vectors
+        do = do.clone()
     if scale is None:
         scale = 1.0 / (hdk ** 0.5)
-
-    lib = _load("bwd")
-    row_groups, bq = _rows(Tq, G)
 
     def out(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     dq, dk, dv = out(B, Tq, H, hdk), out(B, S, Hkv, hdk), out(B, S, Hkv, hdv)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    tail = (float(scale), int(bool(causal)), torch.cuda.current_stream(dev).cuda_stream)
+    q_start_ptr = None if q_start is None else q_start.data_ptr()
+    if kernels == "tensor_cores":
+        lib = _load("bwd_tc")
+        # the dq kernel writes, in fold order (row token * G + g of a KV head),
+        # do's three bf16 terms, a copy of q and each row's positions, max and
+        # dl, and the dk/dv kernel reads them as consecutive rows
+        fold = (B, Hkv, Tq * G)
+        split = torch.empty((SPLIT_TERMS, *fold, hdv), dtype=torch.bfloat16, device=dev)
+        q_fold = torch.empty((*fold, hdk), dtype=torch.bfloat16, device=dev)
+        rows = torch.empty((*fold, 4), dtype=torch.int32, device=dev)
+        for which in (0, 1):
+            with torch.cuda.device(dev):
+                rc = lib.flash_partial_bwd_tc(
+                    which, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    m.data_ptr(), dl.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
+                    q_start_ptr, split.data_ptr(), q_fold.data_ptr(), rows.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, S, H, Hkv, hdk,
+                    hdv, min(Tq, TC_DQ_ROWS // G), qpos_sb, qstart_sb, *strides, *tail)
+            if rc != 0:
+                raise RuntimeError(f"flash_partial_bwd_tc ({('dq', 'dkv')[which]}) launch "
+                                   f"failed: CUDA error {rc}")
+            if which == 0:
+                bwd_dq_tc_launches += 1
+            else:
+                bwd_dkv_tc_launches += 1
+        return dq, dk, dv
+
+    lib = _load("bwd")
+    row_groups, bq = _rows(Tq, G)
     for which, name in enumerate(("dq", "dkv")):
         with torch.cuda.device(dev):
             rc = lib.flash_partial_bwd(
                 which, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), m.data_ptr(), dl.data_ptr(),
-                q_pos.data_ptr(), kv_pos.data_ptr(),
-                None if q_start is None else q_start.data_ptr(),
+                q_pos.data_ptr(), kv_pos.data_ptr(), q_start_ptr,
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 B, Tq, S, H, Hkv, hdk, hdv, row_groups, bq, qpos_sb, qstart_sb,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                float(scale), int(bool(causal)),
-                torch.cuda.current_stream(dev).cuda_stream)
+                *strides, *tail)
         if rc != 0:
             raise RuntimeError(f"flash_partial_bwd ({name}) launch failed: "
                                f"CUDA error {rc}")
@@ -339,7 +398,8 @@ def partial_forward(q, k, v, q_pos, kv_pos, q_start, *, causal, scale,
 def partial_backward(q, k, v, q_pos, kv_pos, q_start, do, m, dl, *, causal,
                      scale, block_k=512):
     """fp32 (dq, dk, dv) by the tensor's device, as ``partial_forward``: the
-    two backward kernels, or ``attention_partial_bwd_ref``."""
+    backward kernels the dtype picks (tensor cores for bf16, CUDA cores for
+    fp32), or ``attention_partial_bwd_ref``."""
     if q.device.type == "cuda":
         return flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl,
                                            causal=causal, scale=scale,

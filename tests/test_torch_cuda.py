@@ -1,5 +1,6 @@
-"""The Hopper attention kernels (forward, and the dq and dk/dv backward)
-against their plain PyTorch versions, on the card.
+"""The Hopper attention kernels (forward, and the dq and dk/dv backward on
+the tensor cores for bf16 and on the CUDA cores for fp32) against their plain
+PyTorch versions, on the card.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips without
 one.  The file imports no JAX, since the machine with the card has none, and
@@ -9,7 +10,8 @@ the repo's conftest imports JAX, so on that machine run it as
 
 The kernel and its plain version both compute in fp32 from the same inputs,
 bf16 ones upcast exactly, so they differ only in the order of fp32 sums:
-both dtypes are held to 1e-5.
+both dtypes are held to 1e-5.  The tensor-core backward splits each fp32
+operand into three bf16 terms (24 bits), and is held to the same 1e-5.
 """
 import numpy as np
 import pytest
@@ -120,11 +122,24 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
 # The backward kernels (dq, dk/dv) against attention_partial_bwd_ref.  Both
 # sides compute in fp32 from the same inputs; each gradient is held to
 # 1e-5 x max |plain gradient| (its sums run over up to S or G x Tq terms).
+# bf16 inputs run both pairs: the tensor-core kernels (the dtype's default)
+# and the CUDA-core ones (which fp32 inputs take).
 # ---------------------------------------------------------------------------
+
+PAIR_COUNTERS = {"tensor_cores": ("bwd_dq_tc", "bwd_dkv_tc"), "cuda_cores": ("bwd_dq", "bwd_dkv")}
+
+
+def _pairs(dtype):
+    """The backward pairs that take inputs of this dtype."""
+    return ("tensor_cores", "cuda_cores") if dtype == "bfloat16" else ("cuda_cores",)
+
+
+def _launched(before):
+    return {k: n - before[k] for k, n in fa.counts().items() if n != before[k]}
 
 
 def _check_bwd(arrays, dtype, q_pos, kv_pos, device, q_start=None, causal=True,
-               dead=None, seed=3):
+               dead=None, seed=3, kernels=None):
     q, k, v = to_torch(arrays, dtype, device)
     qp = torch.as_tensor(q_pos).to(device)
     kp = torch.as_tensor(kv_pos).to(device)
@@ -136,10 +151,11 @@ def _check_bwd(arrays, dtype, q_pos, kv_pos, device, q_start=None, causal=True,
     if dead is not None:  # fully masked rows get NaN cotangents
         do[dead], dl[dead] = float("nan"), float("nan")
     _, m, _ = ref.attention_partial_ref(q, k, v, qp, kp, causal=causal, q_start=qs)
-    n_dq, n_dkv = fa.bwd_dq_launches, fa.bwd_dkv_launches
+    before = fa.counts()
     got = fa.flash_attention_partial_bwd(q, k, v, qp, kp, do, m, dl, causal=causal,
-                                         q_start=qs)
-    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (n_dq + 1, n_dkv + 1)
+                                         q_start=qs, kernels=kernels)
+    pair = kernels or ("tensor_cores" if dtype == "bfloat16" else "cuda_cores")
+    assert _launched(before) == {key: 1 for key in PAIR_COUNTERS[pair]}
     want = ref.attention_partial_bwd_ref(q, k, v, qp, kp, qs, do, m, dl, causal=causal)
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -150,18 +166,25 @@ def _check_bwd(arrays, dtype, q_pos, kv_pos, device, q_start=None, causal=True,
     return got
 
 
+# every SWEEP shape in its own dtype with each pair that takes it, and in
+# bf16 on the tensor cores
+BWD_SWEEP = sorted({(*case[:9], dtype, pair) for case in SWEEP
+                    for dtype in (case[9], "bfloat16") for pair in _pairs(dtype)})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Tq,S,H,Hkv,hd,hv,causal,qoff,dtype", SWEEP)
+@pytest.mark.parametrize("B,Tq,S,H,Hkv,hd,hv,causal,qoff,dtype,kernels", BWD_SWEEP)
 def test_bwd_kernels_match_plain(cuda_device, B, Tq, S, H, Hkv, hd, hv, causal,
-                                 qoff, dtype):
+                                 qoff, dtype, kernels):
     arrays, q_pos, kv_pos = sweep_case(B, Tq, S, H, Hkv, hd, hv, qoff)
-    _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device, causal=causal)
+    _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device, causal=causal, kernels=kernels)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", [1, 4, 7, 8])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bwd_kernels_group_sizes_and_ragged(cuda_device, G, dtype):
+@pytest.mark.parametrize("dtype,kernels", [(d, k) for d in ("float32", "bfloat16")
+                                           for k in _pairs(d)])
+def test_bwd_kernels_group_sizes_and_ragged(cuda_device, G, dtype, kernels):
     """G query heads per KV head folded into the rows (G = 7: no power of
     two), ragged Tq and S over several tiles, hd_k != hd_v, PAD slots."""
     Hkv = 2 if G < 8 else 1
@@ -169,20 +192,46 @@ def test_bwd_kernels_group_sizes_and_ragged(cuda_device, G, dtype):
     q_pos = np.arange(37, dtype=np.int32) + 113
     kv_pos = np.arange(150, dtype=np.int32)
     kv_pos[-6:] = 2**30
-    _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device)
+    _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels)
 
 
 @pytest.mark.cuda
-def test_bwd_kernels_window_and_dead_rows_exact(cuda_device):
+@pytest.mark.parametrize("hd,hv", [(8, 8), (16, 24), (24, 8), (32, 128), (128, 64)])
+def test_bwd_tensor_cores_head_dims(cuda_device, hd, hv):
+    """Head dims that are not whole 16-column steps are padded with zeros in
+    shared memory and their stores masked; hd_k != hd_v either way round."""
+    arrays = inputs(2, 21, 90, 14, 2, hd, hv, seed=hd + hv)
+    q_pos = np.arange(21, dtype=np.int32) + 69
+    _check_bwd(arrays, "bfloat16", q_pos, np.arange(90, dtype=np.int32), cuda_device,
+               kernels="tensor_cores")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq,S,G", [(4700, 4760, 7),    # 1029 query tiles of 32 rows
+                                    (8, 66000, 4)])     # 1032 KV tiles of 64 slots
+def test_bwd_tensor_cores_past_one_visibility_window(cuda_device, Tq, S, G):
+    """The tensor-core kernels decide tile visibility 1024 tiles at a time:
+    more query tiles (dk/dv) or KV tiles (dq) than that take two windows."""
+    arrays = inputs(1, Tq, S, G, 1, 32, 16, seed=Tq)
+    q_pos = np.arange(Tq, dtype=np.int32) + S - Tq
+    _check_bwd(arrays, "bfloat16", q_pos, np.arange(S, dtype=np.int32), cuda_device,
+               kernels="tensor_cores")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernels", [(d, k) for d in ("float32", "bfloat16")
+                                           for k in _pairs(d)])
+def test_bwd_kernels_window_and_dead_rows_exact(cuda_device, dtype, kernels):
     arrays, q_pos, kv_pos, q_start = window_case()
     dead = torch.from_numpy(WINDOW_DEAD).to(cuda_device)
-    dq, dk, dv = _check_bwd(arrays, "float32", q_pos, kv_pos, cuda_device,
-                            q_start=q_start, dead=dead)
+    dq, dk, dv = _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device,
+                            q_start=q_start, dead=dead, kernels=kernels)
     assert (dq[dead] == 0).all()
 
 
 @pytest.mark.cuda
-def test_bwd_kernels_take_strided_cache_view(cuda_device):
+@pytest.mark.parametrize("kernels", _pairs("bfloat16"))
+def test_bwd_kernels_take_strided_cache_view(cuda_device, kernels):
     B, Tq, S_buf, S, H, Hkv, hd = 2, 24, 96, 70, 14, 2, 128
     q, k_buf, v_buf = to_torch(inputs(B, Tq, S_buf, H, Hkv, hd, hd, seed=9),
                                "bfloat16", cuda_device)
@@ -193,7 +242,7 @@ def test_bwd_kernels_take_strided_cache_view(cuda_device):
     do = torch.randn(B, Tq, H, hd, device=cuda_device)
     dl = torch.randn(B, Tq, H, device=cuda_device)
     _, m, _ = ref.attention_partial_ref(q, k, v, q_pos, kv_pos)
-    got = fa.flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl)
+    got = fa.flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl, kernels=kernels)
     want = ref.attention_partial_bwd_ref(q, k.contiguous(), v.contiguous(), q_pos,
                                          kv_pos, None, do, m, dl)
     for a, b in zip(got, want):
@@ -201,19 +250,42 @@ def test_bwd_kernels_take_strided_cache_view(cuda_device):
 
 
 @pytest.mark.cuda
-def test_flash_partial_function_runs_the_kernels(cuda_device):
+@pytest.mark.parametrize("dtype,kernels", [(d, k) for d in ("float32", "bfloat16")
+                                           for k in _pairs(d)])
+def test_bwd_kernels_take_unaligned_do(cuda_device, dtype, kernels):
+    """A contiguous fp32 do whose base is not 16-byte aligned (a view one
+    element into its buffer) gives the same gradients as an aligned copy."""
+    B, Tq, S, H, Hkv, hd = 1, 12, 40, 14, 2, 64
+    q, k, v = to_torch(inputs(B, Tq, S, H, Hkv, hd, hd, seed=5), dtype, cuda_device)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda_device)
+    buf = torch.randn(1 + B * Tq * H * hd, device=cuda_device)
+    do = buf[1:].view(B, Tq, H, hd)
+    assert do.is_contiguous() and do.data_ptr() % 16
+    dl = torch.randn(B, Tq, H, device=cuda_device)
+    _, m, _ = ref.attention_partial_ref(q, k, v, pos[S - Tq:], pos)
+    got = fa.flash_attention_partial_bwd(q, k, v, pos[S - Tq:], pos, do, m, dl, kernels=kernels)
+    want = fa.flash_attention_partial_bwd(q, k, v, pos[S - Tq:], pos, do.clone(), m, dl,
+                                          kernels=kernels)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_partial_function_runs_the_kernels(cuda_device, dtype):
     """ops.attention_partial on CUDA tensors: forward and backward are the
-    kernels (one launch each), and the grads equal the kernels' own."""
+    kernels (one launch each; bf16 moves only the tensor-core backward's
+    counters, fp32 only the CUDA-core ones), and the grads equal the
+    kernels' own."""
     arrays, q_pos, kv_pos = sweep_case(*SWEEP[3][:7], SWEEP[3][8])
-    q, k, v = [t.requires_grad_() for t in to_torch(arrays, "bfloat16", cuda_device)]
+    q, k, v = [t.requires_grad_() for t in to_torch(arrays, dtype, cuda_device)]
     qp, kp = torch.from_numpy(q_pos).to(cuda_device), torch.from_numpy(kv_pos).to(cuda_device)
     before = fa.counts()
     o, m, l = ops.attention_partial(q, k, v, qp, kp)
     do, dl = torch.randn_like(o), torch.randn_like(l)
     grads = torch.autograd.grad((o, l), (q, k, v), (do, dl))
-    after = fa.counts()
-    assert {n: after[n] - before[n] for n in after} == {"fwd": 1, "merge": 0, "bwd_dq": 1,
-                                                         "bwd_dkv": 1}
+    pair = PAIR_COUNTERS["tensor_cores" if dtype == "bfloat16" else "cuda_cores"]
+    assert _launched(before) == {"fwd": 1, **{key: 1 for key in pair}}
     want = fa.flash_attention_partial_bwd(q.detach(), k.detach(), v.detach(), qp, kp, do, m, dl)
     for g, w, t in zip(grads, want, (q, k, v)):
         assert g.dtype == t.dtype
@@ -236,3 +308,26 @@ def test_bwd_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="head dims"):
         w = torch.zeros(1, 4, 2, 256, device=cuda_device)
         fa.flash_attention_partial_bwd(w, w, w, pos, pos, w, m, dl)
+
+
+@pytest.mark.cuda
+def test_tensor_core_bwd_refuses_what_it_does_not_take(cuda_device):
+    """The tensor-core pair takes bf16 only: fp32 asked of it raises (fp32
+    runs on the CUDA cores), as do head dims over 128, misaligned views and
+    an unknown pair; nothing is launched."""
+    pos = torch.arange(4, dtype=torch.int32, device=cuda_device)
+    m, dl = torch.zeros(1, 4, 2, device=cuda_device), torch.zeros(1, 4, 2, device=cuda_device)
+    q = torch.zeros(1, 4, 2, 32, device=cuda_device)
+    before = fa.counts()
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention_partial_bwd(q, q, q, pos, pos, q, m, dl, kernels="tensor_cores")
+    with pytest.raises(ValueError, match="kernels must be"):
+        fa.flash_attention_partial_bwd(q.bfloat16(), q.bfloat16(), q.bfloat16(), pos, pos, q,
+                                       m, dl, kernels="wgmma")
+    with pytest.raises(ValueError, match="head dims"):
+        w = torch.zeros(1, 4, 2, 256, device=cuda_device, dtype=torch.bfloat16)
+        fa.flash_attention_partial_bwd(w, w, w, pos, pos, w.float(), m, dl)
+    with pytest.raises(ValueError, match="16-byte"):   # q's base off by one element
+        x = torch.zeros(1 + 4 * 2 * 32, device=cuda_device, dtype=torch.bfloat16)[1:].view(1, 4, 2, 32)
+        fa.flash_attention_partial_bwd(x, q.bfloat16(), q.bfloat16(), pos, pos, q, m, dl)
+    assert fa.counts() == before

@@ -6,38 +6,47 @@ Four phases, each of which exits non-zero on failure:
 
 1. device and build: the card's name and power limit, then the Hopper
    attention kernels built for sm_90a from src/repro_torch/kernels/csrc (the
-   forward, the fp32 CUDA-core backward and the bf16 tensor-core backward
-   sources, one nvcc each, started together) with nvcc's register and
-   shared-memory report;
+   tensor-core and the CUDA-core forward, the fp32 CUDA-core backward and
+   the bf16 tensor-core backward sources, one nvcc each, started together)
+   with nvcc's register and shared-memory report;
 2. each kernel against its plain PyTorch version on the card.  The forward:
-   at the serving path's prefill-chunk and decode shapes (bf16), at the
-   training cell's first and last chunk shapes (Tq 2560 over 2560 slots,
-   Tq 1664 over 8192, bf16, q a head slice of the fused q|k projection) and
-   on a small grid of edge cases in fp32 and bf16 (fully masked rows exact);
-   both sides compute in fp32 from the same inputs, so every case is held
-   to 1e-5.  The backward (dq and dk/dv): on an edge grid in fp32 and bf16
+   on an edge grid in fp32 (the CUDA cores), in bf16 (the tensor cores, the
+   dtype's default) and in bf16 on the CUDA cores (ragged sizes, hd_k !=
+   hd_v, G in {1, 2, 3, 4, 7, 8, 64}, KV splits, more than 1024 KV tiles
+   and more than 1024 query tiles, a q_start window and a split decode step
+   with fully masked rows, which must be exact); then both forward kernels
+   on the same bf16 inputs at the serving path's prefill-chunk and decode
+   shapes and at the training cell's first and last chunk shapes (Tq 2560
+   over 2560 slots, Tq 1664 over 8192, q a head slice of the fused q|k
+   projection), timed in turns (CUDA cores, tensor cores, tensor cores, CUDA
+   cores), each call whole (the decode step's split merged in the launch,
+   or by the CUDA-core merge kernel).  Both sides compute in fp32 from the
+   same inputs (the tensor cores with p split into three bf16 terms), so
+   every case is held to 1e-5.  The backward (dq and dk/dv): on an edge
+   grid in fp32 and bf16
    (Tq = 1, ragged sizes, G in {1, 4, 7, 8}, hd_k != hd_v, a q_start window,
    PAD slots, a strided cache view, fully masked rows given NaN cotangents,
    whose gradients must be exactly 0) and at the training cell's first and
    last chunk shapes; each gradient is held to 1e-5 x max |plain gradient|.
    bf16 inputs run the tensor-core kernels and fp32 inputs the CUDA-core
-   ones (the wrapper's dispatch).  The 2-layer fp32 train check's two chunk
+   ones (the wrappers' dispatch).  The 2-layer fp32 train check's two chunk
    shapes (phase 4) run in fp32 too, forward (with its split-KV merge) and
    backward (CUDA cores), each held to the same bounds; at the chunk shapes
    of the bf16 training cell the CUDA-core kernels
    also run on the same bf16 inputs, held to the same bound, and the two
    pairs are timed in turns (CUDA cores, tensor cores, tensor cores, CUDA
    cores).  Beside each kernel's bound: the device times of the kernel (CUDA
-   events; each backward kernel and the forward's split-KV merge its own
-   time under torch.profiler), the plain version and
+   events; each backward kernel and the CUDA-core forward's split-KV merge
+   its own time under torch.profiler), the plain version and
    ``F.scaled_dot_product_attention`` (forward, or its backward with the same
    mask; a yardstick only: the port never calls it);
 3. the static serve path of qwen2-7b through its CLI entry point at full
    width, all 28 layers, bf16, random weights from a seed: B = 4, a
    2048-token prompt (16 prefill chunks of 128) and 32 decode steps, served
    3 times over in one process (the first run pays one-time costs; each run
-   is timed).  The kernel must be called exactly 28 x (16 + 32) times a run,
-   and its merge launched at every decode call.  The same seed-built model
+   is timed).  The tensor-core forward must be launched exactly 28 x (16 +
+   32) times a run, each decode call merging its KV splits in its own
+   launch, and no other kernel.  The same seed-built model
    cut to 2 layers then prefills one 256-token prompt on the card (bf16) and
    on the CPU (plain path, fp32): the last hidden states must agree within a
    relative L2 error of 2e-2, a bf16 tolerance.  Last, outside the counted
@@ -48,25 +57,27 @@ Four phases, each of which exits non-zero on failure:
 4. training through ``repro_torch.launch.train.train``: qwen2-7b at full
    width cut to 4 layers (bf16 parameters, fp32 AdamW moments), B = 1,
    S = 8192 in 4 FLOPs-balanced chunks (2560, 2048, 1920, 1664), 4 steps.
-   Each step must launch the forward and the tensor-core dq and dk/dv
-   kernels exactly 16 times (4 layers x 4 chunks), the CUDA-core backward
+   Each step must launch the tensor-core forward, dq and dk/dv kernels
+   exactly 16 times each (4 layers x 4 chunks), unsplit, the CUDA-core
    kernels never, and give a finite loss.  Per step: seconds,
    tokens/s, MFU (6 N T over the bf16 peak, the reference's definition;
    attention's operations printed beside it), the peak of allocated memory,
    and for the last (warm) step, run under torch.profiler, the device's busy
    time by kernel group and its idle share.  Then the same seed-built model
    cut to 2 layers takes one step's loss and gradients at S = 256 (2 chunks)
-   in fp32 on the card (kernels, no TF32: 4 launches each of the forward
-   and the CUDA-core dq and dk/dv kernels, none of the tensor-core ones)
+   in fp32 on the card (kernels, no TF32: 4 launches each of the CUDA-core
+   forward, dq and dk/dv kernels and the forward's merge kernel wherever a
+   chunk splits, none of the tensor-core ones)
    and on the CPU (plain path): the loss and the gradients of layer 0's
    wq, wk, wv and the head must agree within a relative L2 error of 1e-4.
    Every path's launches are counted from 0 just before it runs.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-each kernel with its check and times: the forward, its merge, and the
-tensor-core and CUDA-core backward pairs, each kernel's ``launches`` counted
-on the path that runs it (bf16 training for the tensor cores, the fp32
-training check for the CUDA cores) with its counts on every path beside.
+each kernel with its check and times: the tensor-core and the CUDA-core
+forward, the latter's merge, and the tensor-core and CUDA-core backward
+pairs, each kernel's ``launches`` counted on the paths that run it (bf16
+serving and training for the tensor cores, the fp32 training check for the
+CUDA cores) with its counts on every path beside.
 """
 from __future__ import annotations
 
@@ -181,11 +192,38 @@ def visible_mask(B, q_pos, kv_pos, q_start, causal=True):
     return vis if q_start is None else vis & (kp >= rows(q_start)[:, :, None])
 
 
-def kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, causal=True):
-    """Run the kernel (wrapper) and the plain version on the same inputs and
-    fail unless they agree; returns (max |normalized diff|, kernel outputs)."""
-    o1, m1, l1 = fa.flash_attention_partial(q, k, v, q_pos, kv_pos,
-                                            causal=causal, q_start=q_start)
+# the forward kernels: each one's launch and split-merge keys in counts()
+FWD_KERNELS = {"tensor_cores": ("fwd_tc", "merged_in_kernel"), "cuda_cores": ("fwd", "merge")}
+
+
+def fwd_kind(kernels, dtype):
+    """The forward a call runs: ``kernels``, or the wrapper's choice by dtype."""
+    return kernels or ("tensor_cores" if dtype == torch.bfloat16 else "cuda_cores")
+
+
+def fwd_nsplit(fa, kind, q, k):
+    """KV splits of a forward call (the kernel's own geometry)."""
+    B, Tq, H, _ = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    geometry = fa._tc_geometry if kind == "tensor_cores" else fa._geometry
+    return geometry(B, Tq, S, H // Hkv, Hkv, torch.cuda.get_device_properties(0).multi_processor_count)[2]
+
+
+def kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, causal=True, kernels=None):
+    """Run a forward kernel (``kernels``: the wrapper's choice, None = by
+    dtype) and the plain version on the same inputs and fail unless that
+    kernel launched once (and merged its KV splits once, in the launch or by
+    the merge kernel, where it split) and they agree; returns (max
+    |normalized diff|, kernel outputs)."""
+    kind = fwd_kind(kernels, q.dtype)
+    before = fa.counts()
+    o1, m1, l1 = fa.flash_attention_partial(q, k, v, q_pos, kv_pos, causal=causal,
+                                            q_start=q_start, kernels=kernels)
+    moved = {key: n - before[key] for key, n in fa.counts().items() if n != before[key]}
+    launch, merge = FWD_KERNELS[kind]
+    want = {launch: 1, **({merge: 1} if fwd_nsplit(fa, kind, q, k) > 1 else {})}
+    check(moved == want, f"the forward launched {moved}, expected {want} ({q.dtype}, "
+          f"kernels={kernels}) at q {tuple(q.shape)} k {tuple(k.shape)}")
     o2, m2, l2 = ref.attention_partial_ref(q, k, v, q_pos, kv_pos,
                                            causal=causal, q_start=q_start)
     torch.cuda.synchronize()
@@ -194,24 +232,44 @@ def kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, causal=True):
     m_err = (m1 - m2)[live].abs().max().item() if live.any() else 0.0
     tol = KERNEL_TOL
     check(err <= tol and m_err <= tol and bool((m1[~live] == m2[~live]).all()),
-          f"kernel disagrees with plain version: out err {err}, m err {m_err}"
+          f"{kind} forward disagrees with plain version: out err {err}, m err {m_err}"
           f" (tol {tol}) at q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}")
     return err, (o1, m1, l1)
 
 
+def check_dead_rows(o, m, l, dead, n_dead, what):
+    check(int(dead.sum()) == n_dead, f"{what}: expected {n_dead} dead rows, got {int(dead.sum())}")
+    check(bool((o[dead] == 0).all() and (l[dead] == 0).all() and (m[dead] == -1e30).all()),
+          f"{what}: fully masked rows are not exactly o = l = 0, m = -1e30")
+
+
 def edge_grid(fa, ref, gen):
-    """fp32 and bf16 at 1e-5: ragged sizes, hd_k != hd_v, small and
-    non-power-of-two head dims, GQA G = 7, non-causal, KV splits (a long
-    decode), a q_start window and fully masked rows (which must be exact)."""
+    """The forward at 1e-5: fp32 (the CUDA cores), bf16 (the tensor cores,
+    the dtype's default) and bf16 on the CUDA cores.  Ragged sizes, hd_k !=
+    hd_v, small and non-power-of-two head dims, G in {1, 2, 3, 4, 7, 8, 64},
+    non-causal, KV splits (a long decode), more than 1024 KV tiles and more
+    than 1024 query tiles, a q_start window with fully masked rows and a
+    split decode with a dead batch row (dead rows must be exact).  Returns
+    ({kernels: worst error}, cases)."""
     dev = "cuda"
     cases = [  # B, Tq, S, H, Hkv, hdk, hdv, causal
         (2, 17, 33, 6, 2, 16, 16, True), (1, 8, 128, 8, 1, 64, 32, True),
         (1, 16, 48, 4, 4, 32, 32, False), (2, 9, 100, 14, 2, 128, 128, True),
         (1, 1, 64, 4, 2, 32, 32, True), (3, 70, 200, 28, 4, 128, 128, True),
         (2, 5, 77, 14, 2, 24, 8, True), (2, 3, 70, 14, 2, 40, 96, True),
-        (1, 1, 2000, 14, 2, 128, 128, True)]
-    worst, n = 0.0, 0
-    for dtype in (torch.float32, torch.bfloat16):
+        (1, 1, 2000, 14, 2, 128, 128, True), (2, 37, 150, 8, 2, 64, 32, True),
+        (1, 1152, 66000, 8, 8, 16, 16, True),   # 1032 KV tiles, unsplit: two visibility windows
+        (1, 2100, 2200, 64, 1, 16, 16, True)]   # 1050 query tiles of 2 tokens (tensor cores)
+    worst, n = {}, 0
+    for dtype, kernels in ((torch.float32, None), (torch.bfloat16, None),
+                           (torch.bfloat16, "cuda_cores")):
+        kind = fwd_kind(kernels, dtype)
+
+        def run(*args, causal=True):
+            err, out = kernel_vs_plain(fa, ref, *args, causal=causal, kernels=kernels)
+            worst[kind] = max(worst.get(kind, 0.0), err)
+            return out
+
         for B, Tq, S, H, Hkv, hdk, hdv, causal in cases:
             q = torch.randn(B, Tq, H, hdk, generator=gen, device=dev).to(dtype)
             k = torch.randn(B, S, Hkv, hdk, generator=gen, device=dev).to(dtype)
@@ -219,8 +277,8 @@ def edge_grid(fa, ref, gen):
             q_pos = (torch.arange(Tq, dtype=torch.int32, device=dev) + S - Tq)[None].repeat(B, 1)
             kv_pos = torch.arange(S, dtype=torch.int32, device=dev)
             q_start = torch.zeros(B, Tq, dtype=torch.int32, device=dev)
-            err, _ = kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, causal)
-            worst, n = max(worst, err), n + 1
+            run(q, k, v, q_pos, kv_pos, q_start, causal=causal)
+            n += 1
         # a q_start window with dead rows: PAD windows, a row that sees only
         # future slots, and empty (PAD) cache slots
         B, Tq, S, H, Hkv, hd = 2, 8, 200, 14, 2, 128   # 4 tiles: split and merged
@@ -233,22 +291,40 @@ def edge_grid(fa, ref, gen):
                                dtype=torch.int32, device=dev)
         kv_pos = torch.arange(S, dtype=torch.int32, device=dev) + 2
         kv_pos[-3:] = PAD
-        err, (o, m, l) = kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start)
+        o, m, l = run(q, k, v, q_pos, kv_pos, q_start)
         dead = ~visible_mask(B, q_pos, kv_pos, q_start).any(dim=-1)
-        check(int(dead.sum()) == 4, f"expected 4 dead rows, got {int(dead.sum())}")
-        check(bool((o[dead] == 0).all() and (l[dead] == 0).all() and (m[dead] == -1e30).all()),
-              "fully masked rows are not exactly o = l = 0, m = -1e30")
-        worst, n = max(worst, err), n + 1
+        check_dead_rows(o, m, l, dead, 4, f"window case ({kind}, {dtype})")
+        # a decode step over the serve path's cache, split over the KV range,
+        # with batch row 1 fully masked (q_start = PAD)
+        B, S, H, Hkv = BATCH, PREFILL_LEN + 128, 28, 4
+        q = torch.randn(B, 1, H, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dtype)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        kv_pos = torch.where(pos <= PREFILL_LEN, pos, PAD).to(torch.int32)
+        q_pos = torch.full((B, 1), PREFILL_LEN, dtype=torch.int32, device=dev)
+        q_start = torch.zeros(B, 1, dtype=torch.int32, device=dev)
+        q_start[1] = PAD
+        check(fwd_nsplit(fa, kind, q, k) > 1, f"the decode edge case does not split ({kind})")
+        o, m, l = run(q, k, v, q_pos, kv_pos, q_start)
+        dead = ~visible_mask(B, q_pos, kv_pos, q_start).any(dim=-1)
+        check_dead_rows(o, m, l, dead[..., None].expand(B, 1, H), H,
+                        f"split decode ({kind}, {dtype})")
+        n += 2
     return worst, n
 
 
 def measure_shape(name, fa, ref, q, k, v, q_pos, kv_pos, q_start):
-    """Check one serving shape and time kernel, plain version and SDPA.  The
-    bound counts what this data needs: q.k and p.v for each visible (query,
-    slot) pair and head; bytes of the query rows that see some slot, the K/V
-    rows some query of their batch row sees, every position read and every
-    output written."""
-    err, _ = kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start)
+    """Check both forward kernels at one main-path shape on the same bf16
+    inputs (each held to 1e-5) and time them in turns (CUDA cores, tensor
+    cores, tensor cores, CUDA cores), each call whole (a split's merge
+    included), beside the plain version and SDPA.  The bound counts what
+    this data needs: q.k and p.v for each visible (query, slot) pair and
+    head; bytes of the query rows that see some slot, the K/V rows some
+    query of their batch row sees, every position read and every output
+    written.  Returns {kernels: row}."""
+    errs = {kind: kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, kernels=kind)[0]
+            for kind in FWD_KERNELS}
     B, Tq, H, hdk = q.shape
     S, Hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
     vis = visible_mask(B, q_pos, kv_pos, q_start)
@@ -262,37 +338,47 @@ def measure_shape(name, fa, ref, q, k, v, q_pos, kv_pos, q_start):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
     footprint = sum(t.numel() * t.element_size() for t in (q, k, v))
     copies = cold_copies((q, k, v, q_pos, kv_pos, q_start), footprint)
-    kernel_ms = time_ms(lambda *a: fa.flash_attention_partial(*a[:5], q_start=a[5]), copies)
+    turns = {kind: [] for kind in FWD_KERNELS}
+    for kind in ("cuda_cores", "tensor_cores", "tensor_cores", "cuda_cores"):
+        turns[kind].append(time_ms(
+            lambda *a, kind=kind: fa.flash_attention_partial(*a[:5], q_start=a[5], kernels=kind),
+            copies, label=f"the {kind} forward [{name}]"))
     plain_ms = time_ms(lambda *a: ref.attention_partial_ref(*a[:5], q_start=a[5]), copies,
                        reps=len(copies), label=f"the plain forward [{name}]")
     mask = vis[:, None]                        # [B, 1, Tq, S]
     lib_ms = time_ms(lambda *a: F.scaled_dot_product_attention(
         a[0].transpose(1, 2), a[1].transpose(1, 2), a[2].transpose(1, 2), attn_mask=mask,
         enable_gqa=True), copies)
-    row = {"shape": name, "q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype),
-           "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-           "bound_ms": 1e3 * max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": lib_ms, "bytes": n_bytes, "ops": ops}
-    print(f"kernel [{name}] q {tuple(q.shape)} kv {tuple(k.shape)}: err {err:.3e}, "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); fp32 outside the tensor "
-          f"cores at the data sheet's {FP32_FLOPS / 1e12:.0f} TFLOP/s would take "
-          f"{1e3 * ops / FP32_FLOPS:.4f} ms")
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    nsplit = fa._geometry(B, Tq, S, H // Hkv, Hkv, n_sm)[2]
-    if nsplit > 1:
-        row["merge"] = measure_merge(name, fa, ref, copies, nsplit, (B, Tq, H, hdv))
-    return row
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    rows = {kind: {"shape": name, "q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype),
+                   "kernels": kind, "nsplit": fwd_nsplit(fa, kind, q, k),
+                   "max_abs_err": errs[kind], "ms": sum(turns[kind]) / len(turns[kind]),
+                   "ms_turns": turns[kind], "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": lib_ms, "bytes": n_bytes, "ops": ops}
+            for kind in FWD_KERNELS}
+    tc, cc = rows["tensor_cores"], rows["cuda_cores"]
+    print(f"fwd kernels [{name}] q {tuple(q.shape)} kv {tuple(k.shape)}: tensor cores "
+          f"{tc['ms']:.4f} ms (turns {', '.join(f'{t:.4f}' for t in tc['ms_turns'])}; err "
+          f"{tc['max_abs_err']:.3e}; {tc['nsplit']} KV splits), CUDA cores {cc['ms']:.4f} ms "
+          f"(turns {', '.join(f'{t:.4f}' for t in cc['ms_turns'])}; err {cc['max_abs_err']:.3e}; "
+          f"{cc['nsplit']} KV splits), tensor cores / CUDA cores {tc['ms'] / cc['ms']:.3f}; plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({tc['bound_by']}, "
+          f"{ops:.3e} ops, {n_bytes:.3e} bytes); fp32 outside the tensor cores at the data "
+          f"sheet's {FP32_FLOPS / 1e12:.0f} TFLOP/s would take {1e3 * ops / FP32_FLOPS:.4f} ms")
+    if cc["nsplit"] > 1:
+        cc["merge"] = measure_merge(name, fa, ref, copies, cc["nsplit"], (B, Tq, H, hdv))
+    return rows
 
 
 def measure_merge(name, fa, ref, copies, nsplit, shape):
-    """The forward's split-KV merge at one shape: its own device time under
-    torch.profiler (the forward call launches it), the plain merge
-    (``merge_partials`` over as many partials) and its bound, the bytes of
-    the partials read and of (o, m, l) written."""
-    _, by_group = profiled_ms(lambda *a: fa.flash_attention_partial(*a[:5], q_start=a[5]),
-                              copies, reps=24)
+    """The CUDA-core forward's split-KV merge kernel at one shape: its own
+    device time under torch.profiler (the forward call launches it), the
+    plain merge (``merge_partials`` over as many partials) and its bound,
+    the bytes of the partials read and of (o, m, l) written."""
+    _, by_group = profiled_ms(
+        lambda *a: fa.flash_attention_partial(*a[:5], q_start=a[5], kernels="cuda_cores"),
+        copies, reps=24)
     ms = by_group["attention merge kernel"]
     check(ms > 0, f"the profiler saw no merge kernel at [{name}]: {by_group}")
     B, Tq, H, hdv = shape
@@ -367,13 +453,14 @@ def cpu_check(serve, runner, cfg, card):
 
 def device_time(prof, top: int = 6):
     """(total device ms, {kernel group: ms}, [(kernel, ms)] of the ``top``
-    kernels) from a torch.profiler run.  Groups: the forward flash kernel,
-    its split-KV merge, the tensor-core and the CUDA-core dq and dk/dv
-    backward kernels, cuBLAS matrix products (nvjet / gemm kernels),
-    everything else.  Only device events count: a host op's self device time
+    kernels) from a torch.profiler run.  Groups: the tensor-core and the
+    CUDA-core forward kernels, the latter's split-KV merge kernel, the
+    tensor-core and the CUDA-core dq and dk/dv backward kernels, cuBLAS
+    matrix products (nvjet / gemm kernels), everything else.  Only device events count: a host op's self device time
     is the time of the kernels it launched, which are listed as events of
     their own."""
-    groups = {"attention kernel": 0.0, "attention merge kernel": 0.0,
+    groups = {"attention fwd tc kernel": 0.0, "attention kernel": 0.0,
+              "attention merge kernel": 0.0,
               "attention dq tc kernel": 0.0, "attention dk/dv tc kernel": 0.0,
               "attention dq kernel": 0.0, "attention dk/dv kernel": 0.0,
               "matmul": 0.0, "other": 0.0}
@@ -384,8 +471,10 @@ def device_time(prof, top: int = 6):
             continue
         kernels.append((evt.key[:60], ms))
         name = evt.key.lower()
-        # the backward names first: their sources' names hold "flash_partial"
-        if "flash_bwd_dq_tc_kernel" in name:
+        # the kernels' own names first: their sources' names hold "flash_partial"
+        if "flash_fwd_tc_kernel" in name:
+            groups["attention fwd tc kernel"] += ms
+        elif "flash_bwd_dq_tc_kernel" in name:
             groups["attention dq tc kernel"] += ms
         elif "flash_bwd_dkv_tc_kernel" in name:
             groups["attention dk/dv tc kernel"] += ms
@@ -670,13 +759,13 @@ def tc_issued_ops(fa, vis, G, Hkv, hdk, hdv):
 
 
 def measure_bwd_shape(name, fa, ref, q, k, v, q_pos, kv_pos, do, dl):
-    """Check the forward kernel (``measure_shape``: held to 1e-5, timed,
-    bounded) and both backward pairs at one training shape on the same bf16
+    """Check both forward kernels (``measure_shape``: held to 1e-5, timed in
+    turns, bounded) and both backward pairs at one training shape on the same bf16
     inputs, and time each backward kernel (its own device time under
     torch.profiler; one wrapper call launches a pair) with the pairs in
     turns (CUDA cores, tensor cores, tensor cores, CUDA cores), the plain
     backward and the backward of SDPA with the same mask.  Returns (the
-    forward's row, {"dq_tc", "dkv_tc", "dq", "dkv": row}).  Bounds count
+    forward's rows, {"dq_tc", "dkv_tc", "dq", "dkv": row}).  Bounds count
     what this data needs: per visible (query, slot) pair and head, the dq
     kernel does s = q.k, dp = do.v and dq (three products), the dk/dv
     kernel s, dp, dk and dv (four); the pair's five products are 2.5x the
@@ -684,7 +773,7 @@ def measure_bwd_shape(name, fa, ref, q, k, v, q_pos, kv_pos, do, dl):
     query sees, read once; each output written once.  Beside the bound's
     operations, the printed line gives the operations the tensor-core
     kernels issue as modelled from their tiling (``tc_issued_ops``)."""
-    fwd_row = measure_shape(f"train {name}", fa, ref, q, k, v, q_pos, kv_pos, None)
+    fwd_rows = measure_shape(f"train {name}", fa, ref, q, k, v, q_pos, kv_pos, None)
     errs = {kernels: bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None, do, dl,
                                   kernels=kernels)[:2] for kernels in BWD_PAIRS}
     B, Tq, H, hdk = q.shape
@@ -762,7 +851,7 @@ def measure_bwd_shape(name, fa, ref, q, k, v, q_pos, kv_pos, do, dl):
           f"{pair_ops:.3e} ops = {1e3 * pair_ops / BF16_FLOPS:.4f} ms; fp32 outside the tensor "
           f"cores at the data sheet's {FP32_FLOPS / 1e12:.0f} TFLOP/s would take "
           f"{1e3 * ops['dq'] / FP32_FLOPS:.4f} / {1e3 * ops['dkv'] / FP32_FLOPS:.4f} ms")
-    return fwd_row, rows
+    return fwd_rows, rows
 
 
 def attention_ops(cell) -> float:
@@ -803,10 +892,11 @@ def train_phase(fa, train_mod, cfg, card):
     per_step = [{k: a[k] - b.get(k, 0) for k in a} for a, b in zip(after, [{}] + after[:-1])]
     want = TRAIN_LAYERS * TRAIN_CHUNKS
     for step, c in enumerate(per_step):
-        check(c["fwd"] == want and c["bwd_dq_tc"] == want and c["bwd_dkv_tc"] == want
-              and c["bwd_dq"] == c["bwd_dkv"] == c["merge"] == 0,
-              f"step {step} launched {c}; expected {want} forward and {want} tensor-core dq and "
-              f"dk/dv launches, and no CUDA-core backward or merge launch")
+        check(c["fwd_tc"] == want and c["bwd_dq_tc"] == want and c["bwd_dkv_tc"] == want
+              and c["fwd"] == c["bwd_dq"] == c["bwd_dkv"] == c["merge"] == 0
+              and c["merged_in_kernel"] == 0,
+              f"step {step} launched {c}; expected {want} launches each of the tensor-core "
+              f"forward, dq and dk/dv kernels, no split, and no CUDA-core launch")
     losses = [r["loss"] for r in hist]
     check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
     tokens = TRAIN_SEQ
@@ -867,14 +957,18 @@ def train_cpu_check(fa, serve, runner, cfg, card):
         return {"loss": None, "wq": layer["wq"], "wk": layer["wk"], "wv": layer["wv"],
                 "head": g["globals"]["head"]["w"]}
 
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = sum(fa._geometry(1, ln, off + ln, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads,
+                              n_sm)[2] > 1
+                 for off, ln in zip(cell.sched.offsets, cell.sched.lengths))
     fa.reset_counts()
     loss, grads = runner.loss_and_grads(cell, params, tokens.cuda(), labels.cuda())
     on_card = {k: (loss if v is None else v).cpu() for k, v in pick(grads).items()}
     launched = fa.counts()
-    check(launched["fwd"] == launched["bwd_dq"] == launched["bwd_dkv"] == 4
-          and launched["bwd_dq_tc"] == launched["bwd_dkv_tc"] == 0,
-          f"the card's fp32 step launched {launched}, expected 4 of the forward and of the "
-          f"CUDA-core dq and dk/dv kernels, and no tensor-core one")
+    want = {"fwd": 4, "merge": 2 * splits, "bwd_dq": 4, "bwd_dkv": 4}
+    check(launched == {**{key: 0 for key in launched}, **want},
+          f"the card's fp32 step launched {launched}, expected {want} (the CUDA-core forward "
+          f"with its merge kernel and backward pair) and no tensor-core launch")
     del grads
     params_cpu = tree_map(lambda t: t.cpu(), params)
     del params
@@ -931,8 +1025,9 @@ def main():
     # ---- phase 2: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     grid_err, n_grid = edge_grid(fa, ref, gen)
-    print(f"edge grid: {n_grid} cases (fp32 and bf16) within {KERNEL_TOL} "
-          f"(max err {grid_err:.3e}), dead rows exact")
+    print(f"forward edge grid: {n_grid} cases (fp32 on the CUDA cores, bf16 on the tensor cores "
+          f"and on the CUDA cores) within {KERNEL_TOL} (worst {json.dumps(grid_err)}), dead "
+          f"rows exact")
     prefill_in, decode_in = serving_shapes(gen)
     rows = [measure_shape("prefill chunk", fa, ref, *prefill_in),
             measure_shape("decode step", fa, ref, *decode_in)]
@@ -945,7 +1040,7 @@ def main():
     cfg = get_config("qwen2-7b")
     train_cell, bwd_in = train_chunk_shapes(gen, runner, cfg)
     measured = [measure_bwd_shape(name, fa, ref, *args) for name, args in bwd_in.items()]
-    rows += [fwd_row for fwd_row, _ in measured]
+    rows += [fwd_rows for fwd_rows, _ in measured]
     bwd_rows = [bwd for _, bwd in measured]
     del bwd_in, measured
     torch.cuda.empty_cache()
@@ -956,19 +1051,19 @@ def main():
                       "--batch", str(BATCH), "--decode-steps", str(DECODE_STEPS),
                       "--repeats", str(REPEATS)])
     serve_counts = fa.counts()
-    launches, merges = serve_counts["fwd"], serve_counts["merge"]
+    launches, merged = serve_counts["fwd_tc"], serve_counts["merged_in_kernel"]
     n_chunks = out["n_chunks"]
     expected = REPEATS * cfg.n_layers * (n_chunks + DECODE_STEPS)
     print(f"serve path: {cfg.name} {cfg.n_layers} layers, {REPEATS} runs of prefill "
-          f"{n_chunks} chunks + {DECODE_STEPS} decode steps: kernel calls {launches} "
-          f"(expected {expected}), merge launches {merges} (one per decode call), "
-          f"{launches + merges} device launches in all")
+          f"{n_chunks} chunks + {DECODE_STEPS} decode steps: tensor-core forward launches "
+          f"{launches} (expected {expected}), of which {merged} merged their KV splits in the "
+          f"launch (one per decode call); all launches {serve_counts}")
     check(n_chunks == 16, f"prefill ran {n_chunks} chunks, expected 16")
-    check(launches == expected, f"kernel called {launches} times, expected {expected}")
-    check(merges == REPEATS * cfg.n_layers * DECODE_STEPS,
-          f"merge launched {merges} times, expected one per decode call")
-    check(all(serve_counts[k] == 0 for k in ("bwd_dq", "bwd_dkv", "bwd_dq_tc", "bwd_dkv_tc")),
-          f"serving launched backward kernels: {serve_counts}")
+    check(launches == expected, f"tensor-core forward launched {launches} times, expected {expected}")
+    check(merged == REPEATS * cfg.n_layers * DECODE_STEPS,
+          f"{merged} launches merged their splits, expected one per decode call")
+    check(all(serve_counts[k] == 0 for k in serve_counts if k not in ("fwd_tc", "merged_in_kernel")),
+          f"serving launched other kernels than the tensor-core forward: {serve_counts}")
     toks, hidden = out["tokens"], out["last_hidden"]
     check(toks.shape == (BATCH, DECODE_STEPS), f"tokens shape {toks.shape}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token ids out of range")
@@ -994,30 +1089,44 @@ def main():
     torch.cuda.empty_cache()
     train_rel, fp32_counts = train_cpu_check(fa, serve, runner, cfg, card)
 
-    main_row, decode_row = rows[0], rows[1]
+    tc_rows = [r["tensor_cores"] for r in rows]
+    cc_rows = [r["cuda_cores"] for r in rows]
+    decode_cc = rows[1]["cuda_cores"]
     common = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"serve": serve_counts, "train": train_counts, "train_fp32": fp32_counts}
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
 
+    # launches: on the paths that run each kernel (bf16 serving and training
+    # for the tensor cores, the fp32 training check for the CUDA cores); the
+    # row's times are the serving prefill chunk's (the decode step's for the
+    # merge), every shape's in "shapes"
     kernels = [
+        {"name": "flash_attention_partial_tc", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_partial_tc.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:260",
+         "launches": serve_counts["fwd_tc"] + train_counts["fwd_tc"],
+         "launches_by_path": by_path("fwd_tc"),
+         "merged_in_kernel_by_path": by_path("merged_in_kernel"),
+         **{key: tc_rows[0][key] for key in common},
+         "edge_grid_max_abs_err": grid_err["tensor_cores"], "shapes": tc_rows},
         {"name": "flash_attention_partial", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_partial.cu",
          "replaces": "src/repro/kernels/flash_attention.py:260",
-         "launches": launches + train_counts["fwd"], "launches_by_path": by_path("fwd"),
-         **{key: main_row[key] for key in common},
-         "edge_grid_max_abs_err": grid_err, "fp32_check_shapes_max_abs_err": fp32_fwd_err,
-         "shapes": rows},
-        # the forward's split-KV merge (decode), launched by the same wrapper
-        # call; its output is what the decode shape's check holds
+         "launches": fp32_counts["fwd"], "launches_by_path": by_path("fwd"),
+         **{key: cc_rows[0][key] for key in common},
+         "edge_grid_max_abs_err": grid_err["cuda_cores"],
+         "fp32_check_shapes_max_abs_err": fp32_fwd_err, "shapes": cc_rows},
+        # the CUDA-core forward's split-KV merge (decode), launched by the
+        # same wrapper call; its output is what the decode shape's check holds
         {"name": "flash_attention_partial_merge", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_partial.cu",
          "replaces": "src/repro/kernels/flash_attention.py:260",
-         "launches": merges + train_counts["merge"], "launches_by_path": by_path("merge"),
-         "max_abs_err": decode_row["max_abs_err"],
-         **{key: decode_row["merge"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None, "shapes": [decode_row["merge"]]},
+         "launches": fp32_counts["merge"], "launches_by_path": by_path("merge"),
+         "max_abs_err": decode_cc["max_abs_err"],
+         **{key: decode_cc["merge"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "shapes": [decode_cc["merge"]]},
     ]
     # launches: on the path that runs each pair (bf16 training for the
     # tensor cores, the fp32 training check for the CUDA cores)

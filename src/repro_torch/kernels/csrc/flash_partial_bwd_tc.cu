@@ -67,20 +67,10 @@
 // (kernels/flash_attention.py does this at first use).  Plain C interface,
 // called through ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "tc_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kMaxHd = 128;        // largest hd_k and hd_v
-constexpr int kSteps = kMaxHd / 16;  // 16-column steps of a full head dim
-constexpr int kLd = kMaxHd + 8;    // bf16 row stride of every shared tile (272 bytes)
-constexpr int kBlockK = 64;        // KV slots per tile
-constexpr int kTerms = 3;          // bf16 terms of a split fp32 operand
 constexpr int kDqWarps = 8;
 constexpr int kDqRows = 16 * kDqWarps;  // query rows of a dq block
 constexpr int kDqThreads = 32 * kDqWarps;
@@ -93,9 +83,6 @@ constexpr int kKvGroupThreads = 32 * kKvWarps;
 constexpr int kKvThreads = kKvGroups * kKvGroupThreads;
 constexpr int kKvWarpsAll = kKvGroups * kKvWarps;
 constexpr int kKvBufTile = (1 + kTerms) * kKvRows * kLd;  // one buffer's Q and dO tiles (bf16)
-constexpr int kWindow = 1024;      // tiles whose visibility one pass decides (a bit mask)
-constexpr float kNegInf = -1e30f;
-constexpr int kPadPos = 1 << 30;
 
 struct Params {
   const bf16* q;
@@ -120,113 +107,6 @@ struct Params {
   float scale;
   int causal;
 };
-
-// ---- PTX: cp.async, ldmatrix, mma.sync
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; `valid` false zero-fills (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a . b for one m16n8k16 tile: bf16 operands, fp32 accumulator.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment addressing (lane = thread in warp).  A fragment of rows m0.. and
-// columns k0.. of a row-major [M][K] tile: ldsm_x4 at row m0 + a_row,
-// column k0 + a_col.  The B fragments of two n-tiles (n0, n0 + 8) over
-// k0..k0 + 15: from an [N][K] tile by ldsm_x4 at row n0 + b_row, column
-// k0 + b_col (registers {0, 1} and {2, 3}); from a [K][N] tile by ldsm_x4_t
-// at row k0 + t_row, column n0 + t_col.
-struct Lanes {
-  int a_row, a_col, b_row, b_col, t_row, t_col;
-  __device__ __forceinline__ explicit Lanes(int lane)
-      : a_row(lane & 15),
-        a_col((lane >> 4) * 8),
-        b_row((lane & 7) + (lane >> 4) * 8),
-        b_col(((lane >> 3) & 1) * 8),
-        t_row((lane & 7) + ((lane >> 3) & 1) * 8),
-        t_col((lane >> 4) * 8) {}
-};
-
-// ---- the split
-
-// Two adjacent fp32 values as kTerms bf16x2 words, largest term first; each
-// difference is exact in fp32, so the terms sum to x within 2^-24 |x|.
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t (&t)[kTerms]) {
-#pragma unroll
-  for (int i = 0; i < kTerms; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    t[i] = *reinterpret_cast<const uint32_t*>(&h);
-    const float2 f = __bfloat1622float2(h);
-    x0 -= f.x;
-    x1 -= f.y;
-  }
-}
-
-// The split A fragments of one 16-column k-step whose columns 0-7 are the
-// accumulator tile c0 and 8-15 the tile c1 (same rows).
-__device__ __forceinline__ void acc_to_a(const float (&c0)[4], const float (&c1)[4], uint32_t (&a)[kTerms][4]) {
-  uint32_t t[4][kTerms];
-  split_pair(c0[0], c0[1], t[0]);
-  split_pair(c0[2], c0[3], t[1]);
-  split_pair(c1[0], c1[1], t[2]);
-  split_pair(c1[2], c1[3], t[3]);
-#pragma unroll
-  for (int i = 0; i < kTerms; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[i][r] = t[r][i];
-}
-
-// ---- tiles and masks
-
-// cp.async of a [kRows][hd] bf16 tile into shared memory ([kRows][kLd]): row r
-// from row_ptr(r) (nullptr: absent), 16-byte chunks over hd padded to a
-// multiple of 16 columns; absent rows and the padding are zero-filled.
-template <int kRows, int kThreads, typename RowPtr>
-__device__ __forceinline__ void load_tile_async(bf16* dst, int hd, const bf16* any, RowPtr row_ptr, int tid) {
-  const int chunks = 2 * ((hd + 15) / 16), valid = hd / 8;
-  for (int e = tid; e < kRows * chunks; e += kThreads) {
-    const int r = e / chunks, c = e % chunks;
-    const bf16* src = row_ptr(r);
-    const bool ok = src != nullptr && c < valid;
-    cp_async16(dst + r * kLd + c * 8, ok ? src + c * 8 : any, ok);
-  }
-}
-
-__device__ __forceinline__ bool visible(int kp, int qp, int qs, int causal) {
-  return kp != kPadPos && (!causal || qp >= kp) && kp >= qs;
-}
 
 // Per-row state of the dq kernel's query tile: positions, the saved max and
 // dl (zero on dead rows, m = -1e30), also written to row_rec for the dk/dv
@@ -259,28 +139,10 @@ __device__ __forceinline__ void group_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kKvGroupThreads) : "memory");
 }
 
-__device__ __forceinline__ void add_to(float (&acc)[4], const float (&t)[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) acc[j] += t[j];
-}
-
 // ---- dq
 
 constexpr size_t kDqSmem = sizeof(bf16) * size_t(kLd) * (kDqRows + kTerms * kDqRows + kStages * 2 * kBlockK) +
                            sizeof(int) * (kStages * kBlockK + 6 * kDqRows) + sizeof(uint32_t) * (kWindow / 32);
-
-// Whether some row of the dq tile sees a slot at position kp, from the rows
-// ordered by q_start (`qs_sorted`) and the running max of their q_pos
-// (`qp_max`): some row whose window starts at or before kp must reach it.
-__device__ __forceinline__ bool slot_seen(const int* qs_sorted, const int* qp_max, int kp, int causal) {
-  if (kp == kPadPos) return false;
-  int n = 0;  // rows with q_start <= kp
-#pragma unroll
-  for (int step = kDqRows / 2; step >= 1; step >>= 1)
-    if (qs_sorted[n + step - 1] <= kp) n += step;
-  n += qs_sorted[n] <= kp;
-  return n > 0 && (!causal || qp_max[n - 1] >= kp);
-}
 
 // kFull: hd_k = hd_v = 128, so every head-dim loop has compile-time bounds
 // and no branch (the main path); otherwise the steps past hd are skipped.
@@ -313,19 +175,7 @@ __global__ void __launch_bounds__(kDqThreads, 1) flash_bwd_dq_tc_kernel(const Pa
   const long long fold0 = (static_cast<long long>(b) * p.Hkv + kvh) * p.Tq * G + q0 * G;  // row 0's fold row
   load_row_state(p, b, kvh, G, q0, nrows, fold0, row_qpos, row_qstart, row_m, row_dl, tid);
   __syncthreads();
-  if (tid < kDqRows) {  // the rows ordered by q_start (ties by index), with the running max of q_pos
-    const int qs = row_qstart[tid];
-    int rank = 0, best = row_qpos[tid];
-    for (int j = 0; j < kDqRows; ++j) {
-      const int qs2 = row_qstart[j];
-      if (qs2 < qs || (qs2 == qs && j < tid)) {
-        ++rank;
-        best = max(best, row_qpos[j]);
-      }
-    }
-    qs_sorted[rank] = qs;
-    qp_max[rank] = best;
-  }
+  sort_rows<kDqRows>(row_qpos, row_qstart, qs_sorted, qp_max, tid);  // for slot_seen
 
   const bf16* kbase = p.k + b * p.k_sb + kvh * p.k_sh;
   const bf16* vbase = p.v + b * p.v_sb + kvh * p.v_sh;
@@ -408,7 +258,7 @@ __global__ void __launch_bounds__(kDqThreads, 1) flash_bwd_dq_tc_kernel(const Pa
       bool seen = false;
       if (t < n_w) {
         const int kv0 = (w0 + t) * kBlockK, n = min(kBlockK, p.S - kv0);
-        for (int j = 0; j < n && !seen; ++j) seen = slot_seen(qs_sorted, qp_max, p.kv_pos[kv0 + j], p.causal);
+        for (int j = 0; j < n && !seen; ++j) seen = slot_seen<kDqRows>(qs_sorted, qp_max, p.kv_pos[kv0 + j], p.causal);
       }
       const uint32_t bits = __ballot_sync(0xffffffffu, seen);
       if (lane == 0) mask[word] = bits;

@@ -1,30 +1,40 @@
 """Hopper kernels for the partial flash attention, bound through ctypes.
 
-Three CUDA sources replace the three Pallas TPU kernels of
+Four CUDA sources replace the three Pallas TPU kernels of
 ``repro/kernels/flash_attention.py``:
 
-- ``csrc/flash_partial.cu``: the forward ``_flash_partial_kernel`` /
-  ``_fwd_impl``, returning the un-normalized ``(o, m, l)`` triple of
-  ``kernels/ref.py::attention_partial_ref``, its plain version;
+- ``csrc/flash_partial_tc.cu``: the forward ``_flash_partial_kernel`` /
+  ``_fwd_impl`` on the tensor cores, for bf16 inputs, returning the
+  un-normalized ``(o, m, l)`` triple of ``kernels/ref.py::attention_partial_ref``,
+  its plain version; p is split into three bf16 terms, and a decode call
+  whose KV range is split merges the partials inside the same launch;
+- ``csrc/flash_partial.cu``: the same forward in fp32 on the CUDA cores, for
+  fp32 inputs, with a second kernel that merges a split KV range;
 - ``csrc/flash_partial_bwd_tc.cu``: the backward ``_flash_bwd_dq_kernel``
   and ``_flash_bwd_dkv_kernel`` (``_bwd_impl``) on the tensor cores, for
   bf16 inputs, with every fp32 operand split into three bf16 terms;
 - ``csrc/flash_partial_bwd.cu``: the same two kernels in fp32 on the CUDA
   cores, for fp32 inputs.
 
-Both backward pairs have the plain version
+``csrc/tc_common.cuh`` holds what the tensor-core sources share (fragment
+layout, the split, the visible-tile decision).  Both forwards are held to
+their plain version at 1e-5; both backward pairs have the plain version
 ``kernels/ref.py::attention_partial_bwd_ref`` and are held to it at 1e-5 x
-max |plain gradient|.  ``flash_attention_partial_bwd`` picks the pair by
-dtype and raises on what a pair does not take.
+max |plain gradient|.  ``flash_attention_partial`` and
+``flash_attention_partial_bwd`` pick their kernels by dtype (bf16: tensor
+cores, fp32: CUDA cores) and raise on what a kernel does not take; their
+``kernels=`` argument, for measurement only, runs the CUDA-core kernels on
+bf16 inputs.
 
 ``FlashPartial`` ties them together as the counterpart of the reference's
 ``custom_vjp`` (``_flash_partial`` / ``_fwd`` / ``_bwd``).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/`` beside this file (one shared library per source content, with the
-``-Xptxas -v`` report kept next to it; sources not yet built are compiled in
-parallel) and loaded with ``ctypes``.  Nothing is compiled or loaded at
-import, so the module imports on a machine without CUDA.
+``build/`` beside this file (one shared library per content of the source
+and the headers, with the ``-Xptxas -v`` report kept next to it; sources not
+yet built are compiled in parallel) and loaded with ``ctypes``.  Nothing is
+compiled or loaded at import, so the module imports on a machine without
+CUDA.
 """
 from __future__ import annotations
 
@@ -40,36 +50,42 @@ import torch
 from repro_torch.kernels import ref as _ref
 
 _CSRC = Path(__file__).parent / "csrc"
-SOURCES = {"fwd": _CSRC / "flash_partial.cu", "bwd": _CSRC / "flash_partial_bwd.cu",
-           "bwd_tc": _CSRC / "flash_partial_bwd_tc.cu"}
+SOURCES = {"fwd": _CSRC / "flash_partial.cu", "fwd_tc": _CSRC / "flash_partial_tc.cu",
+           "bwd": _CSRC / "flash_partial_bwd.cu", "bwd_tc": _CSRC / "flash_partial_bwd_tc.cu"}
 _BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches of each kernel, counted by the wrappers where they launch it:
-# ``launches`` the forward (one per flash_attention_partial call),
-# ``merge_launches`` its split-KV merge, ``bwd_dq_launches`` and
-# ``bwd_dkv_launches`` the two fp32 CUDA-core backward kernels,
-# ``bwd_dq_tc_launches`` and ``bwd_dkv_tc_launches`` the two tensor-core ones.
+# ``launches`` the CUDA-core forward, ``merge_launches`` its split-KV merge
+# kernel, ``fwd_tc_launches`` the tensor-core forward (one per call) and
+# ``merged_in_kernel`` its calls that split the KV range and merged the
+# partials in the same launch, ``bwd_dq_launches`` and ``bwd_dkv_launches``
+# the two fp32 CUDA-core backward kernels, ``bwd_dq_tc_launches`` and
+# ``bwd_dkv_tc_launches`` the two tensor-core ones.
 launches = 0
 merge_launches = 0
+fwd_tc_launches = 0
+merged_in_kernel = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
 bwd_dq_tc_launches = 0
 bwd_dkv_tc_launches = 0
 
 _libs = {}
+_tickets = {}  # device -> the tensor-core forward's split counters
 
 
 def reset_counts():
-    global launches, merge_launches, bwd_dq_launches, bwd_dkv_launches
-    global bwd_dq_tc_launches, bwd_dkv_tc_launches
-    launches = merge_launches = bwd_dq_launches = bwd_dkv_launches = 0
-    bwd_dq_tc_launches = bwd_dkv_tc_launches = 0
+    global launches, merge_launches, fwd_tc_launches, merged_in_kernel
+    global bwd_dq_launches, bwd_dkv_launches, bwd_dq_tc_launches, bwd_dkv_tc_launches
+    launches = merge_launches = fwd_tc_launches = merged_in_kernel = 0
+    bwd_dq_launches = bwd_dkv_launches = bwd_dq_tc_launches = bwd_dkv_tc_launches = 0
 
 
 def counts() -> dict:
-    return {"fwd": launches, "merge": merge_launches, "bwd_dq": bwd_dq_launches,
+    return {"fwd": launches, "merge": merge_launches, "fwd_tc": fwd_tc_launches,
+            "merged_in_kernel": merged_in_kernel, "bwd_dq": bwd_dq_launches,
             "bwd_dkv": bwd_dkv_launches, "bwd_dq_tc": bwd_dq_tc_launches,
             "bwd_dkv_tc": bwd_dkv_tc_launches}
 
@@ -83,7 +99,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library built from ``src``, named by the content of the source,
+    of the headers beside it and of the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return _BUILD_DIR / f"lib{src.stem}_{tag}.so"
 
 
@@ -120,10 +139,10 @@ def _bind(name: str, path) -> ctypes.CDLL:
     declare its entry point's C signature."""
     lib = ctypes.CDLL(str(path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    head, n_ptr, n_int = {"fwd": ([i32], 12, 13), "bwd": ([i32, i32], 12, 11),
-                          "bwd_tc": ([i32], 15, 10)}[name]
-    fn = getattr(lib, {"fwd": "flash_partial_fwd", "bwd": "flash_partial_bwd",
-                       "bwd_tc": "flash_partial_bwd_tc"}[name])
+    head, n_ptr, n_int = {"fwd": ([i32], 12, 13), "fwd_tc": ([], 13, 13),
+                          "bwd": ([i32, i32], 12, 11), "bwd_tc": ([i32], 15, 10)}[name]
+    fn = getattr(lib, {"fwd": "flash_partial_fwd", "fwd_tc": "flash_partial_fwd_tc",
+                       "bwd": "flash_partial_bwd", "bwd_tc": "flash_partial_bwd_tc"}[name])
     fn.argtypes = head + [ptr] * n_ptr + [i32] * n_int + [i64] * 9 + [ctypes.c_float, i32, ptr]
     fn.restype = i32
     return lib
@@ -137,12 +156,13 @@ def _load(name: str):
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HD = 128        # largest hd_k / hd_v the kernel takes (csrc kMaxHd)
-MAX_ROWS = 64       # query rows per block: G heads x bq tokens (16 x 4 row groups)
-MAX_SPLITS = 32     # KV splits the merge takes (csrc kMaxSplits)
+MAX_ROWS = 64       # query rows per CUDA-core forward block: G heads x bq tokens (16 x 4 row groups)
+MAX_SPLITS = 32     # KV splits the merges take (csrc kMaxSplits)
 BLOCK_K = 64        # KV slots per tile (csrc kBlockK)
 TC_DQ_ROWS = 128    # query rows of a tensor-core dq block (csrc kDqRows)
+TC_FWD_WARPS = 8    # most warps of a tensor-core forward block, 16 query rows each (csrc kMaxWarps)
 SPLIT_TERMS = 3     # bf16 terms of a split fp32 operand (csrc kTerms)
-BWD_KERNELS = ("tensor_cores", "cuda_cores")
+KERNELS = ("tensor_cores", "cuda_cores")
 
 
 def _rows(Tq: int, G: int):
@@ -154,8 +174,17 @@ def _rows(Tq: int, G: int):
     return row_groups, min(Tq, 16 * row_groups // G)
 
 
+def _splits(blocks: int, n_tiles: int, n_sm: int):
+    """(nsplit, tiles_per_split): about two blocks per SM by splitting the KV
+    range of ``blocks`` blocks (flash-decoding), no split empty."""
+    want = min(MAX_SPLITS, n_tiles, -(-2 * n_sm // blocks))
+    per_split = -(-n_tiles // want)
+    return -(-n_tiles // per_split), per_split
+
+
 def _geometry(B: int, Tq: int, S: int, G: int, Hkv: int, n_sm: int):
-    """Forward launch geometry: (row_groups, bq, nsplit, tiles_per_split).
+    """CUDA-core forward launch geometry: (row_groups, bq, nsplit,
+    tiles_per_split).
 
     Query tiles as ``_rows``.  When
     (query tiles x KV heads x batch) blocks would leave the card's SMs idle,
@@ -165,16 +194,69 @@ def _geometry(B: int, Tq: int, S: int, G: int, Hkv: int, n_sm: int):
     row_groups, bq = _rows(Tq, G)
     blocks = -(-Tq // bq) * Hkv * B
     n_tiles = max(1, -(-S // BLOCK_K))
-    per_split = n_tiles
     if blocks < n_sm:
-        want = min(MAX_SPLITS, n_tiles, -(-2 * n_sm // blocks))
-        per_split = -(-n_tiles // want)
-    return row_groups, bq, -(-n_tiles // per_split), per_split
+        return (row_groups, bq, *_splits(blocks, n_tiles, n_sm))
+    return row_groups, bq, 1, n_tiles
+
+
+def _tc_geometry(B: int, Tq: int, S: int, G: int, Hkv: int, n_sm: int):
+    """Tensor-core forward launch geometry: (warps, bq, nsplit,
+    tiles_per_split).
+
+    A block holds 16 query rows a warp, the fewest of 1, 2, 4 or 8 warps
+    that fit G x Tq (decode: one warp for G = 7); its bq tokens are the same
+    for every query tile (Tq = 128, G = 7: 8 tiles of 16, not 7 of 18 and
+    one of 2).  A block of 8 warps fills an SM, so the KV range is split
+    only where the blocks would leave more than half the SMs idle (decode:
+    16 blocks); prefill and training chunks run unsplit.
+    """
+    rows = G * Tq
+    warps = next(w for w in (1, 2, 4, TC_FWD_WARPS) if rows <= 16 * w or w == TC_FWD_WARPS)
+    n_qt = -(-Tq // min(Tq, 16 * warps // G))
+    bq = -(-Tq // n_qt)
+    blocks = n_qt * Hkv * B
+    n_tiles = max(1, -(-S // BLOCK_K))
+    if 2 * blocks <= n_sm:
+        return (warps, bq, *_splits(blocks, n_tiles, n_sm))
+    return warps, bq, 1, n_tiles
+
+
+def _ticket_groups(B: int, Tq: int, Hkv: int, bq: int) -> int:
+    """Split counters a tensor-core forward call needs: one per (query
+    tile, KV head, batch row) group."""
+    return -(-Tq // bq) * Hkv * B
+
+
+def _ticket_buffer(dev, n: int):
+    """The tensor-core forward's split counters on ``dev``: int32 zeros,
+    allocated once and grown when a call needs more.  Each call leaves them
+    zero, so calls share them safely only in order: on one stream, as every
+    path of the port issues its calls."""
+    buf = _tickets.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+        _tickets[dev] = buf
+    return buf
+
+
+def _pick_kernels(kernels, dtype, what: str) -> str:
+    """The kernels a call runs: ``kernels`` if given (``"tensor_cores"``,
+    bf16 only, or ``"cuda_cores"``), else the tensor cores for bf16 and the
+    CUDA cores for fp32."""
+    if kernels is None:
+        return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+    if kernels not in KERNELS:
+        raise ValueError(f"kernels must be one of {KERNELS}, got {kernels!r}")
+    if kernels == "tensor_cores" and dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core {what} takes bfloat16 q, k and v, got "
+                        f"{dtype}; fp32 runs on the CUDA cores")
+    return kernels
 
 
 def _check_vec(name: str, t, hd: int):
-    """The kernels load K and V (the backward Q too) in 16-byte vectors: the base, the strides and
-    the head dim must be whole vectors."""
+    """The kernels load K and V (the tensor-core forward and the backward Q
+    too) in 16-byte vectors: the base, the strides and the head dim must be
+    whole vectors."""
     epv = 16 // t.element_size()
     if t.data_ptr() % 16 or hd % epv or any(st % epv for st in t.stride()[:3]):
         raise ValueError(
@@ -233,46 +315,65 @@ def _check_inputs(q, k, v, q_pos, kv_pos, q_start, fn: str):
 
 
 def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
-                            scale=None, q_start=None):
+                            scale=None, q_start=None, kernels=None):
     """Partial flash attention on the card.
 
     q: [B, Tq, H, hd_k]; k: [B, S, Hkv, hd_k]; v: [B, S, Hkv, hd_v], all
     float32 or all bfloat16 on one CUDA device, last dim contiguous (other
     strides are free: K and V may be views of a larger cache, 16-byte
-    aligned, with head dims and strides of whole 16-byte vectors);
+    aligned, with head dims and strides of whole 16-byte vectors; on the
+    tensor cores q too);
     q_pos and q_start: [Tq] or [B, Tq] int; kv_pos: [S] int (2**30 = empty).
+    ``kernels`` picks the kernel: ``"tensor_cores"`` (csrc/flash_partial_tc.cu,
+    bf16 only) or ``"cuda_cores"`` (csrc/flash_partial.cu and its merge
+    kernel, fp32 and bf16); None, the default and the only choice of the
+    model's paths, takes the tensor cores for bf16 and the CUDA cores for fp32.
     Returns (o [B,Tq,H,hd_v] f32 un-normalized, m [B,Tq,H] f32, l [B,Tq,H] f32).
     """
-    global launches, merge_launches
+    global launches, merge_launches, fwd_tc_launches, merged_in_kernel
     dims, kv_pos, (q_pos, qpos_sb), (q_start, qstart_sb) = _check_inputs(
         q, k, v, q_pos, kv_pos, q_start, "flash_attention_partial")
     B, Tq, S, H, Hkv, hdk, hdv = dims
     dev, G = q.device, H // Hkv
+    kernels = _pick_kernels(kernels, q.dtype, "forward")
+    if kernels == "tensor_cores":
+        _check_vec("q", q, hdk)
     if scale is None:
         scale = 1.0 / (hdk ** 0.5)
 
-    lib = _load("fwd")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    row_groups, bq, nsplit, per_split = _geometry(B, Tq, S, G, Hkv, n_sm)
+    geometry = (_tc_geometry if kernels == "tensor_cores" else _geometry)(B, Tq, S, G, Hkv, n_sm)
+    nsplit = geometry[2]
 
     def out(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     o, m, l = out(B, Tq, H, hdv), out(B, Tq, H), out(B, Tq, H)
-    parts = ((out(nsplit, B, Tq, H, hdv), out(nsplit, B, Tq, H),
-              out(nsplit, B, Tq, H)) if nsplit > 1 else ())
-    with torch.cuda.device(dev):
-        rc = lib.flash_partial_fwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            q_pos.data_ptr(), kv_pos.data_ptr(),
+    # the splits' partials: scratch that lives until the launch is queued
+    parts = ((out(nsplit, B, Tq, H, hdv), out(nsplit, B, Tq, H), out(nsplit, B, Tq, H))
+             if nsplit > 1 else ())
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
             None if q_start is None else q_start.data_ptr(),
             o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            *([t.data_ptr() for t in parts] or [None] * 3),
-            B, Tq, S, H, Hkv, hdk, hdv, row_groups, bq, nsplit, per_split,
-            qpos_sb, qstart_sb,
+            *([t.data_ptr() for t in parts] or [None] * 3))
+    tail = (B, Tq, S, H, Hkv, hdk, hdv, *geometry, qpos_sb, qstart_sb,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), int(bool(causal)),
-            torch.cuda.current_stream(dev).cuda_stream)
+            float(scale), int(bool(causal)), torch.cuda.current_stream(dev).cuda_stream)
+    if kernels == "tensor_cores":
+        lib = _load("fwd_tc")
+        tickets = (_ticket_buffer(dev, _ticket_groups(B, Tq, Hkv, geometry[1])).data_ptr()
+                   if nsplit > 1 else None)
+        with torch.cuda.device(dev):
+            rc = lib.flash_partial_fwd_tc(*head, tickets, *tail)
+        if rc != 0:
+            raise RuntimeError(f"flash_partial_fwd_tc launch failed: CUDA error {rc}")
+        fwd_tc_launches += 1
+        merged_in_kernel += int(nsplit > 1)
+        return o, m, l
+
+    lib = _load("fwd")
+    with torch.cuda.device(dev):
+        rc = lib.flash_partial_fwd(_DTYPES[q.dtype], *head, *tail)
     if rc != 0:
         raise RuntimeError(f"flash_partial_fwd launch failed: CUDA error {rc}")
     launches += 1
@@ -303,13 +404,7 @@ def flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl, *,
         q, k, v, q_pos, kv_pos, q_start, "flash_attention_partial_bwd")
     B, Tq, S, H, Hkv, hdk, hdv = dims
     dev, G = q.device, H // Hkv
-    if kernels is None:
-        kernels = "tensor_cores" if q.dtype == torch.bfloat16 else "cuda_cores"
-    if kernels not in BWD_KERNELS:
-        raise ValueError(f"kernels must be one of {BWD_KERNELS}, got {kernels!r}")
-    if kernels == "tensor_cores" and q.dtype != torch.bfloat16:
-        raise TypeError(f"the tensor-core backward takes bfloat16 q, k and v, got "
-                        f"{q.dtype}; fp32 runs on the CUDA cores")
+    kernels = _pick_kernels(kernels, q.dtype, "backward")
     if S == 0:
         raise ValueError("the backward needs S >= 1 KV slots")
     _check_vec("q", q, hdk)

@@ -1,6 +1,6 @@
-"""The Hopper attention kernels (forward, and the dq and dk/dv backward on
-the tensor cores for bf16 and on the CUDA cores for fp32) against their plain
-PyTorch versions, on the card.
+"""The Hopper attention kernels (the forward and the dq and dk/dv backward,
+each on the tensor cores for bf16 and on the CUDA cores for fp32) against
+their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips without
 one.  The file imports no JAX, since the machine with the card has none, and
@@ -10,8 +10,11 @@ the repo's conftest imports JAX, so on that machine run it as
 
 The kernel and its plain version both compute in fp32 from the same inputs,
 bf16 ones upcast exactly, so they differ only in the order of fp32 sums:
-both dtypes are held to 1e-5.  The tensor-core backward splits each fp32
-operand into three bf16 terms (24 bits), and is held to the same 1e-5.
+both dtypes are held to 1e-5.  The tensor-core kernels split each fp32
+operand (the forward's p, the backward's dO, p and dS) into three bf16 terms
+(24 bits), and are held to the same 1e-5.  bf16 inputs run both kernels of a
+kind: the tensor cores (the dtype's default) and the CUDA cores (which fp32
+inputs take).
 """
 import numpy as np
 import pytest
@@ -35,14 +38,34 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _check_kernel(arrays, dtype, q_pos, kv_pos, device, q_start=None, **kw):
+# the counters each forward kernel moves (its launch, a split's merge)
+FWD_COUNTERS = {"tensor_cores": ("fwd_tc", "merged_in_kernel"), "cuda_cores": ("fwd", "merge")}
+
+
+def _kernels(dtype):
+    """The kernels of a kind (forward, backward pair) that take this dtype."""
+    return ("tensor_cores", "cuda_cores") if dtype == "bfloat16" else ("cuda_cores",)
+
+
+def _launched(before):
+    return {k: n - before[k] for k, n in fa.counts().items() if n != before[k]}
+
+
+def _check_kernel(arrays, dtype, q_pos, kv_pos, device, q_start=None, kernels=None, **kw):
+    """One forward call against the plain version; ``kernels`` None goes
+    through ops.attention_partial (the model's dispatch)."""
     q, k, v = to_torch(arrays, dtype, device)
     qp = torch.from_numpy(q_pos).to(device)
     kp = torch.from_numpy(kv_pos).to(device)
     qs = None if q_start is None else torch.from_numpy(q_start).to(device)
-    n0 = fa.launches
-    got = ops.attention_partial(q, k, v, qp, kp, q_start=qs, **kw)
-    assert fa.launches == n0 + 1
+    before = fa.counts()
+    if kernels is None:
+        got = ops.attention_partial(q, k, v, qp, kp, q_start=qs, **kw)
+    else:
+        got = fa.flash_attention_partial(q, k, v, qp, kp, q_start=qs, kernels=kernels, **kw)
+    launch, merge = FWD_COUNTERS[kernels or _kernels(dtype)[0]]
+    moved = _launched(before)
+    assert moved[launch] == 1 and set(moved) <= {launch, merge}, moved
     want = ref.attention_partial_ref(q, k, v, qp, kp, q_start=qs, **kw)
     torch.cuda.synchronize()
     np.testing.assert_allclose(to_np(ref.normalize(got[0], got[2])),
@@ -51,50 +74,112 @@ def _check_kernel(arrays, dtype, q_pos, kv_pos, device, q_start=None, **kw):
     return got
 
 
+# every SWEEP shape in its own dtype with each forward that takes it, and in
+# bf16 on the tensor cores
+FWD_SWEEP = sorted({(*case[:9], dtype, kernels) for case in SWEEP
+                    for dtype in (case[9], "bfloat16") for kernels in _kernels(dtype)})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Tq,S,H,Hkv,hd,hv,causal,qoff,dtype", SWEEP)
+@pytest.mark.parametrize("B,Tq,S,H,Hkv,hd,hv,causal,qoff,dtype,kernels", FWD_SWEEP)
 def test_kernel_matches_plain(cuda_device, B, Tq, S, H, Hkv, hd, hv, causal,
-                              qoff, dtype):
+                              qoff, dtype, kernels):
     arrays, q_pos, kv_pos = sweep_case(B, Tq, S, H, Hkv, hd, hv, qoff)
-    _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device, causal=causal)
+    _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device, causal=causal, kernels=kernels)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Tq,S,H,Hkv,hd,hv,dtype", [
-    (2, 5, 77, 14, 2, 24, 8, "float32"),      # small head dims, hd_k != hd_v
-    (2, 3, 70, 14, 2, 40, 24, "bfloat16"),
-    (1, 1, 2000, 14, 2, 128, 128, "float32"),  # decode over 32 KV splits
-    (4, 1, 2176, 28, 4, 128, 128, "bfloat16"),  # the serve path's decode step
-])
-def test_kernel_load_paths_and_splits(cuda_device, B, Tq, S, H, Hkv, hd, hv, dtype):
+@pytest.mark.parametrize("B,Tq,S,H,Hkv,hd,hv,dtype,kernels", sorted({
+    (*case, dtype, kernels) for case in [
+        (2, 5, 77, 14, 2, 24, 8),        # small head dims, hd_k != hd_v
+        (2, 3, 70, 14, 2, 40, 24),
+        (1, 1, 2000, 14, 2, 128, 128),   # decode over 32 KV splits
+        (4, 1, 2176, 28, 4, 128, 128),   # the serve path's decode step
+    ] for dtype in ("float32", "bfloat16") for kernels in _kernels(dtype)}))
+def test_kernel_load_paths_and_splits(cuda_device, B, Tq, S, H, Hkv, hd, hv, dtype, kernels):
     arrays = inputs(B, Tq, S, H, Hkv, hd, hv, seed=11)
     q_pos = np.arange(Tq, dtype=np.int32) + S - Tq
     kv_pos = np.arange(S, dtype=np.int32)
-    _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device)
+    before = fa.counts()
+    _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels)
+    if Tq == 1:  # decode splits the KV range: merged in the launch, or by the merge kernel
+        assert _launched(before)[FWD_COUNTERS[kernels][1]] == 1
 
 
 @pytest.mark.cuda
-def test_kernel_window_and_dead_rows_exact(cuda_device):
+@pytest.mark.parametrize("hd,hv", [(8, 8), (16, 24), (24, 8), (32, 128), (128, 64)])
+def test_fwd_tensor_cores_head_dims(cuda_device, hd, hv):
+    """Head dims that are not whole 16-column steps are padded with zeros in
+    shared memory and their stores masked; hd_k != hd_v either way round."""
+    arrays = inputs(2, 21, 90, 14, 2, hd, hv, seed=hd + hv)
+    q_pos = np.arange(21, dtype=np.int32) + 69
+    _check_kernel(arrays, "bfloat16", q_pos, np.arange(90, dtype=np.int32), cuda_device,
+                  kernels="tensor_cores")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq,S,H,Hkv", [(1152, 66000, 8, 8),   # 1032 KV tiles of 64 slots, unsplit
+                                        (2100, 2200, 64, 1)])  # 1050 query tiles of 2 tokens
+def test_fwd_tensor_cores_past_one_visibility_window(cuda_device, Tq, S, H, Hkv):
+    """The tensor-core forward decides tile visibility 1024 KV tiles at a
+    time: an unsplit call over more than that takes two windows; more than
+    1024 query tiles are more blocks, launched longest first."""
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert fa._tc_geometry(1, Tq, S, H // Hkv, Hkv, n_sm)[2] == 1
+    arrays = inputs(1, Tq, S, H, Hkv, 16, 16, seed=Tq)
+    q_pos = np.arange(Tq, dtype=np.int32) + S - Tq
+    _check_kernel(arrays, "bfloat16", q_pos, np.arange(S, dtype=np.int32), cuda_device,
+                  kernels="tensor_cores")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernels", [(d, k) for d in ("float32", "bfloat16")
+                                           for k in _kernels(d)])
+def test_kernel_window_and_dead_rows_exact(cuda_device, dtype, kernels):
     arrays, q_pos, kv_pos, q_start = window_case()
-    o, m, l = _check_kernel(arrays, "float32", q_pos, kv_pos, cuda_device,
-                            q_start=q_start)
+    o, m, l = _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device,
+                            q_start=q_start, kernels=kernels)
     dead = torch.from_numpy(WINDOW_DEAD).to(cuda_device)
     assert (o[dead] == 0).all() and (l[dead] == 0).all()
     assert (m[dead] == -1e30).all()
 
 
 @pytest.mark.cuda
-def test_kernel_takes_strided_cache_view(cuda_device):
+@pytest.mark.parametrize("kernels", _kernels("bfloat16"))
+def test_split_decode_keeps_dead_rows_exact(cuda_device, kernels):
+    """Two decode-like tokens per batch row over the serve path's cache,
+    split over the KV range: batch row 0's second token and all of batch row
+    1 see nothing (q_start = PAD), so one split group holds live and dead
+    rows and another only dead ones; the merge keeps them exact."""
+    PAD = 2**30
+    B, Tq, S, H, Hkv, hd = 2, 2, 2176, 28, 4, 128
+    arrays = inputs(B, Tq, S, H, Hkv, hd, hd, seed=21)
+    q_pos = np.full((B, Tq), 2048, np.int32)
+    q_start = np.array([[0, PAD], [PAD, PAD]], np.int32)
+    kv_pos = np.where(np.arange(S) <= 2048, np.arange(S), PAD).astype(np.int32)
+    before = fa.counts()
+    o, m, l = _check_kernel(arrays, "bfloat16", q_pos, kv_pos, cuda_device,
+                            q_start=q_start, kernels=kernels)
+    assert _launched(before)[FWD_COUNTERS[kernels][1]] == 1
+    dead = torch.from_numpy(q_start == PAD).to(cuda_device)
+    assert (o[dead] == 0).all() and (l[dead] == 0).all() and (m[dead] == -1e30).all()
+    assert (l[~dead] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernels", _kernels("bfloat16"))
+def test_kernel_takes_strided_cache_view(cuda_device, kernels):
     """A prefix view of a cache buffer (batch stride = buffer length) needs
-    no copy: the kernel takes the strides."""
+    no copy: the kernel takes the strides; q is a head slice of the fused
+    q|k projection, as the training path passes it."""
     B, Tq, S_buf, S, H, Hkv, hd = 2, 24, 96, 70, 14, 2, 128
-    q, k_buf, v_buf = to_torch(inputs(B, Tq, S_buf, H, Hkv, hd, hd, seed=9),
+    q, k_buf, v_buf = to_torch(inputs(B, Tq, S_buf, H + Hkv, Hkv, hd, hd, seed=9),
                                "bfloat16", cuda_device)
-    k, v = k_buf[:, :S], v_buf[:, :S]
-    assert not k.is_contiguous()
+    q, k, v = q[:, :, :H], k_buf[:, :S], v_buf[:, :S]
+    assert not k.is_contiguous() and not q.is_contiguous()
     q_pos = torch.arange(Tq, dtype=torch.int32, device=cuda_device) + S - Tq
     kv_pos = torch.arange(S, dtype=torch.int32, device=cuda_device)
-    o1, m1, l1 = fa.flash_attention_partial(q, k, v, q_pos, kv_pos)
+    o1, m1, l1 = fa.flash_attention_partial(q, k, v, q_pos, kv_pos, kernels=kernels)
     o2, m2, l2 = ref.attention_partial_ref(q, k.contiguous(), v.contiguous(),
                                            q_pos, kv_pos)
     np.testing.assert_allclose(to_np(ref.normalize(o1, l1)),
@@ -118,6 +203,29 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         fa.flash_attention_partial(x, x, x, pos, pos)
 
 
+@pytest.mark.cuda
+def test_tensor_core_fwd_refuses_what_it_does_not_take(cuda_device):
+    """The tensor-core forward takes bf16 only: fp32 asked of it raises (fp32
+    runs on the CUDA cores), as do an unaligned q (the CUDA-core forward
+    takes one), more query heads per KV head than a block holds and an
+    unknown kernel; nothing is launched, and nothing falls back."""
+    pos = torch.arange(4, dtype=torch.int32, device=cuda_device)
+    q = torch.zeros(1, 4, 2, 32, device=cuda_device)
+    b = q.bfloat16()
+    before = fa.counts()
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention_partial(q, q, q, pos, pos, kernels="tensor_cores")
+    with pytest.raises(ValueError, match="kernels must be"):
+        fa.flash_attention_partial(b, b, b, pos, pos, kernels="wgmma")
+    with pytest.raises(ValueError, match="16-byte"):   # q's base off by one element
+        x = torch.zeros(1 + 4 * 2 * 32, device=cuda_device, dtype=torch.bfloat16)[1:].view(1, 4, 2, 32)
+        fa.flash_attention_partial(x, b, b, pos, pos)
+    with pytest.raises(ValueError, match="G <="):      # 72 heads on one KV head
+        w = torch.zeros(1, 4, 72, 32, device=cuda_device, dtype=torch.bfloat16)
+        fa.flash_attention_partial(w, b[:, :, :1], b[:, :, :1], pos, pos)
+    assert fa.counts() == before
+
+
 # ---------------------------------------------------------------------------
 # The backward kernels (dq, dk/dv) against attention_partial_bwd_ref.  Both
 # sides compute in fp32 from the same inputs; each gradient is held to
@@ -127,15 +235,6 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
 # ---------------------------------------------------------------------------
 
 PAIR_COUNTERS = {"tensor_cores": ("bwd_dq_tc", "bwd_dkv_tc"), "cuda_cores": ("bwd_dq", "bwd_dkv")}
-
-
-def _pairs(dtype):
-    """The backward pairs that take inputs of this dtype."""
-    return ("tensor_cores", "cuda_cores") if dtype == "bfloat16" else ("cuda_cores",)
-
-
-def _launched(before):
-    return {k: n - before[k] for k, n in fa.counts().items() if n != before[k]}
 
 
 def _check_bwd(arrays, dtype, q_pos, kv_pos, device, q_start=None, causal=True,
@@ -169,7 +268,7 @@ def _check_bwd(arrays, dtype, q_pos, kv_pos, device, q_start=None, causal=True,
 # every SWEEP shape in its own dtype with each pair that takes it, and in
 # bf16 on the tensor cores
 BWD_SWEEP = sorted({(*case[:9], dtype, pair) for case in SWEEP
-                    for dtype in (case[9], "bfloat16") for pair in _pairs(dtype)})
+                    for dtype in (case[9], "bfloat16") for pair in _kernels(dtype)})
 
 
 @pytest.mark.cuda
@@ -183,7 +282,7 @@ def test_bwd_kernels_match_plain(cuda_device, B, Tq, S, H, Hkv, hd, hv, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", [1, 4, 7, 8])
 @pytest.mark.parametrize("dtype,kernels", [(d, k) for d in ("float32", "bfloat16")
-                                           for k in _pairs(d)])
+                                           for k in _kernels(d)])
 def test_bwd_kernels_group_sizes_and_ragged(cuda_device, G, dtype, kernels):
     """G query heads per KV head folded into the rows (G = 7: no power of
     two), ragged Tq and S over several tiles, hd_k != hd_v, PAD slots."""
@@ -220,7 +319,7 @@ def test_bwd_tensor_cores_past_one_visibility_window(cuda_device, Tq, S, G):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,kernels", [(d, k) for d in ("float32", "bfloat16")
-                                           for k in _pairs(d)])
+                                           for k in _kernels(d)])
 def test_bwd_kernels_window_and_dead_rows_exact(cuda_device, dtype, kernels):
     arrays, q_pos, kv_pos, q_start = window_case()
     dead = torch.from_numpy(WINDOW_DEAD).to(cuda_device)
@@ -230,7 +329,7 @@ def test_bwd_kernels_window_and_dead_rows_exact(cuda_device, dtype, kernels):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernels", _pairs("bfloat16"))
+@pytest.mark.parametrize("kernels", _kernels("bfloat16"))
 def test_bwd_kernels_take_strided_cache_view(cuda_device, kernels):
     B, Tq, S_buf, S, H, Hkv, hd = 2, 24, 96, 70, 14, 2, 128
     q, k_buf, v_buf = to_torch(inputs(B, Tq, S_buf, H, Hkv, hd, hd, seed=9),
@@ -251,7 +350,7 @@ def test_bwd_kernels_take_strided_cache_view(cuda_device, kernels):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,kernels", [(d, k) for d in ("float32", "bfloat16")
-                                           for k in _pairs(d)])
+                                           for k in _kernels(d)])
 def test_bwd_kernels_take_unaligned_do(cuda_device, dtype, kernels):
     """A contiguous fp32 do whose base is not 16-byte aligned (a view one
     element into its buffer) gives the same gradients as an aligned copy."""
@@ -274,7 +373,7 @@ def test_bwd_kernels_take_unaligned_do(cuda_device, dtype, kernels):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_partial_function_runs_the_kernels(cuda_device, dtype):
     """ops.attention_partial on CUDA tensors: forward and backward are the
-    kernels (one launch each; bf16 moves only the tensor-core backward's
+    kernels (one launch each; bf16 moves only the tensor-core kernels'
     counters, fp32 only the CUDA-core ones), and the grads equal the
     kernels' own."""
     arrays, q_pos, kv_pos = sweep_case(*SWEEP[3][:7], SWEEP[3][8])
@@ -284,8 +383,9 @@ def test_flash_partial_function_runs_the_kernels(cuda_device, dtype):
     o, m, l = ops.attention_partial(q, k, v, qp, kp)
     do, dl = torch.randn_like(o), torch.randn_like(l)
     grads = torch.autograd.grad((o, l), (q, k, v), (do, dl))
-    pair = PAIR_COUNTERS["tensor_cores" if dtype == "bfloat16" else "cuda_cores"]
-    assert _launched(before) == {"fwd": 1, **{key: 1 for key in pair}}
+    kind = "tensor_cores" if dtype == "bfloat16" else "cuda_cores"
+    assert _launched(before) == {FWD_COUNTERS[kind][0]: 1,
+                                 **{key: 1 for key in PAIR_COUNTERS[kind]}}
     want = fa.flash_attention_partial_bwd(q.detach(), k.detach(), v.detach(), qp, kp, do, m, dl)
     for g, w, t in zip(grads, want, (q, k, v)):
         assert g.dtype == t.dtype

@@ -150,6 +150,52 @@ def test_kernel_geometry(G):
     assert fa._geometry(4, 128, 2048, 7, 4, 132) == (4, 9, 1, 32)   # prefill chunk
 
 
+@pytest.mark.parametrize("G", [1, 2, 3, 7, 8, 16, 64])
+def test_tc_kernel_geometry(G):
+    """The tensor-core forward's launch geometry: 1, 2, 4 or 8 warps of 16
+    rows that fit the block's G x bq rows, query tiles of equal length, no
+    KV split empty, splits only where blocks leave more than half the card
+    idle, and one split counter per (query tile, KV head, batch row)."""
+    for B, Tq, S, Hkv in ((4, 128, 2048, 4), (4, 1, 2176, 4), (1, 1, 64, 2),
+                          (1, 17, 33, 1), (2, 1, 5000, 8), (1, 256, 100, 1),
+                          (1, 2560, 2560, 4), (1, 1664, 8192, 4)):
+        warps, bq, nsplit, per = fa._tc_geometry(B, Tq, S, G, Hkv, 132)
+        n_tiles = -(-S // fa.BLOCK_K)
+        n_qt = -(-Tq // bq)
+        assert warps in (1, 2, 4, fa.TC_FWD_WARPS) and 1 <= bq <= Tq
+        assert G * bq <= 16 * warps and (warps == 1 or G * Tq > 8 * warps)
+        assert n_qt * bq - Tq < n_qt           # every tile within one token of bq
+        assert 1 <= nsplit <= fa.MAX_SPLITS and (nsplit - 1) * per < n_tiles <= nsplit * per
+        if 2 * n_qt * Hkv * B > 132:
+            assert nsplit == 1
+        assert fa._ticket_groups(B, Tq, Hkv, bq) == n_qt * Hkv * B
+    # the serve path's decode step: one warp (7 live rows), 17 splits of 2 tiles
+    assert fa._tc_geometry(4, 1, 2176, 7, 4, 132) == (1, 1, 17, 2)
+    assert fa._ticket_groups(4, 1, 4, 1) == 16
+    # its prefill chunk: 8 query tiles of 16 tokens (112 rows), unsplit
+    assert fa._tc_geometry(4, 128, 2048, 7, 4, 132) == (8, 16, 1, 32)
+    # the train cell's first and last chunks: 143 / 93 tiles of 18 tokens
+    assert fa._tc_geometry(1, 2560, 2560, 7, 4, 132) == (8, 18, 1, 40)
+    assert fa._tc_geometry(1, 1664, 8192, 7, 4, 132) == (8, 18, 1, 128)
+
+
+@pytest.mark.parametrize("dtype,kernels,want", [
+    (torch.bfloat16, None, "tensor_cores"), (torch.float32, None, "cuda_cores"),
+    (torch.bfloat16, "cuda_cores", "cuda_cores"), (torch.float32, "cuda_cores", "cuda_cores"),
+    (torch.bfloat16, "tensor_cores", "tensor_cores"), (torch.float32, "tensor_cores", TypeError),
+    (torch.bfloat16, "wgmma", ValueError),
+])
+def test_kernel_choice_by_dtype(dtype, kernels, want):
+    """Both wrappers take the tensor cores for bf16 and the CUDA cores for
+    fp32; ``kernels=`` names one (measurement only), and the tensor cores
+    refuse fp32: nothing falls back."""
+    if isinstance(want, str):
+        assert fa._pick_kernels(kernels, dtype, "forward") == want
+    else:
+        with pytest.raises(want):
+            fa._pick_kernels(kernels, dtype, "forward")
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The wrapper is the card's path only; CPU tensors reach the plain
     version through ops.attention_partial, never the other way round."""

@@ -1,9 +1,9 @@
-"""The split-bf16 arithmetic of the tensor-core backward, emulated on the CPU.
+"""The split-bf16 arithmetic of the tensor-core kernels, emulated on the CPU.
 
-The tensor-core kernels (src/repro_torch/kernels/csrc/flash_partial_bwd_tc.cu)
-feed every fp32 operand of the attention backward (dO, p, dS) to bf16 MMAs
+The tensor-core backward (src/repro_torch/kernels/csrc/flash_partial_bwd_tc.cu)
+feeds every fp32 operand of the attention backward (dO, p, dS) to bf16 MMAs
 as bf16 terms, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
-and sum each term's products in fp32; p^T . dO keeps the cross terms
+and sums each term's products in fp32; p^T . dO keeps the cross terms
 i + j < terms.  ``bwd_split`` does the same arithmetic with torch on the CPU
 (a product of two bf16 values is exact in fp32, so an fp32 einsum of the
 terms is what the MMAs compute, up to the order of the sums).  With numpy
@@ -14,6 +14,16 @@ err by ~4e-6, 0.4 of it, and one term (plain bf16 operands) by ~2e-3, 200x
 over it.  The
 three-term scheme also matches the reference's Pallas backward (interpret
 mode) at the reference's fp32 gradient tolerance.
+
+The tensor-core forward (csrc/flash_partial_tc.cu) computes s = q . k^T from
+the bf16 inputs (exact products), and o += p . v with the fp32 p = exp(s - m)
+split the same way, tile by 64-slot tile: each tile's products start from
+zero and are added into o after the online rescale o *= exp(m_prev - m_new);
+l sums the fp32 p.  ``fwd_split`` does that arithmetic, and is held to the
+port's plain forward (three terms within 1e-6 of the normalized output, two
+within the card's 1e-5, one over it) and, with three terms, to the
+reference's Pallas forward in interpret mode at the reference's fp32
+tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -138,3 +148,98 @@ def test_three_terms_match_the_reference_pallas_backward():
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w, np.float32), rtol=1e-4,
                                    atol=1e-4, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The forward
+# ---------------------------------------------------------------------------
+
+BLOCK_K = 64   # KV slots per tile of the tensor-core forward (csrc kBlockK)
+# the largest |normalized o - plain| each number of terms is held to
+FWD_SPLIT_TOL = {3: 1e-6, 2: KERNEL_TOL}
+
+
+def fwd_split(q, k, v, q_pos, kv_pos, q_start, terms, *, causal=True):
+    """The tensor-core forward with p split into `terms` bf16 terms: the
+    un-normalized (o, m, l) in fp32, shaped as attention_partial_ref's."""
+    B, Tq, H, hdk = q.shape
+    S, Hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    G, scale = H // Hkv, 1.0 / hdk ** 0.5
+    qf, kf, vf = q.float().reshape(B, Tq, Hkv, G, hdk), k.float(), v.float()
+    vis = ref._visible(ref._rows(q_pos, B, Tq), kv_pos,
+                       None if q_start is None else ref._rows(q_start, B, Tq), causal)
+    s = torch.einsum("btkgh,bskh->btkgs", qf, kf) * scale
+    s = torch.where(vis, s, NEG_INF)
+    m = torch.full((B, Tq, Hkv, G), NEG_INF)
+    l = torch.zeros((B, Tq, Hkv, G))
+    o = torch.zeros((B, Tq, Hkv, G, hdv))
+    for j in range(0, S, BLOCK_K):
+        st, vt = s[..., j:j + BLOCK_K], vf[:, j:j + BLOCK_K]
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        safe = m_new > NEG_INF / 2
+        alpha = torch.where(safe, torch.exp(m - m_new), 0.0)
+        p = torch.where(safe[..., None], torch.exp(st - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + sum(torch.einsum("btkgs,bskv->btkgv", t, vt)
+                                       for t in split(p, terms))
+        m = m_new
+    return o.reshape(B, Tq, H, hdv), m.reshape(B, Tq, H), l.reshape(B, Tq, H)
+
+
+def _fwd_case():
+    """bf16 q, k, v (G = 7, hd 128) over 150 slots (three tiles, the last
+    ragged), causal positions with PAD slots, a q_start window on batch row 0
+    and a dead row (1, 0): numpy arrays and positions."""
+    B, Tq, S, Hkv, G, hd = 2, 24, 150, 2, 7, 128
+    rng = np.random.default_rng(17)
+    arrays = tuple(rng.standard_normal(s, np.float32) for s in
+                   ((B, Tq, Hkv * G, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    q_pos = np.arange(Tq, dtype=np.int32) + S - Tq
+    kv_pos = np.arange(S, dtype=np.int32)
+    kv_pos[-7:] = PAD
+    q_start = np.zeros((B, Tq), np.int32)
+    q_start[0, 12:] = 60                             # a document starting at slot 60
+    q_start[1, 0] = PAD                              # sees nothing: a dead row
+    return arrays, q_pos, kv_pos, q_start
+
+
+def _fwd_torch_inputs(arrays, q_pos, kv_pos, q_start):
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    return (q, k, v, *(torch.from_numpy(x) for x in (q_pos, kv_pos, q_start)))
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3])
+def test_fwd_split_terms_against_plain_forward(terms):
+    q, k, v, qp, kp, qs = _fwd_torch_inputs(*_fwd_case())
+    o2, m2, l2 = ref.attention_partial_ref(q, k, v, qp, kp, q_start=qs)
+    o1, m1, l1 = fwd_split(q, k, v, qp, kp, qs, terms)
+    dead = m2 == NEG_INF
+    assert int(dead.sum()) == q.shape[2] and bool(dead[1, 0].all())
+    # dead rows are exact whatever the terms: o = l = 0, m = -1e30
+    assert (o1[dead] == 0).all() and (l1[dead] == 0).all() and (m1[dead] == NEG_INF).all()
+    assert (m1 - m2)[~dead].abs().max().item() <= 1e-6
+    assert (l1 - l2)[~dead].abs().max().item() <= 1e-6 * l2.max().item()   # l from the fp32 p
+    err = (ref.normalize(o1, l1) - ref.normalize(o2, l2)).abs().max().item()
+    if terms == 1:     # bf16 p: the reason for the split
+        assert err > KERNEL_TOL, err
+    else:
+        assert err <= FWD_SPLIT_TOL[terms], err
+    if terms == 2:     # inside the tolerance, but above the three-term bound
+        assert err > FWD_SPLIT_TOL[3], err
+
+
+def test_fwd_three_terms_match_the_reference_pallas_forward():
+    """The three-term forward against the reference's Pallas forward
+    (interpret mode) on the same numpy inputs (rounded to bf16 on both
+    sides, held in fp32 there), at the reference's fp32 tolerance
+    (tests/test_kernels.py)."""
+    arrays, q_pos, kv_pos, q_start = _fwd_case()
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16).astype(jnp.float32) for a in arrays)
+    jo, jm, jl = jflash(jq, jk, jv, jnp.asarray(q_pos), jnp.asarray(kv_pos), block_q=16,
+                        block_k=16, interpret=True, q_start=jnp.asarray(q_start))
+    q, k, v, qp, kp, qs = _fwd_torch_inputs(arrays, q_pos, kv_pos, q_start)
+    o, m, l = fwd_split(q, k, v, qp, kp, qs, 3)
+    want_o = np.asarray(jo, np.float32) / np.maximum(np.asarray(jl, np.float32), 1e-30)[..., None]
+    np.testing.assert_allclose(ref.normalize(o, l).numpy(), want_o, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm, np.float32), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl, np.float32), rtol=1e-5, atol=1e-5)

@@ -342,8 +342,8 @@ def test_cli_counts_no_kernel_launch_on_cpu():
     fa.reset_counts()
     train.main(["--reduced", "--steps", "1", "--seq", "128", "--batch", "2",
                 "--device", "cpu", "--n-chunks", "1"])
-    assert fa.counts() == {"fwd": 0, "merge": 0, "bwd_dq": 0, "bwd_dkv": 0,
-                           "bwd_dq_tc": 0, "bwd_dkv_tc": 0}
+    assert fa.counts() == {"fwd": 0, "merge": 0, "fwd_tc": 0, "merged_in_kernel": 0,
+                           "bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_tc": 0, "bwd_dkv_tc": 0}
 
 
 @pytest.mark.parametrize("flag", [["--pp", "2"], ["--offload-moments"], ["--msp"],

@@ -54,33 +54,56 @@ Four phases, each of which exits non-zero on failure:
    torch.profiler for the device's busy time by kernel group and its idle
    share against the wall time of the same profiled run and against that of
    the last unprofiled run (the profiler slows the host);
-4. training through ``repro_torch.launch.train.train``: qwen2-7b at full
-   width cut to 4 layers (bf16 parameters, fp32 AdamW moments), B = 1,
-   S = 8192 in 4 FLOPs-balanced chunks (2560, 2048, 1920, 1664), 4 steps.
-   Each step must launch the tensor-core forward, dq and dk/dv kernels
-   exactly 16 times each (4 layers x 4 chunks), unsplit, the CUDA-core
-   kernels never, and give a finite loss.  Per step: seconds,
-   tokens/s, MFU (6 N T over the bf16 peak, the reference's definition;
-   attention's operations printed beside it), the peak of allocated memory,
-   and for the last (warm) step, run under torch.profiler, the device's busy
-   time by kernel group and its idle share.  Then the same seed-built model
-   cut to 2 layers takes one step's loss and gradients at S = 256 (2 chunks)
-   in fp32 on the card (kernels, no TF32: 4 launches each of the CUDA-core
-   forward, dq and dk/dv kernels and the forward's merge kernel wherever a
-   chunk splits, none of the tensor-core ones)
-   and on the CPU (plain path): the loss and the gradients of layer 0's
-   wq, wk, wv and the head must agree within a relative L2 error of 1e-4.
-   Every path's launches are counted from 0 just before it runs.
+4. training through ``repro_torch.launch.train.train``.  First the host
+   link: the pinned D2H and H2D rates of a 1 GiB copy (CUDA events) beside
+   the cost model's ``H100.d2h_bw``.  Then qwen2-7b at full width cut to 4
+   layers (bf16 parameters, fp32 AdamW moments), B = 1, S = 8192 in 4
+   FLOPs-balanced chunks (2560, 2048, 1920, 1664), 4 steps, under five plans
+   in turns: (d) the reference's default plan, offload on, remat "sppo",
+   prefetch "ahead" (no override: the main path), first; (a) offload off,
+   remat "none"; (b) offload off, remat "sppo"; (c) offload on, prefetch
+   "sync"; (e) offload off, remat "full".  The steps run as the CLI runs
+   them.  Each step must launch the tensor-core dq and dk/dv kernels 16
+   times each (4 layers x 4 chunks) and the tensor-core forward 16 times
+   under remat "none", 32 under "sppo" and "full" (the replay re-runs it),
+   unsplit, the CUDA-core kernels never; its D2H bytes must equal the cost
+   model's closed form (Σ split_rows(rows, α) x the tagged bytes of a token
+   in every layer) exactly, its H2D bytes the D2H bytes, every host buffer
+   pinned; losses finite, and the plans' step-0 losses within 1e-3
+   relative.  After each plan's run, one untimed loss-and-gradients call
+   on fresh weights reads the peak above the weights, and its gradients
+   must equal (d)'s bitwise for (b) and (c) (the embedding table's, summed
+   by atomic adds, within GRAD_PLAN_TOL), within GRAD_PLAN_TOL for (a) and
+   (e).  Per plan: the deployed and quantized α, seconds, tokens/s, MFU (6
+   N T over the bf16 peak, the reference's definition) of every step, the
+   step's peak over all steps beside ``peak_memory`` of the tagged set, and
+   for the last step, under torch.profiler, the device's busy time (union
+   of kernel and copy intervals) and idle share, the kernel groups, and the
+   pinned DtoH and HtoD copies' device ms, the share of it that overlaps a
+   compute kernel and the exposed rest.  Then the long cell, S = 32768 in 8
+   chunks: plans (d), (b) and (e) for 3 steps each, held alike, plan (a)
+   only if PERF.md's prediction of its peak is under 75
+   GiB.  Last, the same seed-built model cut to 2
+   layers takes one step's loss and gradients at S = 256 (2 chunks, chunk 0
+   offloading every tagged row) in fp32 under the default plan on the card
+   (kernels, no TF32: 8 launches of the CUDA-core forward (4 and their
+   replays) with the merge kernel wherever a chunk splits, 4 each of dq and
+   dk/dv, none of the tensor-core ones; 10 pinned D2H copies and as many
+   H2D) and on the CPU (plain path): the loss and the gradients of layer
+   0's wq, wk, wv and the head must agree within a relative L2 error of
+   1e-4.  Serving must copy nothing to or from host memory.  Every path's
+   launches and copies are counted from 0 just before it runs.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its check and times: the tensor-core and the CUDA-core
 forward, the latter's merge, and the tensor-core and CUDA-core backward
 pairs, each kernel's ``launches`` counted on the paths that run it (bf16
-serving and training for the tensor cores, the fp32 training check for the
-CUDA cores) with its counts on every path beside.
+serving and the default plan's training for the tensor cores, the fp32
+training check for the CUDA cores) with its counts on every path beside.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import json
@@ -102,8 +125,17 @@ HBM_BYTES_PER_S = BF16_FLOPS = None
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores (data sheet), printed only
 PREFILL_LEN, BATCH, DECODE_STEPS, REPEATS = 2048, 4, 32, 3
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_CHUNKS, TRAIN_STEPS = 4, 8192, 4, 4
+LONG_SEQ, LONG_CHUNKS, LONG_STEPS = 32768, 8, 3
+# plan (a)'s peak at S = 32768 as predicted in PERF.md before the first run
+# (the weights and moments plus four times the S = 8192 run's activations):
+# plan (a) runs on the long cell only if this is under 75 GiB
+LONG_PLAN_A_PREDICTED_GIB = 92
 KERNEL_TOL = 1e-5  # kernel vs plain version: both fp32 inside, inputs alike
 GRAD_REL_TOL = 1e-4  # 2-layer fp32 train step, card vs CPU: relative L2
+# bf16 step-0 gradients of one training plan against the default plan's,
+# where they are not held bitwise: relative L2 at the worst leaf
+GRAD_PLAN_TOL = 1e-2
+EMBED_GRAD = "globals/embed/table"
 
 
 def fail(msg: str):
@@ -456,14 +488,16 @@ def device_time(prof, top: int = 6):
     kernels) from a torch.profiler run.  Groups: the tensor-core and the
     CUDA-core forward kernels, the latter's split-KV merge kernel, the
     tensor-core and the CUDA-core dq and dk/dv backward kernels, cuBLAS
-    matrix products (nvjet / gemm kernels), everything else.  Only device events count: a host op's self device time
+    matrix products (nvjet / gemm kernels), copies between host and device
+    (which may overlap kernels: the total then exceeds the busy time),
+    everything else.  Only device events count: a host op's self device time
     is the time of the kernels it launched, which are listed as events of
     their own."""
     groups = {"attention fwd tc kernel": 0.0, "attention kernel": 0.0,
               "attention merge kernel": 0.0,
               "attention dq tc kernel": 0.0, "attention dk/dv tc kernel": 0.0,
               "attention dq kernel": 0.0, "attention dk/dv kernel": 0.0,
-              "matmul": 0.0, "other": 0.0}
+              "matmul": 0.0, "host copies": 0.0, "other": 0.0}
     kernels = []
     for evt in prof.key_averages():
         ms = evt.self_device_time_total / 1e3
@@ -488,6 +522,8 @@ def device_time(prof, top: int = 6):
             groups["attention kernel"] += ms
         elif any(tag in name for tag in ("nvjet", "gemm", "xmma", "cutlass", "matmul")):
             groups["matmul"] += ms
+        elif "memcpy" in name and ("dtoh" in name or "htod" in name):
+            groups["host copies"] += ms
         else:
             groups["other"] += ms
     return sum(groups.values()), groups, sorted(kernels, key=lambda kv: -kv[1])[:top]
@@ -864,90 +900,341 @@ def attention_ops(cell) -> float:
     return cell.shape.global_batch * pairs * cfg.n_heads * 14 * cfg.hd * cfg.n_layers
 
 
-def train_phase(fa, train_mod, cfg, card):
-    """Phase 4: the training path through ``launch.train.train``, counted
-    and timed; the last (warm) step runs under torch.profiler."""
+# the training plans of phase 4, as plan overrides of ``launch.train.train``;
+# (d) passes none: the reference's default plan
+PLANS = {"a": ("offload off, remat none", dict(offload=False, remat="none")),
+         "b": ("offload off, remat sppo", dict(offload=False, remat="sppo")),
+         "c": ("offload on, prefetch sync", dict(prefetch="sync")),
+         "d": ("offload on, prefetch ahead (the default plan)", None),
+         "e": ("offload off, remat full", dict(offload=False, remat="full"))}
+PLAN_FORM = {"a": (False, "none", None), "b": (False, "sppo", None), "c": (True, "sppo", "sync"),
+             "d": (True, "sppo", "ahead"), "e": (False, "full", None)}
+
+
+def merged(intervals):
+    """Sorted, disjoint union of (start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def overlap_us(iv, union, starts):
+    """Microseconds of the interval ``iv`` covered by the disjoint sorted
+    ``union`` (``starts``: its start points)."""
+    a, b = iv
+    k = max(0, bisect.bisect_right(starts, a) - 1)
+    cov = 0.0
+    while k < len(union) and union[k][0] < b:
+        cov += max(0.0, min(b, union[k][1]) - max(a, union[k][0]))
+        k += 1
+    return cov
+
+
+def copy_timeline(prof):
+    """From a torch.profiler run's device events: the device's busy time
+    (the union of every kernel's and copy's interval), and for the pinned
+    D2H and H2D copies (the offload's; pageable scalar reads are left out
+    where the names tell them apart) their device ms, the share of it that
+    overlaps some compute kernel, and the ms that does not (exposed)."""
+    kern, copies, names = [], {"d2h": [], "h2d": []}, set()
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        iv = (evt.time_range.start, evt.time_range.end)
+        name = evt.name.lower()
+        if "memcpy" in name and ("dtoh" in name or "htod" in name):
+            names.add(evt.name)
+            copies["d2h" if "dtoh" in name else "h2d"].append((iv, "pinned" in name))
+        else:
+            kern.append(iv)
+    union = merged(kern)
+    starts = [a for a, _ in union]
+    out = {"device_busy_ms": sum(b - a for a, b in merged(
+        kern + [iv for c in copies.values() for iv, _ in c])) / 1e3,
+        "copy_event_names": sorted(names)}
+    for way, evs in copies.items():
+        pinned = [iv for iv, p in evs if p] if any(p for _, p in evs) else [iv for iv, _ in evs]
+        ms = sum(b - a for a, b in pinned) / 1e3
+        cov = sum(overlap_us(iv, union, starts) for iv in pinned) / 1e3
+        out[f"{way}_ms"] = ms
+        out[f"{way}_overlap_share"] = cov / ms if ms > 0 else None
+        out[f"{way}_exposed_ms"] = ms - cov
+        out[f"{way}_copies"] = len(pinned)
+    return out
+
+
+def offload_bytes(cell) -> int:
+    """D2H bytes of one step by the port's cost model: Σ over chunks of
+    split_rows(rows, α_c) x batch x the tagged bytes of a token in every
+    layer (bf16)."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import offload as ofl
+
+    per_row = cell.shape.global_batch * cm.tagged_bytes_per_token(cell.cfg) * cell.cfg.n_layers
+    return int(sum(ofl.split_rows(ln, a) * per_row
+                   for ln, a in zip(cell.sched.lengths, cell.alphas)))
+
+
+def grads_call(serve, runner, cell, seq):
+    """One untimed loss-and-gradients call of ``cell`` on fresh weights
+    (seed 0) and step 0's tokens, outside the training run.  Returns the
+    allocator's peak during it less the weights it started from (the
+    activations, the host-copy staging and the gradients, without AdamW's
+    moments and temporaries) and the gradients, on the host, by path."""
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+
+    params = serve.build_params(cell, "cuda", seed=0)
+    tokens, labels = (torch.from_numpy(a).cuda() for a in
+                      SyntheticLM(cell.cfg.vocab_size, seq, 1).sample_step(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, grads = runner.loss_and_grads(cell, params, tokens, labels)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    grads = {path: g.cpu() for path, g in tree.items(grads)}
+    del params
+    torch.cuda.empty_cache()
+    return peak, grads
+
+
+def compare_grads(grads, ref, plan, ref_plan, label, *, bitwise):
+    """Holds one plan's step-0 gradients against another's: every leaf
+    bitwise equal (``bitwise``), or within GRAD_PLAN_TOL relative L2 at the
+    worst leaf.  The embedding table's gradient is summed by atomic adds
+    (index_add over repeated tokens), whose order varies from run to run,
+    so it is held to the relative L2 only.  Returns (worst relative L2,
+    whether every other leaf was bitwise equal)."""
+    worst, differ = 0.0, []
+    for path, g in grads.items():
+        want = ref[path]
+        rel = ((g.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+        if path != EMBED_GRAD and not torch.equal(g, want):
+            differ.append((path, rel))
+    check(not (bitwise and differ),
+          f"[{label}] plan ({plan})'s step-0 gradients differ from ({ref_plan})'s at "
+          f"{len(differ)} leaves, expected bitwise equal: {differ[:8]}")
+    check(worst <= GRAD_PLAN_TOL, f"[{label}] plan ({plan})'s step-0 gradients differ from "
+                                  f"({ref_plan})'s by {worst:.3e} relative L2 at the worst leaf "
+                                  f"(tol {GRAD_PLAN_TOL})")
+    print(f"train [{label}] plan ({plan}) step-0 gradients vs ({ref_plan})'s: "
+          f"{'bitwise equal' if not differ else f'{len(differ)} leaves differ'} but the "
+          f"embedding's; worst leaf relative L2 {worst:.3e}")
+    return worst, not differ
+
+
+def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n_chunks,
+               steps, label):
+    """One training plan through ``launch.train.train``, as the CLI runs it,
+    counted and timed: each step's kernel launches and host copies, the last
+    step under torch.profiler (device busy and idle, kernel groups, copy
+    overlap).  Checks the launches (remat "none": 16 each of the tensor-core
+    forward, dq and dk/dv a step at 4 layers x 4 chunks; "sppo" and "full":
+    the forward twice that, its replay), no CUDA-core launch, finite
+    losses, and that the D2H bytes of every step equal the cost model's
+    closed form, the H2D bytes the D2H bytes and every host buffer pinned.
+    Then one untimed loss-and-gradients call (``grads_call``).  Returns the
+    launch counts, a summary and that call's gradients."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import offload as ofl
+
+    what, overrides = PLANS[plan]
     after, prof = [], {}
 
     def on_step(step, rec):
-        after.append(fa.counts())
+        after.append({**fa.counts(), **{"copy_" + k: v for k, v in hostmem.counts().items()}})
 
     def step_context(step):
-        if step != TRAIN_STEPS - 1:
+        if step != steps - 1:
             return contextlib.nullcontext()
         prof["p"] = profile(activities=[ProfilerActivity.CUDA])
         return prof["p"]
 
     fa.reset_counts()
-    out = train_mod.train(cfg4, steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=1,
-                          n_chunks=TRAIN_CHUNKS, log_every=1, device="cuda",
+    hostmem.reset_counts()
+    out = train_mod.train(cfg, steps=steps, seq=seq, batch=1, n_chunks=n_chunks,
+                          log_every=steps, device="cuda", overrides=overrides,
                           on_step=on_step, step_context=step_context)
-    totals = fa.counts()
+    totals = after[-1]
     cell, hist = out["cell"], out["history"]
-    check(cell.sched.lengths == (2560, 2048, 1920, 1664),
-          f"train chunks {cell.sched.lengths}, expected (2560, 2048, 1920, 1664)")
+    offload, remat, prefetch = PLAN_FORM[plan]
+    check((cell.plan.offload, cell.plan.remat) == (offload, remat)
+          and (prefetch is None or cell.plan.prefetch == prefetch),
+          f"plan ({plan}) resolved to {cell.plan}")
     per_step = [{k: a[k] - b.get(k, 0) for k in a} for a, b in zip(after, [{}] + after[:-1])]
-    want = TRAIN_LAYERS * TRAIN_CHUNKS
+    n_calls = cfg.n_layers * cell.sched.n
+    fwd_want = n_calls * (1 if cell.plan.remat == "none" else 2)
+    bytes_want = offload_bytes(cell)
     for step, c in enumerate(per_step):
-        check(c["fwd_tc"] == want and c["bwd_dq_tc"] == want and c["bwd_dkv_tc"] == want
-              and c["fwd"] == c["bwd_dq"] == c["bwd_dkv"] == c["merge"] == 0
-              and c["merged_in_kernel"] == 0,
-              f"step {step} launched {c}; expected {want} launches each of the tensor-core "
-              f"forward, dq and dk/dv kernels, no split, and no CUDA-core launch")
+        check(c["fwd_tc"] == fwd_want and c["bwd_dq_tc"] == n_calls
+              and c["bwd_dkv_tc"] == n_calls and c["merged_in_kernel"] == 0
+              and c["fwd"] == c["bwd_dq"] == c["bwd_dkv"] == c["merge"] == 0,
+              f"[{label}] step {step} launched {c}; expected {fwd_want} tensor-core forward "
+              f"and {n_calls} each of dq and dk/dv, no split and no CUDA-core launch")
+        check(c["copy_d2h_bytes"] == bytes_want and c["copy_h2d_bytes"] == bytes_want
+              and c["copy_d2h_pinned"] == c["copy_d2h"] == c["copy_h2d"],
+              f"[{label}] step {step} copied {c}; expected {bytes_want} bytes each way by the "
+              f"closed form, every host buffer pinned")
     losses = [r["loss"] for r in hist]
-    check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
-    tokens = TRAIN_SEQ
-    attn = attention_ops(cell)
-    for r in hist:
-        r["mfu_with_attention"] = (6 * out["n_active_params"] * tokens + attn) / r["dt"] / BF16_FLOPS
-        print(f"train step {r['step']} ({card}): loss {r['loss']:.4f}, {r['dt']:.4f} s, "
-              f"{r['tgs']:.1f} tokens/s, MFU {r['mfu']:.4f} (6 N T, N = "
-              f"{out['n_active_params']:.4e}), with attention's {attn:.4e} ops "
-              f"{r['mfu_with_attention']:.4f}" + (" [profiled]" if r["step"] == TRAIN_STEPS - 1
-                                                  else ""))
-    busy, groups, top = device_time(prof["p"])
+    check(len(hist) == steps and all(np.isfinite(losses)), f"[{label}] losses {losses}")
+    timeline = copy_timeline(prof["p"])
+    if bytes_want:
+        check(timeline["d2h_ms"] > 0 and timeline["h2d_ms"] > 0,
+              f"[{label}] the profiler saw no offload copy: {timeline}")
+    busy_k, groups, _ = device_time(prof["p"])
     prof_wall = 1e3 * hist[-1]["dt"]
-    warm = [1e3 * r["dt"] for r in hist[1:-1]]
+    warm = [1e3 * r["dt"] for r in hist[1:-1]] or [prof_wall]
     warm_ms = sum(warm) / len(warm)
-    print(f"train profile ({card}): warm step device busy {busy:.1f} ms of {prof_wall:.1f} ms "
-          f"profiled wall (idle {1 - busy / prof_wall:.3f}); unprofiled warm wall "
-          f"{warm_ms:.1f} ms (idle {1 - busy / warm_ms:.3f}); {json.dumps(groups)}")
-    for name, ms in top:
-        print(f"  train step top kernel: {ms:9.3f} ms  {name}")
-    print(f"train launches: {totals} in {TRAIN_STEPS} steps, per step {per_step[0]}; "
-          f"peak memory ({card}) {out['peak_bytes'] / 2**30:.3f} GiB")
-    check(busy > 0, "profiler captured no device time in the training step")
-    summary = {"train_losses": losses, "train_step_s": [r["dt"] for r in hist],
-               "train_tokens_per_s": [r["tgs"] for r in hist],
-               "train_mfu": [r["mfu"] for r in hist],
-               "train_mfu_with_attention": [r["mfu_with_attention"] for r in hist],
-               "train_attention_ops_per_step": attn,
-               "train_n_active_params": out["n_active_params"],
-               "train_peak_bytes": out["peak_bytes"],
-               "train_step_device_ms": busy, "train_step_device_ms_by_group": groups,
-               "train_step_profiled_wall_ms": prof_wall,
-               "train_idle_share": 1 - busy / prof_wall,
-               "train_idle_share_vs_unprofiled_wall": 1 - busy / warm_ms}
-    return totals, summary
+    busy = timeline["device_busy_ms"]
+    acts = cm.chunk_act_bytes(cell.cfg, cell.sched.lengths, batch=1, pp=1, sp=1)
+    quantized = [ofl.quantized_alpha(ln, a) for ln, a in zip(cell.sched.lengths, cell.alphas)]
+    peak, base = out["peak_bytes"], out["base_bytes"]
+    del out
+    torch.cuda.empty_cache()
+    lg_peak, grads = grads_call(serve, runner, cell, seq)
+    row = {"plan": plan, "what": what, "seq": seq, "chunks": list(cell.sched.lengths),
+           "alphas": list(cell.alphas), "quantized_alphas": quantized,
+           "losses": losses, "step_s": [r["dt"] for r in hist],
+           "tokens_per_s": [r["tgs"] for r in hist], "mfu": [r["mfu"] for r in hist],
+           "warm_step_ms": warm_ms, "peak_bytes": peak, "base_bytes": base,
+           "grads_peak_over_weights_bytes": lg_peak,
+           "tagged_peak_model_bytes": ofl.peak_memory(acts, quantized),
+           "d2h_bytes_per_step": per_step[-1]["copy_d2h_bytes"],
+           "h2d_bytes_per_step": per_step[-1]["copy_h2d_bytes"],
+           "launches_per_step": {k: v for k, v in per_step[-1].items() if not k.startswith("copy_")},
+           "profiled_wall_ms": prof_wall, "device_busy_ms": busy,
+           "device_kernel_ms_by_group": groups, "kernel_ms_sum": busy_k,
+           "idle_share": 1 - busy / prof_wall, "idle_share_vs_unprofiled_wall": 1 - busy / warm_ms,
+           **{k: v for k, v in timeline.items() if k != "device_busy_ms"}}
+    print_plan(row, hist, cell, card, label, steps)
+    return totals, row, grads
 
 
-def train_cpu_check(fa, serve, runner, cfg, card):
+def print_plan(row, hist, cell, card, label, steps):
+    gib = 2**30
+    print(f"train [{label}] plan ({row['plan']}) {row['what']} ({card}): chunks "
+          f"{cell.sched.lengths}, alpha deployed [{', '.join(f'{a:.4f}' for a in cell.alphas)}], "
+          f"quantized [{', '.join(f'{a:.4f}' for a in row['quantized_alphas'])}]")
+    for r in hist:
+        print(f"  step {r['step']}: loss {r['loss']!r}, {r['dt']:.4f} s, {r['tgs']:.1f} tokens/s, "
+              f"MFU {r['mfu']:.4f}" + (" [profiled]" if r["step"] == steps - 1 else ""))
+    print(f"  warm step {row['warm_step_ms']:.1f} ms (unprofiled mean of steps 1..{steps - 2}); "
+          f"peak {row['peak_bytes'] / gib:.3f} GiB over the {steps} steps (weights and moments "
+          f"{row['base_bytes'] / gib:.3f} GiB); one untimed loss-and-gradients call peaks "
+          f"{row['grads_peak_over_weights_bytes'] / gib:.3f} GiB above its weights; the cost "
+          f"model's tagged-activation peak (peak_memory of chunk_act_bytes at the quantized "
+          f"alphas) {row['tagged_peak_model_bytes'] / gib:.3f} GiB")
+    print(f"  device busy {row['device_busy_ms']:.1f} ms of {row['profiled_wall_ms']:.1f} ms "
+          f"profiled wall (idle {row['idle_share']:.3f}; {row['idle_share_vs_unprofiled_wall']:.3f} "
+          f"against the unprofiled warm wall); kernels by group "
+          f"{json.dumps(row['device_kernel_ms_by_group'])}")
+    print(f"  copies a step: D2H {row['d2h_bytes_per_step']} bytes, H2D "
+          f"{row['h2d_bytes_per_step']} bytes; device ms DtoH {row['d2h_ms']:.3f} "
+          f"({row['d2h_copies']} copies, overlap with compute {row['d2h_overlap_share']}, "
+          f"exposed {row['d2h_exposed_ms']:.3f} ms), HtoD {row['h2d_ms']:.3f} "
+          f"({row['h2d_copies']} copies, overlap {row['h2d_overlap_share']}, exposed "
+          f"{row['h2d_exposed_ms']:.3f} ms); copy events {row['copy_event_names']}")
+
+
+def link_rate(hostmem, card):
+    """The pinned D2H and H2D rates of a 1 GiB copy, timed by CUDA events
+    (5 copies each way after one warm-up), beside the cost model's data-sheet
+    link rate."""
+    from repro_torch.core.costmodel import H100
+
+    n = 1 << 30
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    check(host.is_pinned(), "a pinned 1 GiB host buffer came back pageable")
+    rates = {}
+    for way, (dst, src) in (("d2h", (host, dev)), ("h2d", (dev, host))):
+        dst.copy_(src, non_blocking=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        rates[way] = 5 * n / (start.elapsed_time(end) / 1e3)
+    print(f"link ({card}): pinned 1 GiB copies D2H {rates['d2h'] / 1e9:.2f} GB/s, H2D "
+          f"{rates['h2d'] / 1e9:.2f} GB/s; the cost model's H100.d2h_bw {H100.d2h_bw / 1e9:.0f} "
+          f"GB/s (data sheet, PCIe Gen5 x16), left as it is")
+    del dev, host
+    return rates
+
+
+def train_phase(fa, hostmem, serve, runner, train_mod, cfg, card):
+    """Phase 4: the link's rate, then the five plans on the 4-layer S = 8192
+    cell in turns ((d), the default plan, first: the main path's training
+    run), their step-0 losses within 1e-3 relative.  Each plan's untimed
+    step-0 gradients are held against (d)'s: (b) and (c) bitwise but the
+    embedding's (the replay reads the same values whether a row stayed on
+    the device or went to host and back, so a reload read before its copy
+    landed would show), (a) and (e) within GRAD_PLAN_TOL, and whether they
+    are bitwise equal too is printed.  Then the long cell (S = 32768, 8
+    chunks): plans (d), (b) (the same remat without the offload) and (e)
+    (full recompute), 3 steps each, held alike, and plan (a) only if its
+    predicted peak is under 75 GiB."""
+    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    rates = link_rate(hostmem, card)
+
+    def run_cell(plans, seq, n_chunks, label):
+        rows, totals, ref = {}, {}, None
+        for plan in plans:
+            totals[plan], rows[plan], grads = train_plan(
+                fa, hostmem, serve, runner, train_mod, cfg4, card, plan, seq=seq,
+                n_chunks=n_chunks, steps=TRAIN_STEPS if seq == TRAIN_SEQ else LONG_STEPS,
+                label=label)
+            torch.cuda.empty_cache()
+            if ref is None:
+                ref = grads
+            else:
+                rows[plan]["grads_rel_l2_vs_d"], rows[plan]["grads_bitwise_vs_d"] = compare_grads(
+                    grads, ref, plan, plans[0], label, bitwise=plan in ("b", "c"))
+            del grads
+        first = [rows[p]["losses"][0] for p in plans]
+        check(max(first) - min(first) <= 1e-3 * abs(first[0]),
+              f"[{label}] the plans' step-0 losses disagree by more than 1e-3 relative: {first}")
+        print(f"train [{label}] step-0 losses of plans {', '.join(plans)}: {first}")
+        return rows, totals
+
+    rows, totals = run_cell(("d", "a", "b", "c", "e"), TRAIN_SEQ, TRAIN_CHUNKS, f"S={TRAIN_SEQ}")
+    check(rows["d"]["chunks"] == [2560, 2048, 1920, 1664],
+          f"train chunks {rows['d']['chunks']}, expected (2560, 2048, 1920, 1664)")
+    long_plans = ("d", "b", "e") + (("a",) if LONG_PLAN_A_PREDICTED_GIB < 75 else ())
+    long_rows, long_totals = run_cell(long_plans, LONG_SEQ, LONG_CHUNKS, f"S={LONG_SEQ}")
+    if "a" not in long_plans:
+        print(f"train [S={LONG_SEQ}] plan (a) not run: predicted peak "
+              f"{LONG_PLAN_A_PREDICTED_GIB} GiB (PERF.md), not under 75 GiB")
+    totals.update({f"long_{p}": c for p, c in long_totals.items()})
+    return totals, {"link_rate_bytes_per_s": rates, "train_plans": rows,
+                    "train_long": long_rows}
+
+
+def train_cpu_check(fa, hostmem, serve, runner, cfg, card):
     """The seed-built model cut to 2 layers: one step's loss and gradients
-    at S = 256 (2 chunks), fp32, on the card (kernels, no TF32) and on the
-    CPU (plain path); relative L2 within 1e-4 for the loss and the
-    gradients of layer 0's wq, wk, wv and the head."""
+    at S = 256 (2 chunks), fp32, under the default plan (chunk 0 offloads
+    every tagged row, α = 1), on the card (kernels, no TF32) and on the CPU
+    (plain path, CPU clones for host copies); relative L2 within 1e-4 for
+    the loss and the gradients of layer 0's wq, wk, wv and the head."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import SyntheticLM
 
     S = 256
     cell = runner.resolve_cell(dataclasses.replace(cfg, n_layers=2),
                                ShapeConfig("train_check", S, 1, "train"),
-                               overrides=dict(pp=1, dp=1, n_chunks=2, offload=False,
-                                              remat="none"), dtype=torch.float32)
+                               overrides=dict(pp=1, dp=1, n_chunks=2), dtype=torch.float32)
     check(cell.sched.n == 2, f"check ran {cell.sched.n} chunks, expected 2")
+    check(cell.plan.offload and cell.plan.remat == "sppo" and cell.alphas == (1.0, 0.0),
+          f"check plan {cell.plan} alphas {cell.alphas}, expected the default plan, (1, 0)")
     tokens, labels = (torch.from_numpy(a) for a in SyntheticLM(cfg.vocab_size, S, 1)
                       .sample_step(0))
     params = serve.build_params(cell, "cuda", seed=0)
@@ -962,13 +1249,21 @@ def train_cpu_check(fa, serve, runner, cfg, card):
                               n_sm)[2] > 1
                  for off, ln in zip(cell.sched.offsets, cell.sched.lengths))
     fa.reset_counts()
+    hostmem.reset_counts()
     loss, grads = runner.loss_and_grads(cell, params, tokens.cuda(), labels.cuda())
     on_card = {k: (loss if v is None else v).cpu() for k, v in pick(grads).items()}
     launched = fa.counts()
-    want = {"fwd": 4, "merge": 2 * splits, "bwd_dq": 4, "bwd_dkv": 4}
+    copied = hostmem.counts()
+    # the forward twice a layer and chunk (its replay), with its merges
+    want = {"fwd": 8, "merge": 4 * splits, "bwd_dq": 4, "bwd_dkv": 4}
     check(launched == {**{key: 0 for key in launched}, **want},
           f"the card's fp32 step launched {launched}, expected {want} (the CUDA-core forward "
           f"with its merge kernel and backward pair) and no tensor-core launch")
+    n_bytes = 2 * offload_bytes(cell)          # fp32 rows: twice the bf16 closed form
+    check(copied["d2h_bytes"] == copied["h2d_bytes"] == n_bytes and copied["d2h"] == 10
+          and copied["d2h_pinned"] == 10,
+          f"the card's fp32 step copied {copied}, expected 10 pinned D2H of {n_bytes} bytes "
+          f"in all and the same back")
     del grads
     params_cpu = tree_map(lambda t: t.cpu(), params)
     del params
@@ -976,8 +1271,9 @@ def train_cpu_check(fa, serve, runner, cfg, card):
     loss, grads = runner.loss_and_grads(cell, params_cpu, tokens, labels)
     on_cpu = {k: (loss if v is None else v) for k, v in pick(grads).items()}
     rel = {k: ((on_card[k] - on_cpu[k]).norm() / on_cpu[k].norm()).item() for k in on_cpu}
-    print(f"2-layer train check ({card}): fp32 loss card {float(on_card['loss']):.6f} vs CPU "
-          f"{float(on_cpu['loss']):.6f}; relative L2 " + ", ".join(
+    print(f"2-layer train check ({card}), default plan, alphas {cell.alphas}: fp32 loss card "
+          f"{float(on_card['loss']):.6f} vs CPU {float(on_cpu['loss']):.6f}; copies {copied}; "
+          f"relative L2 " + ", ".join(
               f"{k} {v:.3e}" for k, v in rel.items()))
     check(all(torch.isfinite(v).all() for v in on_card.values()) and
           all(v <= GRAD_REL_TOL for v in rel.values()),
@@ -999,6 +1295,7 @@ def main():
     from repro_torch.launch import serve
     from repro_torch.launch import train as train_mod
     from repro_torch.parallel import runner
+    from repro_torch.runtime import hostmem
 
     HBM_BYTES_PER_S, BF16_FLOPS = H100.hbm_bw, H100.peak_flops_bf16
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1047,10 +1344,13 @@ def main():
 
     # ---- phase 3: the serving path, through the CLI entry point
     fa.reset_counts()
+    hostmem.reset_counts()
     out = serve.main(["--arch", "qwen2-7b", "--prompt-len", str(PREFILL_LEN),
                       "--batch", str(BATCH), "--decode-steps", str(DECODE_STEPS),
                       "--repeats", str(REPEATS)])
     serve_counts = fa.counts()
+    check(not any(hostmem.counts().values()),
+          f"serving copied to or from host memory: {hostmem.counts()}")
     launches, merged = serve_counts["fwd_tc"], serve_counts["merged_in_kernel"]
     n_chunks = out["n_chunks"]
     expected = REPEATS * cfg.n_layers * (n_chunks + DECODE_STEPS)
@@ -1085,15 +1385,18 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- phase 4: the training path, through the train CLI's function
-    train_counts, train_summary = train_phase(fa, train_mod, cfg, card)
+    plan_counts, train_summary = train_phase(fa, hostmem, serve, runner, train_mod, cfg, card)
+    train_counts = plan_counts["d"]      # the main path: the default plan at S = 8192
     torch.cuda.empty_cache()
-    train_rel, fp32_counts = train_cpu_check(fa, serve, runner, cfg, card)
+    train_rel, fp32_counts = train_cpu_check(fa, hostmem, serve, runner, cfg, card)
 
     tc_rows = [r["tensor_cores"] for r in rows]
     cc_rows = [r["cuda_cores"] for r in rows]
     decode_cc = rows[1]["cuda_cores"]
     common = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    paths = {"serve": serve_counts, "train": train_counts, "train_fp32": fp32_counts}
+    paths = {"serve": serve_counts, "train": train_counts,
+             **{f"train_plan_{p}": c for p, c in plan_counts.items() if p != "d"},
+             "train_fp32": fp32_counts}
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}

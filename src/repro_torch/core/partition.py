@@ -105,3 +105,10 @@ def partition(seq_len: int, n: int, cfg, policy: str = "flops",
     if policy == "flops" and r > 0 and n > 1:
         return partition_flops(seq_len, n, r, multiple)
     return partition_length(seq_len, n, multiple)
+
+
+def chunk_costs(sched: ChunkSchedule, r: float) -> list:
+    """Relative cost of each chunk of ``sched`` (``chunk_cost`` of its
+    tokens); the offload planner scales them to seconds."""
+    return [chunk_cost(a, a + l, r)
+            for a, l in zip(sched.offsets, sched.lengths)]

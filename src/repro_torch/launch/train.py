@@ -3,15 +3,21 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \
       --reduced --steps 12 --seq 256 --batch 8 --device cpu
 
-SPPO's chunked pipeline at pp = sp = dp = 1, with activation offload off and
-every residual kept (remat "none"), AdamW with fp32 moments on the device,
-the reference's synthetic token stream, and TGS / MFU metering on the H100's
-peak.  Weights are random, drawn on the device from a seed.  It runs on the
-CUDA card; ``--device cpu`` runs the plain path on the CPU instead.
+SPPO's chunked pipeline at pp = sp = dp = 1 under the reference's default
+training plan: remat "sppo", sequence-aware activation offload to pinned
+host memory, each chunk's rows reloaded one chunk ahead of its backward
+(DESIGN.md §5, §10, §12).  ``--no-offload`` keeps every tagged row on the
+device (remat "sppo" still); ``--prefetch sync`` reloads each chunk's rows at
+its own backward.  AdamW with fp32 moments on the device, the reference's
+synthetic token stream, and TGS / MFU metering on the H100's peak.  Weights
+are random, drawn on the device from a seed.  It runs on the CUDA card;
+``--device cpu`` runs the plain path on the CPU instead (the "host" copies
+are then CPU clones).
 
 The reference CLI's other flags belong to later slices of the port and are
 refused with the ROADMAP item that brings them.  ``train(cfg, ...)`` is the
-body, for callers that pass a config of their own (a depth-cut model).
+body, for callers that pass a config of their own (a depth-cut model) or
+plan overrides (chip_smoke.py's ablations).
 """
 from __future__ import annotations
 
@@ -41,7 +47,6 @@ LATER = {
     "moments_mode": ("optimizer-moment offload", 6),
     "moments_dtype": ("the compressed moment codec", 6),
     "offload_dtype": ("the compressed activation-offload codec", 6),
-    "prefetch": ("executed offload and its backward prefetch", 5),
     "attn_mode": ("sequence-parallel attention schedules", 8),
     "msp": ("multiplexed sequence partitioning (pp > 1)", 8),
     "msp_split": ("multiplexed sequence partitioning (pp > 1)", 8),
@@ -64,6 +69,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--no-offload", action="store_true",
+                    help="keep every tagged activation row on the device")
+    ap.add_argument("--prefetch", default=None, choices=["ahead", "sync"],
+                    help="backward reload placement (DESIGN.md §12): ahead = "
+                         "each chunk's rows reloaded during the next chunk's "
+                         "backward (default); sync = at its own backward")
     # the reference CLI's flags of later slices: refused when given
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--pp", type=int, default=None)
@@ -71,7 +82,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--moments-mode", default=None)
     ap.add_argument("--moments-dtype", default=None)
     ap.add_argument("--offload-dtype", default=None)
-    ap.add_argument("--prefetch", default=None)
     ap.add_argument("--attn-mode", default=None)
     ap.add_argument("--msp", action="store_true", default=None)
     ap.add_argument("--msp-split", type=int, default=None)
@@ -94,23 +104,29 @@ def _refuse_later_flags(ap, args):
 
 def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
           lr: float = 3e-4, log_every: int = 10, metrics_out=None,
-          device="cuda", on_step=None, step_context=None):
+          device="cuda", overrides=None, on_step=None, step_context=None):
     """Train ``cfg`` for ``steps`` steps on ``device``.
 
-    ``on_step(step, record)``, when given, is called after each step, the
-    device synchronized; ``step_context(step)``, when given, returns a
-    context manager wrapped around that step (a profiler, say).  Returns
-    dict(history: the meter's per-step records (loss, dt seconds, tgs
-    tokens/s per chip, mfu), cell, n_active_params, peak_bytes: the CUDA
-    peak of allocated bytes over the steps, None on the CPU)."""
+    ``overrides`` replace fields of the resolved plan (the reference's
+    defaults: offload on, remat "sppo", prefetch "ahead"), e.g.
+    ``dict(offload=False, remat="none")``.  ``on_step(step, record)``, when
+    given, is called after each step, the device synchronized;
+    ``step_context(step)``, when given, returns a context manager wrapped
+    around that step (a profiler, say).  Returns dict(history: the meter's
+    per-step records (loss, dt seconds, tgs tokens/s per chip, mfu), cell
+    (its ``alphas`` the deployed offload ratios), n_active_params,
+    peak_bytes: the CUDA peak of allocated bytes over the steps, base_bytes:
+    the allocated bytes before the first step (weights and moments); both
+    None on the CPU)."""
     dev = resolve_device(str(device))
     mdef = build_model(cfg)
-    overrides = dict(pp=1, dp=1, offload=False, remat="none")
+    overrides = {**dict(pp=1, dp=1), **(overrides or {})}
     if n_chunks:
         overrides["n_chunks"] = n_chunks
     cell = resolve_cell(mdef, ShapeConfig("cli_train", seq, batch, "train"),
                         overrides=overrides)
-    log.info("plan: %s  chunks=%s", cell.plan, cell.sched.lengths)
+    log.info("plan: %s  chunks=%s alphas=%s", cell.plan, cell.sched.lengths,
+             [round(a, 3) for a in cell.alphas])
 
     params = build_params(cell, dev, seed=0)
     opt_state = adamw.init_state(params)
@@ -128,8 +144,10 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    base = None
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
     for step in range(steps):
         tokens, labels = (torch.from_numpy(a).to(dev) for a in data.sample_step(step))
         ctx = step_context(step) if step_context else contextlib.nullcontext()
@@ -151,7 +169,7 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
              meter.history[0]["loss"])
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     return dict(history=meter.history, cell=cell, n_active_params=n_active,
-                peak_bytes=peak)
+                peak_bytes=peak, base_bytes=base)
 
 
 def main(argv=None):
@@ -163,9 +181,15 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    overrides = {}
+    if args.no_offload:
+        overrides["offload"] = False
+    if args.prefetch:
+        overrides["prefetch"] = args.prefetch
     return train(cfg, steps=args.steps, seq=args.seq, batch=args.batch,
                  n_chunks=args.n_chunks, lr=args.lr, log_every=args.log_every,
-                 metrics_out=args.metrics_out, device=args.device)["history"]
+                 metrics_out=args.metrics_out, device=args.device,
+                 overrides=overrides)["history"]
 
 
 if __name__ == "__main__":

@@ -137,15 +137,8 @@ def _proj(x, w, b):
         *x.shape[:-1], w.shape[1])
 
 
-def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
-                       kv_view, rope):
-    """x: [B, T, d]; q_pos: [T] global positions of the tokens, whose KV
-    lands at slot ``cache_offset``; they attend the first ``kv_view`` slots
-    (a prefill chunk) or, with ``kv_view=None``, the whole buffer, empty
-    slots masked by their PAD position (a decode step, T = 1: at sp = 1 this
-    is the reference's ``gqa_decode_attention``).  ``rope`` is
-    ``layers.rope_tables`` of q_pos.  A training cache (``chunks`` set)
-    attends through ``chunk_attention``.  Returns (attn_out [B, T, d], cache)."""
+def _qkv(x, p, cfg, rope):
+    """q, k after RoPE and v of x [B, T, d], [B, T, heads, hd] each."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _proj(x, p["wq"], p.get("bq")).view(B, T, H, hd)
@@ -153,10 +146,74 @@ def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
     v = _proj(x, p["wv"], p.get("bv")).view(B, T, Hkv, hd)
     # q and k share positions: one rotation of both
     q, k = L.rotate(torch.cat([q, k], dim=2), *rope).split([H, Hkv], dim=2)
+    return q, k, v
+
+
+class _SavedQKV(torch.autograd.Function):
+    """``_qkv`` in a replay that has its outputs saved (remat "sppo"): the
+    forward returns the saved q, k, v and runs neither the projections nor
+    RoPE; the backward is theirs, from the saved input and weights.
+
+    ``apply(rope, x, wq, wk, wv, bq, bk, bv, q, k, v)``; a bias may be None.
+    """
+
+    @staticmethod
+    def forward(ctx, rope, x, wq, wk, wv, bq, bk, bv, q, k, v):
+        ctx.rope, ctx.bias = rope, (bq is not None, bk is not None, bv is not None)
+        ctx.save_for_backward(x, wq, wk, wv)
+        return q.view_as(q), k.view_as(k), v.view_as(v)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        x, *ws = ctx.saved_tensors
+        cos, sin, rot = ctx.rope
+        # RoPE rotates each pair by its angle: its VJP rotates back
+        dq, dk = L.rotate(torch.cat([dq, dk], dim=2), cos, -sin, rot).split(
+            [dq.shape[2], dk.shape[2]], dim=2)
+        x2 = x.reshape(-1, x.shape[-1])
+        gs = [g.reshape(x2.shape[0], -1) for g in (dq, dk, dv)]
+        gq, gk, gv = (g @ w.t() for g, w in zip(gs, ws))
+        # summed in the order autograd sums them through _qkv (the last
+        # projection's first), so the replay rounds as "full" and "none" do
+        dx = (gv + gk + gq).view_as(x)
+        dws = [x2.t() @ g for g in gs]
+        dbs = [g.sum(0) if has else None for g, has in zip(gs, ctx.bias)]
+        return (None, dx, *dws, *dbs, None, None, None)
+
+
+def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
+                       kv_view, rope, *, name_tag=None):
+    """x: [B, T, d]; q_pos: [T] global positions of the tokens, whose KV
+    lands at slot ``cache_offset``; they attend the first ``kv_view`` slots
+    (a prefill chunk) or, with ``kv_view=None``, the whole buffer, empty
+    slots masked by their PAD position (a decode step, T = 1: at sp = 1 this
+    is the reference's ``gqa_decode_attention``).  ``rope`` is
+    ``layers.rope_tables`` of q_pos.  A training cache (``chunks`` set)
+    attends through ``chunk_attention``.  ``name_tag``, where given, is
+    applied to q, k and v after RoPE and to the attention output before
+    ``@ wo``: the tag sites of SPPO's offload (core/offload.py), as in the
+    reference.  A replay's tag (``replay`` true) hands out the saved q, k
+    and v, which are then not recomputed.  Returns (attn_out [B, T, d],
+    cache)."""
+    B, T, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if name_tag is not None and name_tag.replay:
+        saved = [name_tag.take((B, T, h, hd), x.dtype) for h in (H, Hkv, Hkv)]
+        q, k, v = _SavedQKV.apply(rope, x, p["wq"], p["wk"], p["wv"], p.get("bq"),
+                                  p.get("bk"), p.get("bv"), *saved)
+    else:
+        q, k, v = _qkv(x, p, cfg, rope)
+        if name_tag is not None:
+            q, k, v = name_tag(q), name_tag(k), name_tag(v)
     if cache.chunks is not None:
         out = chunk_attention(q, k, v, q_pos, cache, cache_offset, kv_view)
-        return out.reshape(B, T, H * hd) @ p["wo"], cache
+        out = out.reshape(B, T, H * hd)
+        if name_tag is not None:
+            out = name_tag(out)
+        return out @ p["wo"], cache
     cache = cache_append(cache, k, v, q_pos, cache_offset)
     out = dist_attention(q, cache.k, cache.v, q_pos, cache.pos, causal=True,
-                         kv_view=kv_view)
-    return out.reshape(B, T, H * hd) @ p["wo"], cache
+                         kv_view=kv_view).reshape(B, T, H * hd)
+    if name_tag is not None:
+        out = name_tag(out)
+    return out @ p["wo"], cache

@@ -93,8 +93,11 @@ def _act(h, kind: str):
     raise ValueError(kind)
 
 
-def mlp(x, p, act: str):
-    """Transformer MLP. Gated (swiglu/geglu) uses w1 (gate) + w3 (up)."""
+def mlp(x, p, act: str, *, name_tag=None):
+    """Transformer MLP. Gated (swiglu/geglu) uses w1 (gate) + w3 (up).
+
+    name_tag: optional fn applied to the big [.., d_ff] intermediate, the
+    MLP's tag site of SPPO's offload (core/offload.py)."""
     if act in ("swiglu", "geglu"):
         g = x @ p["w1"]
         u = x @ p["w3"]
@@ -104,6 +107,8 @@ def mlp(x, p, act: str):
         if "b1" in p:
             h = h + p["b1"]
         h = _act(h, act)
+    if name_tag is not None:
+        h = name_tag(h)
     y = h @ p["w2"]
     if "b2" in p:
         y = y + p["b2"]

@@ -130,9 +130,10 @@ class ModelDef:
                                     cfg.hd, dtype, device, train=train)}
                 for _ in range(self.n_slots)]
 
-    def stage_apply(self, stage_params, state, x, meta, *, remat="none"):
+    def stage_apply(self, stage_params, state, x, meta, *, remat="none",
+                    offload=None):
         return T.stage_apply(self.cfg, stage_params, state, x, meta,
-                             remat=remat)
+                             remat=remat, offload=offload)
 
 
 def build_model(name_or_cfg) -> ModelDef:

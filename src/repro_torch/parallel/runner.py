@@ -12,8 +12,16 @@ is embedded, runs the layer stack (appending its K/V to the position-tagged
 cache and attending a prefix view of it), and hands its hidden state on;
 training adds each chunk's head loss, and autograd runs the backward through
 the chunks in reverse.  Decode feeds one token per step and attends the
-whole cache buffer.  The reference's shard_map, pipeline ticks and executed
-offload come with later slices.
+whole cache buffer.
+
+Training runs the plan's remat policy and SPPO's executed activation
+offload (DESIGN.md §5, §10, §12): ``resolve_cell`` sizes each chunk's
+offload ratio α (``core/offload.py::sequence_aware_alphas``), each chunk's
+stack runs through the chunk seam of ``models/transformer.py``, its off rows
+go to pinned host memory on a copy stream, and each chunk's rows come back
+one chunk ahead of its backward (``prefetch="ahead"``, through a
+``core/offload.py::Link`` and ``link_drain``) or at it (``"sync"``).  The
+reference's shard_map and pipeline ticks come with later slices.
 """
 from __future__ import annotations
 
@@ -22,6 +30,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelPlan, ShapeConfig
+from repro_torch.core import costmodel as cm
+from repro_torch.core import offload as ofl
 from repro_torch.core import partition as part
 from repro_torch.core import tree
 from repro_torch.models import layers as L
@@ -40,6 +50,7 @@ class Cell:
     plan: ParallelPlan
     shape: ShapeConfig
     sched: part.ChunkSchedule
+    alphas: tuple = ()   # per-chunk offload ratio (zeros with offload off)
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -63,35 +74,99 @@ def _later(what: str, item: int):
 
 def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
                  dtype=torch.bfloat16) -> Cell:
-    """Resolve a train, prefill or decode cell at data = model = 1, pp = 1,
-    offload off.  A plan's remat policy other than "none" is refused where
-    it would run (``transformer.stage_apply``)."""
+    """Resolve a train, prefill or decode cell at data = model = 1, pp = 1.
+
+    The chunk plan and the offload ratios are the reference's
+    (``repro/parallel/runner.py::resolve_cell``): each chunk's forward time
+    is its share of 6 N B S FLOPs at the H100's bf16 peak over (1 +
+    ``BWD_RATIO``), and α_i offloads what its host link (``d2h_bw``) moves
+    in the next chunk's forward; zeros with offload off.  A training plan that offloads
+    must run remat "sppo" (the policy whose saved rows the offload moves) in
+    the explicit form.  pp > 1 and the moment offload and codecs are
+    refused, naming the ROADMAP items that bring them."""
     mdef = arch if isinstance(arch, ModelDef) else build_model(arch)
     cfg = mdef.cfg
     plan = resolve_plan(cfg, shape_cfg, data_size=1, model_size=1,
                         overrides=overrides)
     if plan.pp != 1:
         raise _later(f"pp = {plan.pp} (pipeline stages)", 8)
-    if plan.offload:
-        raise _later("executed activation offload (pass overrides="
-                     "dict(offload=False))", 5)
     if plan.offload_moments or plan.offload_dtype != "none" or plan.moments_dtype != "none":
         raise _later("optimizer-moment offload and the offload codecs", 6)
     if shape_cfg.kind == "decode":
-        sched = part.ChunkSchedule((1,), (0,), 1, "decode")
-    elif shape_cfg.kind in ("prefill", "train"):
-        # chunk boundaries on multiples of max(model_size, 128), as the
-        # reference's pp == 1 plan
-        sched = part.partition(shape_cfg.seq_len, plan.n_chunks, cfg,
-                               plan.partition, multiple=128)
-    else:
+        # a decode step has no backward: an offloaded row would never come back
+        if plan.offload:
+            raise ValueError("decode plans must not offload (DESIGN.md §4)")
+        return Cell(mdef=mdef, plan=plan, shape=shape_cfg,
+                    sched=part.ChunkSchedule((1,), (0,), 1, "decode"),
+                    alphas=(0.0,), dtype=dtype)
+    if shape_cfg.kind not in ("prefill", "train"):
         raise ValueError(f"unknown shape kind {shape_cfg.kind!r}")
+    if shape_cfg.kind == "train" and plan.offload:
+        if plan.remat != "sppo":
+            raise ValueError(f"offload with remat {plan.remat!r}: the offload moves the "
+                             "tagged rows that remat 'sppo' saves (pass offload=False)")
+        if plan.offload_mode != "explicit":
+            raise ValueError(f"offload_mode {plan.offload_mode!r}: the port places the "
+                             "rows itself ('explicit'); 'xla' is the reference's remat hint")
+    # chunk boundaries on multiples of max(model_size, 128), as the
+    # reference's pp == 1 plan
+    sched = part.partition(shape_cfg.seq_len, plan.n_chunks, cfg,
+                           plan.partition, multiple=128)
+    # sequence-aware offload ratios from the cost model (§5.2)
+    r = part.flops_per_token_ratio(cfg)
+    costs = part.chunk_costs(sched, r)
+    B = shape_cfg.global_batch
+    scale = (6 * cm.count_active_params(mdef) * B * shape_cfg.seq_len
+             / sum(costs) / (plan.sp * plan.pp * cm.H100.peak_flops_bf16))
+    times = [c * scale / (1.0 + cm.BWD_RATIO) for c in costs]
+    acts = cm.chunk_act_bytes(cfg, sched.lengths, batch=max(1, B // plan.dp),
+                              pp=plan.pp, sp=plan.sp, grad_accum=plan.grad_accum)
+    alphas = ofl.sequence_aware_alphas(acts, times, cm.H100.d2h_bw).alphas
+    if not plan.offload:
+        alphas = tuple(0.0 for _ in alphas)
     return Cell(mdef=mdef, plan=plan, shape=shape_cfg, sched=sched,
-                dtype=dtype)
+                alphas=alphas, dtype=dtype)
 
 
 def _rope(cfg, q_pos):
     return L.rope_tables(q_pos, cfg.hd, cfg.rope_theta, cfg.rope_fraction)
+
+
+def use_ahead_prefetch(plan: ParallelPlan, *, train: bool) -> bool:
+    """Whether the chunks' reloads are issued one chunk ahead (DESIGN.md
+    §12): only a differentiated run that offloads under remat "sppo" has a
+    backward reload to place."""
+    return (train and plan.offload and plan.offload_mode == "explicit"
+            and plan.remat == "sppo" and plan.prefetch == "ahead")
+
+
+def chunk_tag(cell: Cell, chunk: int, link):
+    """What a training chunk's tag sites do with their rows (the
+    reference's per-chunk tag): split at the chunk's α and send the off rows
+    through ``link`` where the plan offloads, else None (every tagged row
+    stays on the device)."""
+    if not cell.plan.offload:
+        return None
+    return ofl.ChunkOffload(chunk=chunk, alpha=cell.alphas[chunk], link=link)
+
+
+class _LinkDrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, loss, link, chunk):
+        ctx.link, ctx.chunk = link, chunk
+        return loss.view_as(loss)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.link.prefetch(ctx.chunk)
+        return grad, None, None
+
+
+def link_drain(loss, link, last: int):
+    """Identity on the loss whose backward issues the reload of the last
+    chunk's rows, as soon as the backward pass starts: the last chunk has no
+    later backward to hide it under (why ``reserve_last`` pins its α to 0)."""
+    return _LinkDrain.apply(loss, link, last)
 
 
 def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
@@ -99,26 +174,40 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
     """The pp == 1 chunk loop.  tokens, labels: [B, S] int.  With
     ``with_loss`` each chunk adds its head loss over the tokens whose label
     is >= 0 (the label sentinel: a negative label carries zero weight), and
-    the caches keep every chunk's K/V for the backward.  Returns dict(loss,
-    denom, state, last_x); loss and denom are None without ``with_loss``."""
-    mdef = cell.mdef
+    the caches keep every chunk's K/V for the backward; where a gradient is
+    wanted, each chunk's stack runs through its seam under the plan's remat
+    policy and offload.  Returns dict(loss, denom, state, last_x, link);
+    loss and denom are None without ``with_loss``, link (the step's host
+    rows, ``core/offload.py::Link``) None where nothing offloads."""
+    mdef, plan = cell.mdef, cell.plan
     dev = tokens.device
     state = mdef.init_state(tokens.shape[0], cell.cache_loc, cell.dtype, dev,
                             train=with_loss)
+    train = with_loss and torch.is_grad_enabled()
+    ahead = use_ahead_prefetch(plan, train=train)
+    link = ofl.Link(ahead=ahead) if train and plan.offload else None
     loss = denom = x = None
-    for off, ln in zip(cell.sched.offsets, cell.sched.lengths):
+    for c, (off, ln) in enumerate(zip(cell.sched.offsets, cell.sched.lengths)):
         q_pos = off + torch.arange(ln, dtype=torch.int32, device=dev)
         x = mdef.embed(g, tokens[:, off:off + ln])
         meta = ChunkMeta(q_pos=q_pos, cache_off=off, kv_view=off + ln,
                          rope=_rope(cell.cfg, q_pos))
-        x, state = mdef.stage_apply(stage_p, state, x, meta,
-                                    remat=cell.plan.remat)
+        if train:
+            # the chunk's seam (the reference's prefetch_chunk): its backward
+            # takes the chunk's reloaded rows from the link and, under
+            # "ahead", first issues the reload of the chunk before it
+            x, state = mdef.stage_apply(stage_p, state, x, meta, remat=plan.remat,
+                                        offload=chunk_tag(cell, c, link))
+        else:
+            x, state = mdef.stage_apply(stage_p, state, x, meta)
         if with_loss:
             lab = labels[:, off:off + ln]
             ls, cnt = mdef.head_loss(g, x, lab, (lab >= 0).float())
             loss = ls if loss is None else loss + ls
             denom = cnt if denom is None else denom + cnt
-    return dict(loss=loss, denom=denom, state=state, last_x=x)
+    if ahead:
+        loss = link_drain(loss, link, cell.sched.n - 1)
+    return dict(loss=loss, denom=denom, state=state, last_x=x, link=link)
 
 
 def make_prefill_step(cell: Cell):

@@ -1,6 +1,9 @@
 """The Hopper attention kernels (the forward and the dq and dk/dv backward,
 each on the tensor cores for bf16 and on the CUDA cores for fp32) against
-their plain PyTorch versions, on the card.
+their plain PyTorch versions, on the card; and the executed activation
+offload on the card (its rows in pinned host memory, its copies on a stream
+of their own, the device memory it frees, offload on ≡ off through the
+kernels).
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips without
 one.  The file imports no JAX, since the machine with the card has none, and
@@ -16,13 +19,22 @@ operand (the forward's p, the backward's dO, p and dS) into three bf16 terms
 kind: the tensor cores (the dtype's default) and the CUDA cores (which fp32
 inputs take).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import ShapeConfig, get_config
+from repro_torch.core import costmodel as cm
+from repro_torch.core import offload as ofl
+from repro_torch.core import tree
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.launch.serve import build_params
+from repro_torch.parallel import runner
+from repro_torch.runtime import hostmem
 
 from _torch_cases import (SWEEP, WINDOW_DEAD, inputs, sweep_case, to_np,
                           to_torch, window_case)
@@ -431,3 +443,119 @@ def test_tensor_core_bwd_refuses_what_it_does_not_take(cuda_device):
         x = torch.zeros(1 + 4 * 2 * 32, device=cuda_device, dtype=torch.bfloat16)[1:].view(1, 4, 2, 32)
         fa.flash_attention_partial_bwd(x, q.bfloat16(), q.bfloat16(), pos, pos, q, m, dl)
     assert fa.counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the executed activation offload on the card
+# ---------------------------------------------------------------------------
+
+OFFLOAD_ALPHAS = (1.0, 0.7, 0.5, 0.0)
+
+
+def _offload_cell(seq=512, batch=2, alphas=OFFLOAD_ALPHAS, dtype=torch.float32, **ov):
+    cell = runner.resolve_cell(get_config("qwen2-7b").reduced(),
+                               ShapeConfig("t", seq, batch, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=4, grad_accum=1,
+                                              partition="length", **ov), dtype=dtype)
+    return cell if alphas is None else dataclasses.replace(cell, alphas=tuple(alphas))
+
+
+def _offload_batch(cell, device):
+    gen = torch.Generator(device=device).manual_seed(3)
+    tokens = torch.randint(0, cell.cfg.vocab_size, (cell.shape.global_batch,
+                                                    cell.shape.seq_len),
+                           generator=gen, device=device)
+    return tokens, torch.roll(tokens, -1, dims=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", ["ahead", "sync"])
+def test_offload_on_equals_off_through_the_kernels(cuda_device, prefetch):
+    """fp32 through the CUDA-core kernels: offload on at OFFLOAD_ALPHAS
+    (remat "sppo", the replay re-running the kernels) gives remat "none"'s
+    loss and every gradient within 1e-5, and moves the closed form's bytes
+    each way."""
+    off = _offload_cell(alphas=None, offload=False, remat="none")
+    on = _offload_cell(offload=True, prefetch=prefetch)
+    params = build_params(off, cuda_device, seed=0)
+    tokens, labels = _offload_batch(off, cuda_device)
+    l0, g0 = runner.loss_and_grads(off, params, tokens, labels)
+    hostmem.reset_counts()
+    before = fa.counts()
+    l1, g1 = runner.loss_and_grads(on, params, tokens, labels)
+    torch.cuda.synchronize()
+    moved = _launched(before)
+    # forward, its replay: two forward launches per layer and chunk
+    assert moved["fwd"] == 2 * 2 * 4 and moved["bwd_dq"] == moved["bwd_dkv"] == 2 * 4
+    np.testing.assert_allclose(float(l1), float(l0), rtol=0, atol=TOL)
+    for (path, a), b in zip(tree.items(g1), tree.leaves(g0)):
+        np.testing.assert_allclose(to_np(a), to_np(b), rtol=0, atol=TOL, err_msg=path)
+    elems = cm.tagged_bytes_per_token(on.cfg) // cm.ACT_ITEMSIZE
+    want = sum(ofl.split_rows(ln, a) * 2 * elems * 4 * 2
+               for ln, a in zip(on.sched.lengths, on.alphas))
+    counts = hostmem.counts()
+    assert counts["d2h_bytes"] == counts["h2d_bytes"] == want
+    assert counts["d2h_pinned"] == counts["d2h"] > 0
+
+
+def _forward(cell, params, tokens, labels):
+    """One training forward (the graph kept, no backward); returns the
+    run_pipeline dict."""
+    with torch.enable_grad():
+        leaves = tree.map_(lambda t: t.detach().requires_grad_(t.is_floating_point()
+                                                               and t.dim() > 0), params)
+        return runner.run_pipeline(cell, leaves["stages"], leaves["globals"], tokens,
+                                   labels, with_loss=True)
+
+
+@pytest.mark.cuda
+def test_offloaded_rows_live_in_pinned_host_memory(cuda_device):
+    cell = _offload_cell(dtype=torch.bfloat16, offload=True)
+    params = build_params(cell, cuda_device, seed=0)
+    out = _forward(cell, params, *_offload_batch(cell, cuda_device))
+    rows = [s for staged in out["link"].host.values() for s in staged]
+    assert len(rows) == 5 * 2 * 3                 # 5 tag sites, 2 layers, 3 chunks offload
+    for s in rows:
+        s.event.synchronize()
+        assert s.tensor.device.type == "cpu" and s.tensor.is_pinned()
+        assert s.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_copies_run_on_a_stream_of_their_own(cuda_device):
+    """A D2H issued before the compute stream is held busy completes while
+    it still is: the copy ran on another stream."""
+    t = torch.randn(8 << 20, device=cuda_device)
+    torch.cuda.synchronize()
+    staged = hostmem.to_host(t, 0)
+    torch.cuda._sleep(2_000_000_000)            # ~1 s on the compute stream
+    staged.event.synchronize()
+    assert not torch.cuda.current_stream().query()
+    assert hostmem.copy_stream(cuda_device) != torch.cuda.current_stream()
+    torch.cuda.synchronize()
+    assert torch.equal(staged.tensor, t.cpu())
+    back = hostmem.to_device(staged, 0)
+    assert torch.equal(hostmem.wait(back), t)
+
+
+@pytest.mark.cuda
+def test_offload_frees_the_device_memory_it_moves(cuda_device):
+    """After the forward, α = 1 on every chunk holds less device memory than
+    α = 0 by at least 90 % of the bytes it sent to host."""
+    held, sent = {}, {}
+    for alpha in (0.0, 1.0):
+        cell = _offload_cell(seq=2048, alphas=(alpha,) * 4, dtype=torch.bfloat16,
+                             offload=True)
+        params = build_params(cell, cuda_device, seed=0)
+        batch = _offload_batch(cell, cuda_device)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(cuda_device)
+        hostmem.reset_counts()
+        out = _forward(cell, params, *batch)
+        torch.cuda.synchronize()
+        torch.empty(1, device=cuda_device)      # the allocator settles freed copy sources
+        held[alpha] = torch.cuda.memory_allocated(cuda_device) - base
+        sent[alpha] = hostmem.counts()["d2h_bytes"]
+        del out
+    assert sent[0.0] == 0 and sent[1.0] > 0
+    assert held[0.0] - held[1.0] >= 0.9 * sent[1.0], (held, sent)

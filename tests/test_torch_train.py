@@ -314,18 +314,18 @@ def test_active_param_count_matches_reference(arch):
 
 
 def test_resolve_cell_refuses_what_later_slices_bring():
+    """The moment offload and the offload codecs are item 6 (pp > 1, item 8,
+    cannot be asked of a one-device plan: its own validation refuses it; the
+    CLI's ``--pp 2`` names the item).  Executed activation offload and remat
+    "sppo" / "full" (item 5) run: tests/test_torch_offload.py holds them."""
     cfg = get_config("qwen2-7b").reduced()
     shape = ShapeConfig("t", 256, 2, "train")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1))   # offload on
-    cell = runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, offload=False))
-    assert cell.plan.remat == "sppo"
-    tok = torch.zeros(2, 256, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 5"):   # where it would run
-        runner.run_pipeline(cell, [], {"embed": {"table": torch.zeros(8, 64)}}, tok, tok,
-                            with_loss=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.stage_apply(cfg, [], [], None, None, remat="full")
+    for ov in (dict(offload_moments=True), dict(offload_dtype="fp8"),
+               dict(offload_moments=True, moments_dtype="int8")):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, **ov))
+    cell = runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1))
+    assert (cell.plan.offload, cell.plan.remat, cell.plan.prefetch) == (True, "sppo", "ahead")
 
 
 def test_cli_trains_on_cpu_and_the_loss_falls():
@@ -348,7 +348,7 @@ def test_cli_counts_no_kernel_launch_on_cpu():
 
 @pytest.mark.parametrize("flag", [["--pp", "2"], ["--offload-moments"], ["--msp"],
                                   ["--ckpt-dir", "x"], ["--audit"], ["--mesh", "2x2"],
-                                  ["--prefetch", "sync"]])
+                                  ["--offload-dtype", "fp8"]])
 def test_cli_refuses_flags_of_later_slices(flag, capsys):
     with pytest.raises(SystemExit):
         train.main(["--reduced", "--steps", "1", "--device", "cpu", *flag])

@@ -56,8 +56,10 @@ Four phases, each of which exits non-zero on failure:
    the last unprofiled run (the profiler slows the host);
 4. training through ``repro_torch.launch.train.train``.  First the host
    link: the pinned D2H and H2D rates of a 1 GiB copy (CUDA events) beside
-   the cost model's ``H100.d2h_bw``.  Then qwen2-7b at full width cut to 4
-   layers (bf16 parameters, fp32 AdamW moments), B = 1, S = 8192 in 4
+   the cost model's ``H100.d2h_bw``; then the embedding's backward at the
+   train cell's shape: two calls bitwise equal, its cost against the
+   ``index_select`` gather it replaced.  Then qwen2-7b at full width cut to
+   4 layers (bf16 parameters, fp32 AdamW moments), B = 1, S = 8192 in 4
    FLOPs-balanced chunks (2560, 2048, 1920, 1664), 4 steps, under five plans
    in turns: (d) the reference's default plan, offload on, remat "sppo",
    prefetch "ahead" (no override: the main path), first; (a) offload off,
@@ -69,21 +71,36 @@ Four phases, each of which exits non-zero on failure:
    unsplit, the CUDA-core kernels never; its D2H bytes must equal the cost
    model's closed form (Σ split_rows(rows, α) x the tagged bytes of a token
    in every layer) exactly, its H2D bytes the D2H bytes, every host buffer
-   pinned; losses finite, and the plans' step-0 losses within 1e-3
-   relative.  After each plan's run, one untimed loss-and-gradients call
-   on fresh weights reads the peak above the weights, and its gradients
-   must equal (d)'s bitwise for (b) and (c) (the embedding table's, summed
-   by atomic adds, within GRAD_PLAN_TOL), within GRAD_PLAN_TOL for (a) and
+   pinned; losses finite, the plans' step-0 losses within 1e-3 relative,
+   and the losses of (b), (c) and (d) bitwise equal at every step.  After
+   each plan's run, one untimed loss-and-gradients call on fresh weights
+   reads the peak above the weights, and its gradients must equal (d)'s
+   bitwise for (b) and (c), every leaf, within GRAD_PLAN_TOL for (a) and
    (e).  Per plan: the deployed and quantized α, seconds, tokens/s, MFU (6
    N T over the bf16 peak, the reference's definition) of every step, the
    step's peak over all steps beside ``peak_memory`` of the tagged set, and
    for the last step, under torch.profiler, the device's busy time (union
    of kernel and copy intervals) and idle share, the kernel groups, and the
    pinned DtoH and HtoD copies' device ms, the share of it that overlaps a
-   compute kernel and the exposed rest.  Then the long cell, S = 32768 in 8
-   chunks: plans (d), (b) and (e) for 3 steps each, held alike, plan (a)
-   only if PERF.md's prediction of its peak is under 75
-   GiB.  Last, the same seed-built model cut to 2
+   compute kernel and the exposed rest.  Then, on the same cell, the
+   moments (``moment_phase``): fp32 moments in pinned host memory in
+   lockstep with moments on the device, 3 steps, losses, parameters and
+   both moments bitwise equal after every step, the moment copies'
+   bytes by the closed form, the offloaded update's device peak within the
+   on-device update's plus two leaves' moments; and the codecs, 3 steps
+   each of ``offload_dtype`` fp8 and int8 and ``moments_dtype`` fp8 and
+   int8: bytes by the closed forms at the codec's α, the step-0 loss within
+   1e-5, the step-0 gradients within CODEC_GRAD_TOL of (d)'s, the
+   parameters after two updates within CODEC_PARAM_TOL.  Then qwen2-7b at
+   all 28 layers (``full_depth_phase``), S = 8192, the default plan with
+   fp32 and with fp8 moments in pinned host memory (61.1 GB and 15.3 GB),
+   3 steps each, held as the plans are (224 / 112 / 112 launches a step)
+   with the moment copies by the closed form, the step's device peak under
+   80 GB, and the update's moment copies and their exposed ms from the
+   profiler.  Then the long cell, S = 32768 in 8 chunks: plans (d), (b) and
+   (e) for LONG_STEPS steps each, held alike, plan (a) only if PERF.md's
+   prediction of its peak is under 75 GiB.  Last, the same seed-built
+   model cut to 2
    layers takes one step's loss and gradients at S = 256 (2 chunks, chunk 0
    offloading every tagged row) in fp32 under the default plan on the card
    (kernels, no TF32: 8 launches of the CUDA-core forward (4 and their
@@ -97,9 +114,10 @@ Four phases, each of which exits non-zero on failure:
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its check and times: the tensor-core and the CUDA-core
 forward, the latter's merge, and the tensor-core and CUDA-core backward
-pairs, each kernel's ``launches`` counted on the paths that run it (bf16
-serving and the default plan's training for the tensor cores, the fp32
-training check for the CUDA cores) with its counts on every path beside.
+pairs, each kernel's ``launches`` counted on the main paths that run it
+(bf16 serving, the default plan's training at 4 layers and at full depth
+for the tensor cores, the fp32 training check for the CUDA cores) with its
+counts on every path beside.
 """
 from __future__ import annotations
 
@@ -107,6 +125,7 @@ import bisect
 import contextlib
 import dataclasses
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -125,7 +144,7 @@ HBM_BYTES_PER_S = BF16_FLOPS = None
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores (data sheet), printed only
 PREFILL_LEN, BATCH, DECODE_STEPS, REPEATS = 2048, 4, 32, 3
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_CHUNKS, TRAIN_STEPS = 4, 8192, 4, 4
-LONG_SEQ, LONG_CHUNKS, LONG_STEPS = 32768, 8, 3
+LONG_SEQ, LONG_CHUNKS, LONG_STEPS = 32768, 8, 2
 # plan (a)'s peak at S = 32768 as predicted in PERF.md before the first run
 # (the weights and moments plus four times the S = 8192 run's activations):
 # plan (a) runs on the long cell only if this is under 75 GiB
@@ -135,7 +154,20 @@ GRAD_REL_TOL = 1e-4  # 2-layer fp32 train step, card vs CPU: relative L2
 # bf16 step-0 gradients of one training plan against the default plan's,
 # where they are not held bitwise: relative L2 at the worst leaf
 GRAD_PLAN_TOL = 1e-2
-EMBED_GRAD = "globals/embed/table"
+# the moment offload and the codecs on the 4-layer S = 8192 cell
+MOMENT_STEPS = 3
+CODEC_LOSS_TOL = 1e-5                       # step-0 loss, relative (the reference's)
+CODEC_GRAD_TOL = {"fp8": 0.05, "int8": 0.03}   # step-0 gradients, relative L2
+CODEC_PARAM_TOL = {"fp8": 1e-2, "int8": 3e-2}  # parameters after two updates
+# full depth: all 28 layers of qwen2-7b at S = 8192 with the moments in
+# pinned host memory.  The H100 machine has 101 GiB of host memory, 96 GiB
+# free, and page-locked 60 GB in one cudaHostRegister call (`free -g`,
+# PERF.md §4): the fp32 moments' 61.1 GB fit, so the phase runs fp32 and
+# fp8 moments (int8 moments run on the 4-layer cell).  A pinned allocation
+# that fails raises.
+FULL_STEPS = 3
+FULL_DEPTH_MOMENTS = ("none", "fp8")
+CARD_BYTES = 80e9
 
 
 def fail(msg: str):
@@ -490,21 +522,24 @@ def device_time(prof, top: int = 6):
     tensor-core and the CUDA-core dq and dk/dv backward kernels, cuBLAS
     matrix products (nvjet / gemm kernels), copies between host and device
     (which may overlap kernels: the total then exceeds the busy time),
-    everything else.  Only device events count: a host op's self device time
-    is the time of the kernels it launched, which are listed as events of
-    their own."""
+    everything else.  Only device events count, each its own interval (one
+    pass over the events: ``key_averages`` takes seconds at full depth)."""
     groups = {"attention fwd tc kernel": 0.0, "attention kernel": 0.0,
               "attention merge kernel": 0.0,
               "attention dq tc kernel": 0.0, "attention dk/dv tc kernel": 0.0,
               "attention dq kernel": 0.0, "attention dk/dv kernel": 0.0,
               "matmul": 0.0, "host copies": 0.0, "other": 0.0}
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + (
+                evt.time_range.end - evt.time_range.start) / 1e3
     kernels = []
-    for evt in prof.key_averages():
-        ms = evt.self_device_time_total / 1e3
-        if evt.device_type == DeviceType.CPU or ms <= 0:
+    for key, ms in by_name.items():
+        if ms <= 0:
             continue
-        kernels.append((evt.key[:60], ms))
-        name = evt.key.lower()
+        kernels.append((key[:60], ms))
+        name = key.lower()
         # the kernels' own names first: their sources' names hold "flash_partial"
         if "flash_fwd_tc_kernel" in name:
             groups["attention fwd tc kernel"] += ms
@@ -934,29 +969,61 @@ def overlap_us(iv, union, starts):
     return cov
 
 
-def copy_timeline(prof):
+def copy_timeline(prof, moment_copies=(0, 0)):
     """From a torch.profiler run's device events: the device's busy time
     (the union of every kernel's and copy's interval), and for the pinned
-    D2H and H2D copies (the offload's; pageable scalar reads are left out
-    where the names tell them apart) their device ms, the share of it that
-    overlaps some compute kernel, and the ms that does not (exposed)."""
-    kern, copies, names = [], {"d2h": [], "h2d": []}, set()
+    D2H and H2D copies of the activation rows (pageable scalar reads are
+    left out where the names tell them apart) their device ms, the share of
+    it that overlaps some compute kernel, and the ms that does not
+    (exposed).  ``moment_copies``: (H2D, D2H) copies the update made; they
+    are told apart as the copies on the streams (``device_resource_id``)
+    that carry no kernel and one direction only (the rows' copy stream
+    carries both), and their device ms, exposed ms (the union of their
+    intervals not covered by a compute kernel) and window are reported
+    apart."""
+    kern, copies, names, kernel_streams = [], [], set(), set()
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
         iv = (evt.time_range.start, evt.time_range.end)
         name = evt.name.lower()
+        stream = getattr(evt, "device_resource_id", None)
         if "memcpy" in name and ("dtoh" in name or "htod" in name):
             names.add(evt.name)
-            copies["d2h" if "dtoh" in name else "h2d"].append((iv, "pinned" in name))
+            copies.append((iv, "d2h" if "dtoh" in name else "h2d", "pinned" in name, stream))
         else:
             kern.append(iv)
+            kernel_streams.add(stream)
     union = merged(kern)
     starts = [a for a, _ in union]
     out = {"device_busy_ms": sum(b - a for a, b in merged(
-        kern + [iv for c in copies.values() for iv, _ in c])) / 1e3,
-        "copy_event_names": sorted(names)}
-    for way, evs in copies.items():
+        kern + [c[0] for c in copies])) / 1e3, "copy_event_names": sorted(names)}
+    n_way = dict(zip(("h2d", "d2h"), moment_copies))
+    moment = set()
+    if any(moment_copies):
+        by_stream = {}
+        for i, (_, way, _, stream) in enumerate(copies):
+            if stream not in kernel_streams:
+                by_stream.setdefault(stream, []).append(i)
+        for idx in by_stream.values():
+            ways = {copies[i][1] for i in idx}
+            if len(ways) == 1 and len(idx) == n_way[ways.pop()]:
+                moment.update(idx)
+        check(len(moment) == sum(moment_copies),
+              f"found {len(moment)} moment copies in the profile, the update made "
+              f"{moment_copies}; streams {sorted(map(str, by_stream))}")
+        ivs = [copies[i][0] for i in moment]
+        cover = sum(overlap_us(iv, union, starts) for iv in merged(ivs))
+        span = merged(ivs)
+        out.update({"moment_h2d_ms": sum(b - a for i in moment if copies[i][1] == "h2d"
+                                         for a, b in [copies[i][0]]) / 1e3,
+                    "moment_d2h_ms": sum(b - a for i in moment if copies[i][1] == "d2h"
+                                         for a, b in [copies[i][0]]) / 1e3,
+                    "moment_copy_union_ms": sum(b - a for a, b in span) / 1e3,
+                    "moment_exposed_ms": (sum(b - a for a, b in span) - cover) / 1e3,
+                    "moment_window_ms": (max(b for _, b in span) - min(a for a, _ in span)) / 1e3})
+    for way in ("d2h", "h2d"):
+        evs = [(c[0], c[2]) for i, c in enumerate(copies) if c[1] == way and i not in moment]
         pinned = [iv for iv, p in evs if p] if any(p for _, p in evs) else [iv for iv, _ in evs]
         ms = sum(b - a for a, b in pinned) / 1e3
         cov = sum(overlap_us(iv, union, starts) for iv in pinned) / 1e3
@@ -970,21 +1037,48 @@ def copy_timeline(prof):
 def offload_bytes(cell) -> int:
     """D2H bytes of one step by the port's cost model: Σ over chunks of
     split_rows(rows, α_c) x batch x the tagged bytes of a token in every
-    layer (bf16)."""
+    layer (bf16), times the codec's wire ratio (its 1-byte payload; the
+    scales stay on the device)."""
     from repro_torch.core import costmodel as cm
     from repro_torch.core import offload as ofl
 
-    per_row = cell.shape.global_batch * cm.tagged_bytes_per_token(cell.cfg) * cell.cfg.n_layers
+    per_row = (cell.shape.global_batch * cm.tagged_bytes_per_token(cell.cfg) * cell.cfg.n_layers
+               * cm.offload_wire_ratio(cell.plan.offload_dtype))
     return int(sum(ofl.split_rows(ln, a) * per_row
                    for ln, a in zip(cell.sched.lengths, cell.alphas)))
 
 
-def grads_call(serve, runner, cell, seq):
+def param_shapes(cell) -> list:
+    """The cell's parameter shapes, built on the meta device."""
+    from repro_torch.core import tree
+
+    gen = torch.Generator()
+    params = {"stages": cell.mdef.init_stage_params(gen, device="meta"),
+              "globals": cell.mdef.init_globals(gen, device="meta")}
+    return [tuple(t.shape) for t in tree.leaves(params)]
+
+
+def moment_copies(cell) -> tuple:
+    """(bytes, copies) one update moves each way by the closed form: the
+    fp32 moments, or a codec's payload and scales; one copy per host tensor
+    (m and v per leaf, each a pair under a codec); (0, 0) on the device."""
+    from repro_torch.core import costmodel as cm
+
+    if not cell.plan.offload_moments:
+        return 0, 0
+    shapes = param_shapes(cell)
+    per_leaf = 2 if cell.plan.moments_dtype == "none" else 4
+    return (int(cm.moment_bytes_from_shapes(shapes, "float32", cell.plan.moments_dtype)),
+            per_leaf * len(shapes))
+
+
+def grads_call(serve, runner, cell, seq, *, keep=True):
     """One untimed loss-and-gradients call of ``cell`` on fresh weights
     (seed 0) and step 0's tokens, outside the training run.  Returns the
     allocator's peak during it less the weights it started from (the
     activations, the host-copy staging and the gradients, without AdamW's
-    moments and temporaries) and the gradients, on the host, by path."""
+    moments and temporaries) and the gradients, on the host, by path (None
+    without ``keep``)."""
     from repro_torch.core import tree
     from repro_torch.data.pipeline import SyntheticLM
 
@@ -997,7 +1091,7 @@ def grads_call(serve, runner, cell, seq):
     _, grads = runner.loss_and_grads(cell, params, tokens, labels)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    grads = {path: g.cpu() for path, g in tree.items(grads)}
+    grads = {path: g.cpu() for path, g in tree.items(grads)} if keep else None
     del params
     torch.cuda.empty_cache()
     return peak, grads
@@ -1005,17 +1099,16 @@ def grads_call(serve, runner, cell, seq):
 
 def compare_grads(grads, ref, plan, ref_plan, label, *, bitwise):
     """Holds one plan's step-0 gradients against another's: every leaf
-    bitwise equal (``bitwise``), or within GRAD_PLAN_TOL relative L2 at the
-    worst leaf.  The embedding table's gradient is summed by atomic adds
-    (index_add over repeated tokens), whose order varies from run to run,
-    so it is held to the relative L2 only.  Returns (worst relative L2,
-    whether every other leaf was bitwise equal)."""
+    bitwise equal (``bitwise``; the embedding table's too, its backward
+    deterministic since the gather is ``F.embedding``), or within
+    GRAD_PLAN_TOL relative L2 at the worst leaf.  Returns (worst relative
+    L2, whether every leaf was bitwise equal)."""
     worst, differ = 0.0, []
     for path, g in grads.items():
         want = ref[path]
         rel = ((g.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
         worst = max(worst, rel)
-        if path != EMBED_GRAD and not torch.equal(g, want):
+        if not torch.equal(g, want):
             differ.append((path, rel))
     check(not (bitwise and differ),
           f"[{label}] plan ({plan})'s step-0 gradients differ from ({ref_plan})'s at "
@@ -1024,22 +1117,27 @@ def compare_grads(grads, ref, plan, ref_plan, label, *, bitwise):
                                   f"({ref_plan})'s by {worst:.3e} relative L2 at the worst leaf "
                                   f"(tol {GRAD_PLAN_TOL})")
     print(f"train [{label}] plan ({plan}) step-0 gradients vs ({ref_plan})'s: "
-          f"{'bitwise equal' if not differ else f'{len(differ)} leaves differ'} but the "
-          f"embedding's; worst leaf relative L2 {worst:.3e}")
+          f"{'bitwise equal' if not differ else f'{len(differ)} leaves differ'} (every leaf, "
+          f"the embedding's included); worst leaf relative L2 {worst:.3e}")
     return worst, not differ
 
 
 def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n_chunks,
-               steps, label):
+               steps, label, extra=None, grads="keep"):
     """One training plan through ``launch.train.train``, as the CLI runs it,
     counted and timed: each step's kernel launches and host copies, the last
     step under torch.profiler (device busy and idle, kernel groups, copy
-    overlap).  Checks the launches (remat "none": 16 each of the tensor-core
-    forward, dq and dk/dv a step at 4 layers x 4 chunks; "sppo" and "full":
-    the forward twice that, its replay), no CUDA-core launch, finite
-    losses, and that the D2H bytes of every step equal the cost model's
-    closed form, the H2D bytes the D2H bytes and every host buffer pinned.
-    Then one untimed loss-and-gradients call (``grads_call``).  Returns the
+    overlap).  ``extra``: plan overrides beside the plan's own (the moment
+    offload, the codecs).  Checks the launches (remat "none": one each of
+    the tensor-core forward, dq and dk/dv a step per layer and chunk;
+    "sppo" and "full": the forward twice that, its replay), no CUDA-core
+    launch, finite losses, that the D2H bytes of every step equal the cost
+    model's closed form (at the codec's payload under one), the H2D bytes
+    the D2H bytes and every host buffer pinned, and, with the moments in
+    host memory, that each step's moment copies move the closed form's
+    bytes each way, one copy per host tensor, into pinned buffers.  Then
+    one untimed loss-and-gradients call (``grads_call``; ``grads``: "keep"
+    its gradients, "peak" read its peak only, "none" skip it).  Returns the
     launch counts, a summary and that call's gradients."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1047,6 +1145,9 @@ def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n
     from repro_torch.core import offload as ofl
 
     what, overrides = PLANS[plan]
+    if extra:
+        what = f"{what}, {', '.join(f'{k}={v}' for k, v in extra.items())}"
+        overrides = {**(overrides or {}), **extra}
     after, prof = [], {}
 
     def on_step(step, rec):
@@ -1060,19 +1161,23 @@ def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n
 
     fa.reset_counts()
     hostmem.reset_counts()
+    t0 = time.perf_counter()
     out = train_mod.train(cfg, steps=steps, seq=seq, batch=1, n_chunks=n_chunks,
                           log_every=steps, device="cuda", overrides=overrides,
                           on_step=on_step, step_context=step_context)
+    seconds = {"train_call": time.perf_counter() - t0}
     totals = after[-1]
     cell, hist = out["cell"], out["history"]
     offload, remat, prefetch = PLAN_FORM[plan]
     check((cell.plan.offload, cell.plan.remat) == (offload, remat)
-          and (prefetch is None or cell.plan.prefetch == prefetch),
+          and (prefetch is None or cell.plan.prefetch == prefetch)
+          and all(getattr(cell.plan, k) == v for k, v in (extra or {}).items()),
           f"plan ({plan}) resolved to {cell.plan}")
     per_step = [{k: a[k] - b.get(k, 0) for k in a} for a, b in zip(after, [{}] + after[:-1])]
     n_calls = cfg.n_layers * cell.sched.n
     fwd_want = n_calls * (1 if cell.plan.remat == "none" else 2)
     bytes_want = offload_bytes(cell)
+    mom_bytes, mom_copies = moment_copies(cell)
     for step, c in enumerate(per_step):
         check(c["fwd_tc"] == fwd_want and c["bwd_dq_tc"] == n_calls
               and c["bwd_dkv_tc"] == n_calls and c["merged_in_kernel"] == 0
@@ -1083,39 +1188,53 @@ def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n
               and c["copy_d2h_pinned"] == c["copy_d2h"] == c["copy_h2d"],
               f"[{label}] step {step} copied {c}; expected {bytes_want} bytes each way by the "
               f"closed form, every host buffer pinned")
+        check(c["copy_moment_d2h_bytes"] == c["copy_moment_h2d_bytes"] == mom_bytes
+              and c["copy_moment_d2h"] == c["copy_moment_h2d"] == c["copy_moment_d2h_pinned"]
+              == mom_copies,
+              f"[{label}] step {step} moved moments {c}; expected {mom_bytes} bytes and "
+              f"{mom_copies} copies each way by the closed form, into pinned buffers")
     losses = [r["loss"] for r in hist]
     check(len(hist) == steps and all(np.isfinite(losses)), f"[{label}] losses {losses}")
-    timeline = copy_timeline(prof["p"])
+    t0 = time.perf_counter()
+    timeline = copy_timeline(prof["p"], (mom_copies, mom_copies))
     if bytes_want:
         check(timeline["d2h_ms"] > 0 and timeline["h2d_ms"] > 0,
               f"[{label}] the profiler saw no offload copy: {timeline}")
     busy_k, groups, _ = device_time(prof["p"])
+    seconds["profile_reading"] = time.perf_counter() - t0
     prof_wall = 1e3 * hist[-1]["dt"]
     warm = [1e3 * r["dt"] for r in hist[1:-1]] or [prof_wall]
     warm_ms = sum(warm) / len(warm)
     busy = timeline["device_busy_ms"]
     acts = cm.chunk_act_bytes(cell.cfg, cell.sched.lengths, batch=1, pp=1, sp=1)
     quantized = [ofl.quantized_alpha(ln, a) for ln, a in zip(cell.sched.lengths, cell.alphas)]
-    peak, base = out["peak_bytes"], out["base_bytes"]
+    peak, base, host_moments = out["peak_bytes"], out["base_bytes"], out["host_moment_bytes"]
     del out
     torch.cuda.empty_cache()
-    lg_peak, grads = grads_call(serve, runner, cell, seq)
-    row = {"plan": plan, "what": what, "seq": seq, "chunks": list(cell.sched.lengths),
+    t0 = time.perf_counter()
+    lg_peak, grad_tree = (grads_call(serve, runner, cell, seq, keep=grads == "keep")
+                          if grads != "none" else (None, None))
+    seconds["grads_call"] = time.perf_counter() - t0
+    row = {"plan": plan, "what": what, "seq": seq, "layers": cfg.n_layers,
+           "chunks": list(cell.sched.lengths),
            "alphas": list(cell.alphas), "quantized_alphas": quantized,
            "losses": losses, "step_s": [r["dt"] for r in hist],
            "tokens_per_s": [r["tgs"] for r in hist], "mfu": [r["mfu"] for r in hist],
            "warm_step_ms": warm_ms, "peak_bytes": peak, "base_bytes": base,
+           "host_moment_bytes": host_moments,
            "grads_peak_over_weights_bytes": lg_peak,
            "tagged_peak_model_bytes": ofl.peak_memory(acts, quantized),
            "d2h_bytes_per_step": per_step[-1]["copy_d2h_bytes"],
            "h2d_bytes_per_step": per_step[-1]["copy_h2d_bytes"],
+           "moment_bytes_each_way_per_step": per_step[-1]["copy_moment_d2h_bytes"],
            "launches_per_step": {k: v for k, v in per_step[-1].items() if not k.startswith("copy_")},
            "profiled_wall_ms": prof_wall, "device_busy_ms": busy,
            "device_kernel_ms_by_group": groups, "kernel_ms_sum": busy_k,
            "idle_share": 1 - busy / prof_wall, "idle_share_vs_unprofiled_wall": 1 - busy / warm_ms,
-           **{k: v for k, v in timeline.items() if k != "device_busy_ms"}}
+           **{k: v for k, v in timeline.items() if k != "device_busy_ms"},
+           "smoke_seconds": seconds}
     print_plan(row, hist, cell, card, label, steps)
-    return totals, row, grads
+    return totals, row, grad_tree
 
 
 def print_plan(row, hist, cell, card, label, steps):
@@ -1126,12 +1245,15 @@ def print_plan(row, hist, cell, card, label, steps):
     for r in hist:
         print(f"  step {r['step']}: loss {r['loss']!r}, {r['dt']:.4f} s, {r['tgs']:.1f} tokens/s, "
               f"MFU {r['mfu']:.4f}" + (" [profiled]" if r["step"] == steps - 1 else ""))
+    lg = row["grads_peak_over_weights_bytes"]
     print(f"  warm step {row['warm_step_ms']:.1f} ms (unprofiled mean of steps 1..{steps - 2}); "
           f"peak {row['peak_bytes'] / gib:.3f} GiB over the {steps} steps (weights and moments "
-          f"{row['base_bytes'] / gib:.3f} GiB); one untimed loss-and-gradients call peaks "
-          f"{row['grads_peak_over_weights_bytes'] / gib:.3f} GiB above its weights; the cost "
-          f"model's tagged-activation peak (peak_memory of chunk_act_bytes at the quantized "
-          f"alphas) {row['tagged_peak_model_bytes'] / gib:.3f} GiB")
+          f"on the device {row['base_bytes'] / gib:.3f} GiB, moments in host memory "
+          f"{row['host_moment_bytes'] / gib:.3f} GiB); one untimed loss-and-gradients call peaks "
+          + (f"{lg / gib:.3f} GiB above its weights" if lg is not None else "(not run)")
+          + f"; the cost model's tagged-activation peak (peak_memory of chunk_act_bytes at the "
+          f"quantized alphas) {row['tagged_peak_model_bytes'] / gib:.3f} GiB")
+    print(f"  smoke seconds {json.dumps({k: round(v, 2) for k, v in row['smoke_seconds'].items()})}")
     print(f"  device busy {row['device_busy_ms']:.1f} ms of {row['profiled_wall_ms']:.1f} ms "
           f"profiled wall (idle {row['idle_share']:.3f}; {row['idle_share_vs_unprofiled_wall']:.3f} "
           f"against the unprofiled warm wall); kernels by group "
@@ -1142,6 +1264,11 @@ def print_plan(row, hist, cell, card, label, steps):
           f"exposed {row['d2h_exposed_ms']:.3f} ms), HtoD {row['h2d_ms']:.3f} "
           f"({row['h2d_copies']} copies, overlap {row['h2d_overlap_share']}, exposed "
           f"{row['h2d_exposed_ms']:.3f} ms); copy events {row['copy_event_names']}")
+    if row["moment_bytes_each_way_per_step"]:
+        print(f"  moments a step: {row['moment_bytes_each_way_per_step']} bytes each way; device "
+              f"ms HtoD {row['moment_h2d_ms']:.3f}, DtoH {row['moment_d2h_ms']:.3f}, their union "
+              f"{row['moment_copy_union_ms']:.3f} over a {row['moment_window_ms']:.3f} ms window, "
+              f"exposed (no compute kernel beside) {row['moment_exposed_ms']:.3f} ms")
 
 
 def link_rate(hostmem, card):
@@ -1171,20 +1298,272 @@ def link_rate(hostmem, card):
     return rates
 
 
+def embed_check(card):
+    """The deterministic embedding backward (``layers.embed_tokens``, an
+    ``F.embedding`` gather) at the train cell's shape, qwen2-7b's padded
+    table (153600 x 3584, bf16) and step 0's 8192 token ids: two calls give
+    bitwise the same table gradient, and its cost against the
+    ``index_select`` gather it replaced (forward and backward, CUDA events,
+    in turns), printed with whether that one was bitwise repeatable."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("qwen2-7b")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = build_model(cfg).init_globals(torch.Generator(), device="meta")["embed"]["table"].shape
+    table = (0.02 * torch.randn(*shape, device="cuda", generator=gen)).to(torch.bfloat16)
+    ids = torch.from_numpy(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, 1).sample_step(0)[0]).cuda()
+    gout = torch.randn(*ids.shape, cfg.d_model, device="cuda", generator=gen).to(torch.bfloat16)
+
+    def index_select_gather(t):
+        return t.index_select(0, ids.reshape(-1).long()).reshape(*ids.shape, -1)
+
+    def grad(fn):
+        t = table.detach().requires_grad_()
+        return torch.autograd.grad(fn(t), t, gout)[0]
+
+    def port(t):
+        return L.embed_tokens(ids, t)
+
+    repeat = {name: torch.equal(grad(fn), grad(fn))
+              for name, fn in (("embedding", port), ("index_select", index_select_gather))}
+    check(repeat["embedding"], "two calls of the embedding backward on the same ids differ")
+    ms = {"embedding": [], "index_select": []}
+    for name in ("index_select", "embedding", "embedding", "index_select"):
+        fn = port if name == "embedding" else index_select_gather
+        grad(fn)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            grad(fn)
+        end.record()
+        end.synchronize()
+        ms[name].append(start.elapsed_time(end) / 10)
+    out = {k: sum(v) / len(v) for k, v in ms.items()}
+    print(f"embedding ({card}): table {tuple(table.shape)} bf16, {ids.numel()} ids of step 0: "
+          f"forward and backward F.embedding {out['embedding']:.4f} ms, index_select "
+          f"{out['index_select']:.4f} ms (turns {ms}); bitwise repeatable: {repeat}")
+    return {"embed_ms": out, "embed_ms_turns": ms, "embed_bitwise_repeatable": repeat}
+
+
+def rel_l2(got, want) -> float:
+    """Relative L2 of ``got`` against ``want`` over every leaf (dicts path
+    -> tensor, on the host or the card), summed on the card in fp64."""
+    num = den = 0.0
+    for path, w in want.items():
+        w = w.cuda().float()
+        g = got[path].cuda().float()
+        num += torch.linalg.vector_norm(g - w, dtype=torch.float64).item() ** 2
+        den += torch.linalg.vector_norm(w, dtype=torch.float64).item() ** 2
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def moment_phase(hostmem, serve, runner, cfg4, card, ref_grads):
+    """The moment offload and the codecs on the 4-layer S = 8192 cell, the
+    default plan, steps driven through ``runner.make_train_step`` as
+    ``launch.train.train`` drives them (same data, schedule and seed).
+
+    1. fp32 moments in pinned host memory and on the device, in lockstep
+       for MOMENT_STEPS steps: the losses, the parameters and both moments
+       bitwise equal after every step; each step moves ``opt_state_bytes``
+       each way, one copy per host tensor into a pinned buffer; every host
+       moment is pinned.  Then one more update of each on the same
+       gradients: the offloaded update's device peak above what was
+       allocated before it is at most the on-device update's plus the
+       moments of two leaves (the bound of ``optim/adamw.py``).
+    2. The codecs, MOMENT_STEPS steps each: ``offload_dtype`` fp8 and
+       int8, ``moments_dtype`` fp8 and int8: the activation bytes each way
+       equal the closed form at the codec's α (payload bytes), the moment
+       bytes theirs; the step-0 loss within CODEC_LOSS_TOL of the
+       uncompressed run's; the step-0 gradients (an untimed call) within
+       CODEC_GRAD_TOL of the default plan's (``ref_grads``), drifting under
+       an activation codec; the parameters after two updates within
+       CODEC_PARAM_TOL of the uncompressed run's, and not equal."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw
+
+    gib = 2**30
+    shape = ShapeConfig("moments", TRAIN_SEQ, 1, "train")
+    lr_kwargs = dict(peak=3e-4, warmup=20, total=100)       # train()'s at its default lr
+
+    def cell_for(**ov):
+        return runner.resolve_cell(cfg4, shape, overrides=dict(pp=1, dp=1,
+                                                               n_chunks=TRAIN_CHUNKS, **ov))
+
+    def start(cell):
+        params = serve.build_params(cell, "cuda", seed=0)
+        plan = cell.plan
+        state = adamw.init_state(params, offload_moments=plan.offload_moments,
+                                 moments_dtype=plan.moments_dtype)
+        return params, state, runner.make_train_step(cell, lr_kwargs=lr_kwargs)
+
+    data = SyntheticLM(cfg4.vocab_size, TRAIN_SEQ, 1)
+    batches = [tuple(torch.from_numpy(a).cuda() for a in data.sample_step(s))
+               for s in range(MOMENT_STEPS)]
+    ref_grads = {path: g.cuda() for path, g in ref_grads.items()}
+    ref_cell, on_cell = cell_for(), cell_for(offload_moments=True)
+    p_ref, s_ref, step_ref = start(ref_cell)
+    p_on, s_on, step_on = start(on_cell)
+    host = tree.leaves([s_on.m, s_on.v])
+    check(all(t.device.type == "cpu" and t.is_pinned() for t in host),
+          "a host moment buffer is not pinned")
+    mom_bytes, mom_copies = moment_copies(on_cell)
+    check(mom_bytes == cm.opt_state_bytes(sum(t.numel() for t in tree.leaves(p_ref))),
+          "the moment closed forms disagree")
+    ref_losses, ref_after_two, step_s = [], None, {"on": [], "off": []}
+    for step, (tok, lab) in enumerate(batches):
+        t0 = time.perf_counter()
+        p_ref, s_ref, m_ref = step_ref(p_ref, s_ref, tok, lab)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hostmem.reset_counts()
+        p_on, s_on, m_on = step_on(p_on, s_on, tok, lab)
+        torch.cuda.synchronize()
+        step_s["off"].append(t1 - t0)
+        step_s["on"].append(time.perf_counter() - t1)
+        c = hostmem.counts()
+        check(c["moment_d2h_bytes"] == c["moment_h2d_bytes"] == mom_bytes
+              and c["moment_d2h"] == c["moment_h2d"] == c["moment_d2h_pinned"] == mom_copies,
+              f"[moments] step {step} moved {c}; expected {mom_bytes} bytes and {mom_copies} "
+              f"pinned copies each way")
+        loss_ref, loss_on = float(m_ref["loss"]), float(m_on["loss"])
+        check(loss_ref == loss_on, f"[moments] step {step} loss {loss_on!r} with the moments in "
+                                   f"host memory, {loss_ref!r} on the device")
+        differ = [path for (path, a), b in zip(tree.items(p_on), tree.leaves(p_ref))
+                  if not torch.equal(a, b)]
+        for name, hosts, devs in (("m", s_on.m, s_ref.m), ("v", s_on.v, s_ref.v)):
+            differ += [f"{name}:{path}" for (path, h), d in zip(tree.items(hosts), tree.leaves(devs))
+                       if not torch.equal(h.cuda(), d)]
+        check(not differ, f"[moments] after step {step} offload on and off differ at {differ[:8]}")
+        ref_losses.append(loss_ref)
+        if step == 1:
+            ref_after_two = {path: t.clone() for path, t in tree.items(p_ref)}
+    print(f"train [moments] ({card}) 4 layers, S = {TRAIN_SEQ}, default plan: fp32 moments in "
+          f"pinned host memory == on the device, bitwise (losses, parameters, m, v) after each of "
+          f"{MOMENT_STEPS} steps; {mom_bytes} bytes and {mom_copies} copies each way a step; "
+          f"losses {ref_losses}; lockstep step s on {step_s['on']}, off {step_s['off']}")
+    _, grads = runner.loss_and_grads(ref_cell, p_ref, *batches[0])
+
+    def update_extra(params, state, offload):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        adamw.apply_update(params, grads, state, lr=1e-5, offload_moments=offload)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    extra_off = update_extra(p_ref, s_ref, False)
+    extra_on = update_extra(p_on, s_on, True)
+    leaf_moments = 8 * max(t.numel() for t in tree.leaves(p_ref))
+    print(f"train [moments] update's device peak above its start: moments on the device "
+          f"{extra_off / gib:.3f} GiB, in host memory {extra_on / gib:.3f} GiB; the largest "
+          f"leaf's m and v {leaf_moments / gib:.3f} GiB, all moments {mom_bytes / gib:.3f} GiB")
+    check(extra_on <= extra_off + 2 * leaf_moments,
+          f"the offloaded update held {extra_on} bytes above its start, more than the on-device "
+          f"update's {extra_off} plus two leaves' moments ({2 * leaf_moments})")
+    out = {"moments_lockstep_losses": ref_losses, "moments_lockstep_step_s": step_s,
+           "update_extra_bytes": {"device": extra_off, "host": extra_on},
+           "largest_leaf_moment_bytes": leaf_moments}
+    del p_ref, s_ref, p_on, s_on, grads, step_ref, step_on
+    torch.cuda.empty_cache()
+    codecs = {}
+    for kind, codec in (("offload_dtype", "fp8"), ("offload_dtype", "int8"),
+                        ("moments_dtype", "fp8"), ("moments_dtype", "int8")):
+        ov = {kind: codec, **({"offload_moments": True} if kind == "moments_dtype" else {})}
+        cell = cell_for(**ov)
+        params, state, step_fn = start(cell)
+        want, (mom_bytes, mom_copies) = offload_bytes(cell), moment_copies(cell)
+        losses, param_drift = [], None
+        for step, (tok, lab) in enumerate(batches):
+            hostmem.reset_counts()
+            params, state, met = step_fn(params, state, tok, lab)
+            torch.cuda.synchronize()
+            c = hostmem.counts()
+            check(c["d2h_bytes"] == c["h2d_bytes"] == want > 0
+                  and c["moment_d2h_bytes"] == c["moment_h2d_bytes"] == mom_bytes
+                  and c["moment_d2h"] == c["moment_d2h_pinned"] == mom_copies,
+                  f"[{kind}={codec}] step {step} copied {c}; expected {want} activation bytes "
+                  f"and {mom_bytes} moment bytes each way")
+            losses.append(float(met["loss"]))
+            if step == 1:
+                param_drift = rel_l2(dict(tree.items(params)), ref_after_two)
+        del params, state, step_fn
+        torch.cuda.empty_cache()
+        # step 0's gradients on fresh weights, as grads_call takes them
+        _, g = runner.loss_and_grads(cell, serve.build_params(cell, "cuda", seed=0),
+                                     *batches[0])
+        grad_drift = rel_l2(dict(tree.items(g)), ref_grads)
+        del g
+        loss_drift = abs(losses[0] - ref_losses[0]) / abs(ref_losses[0])
+        print(f"train [{kind}={codec}] ({card}) alpha {[round(a, 4) for a in cell.alphas]}: "
+              f"activation bytes {want} each way, moment bytes {mom_bytes}; losses {losses} "
+              f"(uncompressed {ref_losses}); step-0 loss drift {loss_drift:.3e} (tol "
+              f"{CODEC_LOSS_TOL}), step-0 gradient drift {grad_drift:.3e} (tol "
+              f"{CODEC_GRAD_TOL[codec]}), parameter drift after two updates {param_drift:.3e} "
+              f"(tol {CODEC_PARAM_TOL[codec]})")
+        check(all(np.isfinite(losses)) and loss_drift <= CODEC_LOSS_TOL,
+              f"[{kind}={codec}] losses {losses} against {ref_losses}")
+        check(grad_drift <= CODEC_GRAD_TOL[codec] and (grad_drift > 0) == (kind == "offload_dtype"),
+              f"[{kind}={codec}] step-0 gradient drift {grad_drift}")
+        check(0 < param_drift <= CODEC_PARAM_TOL[codec],
+              f"[{kind}={codec}] parameter drift after two updates {param_drift}")
+        codecs[f"{kind}={codec}"] = {"alphas": list(cell.alphas), "losses": losses,
+                                     "activation_bytes_each_way": want,
+                                     "moment_bytes_each_way": mom_bytes,
+                                     "loss_drift": loss_drift, "grad_drift": grad_drift,
+                                     "param_drift_after_two_updates": param_drift}
+    out["codecs"] = codecs
+    return out
+
+
+def full_depth_phase(fa, hostmem, serve, runner, train_mod, cfg, card):
+    """qwen2-7b at all 28 layers, S = 8192 (4 FLOPs-balanced chunks), B = 1,
+    the default plan with the moments in pinned host memory, FULL_STEPS
+    steps through ``launch.train.train`` for each moment setting of
+    FULL_DEPTH_MOMENTS (``train_plan``'s checks: 28 x 4 launches of dq and
+    dk/dv and twice that of the forward a step, the rows' and the moments'
+    bytes by the closed forms, pinned, finite losses), the step's device
+    peak under the card's 80 GB.  Prints the host's memory first."""
+    for cmd in ("free -g", "ulimit -l"):
+        got = subprocess.run(["sh", "-c", cmd], capture_output=True, text=True).stdout.strip()
+        print(f"host ({card}): $ {cmd}\n{got}")
+    rows, counts = {}, {}
+    for md in FULL_DEPTH_MOMENTS:
+        extra = {"offload_moments": True, **({"moments_dtype": md} if md != "none" else {})}
+        counts[md], rows[md], _ = train_plan(
+            fa, hostmem, serve, runner, train_mod, cfg, card, "d", seq=TRAIN_SEQ,
+            n_chunks=TRAIN_CHUNKS, steps=FULL_STEPS, label=f"full depth, moments {md}",
+            extra=extra, grads="peak" if md == FULL_DEPTH_MOMENTS[0] else "none")
+        check(rows[md]["peak_bytes"] < CARD_BYTES,
+              f"full depth peaked at {rows[md]['peak_bytes']} bytes, over the card's {CARD_BYTES}")
+        torch.cuda.empty_cache()
+    return counts, rows
+
+
 def train_phase(fa, hostmem, serve, runner, train_mod, cfg, card):
-    """Phase 4: the link's rate, then the five plans on the 4-layer S = 8192
-    cell in turns ((d), the default plan, first: the main path's training
-    run), their step-0 losses within 1e-3 relative.  Each plan's untimed
-    step-0 gradients are held against (d)'s: (b) and (c) bitwise but the
-    embedding's (the replay reads the same values whether a row stayed on
-    the device or went to host and back, so a reload read before its copy
-    landed would show), (a) and (e) within GRAD_PLAN_TOL, and whether they
-    are bitwise equal too is printed.  Then the long cell (S = 32768, 8
-    chunks): plans (d), (b) (the same remat without the offload) and (e)
-    (full recompute), 3 steps each, held alike, and plan (a) only if its
-    predicted peak is under 75 GiB."""
+    """Phase 4: the link's rate and the embedding's backward, then the five
+    plans on the 4-layer S = 8192 cell in turns ((d), the default plan,
+    first: the main path's training run), their step-0 losses within 1e-3
+    relative, and the losses of (b), (c) and (d) (the same remat, with and
+    without the offload) bitwise equal at every step.  Each plan's untimed
+    step-0 gradients are held against (d)'s: (b) and (c) bitwise (the
+    replay reads the same values whether a row stayed on the device or went
+    to host and back, so a reload read before its copy landed would show),
+    (a) and (e) within GRAD_PLAN_TOL, and whether they are bitwise equal
+    too is printed.  Then the moment offload and the codecs on the same
+    cell (``moment_phase``), the full-depth cell (``full_depth_phase``),
+    and the long cell (S = 32768, 8 chunks): plans (d), (b) (the same remat
+    without the offload) and (e) (full recompute), LONG_STEPS steps each,
+    held alike, and plan (a) only if its predicted peak is under 75 GiB."""
+    t_start = time.perf_counter()
     cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
     rates = link_rate(hostmem, card)
+    embed = embed_check(card)
 
     def run_cell(plans, seq, n_chunks, label):
         rows, totals, ref = {}, {}, None
@@ -1203,19 +1582,39 @@ def train_phase(fa, hostmem, serve, runner, train_mod, cfg, card):
         first = [rows[p]["losses"][0] for p in plans]
         check(max(first) - min(first) <= 1e-3 * abs(first[0]),
               f"[{label}] the plans' step-0 losses disagree by more than 1e-3 relative: {first}")
-        print(f"train [{label}] step-0 losses of plans {', '.join(plans)}: {first}")
-        return rows, totals
+        same = {p: rows[p]["losses"] for p in plans if p in ("b", "c", "d")}
+        check(len({tuple(v) for v in same.values()}) == 1,
+              f"[{label}] the losses of plans {sorted(same)} differ: {same}")
+        print(f"train [{label}] step-0 losses of plans {', '.join(plans)}: {first}; the losses "
+              f"of plans {', '.join(sorted(same))} bitwise equal at every step")
+        return rows, totals, ref
 
-    rows, totals = run_cell(("d", "a", "b", "c", "e"), TRAIN_SEQ, TRAIN_CHUNKS, f"S={TRAIN_SEQ}")
+    rows, totals, ref = run_cell(("d", "a", "b", "c", "e"), TRAIN_SEQ, TRAIN_CHUNKS,
+                                 f"S={TRAIN_SEQ}")
     check(rows["d"]["chunks"] == [2560, 2048, 1920, 1664],
           f"train chunks {rows['d']['chunks']}, expected (2560, 2048, 1920, 1664)")
+    seconds = {"plans_s8192": time.perf_counter() - t_start}
+    t0 = time.perf_counter()
+    moments = moment_phase(hostmem, serve, runner, cfg4, card, ref)
+    seconds["moments_and_codecs"] = time.perf_counter() - t0
+    del ref
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full_counts, full_rows = full_depth_phase(fa, hostmem, serve, runner, train_mod, cfg, card)
+    seconds["full_depth"] = time.perf_counter() - t0
+    totals.update({f"full_depth_{md}": c for md, c in full_counts.items()})
     long_plans = ("d", "b", "e") + (("a",) if LONG_PLAN_A_PREDICTED_GIB < 75 else ())
-    long_rows, long_totals = run_cell(long_plans, LONG_SEQ, LONG_CHUNKS, f"S={LONG_SEQ}")
+    t0 = time.perf_counter()
+    long_rows, long_totals, _ = run_cell(long_plans, LONG_SEQ, LONG_CHUNKS, f"S={LONG_SEQ}")
+    seconds["plans_s32768"] = time.perf_counter() - t0
+    print(f"train phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     if "a" not in long_plans:
         print(f"train [S={LONG_SEQ}] plan (a) not run: predicted peak "
               f"{LONG_PLAN_A_PREDICTED_GIB} GiB (PERF.md), not under 75 GiB")
     totals.update({f"long_{p}": c for p, c in long_totals.items()})
-    return totals, {"link_rate_bytes_per_s": rates, "train_plans": rows,
+    return totals, {"link_rate_bytes_per_s": rates, **embed, "train_phase_seconds": seconds,
+                    "train_plans": rows,
+                    "train_moments": moments, "train_full_depth": full_rows,
                     "train_long": long_rows}
 
 
@@ -1298,6 +1697,9 @@ def main():
     from repro_torch.runtime import hostmem
 
     HBM_BYTES_PER_S, BF16_FLOPS = H100.hbm_bw, H100.peak_flops_bf16
+    # the train entry point's log: its set-up (weights, moments) and steps, timestamped
+    logging.basicConfig(level=logging.WARNING, format="%(asctime)s %(name)s %(message)s")
+    logging.getLogger("repro_torch.train").setLevel(logging.INFO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1342,6 +1744,8 @@ def main():
     del bwd_in, measured
     torch.cuda.empty_cache()
 
+    t_phase3 = time.perf_counter()
+    print(f"phases 1-2 took {t_phase3 - t_start:.1f} s")
     # ---- phase 3: the serving path, through the CLI entry point
     fa.reset_counts()
     hostmem.reset_counts()
@@ -1384,6 +1788,8 @@ def main():
                                 card)
     torch.cuda.empty_cache()
 
+    t_phase4 = time.perf_counter()
+    print(f"phase 3 took {t_phase4 - t_phase3:.1f} s")
     # ---- phase 4: the training path, through the train CLI's function
     plan_counts, train_summary = train_phase(fa, hostmem, serve, runner, train_mod, cfg, card)
     train_counts = plan_counts["d"]      # the main path: the default plan at S = 8192
@@ -1394,22 +1800,27 @@ def main():
     cc_rows = [r["cuda_cores"] for r in rows]
     decode_cc = rows[1]["cuda_cores"]
     common = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    paths = {"serve": serve_counts, "train": train_counts,
-             **{f"train_plan_{p}": c for p, c in plan_counts.items() if p != "d"},
+    full = {f"train_full_depth_moments_{md}": plan_counts[f"full_depth_{md}"]
+            for md in FULL_DEPTH_MOMENTS}
+    paths = {"serve": serve_counts, "train": train_counts, **full,
+             **{f"train_plan_{p}": c for p, c in plan_counts.items()
+                if p != "d" and not p.startswith("full_depth_")},
              "train_fp32": fp32_counts}
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
 
-    # launches: on the paths that run each kernel (bf16 serving and training
-    # for the tensor cores, the fp32 training check for the CUDA cores); the
+    # launches: on the main paths that run each kernel (bf16 serving,
+    # training and full-depth training for the tensor cores, the fp32
+    # training check for the CUDA cores); the
     # row's times are the serving prefill chunk's (the decode step's for the
     # merge), every shape's in "shapes"
     kernels = [
         {"name": "flash_attention_partial_tc", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_partial_tc.cu",
          "replaces": "src/repro/kernels/flash_attention.py:260",
-         "launches": serve_counts["fwd_tc"] + train_counts["fwd_tc"],
+         "launches": serve_counts["fwd_tc"] + train_counts["fwd_tc"]
+         + sum(c["fwd_tc"] for c in full.values()),
          "launches_by_path": by_path("fwd_tc"),
          "merged_in_kernel_by_path": by_path("merged_in_kernel"),
          **{key: tc_rows[0][key] for key in common},
@@ -1431,18 +1842,21 @@ def main():
          **{key: decode_cc["merge"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None, "shapes": [decode_cc["merge"]]},
     ]
-    # launches: on the path that runs each pair (bf16 training for the
-    # tensor cores, the fp32 training check for the CUDA cores)
-    for part, name, line, source, path in (
-            ("dq_tc", "flash_attention_partial_bwd_dq_tc", 331, "flash_partial_bwd_tc.cu", "train"),
-            ("dkv_tc", "flash_attention_partial_bwd_dkv_tc", 355, "flash_partial_bwd_tc.cu", "train"),
-            ("dq", "flash_attention_partial_bwd_dq", 331, "flash_partial_bwd.cu", "train_fp32"),
-            ("dkv", "flash_attention_partial_bwd_dkv", 355, "flash_partial_bwd.cu", "train_fp32")):
+    # launches: on the main paths that run each pair (bf16 training at 4
+    # layers and at full depth for the tensor cores, the fp32 training check
+    # for the CUDA cores)
+    tc_paths = ("train", *full)
+    for part, name, line, source, main_paths in (
+            ("dq_tc", "flash_attention_partial_bwd_dq_tc", 331, "flash_partial_bwd_tc.cu", tc_paths),
+            ("dkv_tc", "flash_attention_partial_bwd_dkv_tc", 355, "flash_partial_bwd_tc.cu", tc_paths),
+            ("dq", "flash_attention_partial_bwd_dq", 331, "flash_partial_bwd.cu", ("train_fp32",)),
+            ("dkv", "flash_attention_partial_bwd_dkv", 355, "flash_partial_bwd.cu", ("train_fp32",))):
         head = bwd_rows[-1][part]      # the last chunk: the most visible pairs
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
-            "launches": paths[path]["bwd_" + part], "launches_by_path": by_path("bwd_" + part),
+            "launches": sum(paths[path]["bwd_" + part] for path in main_paths),
+            "launches_by_path": by_path("bwd_" + part),
             **{key: head[key] for key in common}, "library": head["library"],
             "edge_grid_max_rel_err": bwd_err["torch.bfloat16" if part.endswith("_tc")
                                              else "torch.float32"],

@@ -28,7 +28,7 @@
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import torch
@@ -206,11 +206,41 @@ class ChunkOffload:
     """What a chunk's seam does with its tagged rows: split them at ``alpha``
     and send the off rows to host through ``link``.  Without a link (remat
     "sppo" with offload off) ``alpha`` must deploy no row: every row stays
-    on the device."""
+    on the device.
+
+    With a ``codec`` ("fp8" / "int8", DESIGN.md §14) the off rows cross
+    compressed: ``send`` quantizes each one and sends only its 1-byte
+    payload (int8 in the reference's transport view), keeping its per-row
+    fp32 scales here, on the device, with the chunk that owns them; in the
+    chunk's backward ``restore`` dequantizes each reloaded payload at its
+    tag site."""
 
     chunk: int
     alpha: float
     link: Optional["Link"] = None
+    codec: str = "none"
+    scales: list = field(default_factory=list)   # (scale, dtype) per sent row set
+
+    def send(self, t) -> None:
+        if self.codec == "none":
+            self.link.send(self.chunk, t)
+            return
+        payload, scale = hostmem.quantize(t, self.codec)
+        self.scales.append((scale, t.dtype))
+        self.link.send(self.chunk, hostmem.to_transport(payload, self.codec))
+
+    def restore(self, staged: list):
+        """The off rows from this chunk's reloaded ``staged`` tensors, in
+        capture order: as they are, or dequantized one by one as the
+        replay's tag sites consume them."""
+        if self.codec == "none":
+            return staged
+        scales, self.scales = self.scales, []
+        if len(scales) != len(staged):
+            raise RuntimeError(f"chunk {self.chunk}: {len(staged)} payloads reloaded for "
+                               f"{len(scales)} scales")
+        return (hostmem.dequantize(hostmem.from_transport(p, self.codec), sc, self.codec, dt)
+                for p, (sc, dt) in zip(staged, scales))
 
 
 class Link:

@@ -8,11 +8,15 @@ training plan: remat "sppo", sequence-aware activation offload to pinned
 host memory, each chunk's rows reloaded one chunk ahead of its backward
 (DESIGN.md §5, §10, §12).  ``--no-offload`` keeps every tagged row on the
 device (remat "sppo" still); ``--prefetch sync`` reloads each chunk's rows at
-its own backward.  AdamW with fp32 moments on the device, the reference's
-synthetic token stream, and TGS / MFU metering on the H100's peak.  Weights
-are random, drawn on the device from a seed.  It runs on the CUDA card;
-``--device cpu`` runs the plain path on the CPU instead (the "host" copies
-are then CPU clones).
+its own backward; ``--offload-dtype fp8|int8`` sends them compressed
+(DESIGN.md §14).  AdamW with fp32 moments on the device, or with
+``--offload-moments`` in pinned host memory (DESIGN.md §11; qwen2-7b's 28
+layers need 61.1 GB of it, 15.3 GB under ``--moments-dtype fp8|int8``);
+``--moments-mode`` takes "explicit" alone.  The reference's synthetic token
+stream, and TGS / MFU metering on the H100's peak.  Weights are random,
+drawn on the device from a seed.  It runs on the CUDA card; ``--device
+cpu`` runs the plain path on the CPU instead (the "host" copies are then
+CPU clones).
 
 The reference CLI's other flags belong to later slices of the port and are
 refused with the ROADMAP item that brings them.  ``train(cfg, ...)`` is the
@@ -41,19 +45,15 @@ log = logging.getLogger("repro_torch.train")
 
 # flag -> (what it asks for, ROADMAP Queue 1 item that ports it)
 LATER = {
-    "mesh": ("a device mesh beyond 1x1", 8),
-    "pp": ("pipeline stages (pp > 1)", 8),
-    "offload_moments": ("optimizer-moment offload", 6),
-    "moments_mode": ("optimizer-moment offload", 6),
-    "moments_dtype": ("the compressed moment codec", 6),
-    "offload_dtype": ("the compressed activation-offload codec", 6),
-    "attn_mode": ("sequence-parallel attention schedules", 8),
-    "msp": ("multiplexed sequence partitioning (pp > 1)", 8),
-    "msp_split": ("multiplexed sequence partitioning (pp > 1)", 8),
-    "audit": ("the trace-time contract auditor", 12),
-    "ckpt_dir": ("checkpointing", 12),
-    "ckpt_every": ("checkpointing", 12),
-    "resume": ("checkpointing", 12),
+    "mesh": ("a device mesh beyond 1x1", 3),
+    "pp": ("pipeline stages (pp > 1)", 3),
+    "attn_mode": ("sequence-parallel attention schedules", 3),
+    "msp": ("multiplexed sequence partitioning (pp > 1)", 3),
+    "msp_split": ("multiplexed sequence partitioning (pp > 1)", 3),
+    "audit": ("the trace-time contract auditor", 7),
+    "ckpt_dir": ("checkpointing", 7),
+    "ckpt_every": ("checkpointing", 7),
+    "resume": ("checkpointing", 7),
 }
 
 
@@ -75,13 +75,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="backward reload placement (DESIGN.md §12): ahead = "
                          "each chunk's rows reloaded during the next chunk's "
                          "backward (default); sync = at its own backward")
+    ap.add_argument("--offload-dtype", default=None, choices=["none", "fp8", "int8"],
+                    help="codec of the offloaded activation rows (DESIGN.md §14)")
+    ap.add_argument("--offload-moments", action="store_true",
+                    help="AdamW's moments in pinned host memory (DESIGN.md §11)")
+    ap.add_argument("--moments-mode", default=None, choices=["explicit", "xla"],
+                    help="explicit: one H2D and one D2H a moment leaf (the port's "
+                         "only form; 'xla' is refused)")
+    ap.add_argument("--moments-dtype", default=None, choices=["none", "fp8", "int8"],
+                    help="codec of the host moments (needs --offload-moments)")
     # the reference CLI's flags of later slices: refused when given
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--pp", type=int, default=None)
-    ap.add_argument("--offload-moments", action="store_true", default=None)
-    ap.add_argument("--moments-mode", default=None)
-    ap.add_argument("--moments-dtype", default=None)
-    ap.add_argument("--offload-dtype", default=None)
     ap.add_argument("--attn-mode", default=None)
     ap.add_argument("--msp", action="store_true", default=None)
     ap.add_argument("--msp-split", type=int, default=None)
@@ -116,8 +121,9 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
     per-step records (loss, dt seconds, tgs tokens/s per chip, mfu), cell
     (its ``alphas`` the deployed offload ratios), n_active_params,
     peak_bytes: the CUDA peak of allocated bytes over the steps, base_bytes:
-    the allocated bytes before the first step (weights and moments); both
-    None on the CPU)."""
+    the allocated bytes before the first step (weights, and the moments
+    where they stay on the device); both None on the CPU; host_moment_bytes:
+    the moments' bytes in host memory, 0 on the device)."""
     dev = resolve_device(str(device))
     mdef = build_model(cfg)
     overrides = {**dict(pp=1, dp=1), **(overrides or {})}
@@ -129,16 +135,22 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
              [round(a, 3) for a in cell.alphas])
 
     params = build_params(cell, dev, seed=0)
-    opt_state = adamw.init_state(params)
+    plan = cell.plan
+    opt_state = adamw.init_state(params, offload_moments=plan.offload_moments,
+                                 moments_dtype=plan.moments_dtype,
+                                 moments_mode=plan.moments_mode)
     step_fn = make_train_step(cell, lr_kwargs=dict(peak=lr, warmup=20,
                                                    total=max(steps, 100)))
     data = SyntheticLM(cfg.vocab_size, seq, batch)
     n_active = cm.count_active_params(params)
     meter = Meter(tokens_per_step=batch * seq, n_active_params=n_active)
-    log.info("%s: %d parameters (%d without the embedding), %d layers, "
-             "%.2f GB of moments", cfg.name, sum(t.numel() for t in tree.leaves(params)),
-             n_active, cfg.n_layers,
-             2 * sum(t.numel() * t.element_size() for t in tree.leaves(opt_state.m)) / 1e9)
+    moment_bytes = sum(t.numel() * t.element_size()
+                       for t in tree.leaves([opt_state.m, opt_state.v]))
+    log.info("%s: %d parameters (%d without the embedding), %d layers; moments "
+             "%.2f GB on the device, %.2f GB in host memory", cfg.name,
+             sum(t.numel() for t in tree.leaves(params)), n_active, cfg.n_layers,
+             0.0 if plan.offload_moments else moment_bytes / 1e9,
+             moment_bytes / 1e9 if plan.offload_moments else 0.0)
 
     def sync():
         if dev.type == "cuda":
@@ -169,7 +181,8 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
              meter.history[0]["loss"])
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     return dict(history=meter.history, cell=cell, n_active_params=n_active,
-                peak_bytes=peak, base_bytes=base)
+                peak_bytes=peak, base_bytes=base,
+                host_moment_bytes=moment_bytes if plan.offload_moments else 0)
 
 
 def main(argv=None):
@@ -186,6 +199,11 @@ def main(argv=None):
         overrides["offload"] = False
     if args.prefetch:
         overrides["prefetch"] = args.prefetch
+    if args.offload_moments:
+        overrides["offload_moments"] = True
+    for dest in ("offload_dtype", "moments_mode", "moments_dtype"):
+        if getattr(args, dest) is not None:
+            overrides[dest] = getattr(args, dest)
     return train(cfg, steps=args.steps, seq=args.seq, batch=args.batch,
                  n_chunks=args.n_chunks, lr=args.lr, log_every=args.log_every,
                  metrics_out=args.metrics_out, device=args.device,

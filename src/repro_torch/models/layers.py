@@ -126,12 +126,17 @@ def pad_vocab(v: int, multiple: int = 128) -> int:
 
 def embed_tokens(ids, table, *, out_dtype=torch.bfloat16):
     """ids: [B, T] token ids; table: [Vp, d].  Returns [B, T, d]; ids outside
-    the table give zero rows, as the reference's masked gather does."""
+    the table give zero rows and no gradient, as the reference's masked
+    gather does.
+
+    The gather is ``F.embedding``: its CUDA backward reduces each id's rows
+    in a fixed order, so the table's gradient is bitwise the same from run
+    to run (``index_select``'s backward adds repeated ids' rows with
+    atomics, in an order that varies)."""
     vp = table.shape[0]
     idx = ids.clamp(0, vp - 1)
     hit = ((ids >= 0) & (ids < vp))[..., None]
-    rows = table.index_select(0, idx.reshape(-1)).reshape(*ids.shape, -1)
-    return torch.where(hit, rows, 0).to(out_dtype)
+    return torch.where(hit, F.embedding(idx, table), 0).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

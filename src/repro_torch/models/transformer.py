@@ -151,9 +151,11 @@ class _StageSeam(torch.autograd.Function):
 
     Forward: the stack without a graph, writing the chunk's K/V into the
     caches.  Under "sppo" the capture tag keeps each tagged tensor's keep
-    rows and sends its off rows to host through the offload's link; under
-    "full" nothing is kept.  Backward: ``Link.begin``, the previous chunk's
-    reload issued ahead (the link decides), this chunk's rows taken, then
+    rows and sends its off rows to host through the offload's link
+    (``ChunkOffload.send``: quantized under a codec, the scales kept on the
+    device); under "full" nothing is kept.  Backward: ``Link.begin``, the
+    previous chunk's reload issued ahead (the link decides), this chunk's
+    rows taken (``ChunkOffload.restore``: dequantized under a codec), then
     the stack replayed with gradients on the staged rows (under "sppo" the
     replay writes the chunk's cache slots again with the staged K/V,
     bitwise the same, and no slot past ``kv_view``), and differentiated with respect to x, the
@@ -171,8 +173,7 @@ class _StageSeam(torch.autograd.Function):
             if off.link is None and ofl.split_rows(x.shape[1], off.alpha) > 0:
                 raise ValueError("a chunk that offloads rows needs a link to send them")
             y, keep = stage_apply_capture(
-                run.cfg, stage_p, run.state, x, run.meta, off.alpha,
-                lambda t: off.link.send(off.chunk, t))
+                run.cfg, stage_p, run.state, x, run.meta, off.alpha, off.send)
         else:
             y, keep = x, []
             for i, (p, s) in enumerate(zip(stage_p, run.state)):
@@ -192,7 +193,7 @@ class _StageSeam(torch.autograd.Function):
             off.link.begin(off.chunk)
             if off.link.ahead and off.chunk > 0:
                 off.link.prefetch(off.chunk - 1)
-            staged = off.link.take(off.chunk)
+            staged = off.restore(off.link.take(off.chunk))
         x, *inputs = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(t.requires_grad) for t in (x, *inputs)]

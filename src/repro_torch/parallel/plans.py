@@ -3,6 +3,12 @@
 A copy of ``repro/parallel/plans.py`` (the JAX package), held against it by
 tests/test_torch_serve.py.  Defaults follow the SPPO heuristics (§6.1,
 DESIGN.md §4); the single-device port resolves them at data = model = 1.
+
+One departure: pp is capped at ``data_size``, so dp >= 1.  The reference
+asks for pp = 2 at S >= 32768 with >= 24 layers whatever the data axis, and
+at data_size = 1 divides by dp = 0 (``ZeroDivisionError``); the port plans
+pp = 1 there.  Wherever the reference returns a plan, the port returns the
+same one (tests/test_torch_serve.py).
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ def _pp_for(cfg: ModelConfig, shape: ShapeConfig, data_size: int) -> int:
 def resolve_plan(cfg: ModelConfig, shape: ShapeConfig, *, data_size: int = 16,
                  model_size: int = 16, pods: int = 1,
                  overrides: dict = None) -> ParallelPlan:
-    pp = _pp_for(cfg, shape, data_size)
+    pp = min(_pp_for(cfg, shape, data_size), data_size)
     dp = data_size // pp
     B = shape.global_batch
     # keep batch divisible across dp*pods (drop dp down if needed)

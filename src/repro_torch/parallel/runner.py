@@ -20,7 +20,11 @@ offload ratio α (``core/offload.py::sequence_aware_alphas``), each chunk's
 stack runs through the chunk seam of ``models/transformer.py``, its off rows
 go to pinned host memory on a copy stream, and each chunk's rows come back
 one chunk ahead of its backward (``prefetch="ahead"``, through a
-``core/offload.py::Link`` and ``link_drain``) or at it (``"sync"``).  The
+``core/offload.py::Link`` and ``link_drain``) or at it (``"sync"``); under
+``offload_dtype`` "fp8" / "int8" the rows cross quantized, their scales
+kept on the device (DESIGN.md §14).  The update keeps AdamW's moments on
+the device or, under ``offload_moments``, in pinned host memory, raw or
+under ``moments_dtype`` (``optim/adamw.py``, DESIGN.md §11).  The
 reference's shard_map and pipeline ticks come with later slices.
 """
 from __future__ import annotations
@@ -80,22 +84,38 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     (``repro/parallel/runner.py::resolve_cell``): each chunk's forward time
     is its share of 6 N B S FLOPs at the H100's bf16 peak over (1 +
     ``BWD_RATIO``), and α_i offloads what its host link (``d2h_bw``) moves
-    in the next chunk's forward; zeros with offload off.  A training plan that offloads
-    must run remat "sppo" (the policy whose saved rows the offload moves) in
-    the explicit form.  pp > 1 and the moment offload and codecs are
-    refused, naming the ROADMAP items that bring them."""
+    in the next chunk's forward, at the effective rate ``d2h_bw /
+    offload_wire_ratio`` under an activation codec; zeros with offload off.
+    A training plan that offloads must run remat "sppo" (the policy whose
+    saved rows the offload moves) in the explicit form; the moments move in
+    the explicit form too, a moment codec needs the moment offload, and a
+    decode plan takes no codec.  pp > 1 is refused, naming the ROADMAP item
+    that brings it."""
     mdef = arch if isinstance(arch, ModelDef) else build_model(arch)
     cfg = mdef.cfg
     plan = resolve_plan(cfg, shape_cfg, data_size=1, model_size=1,
                         overrides=overrides)
     if plan.pp != 1:
-        raise _later(f"pp = {plan.pp} (pipeline stages)", 8)
-    if plan.offload_moments or plan.offload_dtype != "none" or plan.moments_dtype != "none":
-        raise _later("optimizer-moment offload and the offload codecs", 6)
+        raise _later(f"pp = {plan.pp} (pipeline stages)", 3)
+    for codec in (plan.offload_dtype, plan.moments_dtype):
+        cm.codec_itemsize(codec)            # raises on an unknown codec
+    if plan.moments_mode != "explicit":
+        raise ValueError(f"moments_mode {plan.moments_mode!r}: the port places the moments "
+                         "itself ('explicit'); 'xla' is the reference's placement through "
+                         "XLA shardings")
+    if plan.moments_dtype != "none" and not plan.offload_moments:
+        raise ValueError(f"moments_dtype {plan.moments_dtype!r} requires offload_moments: "
+                         "moments on the device have no host channel to compress")
     if shape_cfg.kind == "decode":
         # a decode step has no backward: an offloaded row would never come back
         if plan.offload:
             raise ValueError("decode plans must not offload (DESIGN.md §4)")
+        # and with offload off a codec would compress a channel that is
+        # never used (the reference refuses it too, DESIGN.md §14)
+        if plan.offload_dtype != "none" or plan.moments_dtype != "none":
+            raise ValueError("decode plans must not request compressed residency "
+                             f"(offload_dtype={plan.offload_dtype!r}, "
+                             f"moments_dtype={plan.moments_dtype!r})")
         return Cell(mdef=mdef, plan=plan, shape=shape_cfg,
                     sched=part.ChunkSchedule((1,), (0,), 1, "decode"),
                     alphas=(0.0,), dtype=dtype)
@@ -121,7 +141,10 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     times = [c * scale / (1.0 + cm.BWD_RATIO) for c in costs]
     acts = cm.chunk_act_bytes(cfg, sched.lengths, batch=max(1, B // plan.dp),
                               pp=plan.pp, sp=plan.sp, grad_accum=plan.grad_accum)
-    alphas = ofl.sequence_aware_alphas(acts, times, cm.H100.d2h_bw).alphas
+    # compressed rows cross the link at wire_ratio of their bytes: α is
+    # planned at the effective rate of raw bytes (DESIGN.md §14)
+    bw_eff = cm.H100.d2h_bw / cm.offload_wire_ratio(plan.offload_dtype)
+    alphas = ofl.sequence_aware_alphas(acts, times, bw_eff).alphas
     if not plan.offload:
         alphas = tuple(0.0 for _ in alphas)
     return Cell(mdef=mdef, plan=plan, shape=shape_cfg, sched=sched,
@@ -147,7 +170,8 @@ def chunk_tag(cell: Cell, chunk: int, link):
     stays on the device)."""
     if not cell.plan.offload:
         return None
-    return ofl.ChunkOffload(chunk=chunk, alpha=cell.alphas[chunk], link=link)
+    return ofl.ChunkOffload(chunk=chunk, alpha=cell.alphas[chunk], link=link,
+                            codec=cell.plan.offload_dtype)
 
 
 class _LinkDrain(torch.autograd.Function):
@@ -271,7 +295,10 @@ def loss_and_grads(cell: Cell, params, tokens, labels):
 
 def make_train_step(cell: Cell, *, lr_kwargs=None):
     """Build the training step: loss and gradients of the chunked pipeline,
-    then one AdamW update (global-norm clip, cosine schedule) in place."""
+    then one AdamW update (global-norm clip, cosine schedule) in place, its
+    moments where the plan keeps them (``offload_moments``,
+    ``moments_dtype``: ``opt_state`` from ``adamw.init_state`` with the
+    same settings)."""
     from repro_torch.optim import adamw
 
     lr_kwargs = lr_kwargs or {}
@@ -282,8 +309,10 @@ def make_train_step(cell: Cell, *, lr_kwargs=None):
         lr) that stay on the device until read."""
         loss, grads = loss_and_grads(cell, params, tokens, labels)
         lr = adamw.cosine_lr(opt_state.step, **lr_kwargs)
-        params, opt_state, met = adamw.apply_update(params, grads, opt_state,
-                                                    lr=lr)
+        plan = cell.plan
+        params, opt_state, met = adamw.apply_update(
+            params, grads, opt_state, lr=lr, offload_moments=plan.offload_moments,
+            moments_mode=plan.moments_mode, moments_dtype=plan.moments_dtype)
         met["loss"] = loss
         return params, opt_state, met
 

@@ -1,9 +1,11 @@
 """The Hopper attention kernels (the forward and the dq and dk/dv backward,
 each on the tensor cores for bf16 and on the CUDA cores for fp32) against
-their plain PyTorch versions, on the card; and the executed activation
+their plain PyTorch versions, on the card; the executed activation
 offload on the card (its rows in pinned host memory, its copies on a stream
 of their own, the device memory it frees, offload on ≡ off through the
-kernels).
+kernels); AdamW's moments through pinned host memory (bitwise the
+on-device update), the codec's torch ops (bitwise the CPU's) and the
+embedding's deterministic backward.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips without
 one.  The file imports no JAX, since the machine with the card has none, and
@@ -559,3 +561,102 @@ def test_offload_frees_the_device_memory_it_moves(cuda_device):
         del out
     assert sent[0.0] == 0 and sent[1.0] > 0
     assert held[0.0] - held[1.0] >= 0.9 * sent[1.0], (held, sent)
+
+
+# ---------------------------------------------------------------------------
+# AdamW's moments in pinned host memory, the codec, the embedding's backward
+# ---------------------------------------------------------------------------
+
+
+def _moment_case(device):
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    shapes = {"w": (96, 640), "o": (640, 96), "b": (640,), "s": ()}
+    params = {k: torch.randn(s, generator=gen).to(device) for k, s in shapes.items()}
+    grads = [{k: (3.0 * torch.randn(s, generator=gen)).to(device) for k, s in shapes.items()}
+             for _ in range(3)]
+    return params, grads
+
+
+@pytest.mark.cuda
+def test_moment_round_trip_through_pinned_memory_is_bitwise(cuda_device):
+    """Three updates with the moments in pinned host memory equal three with
+    them on the device bitwise (parameters, m and v); every host moment is
+    pinned, every D2H lands in a pinned buffer, and the copies move the
+    closed form's bytes each way.  Under a codec the host pairs are pinned
+    too."""
+    from repro_torch.optim import adamw
+
+    params, grads = _moment_case(cuda_device)
+    p_on = {k: v.clone() for k, v in params.items()}
+    p_off = {k: v.clone() for k, v in params.items()}
+    s_on = adamw.init_state(p_on, offload_moments=True)
+    s_off = adamw.init_state(p_off)
+    hostmem.reset_counts()
+    for g in grads:
+        p_on, s_on, _ = adamw.apply_update(p_on, g, s_on, lr=1e-2, offload_moments=True)
+        p_off, s_off, _ = adamw.apply_update(p_off, g, s_off, lr=1e-2)
+    torch.cuda.synchronize()
+    for k in params:
+        assert torch.equal(p_on[k], p_off[k])
+        assert s_on.m[k].device.type == "cpu" and s_on.m[k].is_pinned()
+        assert torch.equal(s_on.m[k], s_off.m[k].cpu()) and torch.equal(s_on.v[k], s_off.v[k].cpu())
+    c = hostmem.counts()
+    want = 3 * cm.opt_state_bytes(sum(t.numel() for t in params.values()))
+    assert c["moment_h2d_bytes"] == c["moment_d2h_bytes"] == want
+    assert c["moment_d2h_pinned"] == c["moment_d2h"] == 3 * 2 * len(params)
+    for codec in ("fp8", "int8"):
+        state = adamw.init_state(p_on, offload_moments=True, moments_dtype=codec)
+        adamw.apply_update(p_on, grads[0], state, lr=1e-2, offload_moments=True,
+                           moments_dtype=codec)
+        torch.cuda.synchronize()
+        assert all(t.is_pinned() for t in tree.leaves([state.m, state.v]))
+
+
+@pytest.mark.cuda
+def test_codec_on_the_card_matches_the_cpu_bitwise(cuda_device):
+    """The codec's torch ops on the card give the CPU's payload, scale and
+    reconstruction bit for bit, fp32 and bf16, subnormal scales included."""
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    decades = 10.0 ** torch.arange(-3, 3).repeat_interleave(4)[:, None]
+    cases = [torch.randn(24, 64, generator=gen) * decades,
+             torch.randn(2, 7, 4, 16, generator=gen),
+             torch.full((3, 16), float(np.finfo(np.float32).tiny)),
+             torch.zeros(2, 8), torch.tensor(-2.5)]
+    for codec in ("fp8", "int8"):
+        for x in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                xc = x.to(dtype)
+                p, s = hostmem.quantize(xc, codec)
+                pd, sd = hostmem.quantize(xc.to(cuda_device), codec)
+                assert torch.equal(pd.cpu().view(torch.int8), p.view(torch.int8))
+                assert torch.equal(sd.cpu(), s)
+                assert torch.equal(hostmem.dequantize(pd, sd, codec, dtype).cpu(),
+                                   hostmem.dequantize(p, s, codec, dtype))
+
+
+@pytest.mark.cuda
+def test_embedding_backward_is_deterministic(cuda_device):
+    """Two calls on the same ids (Zipfian, so ids repeat) give bitwise the
+    same table gradient; ids outside the table give zero rows and add
+    nothing to the row they are clamped to."""
+    from repro_torch.models import layers as L
+
+    V, d, T = 4096, 256, 8192
+    rng = np.random.default_rng(0)
+    ids = np.minimum(rng.zipf(1.2, size=(2, T)), V - 2).astype(np.int32)
+    ids[0, :7] = [-1, V, V + 5, -3, V + 100, -1, V]
+    ids = torch.from_numpy(ids).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    table = torch.randn(V, d, device=cuda_device, generator=gen).to(torch.bfloat16)
+    gout = torch.randn(2, T, d, device=cuda_device, generator=gen).to(torch.bfloat16)
+
+    def grad():
+        t = table.detach().requires_grad_()
+        out = L.embed_tokens(ids, t)
+        assert (out[0, :7] == 0).all()
+        return torch.autograd.grad(out, t, gout)[0]
+
+    first = grad()
+    assert all(torch.equal(first, grad()) for _ in range(4))
+    assert (first[V - 1] == 0).all()           # only masked ids clamp to it
+    assert (first[ids[0, 7:].long()] != 0).any()

@@ -68,14 +68,15 @@ def _batch(vocab):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_run(arch, prefetch):
+def _jax_run(arch, prefetch, codec="none"):
     """The reference's loss and gradients with offload on at ALPHAS (numpy),
-    its fp32 parameters and the batch."""
+    its fp32 parameters and the batch; ``codec``: the off rows' codec."""
     cfg = jget_config(arch).reduced()
     mdef = jbuild_model(cfg)
     cell = jrunner.resolve_cell(mdef, JShapeConfig("t", S, B, "train"), data_size=1,
                                 model_size=1,
-                                overrides=_overrides(offload=True, prefetch=prefetch))
+                                overrides=_overrides(offload=True, prefetch=prefetch,
+                                                     offload_dtype=codec))
     cell = dataclasses.replace(cell, dtype=jnp.float32, alphas=ALPHAS)
     key = jax.random.PRNGKey(0)
     params = {"stages": mdef.init_stage_params(key, 0, 1, jnp.float32),
@@ -134,9 +135,11 @@ def _assert_grads_equal(got, want_leaf):
 
 def _closed_form_bytes(cell):
     """D2H bytes of one step: the off rows of every chunk, layer and tag site
-    (q, k, v, attention out, MLP hidden), at the cell's dtype."""
+    (q, k, v, attention out, MLP hidden), at the cell's dtype, or at the
+    codec's 1-byte payload (the scales do not cross)."""
     elems = cm.tagged_bytes_per_token(cell.cfg) // cm.ACT_ITEMSIZE
-    itemsize = torch.finfo(cell.dtype).bits // 8
+    itemsize = (torch.finfo(cell.dtype).bits // 8 if cell.plan.offload_dtype == "none"
+                else cm.codec_itemsize(cell.plan.offload_dtype))
     return sum(ofl.split_rows(ln, a) * cell.shape.global_batch * elems * itemsize
                * cell.cfg.n_layers for ln, a in zip(cell.sched.lengths, cell.alphas))
 
@@ -440,6 +443,134 @@ def test_saved_qkv_backward_matches_autograd(arch, dtype):
 
 
 # ---------------------------------------------------------------------------
+# the compressed rows (DESIGN.md §14)
+# ---------------------------------------------------------------------------
+
+# one-step gradient drift of a compressed cell against raw residency, the
+# reference's pinned bounds (tests/test_offload_quant.py)
+GRAD_TOL = {"fp8": 0.05, "int8": 0.03}
+
+
+def _flat(grads, order):
+    return np.concatenate([np.asarray(grads(path), np.float64).ravel() for path in order])
+
+
+def _drift(a, b, order):
+    """(relative loss drift, relative L2 gradient drift) of run a against
+    run b, each (loss, path -> gradient)."""
+    ga, gb = _flat(a[1], order), _flat(b[1], order)
+    return (abs(a[0] - b[0]) / max(abs(b[0]), 1e-9),
+            float(np.linalg.norm(ga - gb) / max(np.linalg.norm(gb), 1e-12)))
+
+
+def _port_step(codec, prefetch):
+    ref = _jax_run("qwen2-7b", prefetch, codec)
+    cell = _cell("qwen2-7b", offload=True, prefetch=prefetch, offload_dtype=codec)
+    loss, grads, counts, _ = _run(cell, ref)
+    paths = [path for path, _ in tree.items(grads)]
+    got = dict(tree.items(grads))
+    return cell, (loss, lambda p: got[p].numpy()), counts, paths, (
+        ref["loss"], lambda p: _jax_leaf(ref["grads"], p))
+
+
+@pytest.mark.parametrize("codec", ["fp8", "int8"])
+def test_pp1_compressed_drift_within_pinned_tolerance(codec):
+    """tests/test_offload_quant.py's law on the port, at ALPHAS (whole,
+    fractional and no row sets offloaded): the capture forward is exact (loss
+    within 1e-5 of the raw run's), the replay on the dequantized rows drifts
+    within the codec's pinned bound and not zero.  And the port's compressed
+    run against the reference's: loss within 1e-5, gradients within
+    GRAD_TOL (the payloads are the reference's bit for bit on equal rows; the
+    two frameworks' fp32 rows differ in their last bits)."""
+    _, comp, counts, order, jcomp = _port_step(codec, "ahead")
+    _, raw, _, _, jraw = _port_step("none", "ahead")
+    loss_d, grad_d = _drift(comp, raw, order)
+    assert loss_d <= 1e-5, loss_d
+    assert 1e-7 < grad_d <= GRAD_TOL[codec], grad_d
+    loss_d, grad_d = _drift(comp, jcomp, order)
+    assert loss_d <= 1e-5 and grad_d <= GRAD_TOL[codec], (loss_d, grad_d)
+    # the reference's own compressed drift is of the same size as the port's
+    assert _drift(jcomp, jraw, order)[1] <= GRAD_TOL[codec]
+
+
+def test_pp1_sync_prefetch_compressed_drift():
+    """tests/test_offload_quant.py::test_pp1_sync_prefetch_compressed_drift's
+    bounds on the port (loss within 2e-2, 1e-7 < gradient drift <= 0.1).
+    The reference's "sync" form substitutes the reconstruction in its
+    forward, so its loss drifts; the port's seam runs "sync" as "ahead",
+    its forward exact, so its loss is the raw run's and its gradients are
+    its "ahead" run's bitwise."""
+    _, comp, _, order, jcomp = _port_step("fp8", "sync")
+    _, raw, _, _, _ = _port_step("none", "sync")
+    loss_d, grad_d = _drift(comp, raw, order)
+    assert loss_d <= 1e-5
+    assert 1e-7 < grad_d <= 0.1, grad_d
+    loss_d, grad_d = _drift(comp, jcomp, order)
+    assert loss_d <= 2e-2 and grad_d <= 0.1, (loss_d, grad_d)
+    _, ahead, _, _, _ = _port_step("fp8", "ahead")
+    assert comp[0] == ahead[0] and all((comp[1](p) == ahead[1](p)).all() for p in order)
+
+
+@pytest.mark.parametrize("prefetch", ["ahead", "sync"])
+@pytest.mark.parametrize("codec", ["fp8", "int8"])
+def test_compressed_copies_carry_the_payload_only(codec, prefetch):
+    """Each way, a step moves the off rows' 1-byte payloads, exactly the
+    closed form at the codec's itemsize: one copy per tag site and layer of
+    every offloading chunk, as uncompressed; the scales stay on the device."""
+    cell, _, counts, _, _ = _port_step(codec, prefetch)
+    want = _closed_form_bytes(cell)
+    assert want > 0 and counts["d2h_bytes"] == counts["h2d_bytes"] == want
+    n_off = sum(ofl.split_rows(ln, a) > 0 for ln, a in zip(cell.sched.lengths, cell.alphas))
+    assert counts["d2h"] == counts["h2d"] == 5 * cell.cfg.n_layers * n_off
+
+
+@pytest.mark.parametrize("arch,reduced,seq,batch,n_chunks", CELLS)
+@pytest.mark.parametrize("codec", ["fp8", "int8"])
+def test_deployed_alphas_under_a_codec_match_reference(codec, arch, reduced, seq, batch,
+                                                       n_chunks):
+    """Under a codec α is planned at the link's effective rate, d2h_bw over
+    the wire ratio, as the reference's ``resolve_cell`` does (a reference
+    ``Hardware`` with the port's H100 numbers): equal α, and at least the
+    uncompressed α on every chunk."""
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    cfg, jcfg = ((cfg.reduced(), jcfg.reduced()) if reduced else
+                 (dataclasses.replace(cfg, n_layers=4), dataclasses.replace(jcfg, n_layers=4)))
+    h100 = dataclasses.replace(jcm.V5E, name="h100", peak_flops_bf16=cm.H100.peak_flops_bf16,
+                               hbm_bw=cm.H100.hbm_bw, d2h_bw=cm.H100.d2h_bw)
+    ov = dict(pp=1, dp=1, n_chunks=n_chunks, offload_dtype=codec)
+    got = runner.resolve_cell(cfg, ShapeConfig("t", seq, batch, "train"), overrides=ov)
+    want = jrunner.resolve_cell(jbuild_model(jcfg), JShapeConfig("t", seq, batch, "train"),
+                                data_size=1, model_size=1, overrides=ov, hw=h100)
+    assert got.alphas == want.alphas
+    raw = runner.resolve_cell(cfg, ShapeConfig("t", seq, batch, "train"),
+                              overrides=dict(ov, offload_dtype="none"))
+    assert all(c >= r for c, r in zip(got.alphas, raw.alphas))
+
+
+def test_chunk_offload_keeps_scales_on_the_device_and_restores_rows():
+    """``ChunkOffload.send`` puts only the payload on the link (int8 in the
+    fp8 transport view) and keeps each row set's scales; ``restore`` gives
+    back rows within the codec's resolution, in the sent dtype."""
+    for codec, tol in (("fp8", 0.07), ("int8", 0.01)):
+        link = ofl.Link(ahead=False)
+        off = ofl.ChunkOffload(chunk=0, alpha=1.0, link=link, codec=codec)
+        rows = [torch.randn(2, 5, 4, 8), torch.randn(2, 5, 24).to(torch.bfloat16)]
+        hostmem.reset_counts()
+        for t in rows:
+            off.send(t)
+        assert [h.tensor.dtype for h in link.host[0]] == [torch.float8_e4m3fn] * 2
+        assert hostmem.counts()["d2h_bytes"] == sum(t.numel() for t in rows)
+        assert [tuple(s.shape) for s, _ in off.scales] == [(2, 5, 4, 1), (2, 5, 1)]
+        link.begin(0)
+        back = list(off.restore(link.take(0)))
+        assert off.scales == []
+        for t, b in zip(rows, back):
+            assert b.dtype == t.dtype and b.shape == t.shape
+            err = (b.float() - t.float()).abs().amax(-1)
+            assert bool((err <= tol * t.float().abs().amax(-1)).all())
+
+
+# ---------------------------------------------------------------------------
 # the pieces
 # ---------------------------------------------------------------------------
 
@@ -481,8 +612,9 @@ def test_host_copies_on_the_cpu_are_separate_buffers():
     assert torch.equal(h.tensor, t[:, :2])
     d = hostmem.to_device(h, 4)
     assert d.tensor.data_ptr() != h.tensor.data_ptr() and torch.equal(hostmem.wait(d), t[:, :2])
+    # the rows' copies only: the moment channel's counters stay apart, at 0
     assert hostmem.counts() == {"d2h": 1, "d2h_bytes": 48, "d2h_pinned": 0, "h2d": 1,
-                                "h2d_bytes": 48}
+                                "h2d_bytes": 48, **dict.fromkeys(hostmem.MOMENT_KEYS, 0)}
     assert hostmem.log() == [("d2h", 4), ("h2d", 4)]
 
 

@@ -199,6 +199,41 @@ def test_resolve_plan_matches_jax(arch, kind, seq, batch):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
+def test_resolve_plan_caps_pp_where_the_reference_divides_by_zero():
+    """The port's one departure from the reference's planner: at S >= 32768
+    with >= 24 layers the reference asks for pp = 2 whatever the data axis,
+    so at data_size = 1 it divides by dp = 0; the port caps pp at the data
+    axis and plans pp = 1, dp = 1.  Everywhere the reference returns a plan,
+    the port returns the same one."""
+    cfg, jcfg = get_config("qwen2-7b"), jget_config("qwen2-7b")
+    shape, jshape = ShapeConfig("t", 32768, 1, "train"), JShapeConfig("t", 32768, 1, "train")
+    with pytest.raises(ZeroDivisionError):
+        jplans.resolve_plan(jcfg, jshape, data_size=1, model_size=1)
+    plan = plans.resolve_plan(cfg, shape, data_size=1, model_size=1)
+    assert (plan.pp, plan.dp) == (1, 1)
+    planned = refused = 0
+    for arch in ARCHS:
+        for kind, seq, batch in (("train", 32768, 1), ("train", 65536, 2), ("train", 8192, 1),
+                                 ("prefill", 32768, 1), ("prefill", 4096, 4),
+                                 ("decode", 32768, 2)):
+            for data_size, model_size in ((1, 1), (2, 1), (4, 2), (16, 16)):
+                args = dict(data_size=data_size, model_size=model_size)
+                try:
+                    want = jplans.resolve_plan(jget_config(arch), JShapeConfig("c", seq, batch,
+                                                                             kind), **args)
+                except ZeroDivisionError:
+                    refused += 1
+                    got = plans.resolve_plan(get_config(arch), ShapeConfig("c", seq, batch, kind),
+                                             **args)
+                    assert got.dp * got.pp == data_size and got.pp <= data_size
+                    continue
+                got = plans.resolve_plan(get_config(arch), ShapeConfig("c", seq, batch, kind),
+                                         **args)
+                assert dataclasses.asdict(got) == dataclasses.asdict(want), (arch, kind, seq, args)
+                planned += 1
+    assert refused > 0 and planned > refused
+
+
 def test_cli_serves_on_cpu_and_matches_layout_helpers():
     out = serve.main(["--arch", "qwen2-7b", "--reduced", "--prompt-len", "128",
                       "--batch", "2", "--decode-steps", "3", "--device", "cpu"])

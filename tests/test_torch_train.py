@@ -294,8 +294,18 @@ def test_cosine_lr_matches_jax(kw):
 
 
 def test_moment_offload_raises_naming_the_item():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        adamw.init_state({"w": torch.zeros(2)}, offload_moments=True)
+    """The moment offload runs (tests/test_torch_optstate.py); what still
+    raises, saying why: the reference's ``moments_mode="xla"`` (placement
+    through XLA shardings) and a moment codec without the offload."""
+    params = {"w": torch.zeros(2)}
+    with pytest.raises(ValueError, match="'xla' is the reference's placement"):
+        adamw.init_state(params, offload_moments=True, moments_mode="xla")
+    state = adamw.init_state(params, offload_moments=True)
+    with pytest.raises(ValueError, match="'xla' is the reference's placement"):
+        adamw.apply_update(params, params, state, lr=1e-3, offload_moments=True,
+                           moments_mode="xla")
+    with pytest.raises(ValueError, match="requires offload_moments"):
+        adamw.init_state(params, moments_dtype="fp8")
 
 
 @pytest.mark.parametrize("seed,steps", [(0, (0, 1, 7)), (3, (2,))])
@@ -313,19 +323,40 @@ def test_active_param_count_matches_reference(arch):
     assert cm.count_active_params(_torch_params(ref)) == ref["n_active"]
 
 
+def _queue1_titles():
+    """ROADMAP.md's Queue 1 items: number -> the item's bold title."""
+    import pathlib
+    import re
+
+    text = (pathlib.Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    queue = text.split("### Queue 1", 1)[1].split("### Queue 2", 1)[0]
+    return {int(n): title for n, title in re.findall(r"^(\d+)\. \*\*([^*]+)\*\*", queue,
+                                                     flags=re.M)}
+
+
 def test_resolve_cell_refuses_what_later_slices_bring():
-    """The moment offload and the offload codecs are item 6 (pp > 1, item 8,
-    cannot be asked of a one-device plan: its own validation refuses it; the
-    CLI's ``--pp 2`` names the item).  Executed activation offload and remat
-    "sppo" / "full" (item 5) run: tests/test_torch_offload.py holds them."""
+    """The moment offload and the codecs run (tests/test_torch_optstate.py,
+    tests/test_torch_offload.py), as do the executed activation offload and
+    remat "sppo" / "full".  What later slices bring is refused naming its
+    ROADMAP Queue 1 item as ROADMAP.md numbers it: pp > 1 and the mesh
+    (item 3, multi-rank; a one-device plan's own validation refuses pp > 1
+    in ``resolve_cell``, the CLI's ``--pp 2`` names the item), the auditor
+    and checkpointing (item 7, tooling)."""
     cfg = get_config("qwen2-7b").reduced()
     shape = ShapeConfig("t", 256, 2, "train")
     for ov in (dict(offload_moments=True), dict(offload_dtype="fp8"),
                dict(offload_moments=True, moments_dtype="int8")):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, **ov))
+        cell = runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, **ov))
+        assert all(getattr(cell.plan, k) == v for k, v in ov.items())
     cell = runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1))
     assert (cell.plan.offload, cell.plan.remat, cell.plan.prefetch) == (True, "sppo", "ahead")
+    titles = _queue1_titles()
+    assert titles[3].startswith("Multi-rank pipeline")
+    assert titles[7].startswith("Remaining families and tooling")
+    assert {item for _, item in train.LATER.values()} == {3, 7}
+    assert {dest for dest, (_, item) in train.LATER.items() if item == 7} == {
+        "audit", "ckpt_dir", "ckpt_every", "resume"}
+    assert "item 3" in str(runner._later("pp = 2 (pipeline stages)", 3))
 
 
 def test_cli_trains_on_cpu_and_the_loss_falls():
@@ -346,13 +377,15 @@ def test_cli_counts_no_kernel_launch_on_cpu():
                            "bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_tc": 0, "bwd_dkv_tc": 0}
 
 
-@pytest.mark.parametrize("flag", [["--pp", "2"], ["--offload-moments"], ["--msp"],
-                                  ["--ckpt-dir", "x"], ["--audit"], ["--mesh", "2x2"],
-                                  ["--offload-dtype", "fp8"]])
-def test_cli_refuses_flags_of_later_slices(flag, capsys):
+@pytest.mark.parametrize("flag,item", [(["--pp", "2"], 3), (["--attn-mode", "ring"], 3),
+                                       (["--msp"], 3), (["--ckpt-dir", "x"], 7),
+                                       (["--audit"], 7), (["--mesh", "2x2"], 3),
+                                       (["--resume", "x"], 7)],
+                         ids=[f"flag{i}" for i in range(7)])
+def test_cli_refuses_flags_of_later_slices(flag, item, capsys):
     with pytest.raises(SystemExit):
         train.main(["--reduced", "--steps", "1", "--device", "cpu", *flag])
-    assert "ROADMAP Queue 1, item" in capsys.readouterr().err
+    assert f"ROADMAP Queue 1, item {item}" in capsys.readouterr().err
 
 
 def test_cli_targets_cuda():

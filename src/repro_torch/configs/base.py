@@ -2,7 +2,9 @@
 
 A copy of ``repro/configs/base.py`` (the JAX package) so the port never
 imports the reference.  The registry holds the dense architectures the port
-runs: ``qwen2-7b`` and the paper's ``sppo-gpt`` family.
+runs: ``qwen2-7b``, the paper's ``sppo-gpt`` family, ``glm4-9b`` (partial
+RoPE), ``nemotron-4-15b`` (squared ReLU, LayerNorm) and ``starcoder2-3b``
+(GeLU with MLP bias).
 """
 from __future__ import annotations
 
@@ -271,5 +273,5 @@ def get_config(name: str) -> ModelConfig:
 def _load_all() -> None:
     import importlib
 
-    for mod in ("qwen2_7b", "sppo_gpt"):
+    for mod in ("qwen2_7b", "sppo_gpt", "glm4_9b", "nemotron_4_15b", "starcoder2_3b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

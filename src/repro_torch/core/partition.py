@@ -1,7 +1,9 @@
 """SPPO sequence partitioning (§3.2, §5.2): length-based vs FLOPs-balanced.
 
-A copy of the uniform-layout half of ``repro/core/partition.py`` (the JAX
-package), held against it by tests/test_torch_kernels.py.  For causal
+A copy of ``repro/core/partition.py`` (the JAX package): the uniform
+layout, held against it by tests/test_torch_kernels.py, and the packed
+variable-length layout (DESIGN.md §13), held against it by
+tests/test_torch_varlen.py.  For causal
 attention the per-token cost grows with position: processing tokens [a, b)
 of a sequence costs
     F(a, b) = c_lin * (b - a) + c_attn * (b^2 - a^2) / 2
@@ -11,6 +13,9 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -112,3 +117,129 @@ def chunk_costs(sched: ChunkSchedule, r: float) -> list:
     tokens); the offload planner scales them to seconds."""
     return [chunk_cost(a, a + l, r)
             for a, l in zip(sched.offsets, sched.lengths)]
+
+
+# ---------------------------------------------------------------------------
+# Packed variable-length layouts (FlexSP / Seq1F1B adaptation, DESIGN.md §13)
+# ---------------------------------------------------------------------------
+#
+# A packed batch keeps each document contiguous inside a fixed-width row of
+# ``seq_len`` tokens (tail padding only).  Causal attention restarts at every
+# document boundary, so the per-position cost profile is sawtoothed — a token
+# at in-document offset d costs 1 + r*d (its causal window is d+1 tokens) —
+# instead of the single triangle the uniform-sequence partitioner assumes.
+# ``packed_cost_profile`` materializes that profile summed over the batch
+# rows and ``partition_profile`` equalizes its cumulative sum (the Seq1F1B
+# FLOPs-balance generalized to arbitrary profiles), snapping boundaries to
+# nearby aligned document boundaries where possible.
+
+
+def pack_lengths(lengths: Sequence[int], seq_len: int) -> List[List[int]]:
+    """Greedy first-fit-decreasing bin packing of document lengths into rows
+    of ``seq_len`` tokens.  Returns, per row, the list of *document indices*
+    (into ``lengths``) in placement order.  Every document is placed exactly
+    once — no drops, no duplicates, no splits (each length must fit a row)."""
+    order = sorted(range(len(lengths)), key=lambda i: (-lengths[i], i))
+    rows: List[List[int]] = []
+    free: List[int] = []
+    for i in order:
+        ln = int(lengths[i])
+        assert 0 < ln <= seq_len, f"doc {i} length {ln} vs row {seq_len}"
+        for rix, f in enumerate(free):
+            if f >= ln:
+                rows[rix].append(i)
+                free[rix] -= ln
+                break
+        else:
+            rows.append([i])
+            free.append(seq_len - ln)
+    return rows
+
+
+def packed_cost_profile(row_lens: Sequence[Sequence[int]], seq_len: int,
+                        r: float) -> np.ndarray:
+    """Per-position relative cost [seq_len] of a packed batch, summed over
+    rows.  ``row_lens[row]`` lists the document lengths packed into that row
+    (contiguous, in order, tail-padded).  A real token at in-document offset
+    d costs 1 + r*d; padding positions cost 1 (they still ride the dense
+    projections/MLP) with no attention term (fully masked)."""
+    prof = np.zeros(seq_len, dtype=np.float64)
+    for lens in row_lens:
+        pos = 0
+        for ln in lens:
+            ln = int(ln)
+            prof[pos:pos + ln] += 1.0 + r * np.arange(ln, dtype=np.float64)
+            pos += ln
+        assert pos <= seq_len, f"row overflows: {sum(lens)} > {seq_len}"
+        prof[pos:] += 1.0
+    return prof
+
+
+def partition_profile(profile: Sequence[float], n: int, multiple: int = 1,
+                      doc_bounds: Optional[Sequence[int]] = None
+                      ) -> ChunkSchedule:
+    """Chunk boundaries equalizing the cumulative cost ``profile`` (the
+    packed-layout generalization of :func:`partition_flops`).  Boundaries
+    are rounded to ``multiple``; when ``doc_bounds`` (global positions where
+    a document starts in every row of the packed layout) offers an aligned
+    boundary near the cost-balanced one, it is preferred so chunks respect
+    document boundaries where possible."""
+    prof = np.asarray(profile, dtype=np.float64)
+    seq_len = int(prof.shape[0])
+    n = _clamp_chunks(seq_len, n, multiple)
+    if n == 1:
+        return ChunkSchedule((seq_len,), (0,), seq_len, "flops-packed")
+    mult = max(multiple, 1)
+    cum = np.cumsum(prof)
+    total = float(cum[-1])
+    aligned_docs = sorted(int(b) for b in (doc_bounds or ())
+                          if 0 < b < seq_len and b % mult == 0)
+    bounds = [0]
+    for i in range(1, n):
+        target = total * i / n
+        b = int(np.searchsorted(cum, target)) + 1
+        b = int(round(b / mult)) * mult
+        # aligned cap, as in partition_flops: keep interior boundaries on
+        # the multiple even when seq_len % mult != 0
+        lo, hi = bounds[-1] + mult, (seq_len // mult - (n - i)) * mult
+        b = min(hi, max(b, lo))
+        # prefer a document boundary within half a mean chunk of the
+        # balanced position (it can only cost a bounded imbalance)
+        window = max(mult, seq_len // (2 * n))
+        cand = [d for d in aligned_docs if lo <= d <= hi
+                and abs(d - b) <= window]
+        if cand:
+            b = min(cand, key=lambda d: abs(d - b))
+        bounds.append(b)
+    bounds.append(seq_len)
+    lens = tuple(bounds[i + 1] - bounds[i] for i in range(n))
+    assert all(l > 0 for l in lens) and sum(lens) == seq_len
+    return ChunkSchedule(lens, tuple(bounds[:-1]), seq_len, "flops-packed")
+
+
+def aligned_doc_bounds(row_lens: Sequence[Sequence[int]],
+                       seq_len: int) -> List[int]:
+    """Positions that are document boundaries in *every* row of the packed
+    layout — a chunk cut there never splits a document.  A row's tail
+    padding region counts as all-boundary (cutting padding is free)."""
+    common: Optional[set] = None
+    for lens in row_lens:
+        lens = [int(l) for l in lens]
+        cuts = set(np.cumsum(lens).tolist()) if lens else set()
+        cuts |= set(range(sum(lens), seq_len + 1))
+        common = cuts if common is None else (common & cuts)
+    return sorted(b for b in (common or ()) if 0 < b < seq_len)
+
+
+def profile_chunk_costs(profile: Sequence[float],
+                        sched: ChunkSchedule) -> List[float]:
+    """Per-chunk cost sums of a packed-layout profile under ``sched``."""
+    prof = np.asarray(profile, dtype=np.float64)
+    return [float(prof[a:a + l].sum())
+            for a, l in zip(sched.offsets, sched.lengths)]
+
+
+def imbalance(values: Sequence[float]) -> float:
+    """max/mean ratio — 1.0 == perfectly balanced (Fig. 4/5 metric)."""
+    values = list(values)
+    return max(values) / (sum(values) / len(values))

@@ -20,8 +20,10 @@ CPU clones).
 
 The reference CLI's other flags belong to later slices of the port and are
 refused with the ROADMAP item that brings them.  ``train(cfg, ...)`` is the
-body, for callers that pass a config of their own (a depth-cut model) or
-plan overrides (chip_smoke.py's ablations).
+body, for callers that pass a config of their own (a depth-cut model), plan
+overrides (chip_smoke.py's ablations) or a packed variable-length batch
+(``packed=``, DESIGN.md §13; the reference's CLI has no flag for one
+either).
 """
 from __future__ import annotations
 
@@ -109,8 +111,16 @@ def _refuse_later_flags(ap, args):
 
 def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
           lr: float = 3e-4, log_every: int = 10, metrics_out=None,
-          device="cuda", overrides=None, on_step=None, step_context=None):
+          device="cuda", overrides=None, on_step=None, step_context=None,
+          packed=None):
     """Train ``cfg`` for ``steps`` steps on ``device``.
+
+    ``packed``, where given, is a ``data.pipeline.PackedBatch`` of ``batch``
+    rows of ``seq`` tokens (``pack_documents``, or ``pad_to_max``'s one
+    document a row), trained on at every step in place of the synthetic
+    stream: the cell is resolved with its documents' lengths
+    (``resolve_cell(doc_lens=)``) and its ``doc_start`` windows the
+    attention.
 
     ``overrides`` replace fields of the resolved plan (the reference's
     defaults: offload on, remat "sppo", prefetch "ahead"), e.g.
@@ -129,8 +139,13 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
     overrides = {**dict(pp=1, dp=1), **(overrides or {})}
     if n_chunks:
         overrides["n_chunks"] = n_chunks
+    doc_lens = None
+    if packed is not None:
+        if packed.tokens.shape != (batch, seq):
+            raise ValueError(f"packed batch {packed.tokens.shape} is not [{batch}, {seq}]")
+        doc_lens = [end - start for _, start, end, _ in sorted(packed.spans, key=lambda s: s[3])]
     cell = resolve_cell(mdef, ShapeConfig("cli_train", seq, batch, "train"),
-                        overrides=overrides)
+                        overrides=overrides, doc_lens=doc_lens)
     log.info("plan: %s  chunks=%s alphas=%s", cell.plan, cell.sched.lengths,
              [round(a, 3) for a in cell.alphas])
 
@@ -161,12 +176,17 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
     for step in range(steps):
-        tokens, labels = (torch.from_numpy(a).to(dev) for a in data.sample_step(step))
+        doc_start = None
+        if packed is None:
+            tokens, labels = (torch.from_numpy(a).to(dev) for a in data.sample_step(step))
+        else:
+            tokens, labels, doc_start = (torch.from_numpy(a).to(dev) for a in
+                                         (packed.tokens, packed.labels, packed.doc_start))
         ctx = step_context(step) if step_context else contextlib.nullcontext()
         with ctx:
             sync()
             meter.start()
-            params, opt_state, metrics = step_fn(params, opt_state, tokens, labels)
+            params, opt_state, metrics = step_fn(params, opt_state, tokens, labels, doc_start)
             sync()
             rec = meter.stop(step, float(metrics["loss"]))
         if on_step is not None:

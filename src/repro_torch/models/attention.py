@@ -53,15 +53,18 @@ def cache_append(cache: KVCache, k_new, v_new, pos_new, offset: int) -> KVCache:
 
 
 def dist_attention(q, k_loc, v_loc, q_pos, kv_pos, *, causal=True, scale=None,
-                   kv_view=None):
+                   kv_view=None, q_start=None):
     """q: [B, Tq, H, hd]; k_loc/v_loc/kv_pos: the cache.  ``kv_view`` is the
     number of leading cache slots to attend over (a strided prefix view, no
-    copy; None = the whole buffer).  Returns [B, Tq, H, hd_v] in q's dtype."""
+    copy; None = the whole buffer).  ``q_start``: optional [B, Tq] int32
+    document window of a packed batch: each query sees only the slots with
+    kv_pos >= its document's start (PAD_START on padding rows).  Returns [B,
+    Tq, H, hd_v] in q's dtype."""
     if kv_view is not None:
         k_loc, v_loc, kv_pos = (k_loc[:, :kv_view], v_loc[:, :kv_view],
                                 kv_pos[:kv_view])
     o, m, l = kops.attention_partial(q, k_loc, v_loc, q_pos, kv_pos,
-                                     causal=causal, scale=scale)
+                                     causal=causal, scale=scale, q_start=q_start)
     out = o / l.clamp_min(1e-30)[..., None]
     return out.to(q.dtype)
 
@@ -70,17 +73,18 @@ class _ChunkAttention(torch.autograd.Function):
     """One chunk's queries against the cache prefix that holds every chunk
     so far, differentiable in q and in each chunk's (k, v).
 
-    ``apply(q, q_pos, cache, kv_view, causal, k_0, ..., k_c, v_0, ..., v_c)``
-    writes chunk c's k, v and positions into the buffer (the other chunks
-    are there already), runs the partial attention on the prefix view
-    ``[:kv_view]`` and returns (o, m, l).  The backward splits the view's
-    dk, dv by chunk length; autograd sums each chunk's share over every
-    later chunk that attended it.  Nothing is copied: the buffer holds O(S)
-    K/V per layer, as in serving.
+    ``apply(q, q_pos, q_start, cache, kv_view, causal, k_0, ..., k_c, v_0,
+    ..., v_c)`` writes chunk c's k, v and positions into the buffer (the
+    other chunks are there already), runs the partial attention on the
+    prefix view ``[:kv_view]`` under the chunk's document window
+    ``q_start`` ([B, T] int32, or None) and returns (o, m, l).  The
+    backward splits the view's dk, dv by chunk length; autograd sums each
+    chunk's share over every later chunk that attended it.  Nothing is
+    copied: the buffer holds O(S) K/V per layer, as in serving.
     """
 
     @staticmethod
-    def forward(ctx, q, q_pos, cache, kv_view, causal, *kvs):
+    def forward(ctx, q, q_pos, q_start, cache, kv_view, causal, *kvs):
         n = len(kvs) // 2
         k_c, v_c = kvs[n - 1], kvs[-1]
         lengths = [k.shape[1] for k in kvs[:n]]
@@ -93,9 +97,10 @@ class _ChunkAttention(torch.autograd.Function):
         cache.pos[off:kv_view] = q_pos
         scale = 1.0 / (q.shape[-1] ** 0.5)
         k, v, pos = cache.k[:, :kv_view], cache.v[:, :kv_view], cache.pos[:kv_view]
-        o, m, l = fa.partial_forward(q, k, v, q_pos, pos, None, causal=causal,
+        o, m, l = fa.partial_forward(q, k, v, q_pos, pos, q_start, causal=causal,
                                      scale=scale)
-        ctx.save_for_backward(q, q_pos, m)
+        # the window is the chunk's own slice, not part of the shared buffer
+        ctx.save_for_backward(q, q_pos, m, q_start)
         # The buffer is kept on ctx, not saved: later chunks write it in place,
         # which would fail save_for_backward's version check, but they write
         # only slots >= kv_view, so this view reads back unchanged.
@@ -106,27 +111,29 @@ class _ChunkAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, _dm, dl):
-        q, q_pos, m = ctx.saved_tensors
+        q, q_pos, m, q_start = ctx.saved_tensors
         c, n = ctx.cache, ctx.kv_view
         dq, dk, dv = fa.partial_backward(q, c.k[:, :n], c.v[:, :n], q_pos,
-                                         c.pos[:n], None, do, m, dl, **ctx.opts)
+                                         c.pos[:n], q_start, do, m, dl, **ctx.opts)
         dks = [d.to(c.k.dtype) for d in dk.split(ctx.lengths, dim=1)]
         dvs = [d.to(c.v.dtype) for d in dv.split(ctx.lengths, dim=1)]
-        return (dq.to(q.dtype), None, None, None, None, *dks, *dvs)
+        return (dq.to(q.dtype), None, None, None, None, None, *dks, *dvs)
 
 
 def chunk_attention(q, k, v, q_pos, cache: KVCache, cache_offset: int,
-                    kv_view: int, *, causal=True):
+                    kv_view: int, *, causal=True, q_start=None):
     """Training counterpart of ``cache_append`` + ``dist_attention``: appends
     the chunk's (k, v) to the cache's chunk list and attends the first
-    ``kv_view`` slots through ``_ChunkAttention``.  The chunks must tile the
-    slots in order: this chunk lands at ``cache_offset = kv_view - T``."""
+    ``kv_view`` slots through ``_ChunkAttention``, under the document window
+    ``q_start`` where given.  The chunks must tile the slots in order: this
+    chunk lands at ``cache_offset = kv_view - T``."""
     if cache_offset != kv_view - k.shape[1]:
         raise ValueError(f"a training chunk of {k.shape[1]} tokens at slot "
                          f"{cache_offset} must end the view of {kv_view} slots")
     cache.chunks.append((k.to(cache.k.dtype), v.to(cache.v.dtype)))
     ks, vs = zip(*cache.chunks)
-    o, _, l = _ChunkAttention.apply(q, q_pos.to(torch.int32), cache, kv_view,
+    qs = None if q_start is None else q_start.to(torch.int32)
+    o, _, l = _ChunkAttention.apply(q, q_pos.to(torch.int32), qs, cache, kv_view,
                                     causal, *ks, *vs)
     return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
@@ -182,13 +189,14 @@ class _SavedQKV(torch.autograd.Function):
 
 
 def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
-                       kv_view, rope, *, name_tag=None):
+                       kv_view, rope, *, name_tag=None, q_start=None):
     """x: [B, T, d]; q_pos: [T] global positions of the tokens, whose KV
     lands at slot ``cache_offset``; they attend the first ``kv_view`` slots
     (a prefill chunk) or, with ``kv_view=None``, the whole buffer, empty
     slots masked by their PAD position (a decode step, T = 1: at sp = 1 this
     is the reference's ``gqa_decode_attention``).  ``rope`` is
-    ``layers.rope_tables`` of q_pos.  A training cache (``chunks`` set)
+    ``layers.rope_tables`` of q_pos.  ``q_start``: the [B, T] document
+    window of a packed batch, or None.  A training cache (``chunks`` set)
     attends through ``chunk_attention``.  ``name_tag``, where given, is
     applied to q, k and v after RoPE and to the attention output before
     ``@ wo``: the tag sites of SPPO's offload (core/offload.py), as in the
@@ -206,14 +214,15 @@ def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
         if name_tag is not None:
             q, k, v = name_tag(q), name_tag(k), name_tag(v)
     if cache.chunks is not None:
-        out = chunk_attention(q, k, v, q_pos, cache, cache_offset, kv_view)
+        out = chunk_attention(q, k, v, q_pos, cache, cache_offset, kv_view,
+                              q_start=q_start)
         out = out.reshape(B, T, H * hd)
         if name_tag is not None:
             out = name_tag(out)
         return out @ p["wo"], cache
     cache = cache_append(cache, k, v, q_pos, cache_offset)
     out = dist_attention(q, cache.k, cache.v, q_pos, cache.pos, causal=True,
-                         kv_view=kv_view).reshape(B, T, H * hd)
+                         kv_view=kv_view, q_start=q_start).reshape(B, T, H * hd)
     if name_tag is not None:
         out = name_tag(out)
     return out @ p["wo"], cache

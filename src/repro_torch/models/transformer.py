@@ -40,6 +40,9 @@ class ChunkMeta(NamedTuple):
     kv_view: Optional[int]  # visible cache length after the append (decode: None = all)
     rope: Any            # layers.rope_tables(q_pos, ...): shared by every layer
     tag: Any = None      # the tag sites' function (core/offload.py), None: no tags
+    # packed variable-length batches (DESIGN.md §13): [B, T] int32 start of
+    # each query's document; attention masks kv_pos < q_start.  None: unpacked
+    q_start: Any = None
 
 
 def _res(x, delta, gate):
@@ -54,7 +57,7 @@ def dense_slot(cfg, p, s, x, meta: ChunkMeta):
     h = L.apply_norm(x, p["ln1"], cfg.norm)
     a, kv = A.gqa_self_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
                                  meta.cache_off, meta.kv_view, meta.rope,
-                                 name_tag=meta.tag)
+                                 name_tag=meta.tag, q_start=meta.q_start)
     x = _res(x, a, p["gate"])
     h2 = L.apply_norm(x, p["ln2"], cfg.norm)
     m = L.mlp(h2, p["mlp"], cfg.act, name_tag=meta.tag)

@@ -207,10 +207,17 @@ def apply_update(params, grads, state: AdamWState, *, lr, b1=0.9, b2=0.95,
                 moving.stage(i + 1)
             m, v = moving.take(i)
         g32 = g.float() * scale
-        m32 = b1 * m + (1 - b1) * g32
-        v32 = b2 * v + (1 - b2) * g32 * g32
+        # m32 = b1 m + (1 - b1) g32, v32 = b2 v + (1 - b2) g32 g32 and
+        # u = (m32 / bc1) / (sqrt(v32 / bc2) + eps), with each op that the
+        # out-of-place form gives a temporary done in place (it rounds the
+        # same): at most four fp32 copies of a leaf live at once, not five
+        m32 = b1 * m
+        m32.add_((1 - b1) * g32)
+        v32 = b2 * v
+        v32.add_(((1 - b2) * g32).mul_(g32))
         del g32
-        u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
+        u = m32 / bc1
+        u.div_((v32 / bc2).sqrt_().add_(eps))
         if moving is None:
             m.copy_(m32)
             v.copy_(v32)

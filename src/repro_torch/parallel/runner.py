@@ -56,10 +56,18 @@ class Cell:
     sched: part.ChunkSchedule
     alphas: tuple = ()   # per-chunk offload ratio (zeros with offload off)
     dtype: torch.dtype = torch.bfloat16
+    # document lengths of a packed variable-length batch (empty: the uniform
+    # layout).  When set, the batch carries a ``doc_start`` array and
+    # attention masks cross-document visibility (DESIGN.md §13)
+    doc_lens: tuple = ()
 
     @property
     def cfg(self) -> ModelConfig:
         return self.mdef.cfg
+
+    @property
+    def varlen(self) -> bool:
+        return bool(self.doc_lens)
 
     @property
     def cache_loc(self) -> int:
@@ -77,7 +85,7 @@ def _later(what: str, item: int):
 
 
 def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
-                 dtype=torch.bfloat16) -> Cell:
+                 dtype=torch.bfloat16, doc_lens=None) -> Cell:
     """Resolve a train, prefill or decode cell at data = model = 1, pp = 1.
 
     The chunk plan and the offload ratios are the reference's
@@ -90,11 +98,20 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     saved rows the offload moves) in the explicit form; the moments move in
     the explicit form too, a moment codec needs the moment offload, and a
     decode plan takes no codec.  pp > 1 is refused, naming the ROADMAP item
-    that brings it."""
+    that brings it.
+
+    ``doc_lens`` makes a packed variable-length cell (DESIGN.md §13), as in
+    the reference: the documents are packed into rows of S tokens
+    (``pack_lengths``; they must fit ``global_batch`` rows, the filler rows
+    costing the dense work alone), the chunks balance the summed per-row
+    causal sawtooth (``partition_profile``, snapping to document boundaries
+    common to every row) under policy "flops", and α sees each chunk's
+    share of that profile.  A decode cell takes no ``doc_lens``."""
     mdef = arch if isinstance(arch, ModelDef) else build_model(arch)
     cfg = mdef.cfg
     plan = resolve_plan(cfg, shape_cfg, data_size=1, model_size=1,
                         overrides=overrides)
+    doc_lens = tuple(int(x) for x in (doc_lens if doc_lens is not None else ()))
     if plan.pp != 1:
         raise _later(f"pp = {plan.pp} (pipeline stages)", 3)
     for codec in (plan.offload_dtype, plan.moments_dtype):
@@ -107,6 +124,8 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
         raise ValueError(f"moments_dtype {plan.moments_dtype!r} requires offload_moments: "
                          "moments on the device have no host channel to compress")
     if shape_cfg.kind == "decode":
+        if doc_lens:
+            raise ValueError("packed variable-length layouts are train/prefill only")
         # a decode step has no backward: an offloaded row would never come back
         if plan.offload:
             raise ValueError("decode plans must not offload (DESIGN.md §4)")
@@ -130,13 +149,31 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
                              "rows itself ('explicit'); 'xla' is the reference's remat hint")
     # chunk boundaries on multiples of max(model_size, 128), as the
     # reference's pp == 1 plan
-    sched = part.partition(shape_cfg.seq_len, plan.n_chunks, cfg,
-                           plan.partition, multiple=128)
-    # sequence-aware offload ratios from the cost model (§5.2)
+    S, B = shape_cfg.seq_len, shape_cfg.global_batch
     r = part.flops_per_token_ratio(cfg)
-    costs = part.chunk_costs(sched, r)
-    B = shape_cfg.global_batch
-    scale = (6 * cm.count_active_params(mdef) * B * shape_cfg.seq_len
+    if doc_lens:
+        # the packed layout's cost profile: the causal sawtooth of each row
+        # (cost restarts at every document), summed over the batch
+        rows = part.pack_lengths(list(doc_lens), S)
+        if len(rows) > B:
+            raise ValueError(f"packing needs {len(rows)} rows > global_batch {B}")
+        # filler rows are all padding but still ride the dense matmuls
+        row_lens = ([[doc_lens[i] for i in row] for row in rows]
+                    + [[] for _ in range(B - len(rows))])
+        profile = part.packed_cost_profile(row_lens, S, r)
+        if plan.partition == "flops":
+            sched = part.partition_profile(
+                profile, plan.n_chunks, multiple=128,
+                doc_bounds=part.aligned_doc_bounds(row_lens, S))
+        else:
+            sched = part.partition(S, plan.n_chunks, cfg, plan.partition, multiple=128)
+        # the profile sums over the rows; α wants one row's share
+        costs = [c / max(1, B) for c in part.profile_chunk_costs(profile, sched)]
+    else:
+        sched = part.partition(S, plan.n_chunks, cfg, plan.partition, multiple=128)
+        costs = part.chunk_costs(sched, r)
+    # sequence-aware offload ratios from the cost model (§5.2)
+    scale = (6 * cm.count_active_params(mdef) * B * S
              / sum(costs) / (plan.sp * plan.pp * cm.H100.peak_flops_bf16))
     times = [c * scale / (1.0 + cm.BWD_RATIO) for c in costs]
     acts = cm.chunk_act_bytes(cfg, sched.lengths, batch=max(1, B // plan.dp),
@@ -148,7 +185,7 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     if not plan.offload:
         alphas = tuple(0.0 for _ in alphas)
     return Cell(mdef=mdef, plan=plan, shape=shape_cfg, sched=sched,
-                alphas=alphas, dtype=dtype)
+                alphas=alphas, dtype=dtype, doc_lens=doc_lens)
 
 
 def _rope(cfg, q_pos):
@@ -194,8 +231,12 @@ def link_drain(loss, link, last: int):
 
 
 def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
-                 with_loss: bool = False):
-    """The pp == 1 chunk loop.  tokens, labels: [B, S] int.  With
+                 with_loss: bool = False, doc_start=None):
+    """The pp == 1 chunk loop.  tokens, labels: [B, S] int.  ``doc_start``:
+    optional [B, S] int32 start of each token's document in a packed batch
+    (``PAD_START`` on padding), sliced chunk by chunk into the attention's
+    window (``ChunkMeta.q_start``), so documents never attend across their
+    boundaries.  With
     ``with_loss`` each chunk adds its head loss over the tokens whose label
     is >= 0 (the label sentinel: a negative label carries zero weight), and
     the caches keep every chunk's K/V for the backward; where a gradient is
@@ -214,8 +255,9 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
     for c, (off, ln) in enumerate(zip(cell.sched.offsets, cell.sched.lengths)):
         q_pos = off + torch.arange(ln, dtype=torch.int32, device=dev)
         x = mdef.embed(g, tokens[:, off:off + ln])
+        q_start = None if doc_start is None else doc_start[:, off:off + ln]
         meta = ChunkMeta(q_pos=q_pos, cache_off=off, kv_view=off + ln,
-                         rope=_rope(cell.cfg, q_pos))
+                         rope=_rope(cell.cfg, q_pos), q_start=q_start)
         if train:
             # the chunk's seam (the reference's prefetch_chunk): its backward
             # takes the chunk's reloaded rows from the link and, under
@@ -249,7 +291,7 @@ def trainable(path: str) -> bool:
     return not path.endswith("gate")
 
 
-def loss_and_grads(cell: Cell, params, tokens, labels):
+def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None):
     """The loss ``sum / max(count, 1)`` of the chunked pipeline and its
     gradients, a tree like ``params`` (zeros for the gate).
 
@@ -257,14 +299,19 @@ def loss_and_grads(cell: Cell, params, tokens, labels):
     B / A rows, each run forward and backward on its own; the loss and the
     gradients are the means over them, the gradients summed in fp32, as in
     the reference's accumulation scan.  With A = 1 the gradients come in
-    the parameters' dtypes."""
-    def one(tok, lab):
+    the parameters' dtypes.  ``doc_start`` (a packed batch's [B, S] document
+    starts) is split as the tokens are and reaches the attention only in a
+    varlen cell (``cell.varlen``), as in the reference."""
+    if not cell.varlen:
+        doc_start = None
+
+    def one(tok, lab, ds):
         # detached aliases: the caller's tensors are not touched
         alias = tree.map_(lambda t: t.detach(), params)
         leaves = [t.requires_grad_() for p, t in tree.items(alias) if trainable(p)]
         with torch.enable_grad():
             out = run_pipeline(cell, alias["stages"], alias["globals"], tok, lab,
-                               with_loss=True)
+                               with_loss=True, doc_start=ds)
             loss = out["loss"] / out["denom"].clamp_min(1.0)
             grads = iter(torch.autograd.grad(loss, leaves))
         flat = [next(grads) if trainable(p) else torch.zeros_like(t)
@@ -279,7 +326,9 @@ def loss_and_grads(cell: Cell, params, tokens, labels):
         bm = B // A
         loss, gsum = None, None
         for a in range(A):
-            l, flat = one(tokens[a * bm:(a + 1) * bm], labels[a * bm:(a + 1) * bm])
+            rows = slice(a * bm, (a + 1) * bm)
+            l, flat = one(tokens[rows], labels[rows],
+                          None if doc_start is None else doc_start[rows])
             if gsum is None:
                 loss, gsum = l, [g.float() for g in flat]
             else:
@@ -288,7 +337,7 @@ def loss_and_grads(cell: Cell, params, tokens, labels):
                     acc.add_(g.float())
         loss, flat = loss / A, [g / A for g in gsum]
     else:
-        loss, flat = one(tokens, labels)
+        loss, flat = one(tokens, labels, doc_start)
     it = iter(flat)
     return loss, tree.map_(lambda _: next(it), params)
 
@@ -303,11 +352,12 @@ def make_train_step(cell: Cell, *, lr_kwargs=None):
 
     lr_kwargs = lr_kwargs or {}
 
-    def train_step(params, opt_state, tokens, labels):
-        """tokens, labels: [B, S] int on the parameters' device.  Returns
-        (params, opt_state, metrics); metrics hold tensors (loss, grad_norm,
-        lr) that stay on the device until read."""
-        loss, grads = loss_and_grads(cell, params, tokens, labels)
+    def train_step(params, opt_state, tokens, labels, doc_start=None):
+        """tokens, labels (and a packed batch's doc_start): [B, S] int on the
+        parameters' device.  Returns (params, opt_state, metrics); metrics
+        hold tensors (loss, grad_norm, lr) that stay on the device until
+        read."""
+        loss, grads = loss_and_grads(cell, params, tokens, labels, doc_start)
         lr = adamw.cosine_lr(opt_state.step, **lr_kwargs)
         plan = cell.plan
         params, opt_state, met = adamw.apply_update(

@@ -4,8 +4,11 @@ their plain PyTorch versions, on the card; the executed activation
 offload on the card (its rows in pinned host memory, its copies on a stream
 of their own, the device memory it frees, offload on ≡ off through the
 kernels); AdamW's moments through pinned host memory (bitwise the
-on-device update), the codec's torch ops (bitwise the CPU's) and the
-embedding's deterministic backward.
+on-device update), the codec's torch ops (bitwise the CPU's), the
+embedding's deterministic backward; the kernels at a packed chunk (per-row
+document windows, dead padding rows) and at the group sizes of glm4-9b,
+nemotron-4-15b and starcoder2-3b (G = 16, 6, 12), and a packed step
+equal to its pad-to-max oracle through the kernels.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips without
 one.  The file imports no JAX, since the machine with the card has none, and
@@ -31,6 +34,7 @@ from repro_torch.configs.base import ShapeConfig, get_config
 from repro_torch.core import costmodel as cm
 from repro_torch.core import offload as ofl
 from repro_torch.core import tree
+from repro_torch.data.pipeline import PAD_START
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
@@ -660,3 +664,91 @@ def test_embedding_backward_is_deterministic(cuda_device):
     assert all(torch.equal(first, grad()) for _ in range(4))
     assert (first[V - 1] == 0).all()           # only masked ids clamp to it
     assert (first[ids[0, 7:].long()] != 0).any()
+
+
+# ---------------------------------------------------------------------------
+# packed variable-length batches (DESIGN.md §13) and the configs' group sizes
+# ---------------------------------------------------------------------------
+
+
+def _packed_chunk(seed=7):
+    """A packed chunk: 3 rows of 512 tokens from a seeded Zipf corpus, the
+    last chunk of 4 (Tq = 128 over a 512-slot view) with its [3, Tq]
+    doc_start window; the padding tail's queries are dead."""
+    from repro_torch.data import pipeline as dpipe
+
+    docs = dpipe.sample_corpus(24, vocab_size=256, seed=seed, dist="zipf", mean_len=64,
+                               max_len=400)
+    pb = dpipe.pack_documents(docs, 512)
+    assert pb.tokens.shape[0] == 3
+    B, Tq, S = 3, 128, 512
+    q_start = np.ascontiguousarray(pb.doc_start[:, S - Tq:])
+    return (inputs(B, Tq, S, 28, 4, 128, 128, seed=seed), np.arange(S - Tq, S, dtype=np.int32),
+            np.arange(S, dtype=np.int32), q_start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernels", [(d, k) for d in ("float32", "bfloat16")
+                                           for k in _kernels(d)])
+def test_kernels_at_a_packed_chunk(cuda_device, dtype, kernels):
+    """The forward and the backward pair at a packed chunk's shape (3 rows,
+    G = 7, hd 128, per-row document windows), dead padding rows exact."""
+    arrays, q_pos, kv_pos, q_start = _packed_chunk()
+    dead_np = q_start == PAD_START
+    assert dead_np.any()
+    dead = torch.from_numpy(dead_np).to(cuda_device)
+    o, m, l = _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device, q_start=q_start,
+                            kernels=kernels)
+    assert (o[dead] == 0).all() and (l[dead] == 0).all() and (m[dead] == -1e30).all()
+    dq, _, _ = _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device, q_start=q_start,
+                          dead=dead, kernels=kernels)
+    assert (dq[dead] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,Hkv", [(16, 2), (6, 8), (12, 2)])   # glm4, nemotron, starcoder2
+@pytest.mark.parametrize("dtype,kernels", [(d, k) for d in ("float32", "bfloat16")
+                                           for k in _kernels(d)])
+def test_kernels_at_the_configs_group_sizes(cuda_device, G, Hkv, dtype, kernels):
+    """G = 16, 6, 12 with hd 128, ragged Tq and S over several tiles, PAD
+    slots: forward and backward against the plain versions."""
+    Tq, S = 203, 461
+    arrays = inputs(2, Tq, S, G * Hkv, Hkv, 128, 128, seed=G)
+    q_pos = np.arange(Tq, dtype=np.int32) + S - Tq - 5
+    kv_pos = np.arange(S, dtype=np.int32)
+    kv_pos[-5:] = 2**30
+    _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels)
+    _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels)
+
+
+@pytest.mark.cuda
+def test_packed_step_equals_pad_to_max_through_the_kernels(cuda_device):
+    """fp32 through the CUDA-core kernels, the default plan (chunk 0
+    offloading every row): packed rows and the pad-to-max oracle (one
+    document a row at its packed offsets) give the same loss and gradients
+    within 1e-5; every launch takes the document windows."""
+    from repro_torch.data import pipeline as dpipe
+
+    cfg = get_config("qwen2-7b").reduced()
+    docs = dpipe.sample_corpus(10, vocab_size=cfg.vocab_size, seed=3, dist="zipf", mean_len=48,
+                               max_len=200)
+    packed = dpipe.pack_documents(docs, 256)
+    oracle = dpipe.pad_to_max(docs, 256, at_packed_offsets=packed)
+    lens = [len(d) for d in docs]
+    out = []
+    for pb in (packed, oracle):
+        cell = runner.resolve_cell(cfg, ShapeConfig("t", 256, len(pb.tokens), "train"),
+                                   overrides=dict(pp=1, dp=1, n_chunks=2), dtype=torch.float32,
+                                   doc_lens=lens)
+        cell = dataclasses.replace(cell, alphas=(1.0, 0.0))
+        params = build_params(cell, cuda_device, seed=0)
+        before = fa.counts()
+        out.append(runner.loss_and_grads(cell, params, *(torch.from_numpy(a).to(cuda_device)
+                                                         for a in (pb.tokens, pb.labels,
+                                                                   pb.doc_start))))
+        moved = _launched(before)
+        assert moved["fwd"] == 2 * 2 * 2 and moved["bwd_dq"] == moved["bwd_dkv"] == 2 * 2
+    (lp, gp), (lo, go) = out
+    np.testing.assert_allclose(float(lp), float(lo), rtol=0, atol=TOL)
+    for (path, a), b in zip(tree.items(gp), tree.leaves(go)):
+        np.testing.assert_allclose(to_np(a), to_np(b), rtol=0, atol=TOL, err_msg=path)

@@ -28,6 +28,8 @@ from repro_torch.kernels import ref
 from _torch_cases import (PAD, SWEEP, WINDOW_DEAD, sweep_case, to_np,
                           to_torch, window_case)
 
+import _torch_cpu  # noqa: F401,E402  (one torch thread a test process)
+
 SHAPES = [  # tests/test_kernel_grads.py: (Tq, S, n_pad_slots, q_off)
     (16, 32, 0, 16),
     (17, 33, 5, 8),

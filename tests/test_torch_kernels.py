@@ -24,6 +24,8 @@ from repro_torch.kernels import ref
 from _torch_cases import (SWEEP, WINDOW_DEAD, inputs, sweep_case, to_np,
                           to_torch, tol, window_case)
 
+import _torch_cpu  # noqa: F401,E402  (one torch thread a test process)
+
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 

@@ -17,6 +17,8 @@ from repro_torch.configs.base import get_config
 from repro_torch.models import layers as L
 from repro_torch.models.model_zoo import build_model
 
+import _torch_cpu  # noqa: F401,E402  (one torch thread a test process)
+
 TOL = 1e-5
 
 

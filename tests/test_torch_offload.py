@@ -50,6 +50,8 @@ from repro_torch.models.model_zoo import build_model
 from repro_torch.parallel import runner
 from repro_torch.runtime import hostmem
 
+import _torch_cpu  # noqa: F401,E402  (one torch thread a test process)
+
 ALPHAS = (1.0, 0.7, 0.5, 0.0)   # full / fractional / fractional / reserved
 S, B = 512, 2
 TOL = 1e-5

@@ -44,6 +44,8 @@ from repro_torch.models.model_zoo import build_model
 from repro_torch.optim import adamw
 from repro_torch.runtime import hostmem
 
+import _torch_cpu  # noqa: F401,E402  (one torch thread a test process)
+
 # the reference's pinned codec resolutions (tests/test_offload_quant.py)
 ROW_TOL = {"fp8": 0.07, "int8": 0.01}
 LEAST_NORMAL = float(np.finfo(np.float32).tiny)   # 1.1754944e-38

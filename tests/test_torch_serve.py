@@ -34,6 +34,8 @@ from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.parallel import plans, runner
 
+import _torch_cpu  # noqa: F401,E402  (one torch thread a test process)
+
 ROOT = Path(__file__).resolve().parents[1]
 S, B, DECODE = 320, 2, 4
 TOL = 1e-5

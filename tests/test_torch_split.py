@@ -36,6 +36,8 @@ from repro_torch.kernels import ref
 
 from _torch_cases import PAD
 
+import _torch_cpu  # noqa: F401,E402  (one torch thread a test process)
+
 NEG_INF = -1e30
 KERNEL_TOL = 1e-5   # chip_smoke.py and tests/test_torch_cuda.py: kernel vs plain
 # the largest error (x max |plain|) each number of terms is held to

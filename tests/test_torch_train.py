@@ -43,6 +43,8 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.optim import adamw
 from repro_torch.parallel import runner
 
+import _torch_cpu  # noqa: F401,E402  (one torch thread a test process)
+
 S, B, N_CHUNKS = 448, 2, 3
 TOL = 1e-5
 ARCHS = ["qwen2-7b", "sppo-gpt-7b"]

@@ -146,6 +146,7 @@ import json
 import logging
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -205,6 +206,21 @@ PACKED_LOSS_TOL = 1e-5    # packed vs the pad-to-max oracle (the reference's bar
 # three more dense configs at full width, cut to 2 layers: G = 16, 6, 12
 CONFIG_ARCHS = ("glm4-9b", "nemotron-4-15b", "starcoder2-3b")
 CONFIG_LAYERS, CONFIG_SEQ, CONFIG_CHUNKS, CONFIG_STEPS = 2, 4096, 4, 2
+# the multi-rank pipeline (pipeline_phase, DESIGN.md §2, §4): qwen2-7b at
+# full width cut to 4 layers, B = 1, S = 8192 in 4 equal chunks, pp = 2 as
+# two ranks (processes) sharing the one card over gloo, the hand-offs and
+# reductions staged through pinned host memory; the plain feed and MSP
+# (msp_split 2), 3 steps each, against pp = 1 on the same card with the
+# same weights; then the reduced model in fp32 (the CUDA-core kernels) at
+# S = 256 in three layouts against the CPU's pp = 1 step
+PIPE_LAYERS, PIPE_SEQ, PIPE_CHUNKS, PIPE_STEPS, PIPE_PP, PIPE_SPLIT = 4, 8192, 4, 3, 2, 2
+PIPE_BACKEND = "gloo"
+PIPE_DEADLINE_S = 600.0
+PIPE_FP32_SEQ, PIPE_FP32_BATCH = 256, 2
+PIPE_FP32_LAYOUTS = {"pp4_msp": dict(dp=1, pp=4, n_chunks=4, msp=True),
+                     "dp2_pp2": dict(dp=2, pp=2, n_chunks=4),
+                     "dp2": dict(dp=2, pp=1, n_chunks=2)}
+SHARED_CARD = "two ranks share one card: not a pipeline speed"
 
 
 def fail(msg: str):
@@ -1945,6 +1961,482 @@ def train_cpu_check(fa, hostmem, serve, runner, cfg, card):
     return rel, launched
 
 
+def _port_path():
+    """The port's sources on the path of this process (a spawned rank too)."""
+    src = str(Path(__file__).resolve().parent / "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+
+
+def pipe_offload_bytes(cell, stage: int, spp: int, *, itemsize_ratio: int = 1) -> int:
+    """D2H bytes of one rank's step at pp > 1 by the closed form: Σ over the
+    rank's events e of split_rows(chunk length, α of the event fed at its
+    tick e + stage) x its rows x the tagged bytes of a token in each of its
+    ``spp`` slots (bf16; ``itemsize_ratio`` 2 for fp32).  At pp = 1, the
+    chunks with their own α."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import offload as ofl
+
+    per_row = cell.b_loc * cm.tagged_bytes_per_token(cell.cfg) * spp * itemsize_ratio
+    if cell.plan.pp == 1:
+        return int(sum(ofl.split_rows(ln, a) * per_row
+                       for ln, a in zip(cell.sched.lengths, cell.alphas)))
+    from repro_torch.parallel import runner
+
+    events = runner.pipeline_feed_events(cell.plan, cell.sched.n)
+    clen, E = cell.shape.seq_len // cell.sched.n, len(events)
+    return int(sum(ofl.split_rows(clen, cell.alphas[events[min(e + stage, E - 1)][0]]) * per_row
+                   for e in range(E)))
+
+
+def pipe_bcast_bytes(cfg, stage: int, pp: int) -> int:
+    """Bytes of global gradients one rank sends a step by the closed form
+    (``Ctx.psum_globals``, dp = 1, an untied model): stage 0 the embedding,
+    the last stage the rest of the globals (final norm, head), each to the
+    pp - 1 other stages; a middle stage nothing."""
+    from repro_torch.core import tree
+    from repro_torch.models.model_zoo import build_model
+
+    glob = build_model(cfg).init_globals(torch.Generator(), torch.bfloat16, "meta")
+    owned = [k for k in glob if (k == "embed") == (stage == 0)] if stage in (0, pp - 1) else []
+    return (pp - 1) * sum(t.numel() * t.element_size() for k in owned
+                          for t in tree.leaves(glob[k]))
+
+
+def _fingerprint(t) -> int:
+    """An order-sensitive checksum of a tensor's bits."""
+    bits = t.detach().contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+    w = torch.arange(bits.numel(), device=t.device) % 1021 + 1
+    return int((bits.reshape(-1).long() * w).sum())
+
+
+def pipe_rank(rank, device, fp32_layouts, params_np, tokens_np, labels_np):
+    """One rank of the full-width pipeline cell (``pipeline_phase``).  Rank 0
+    first runs pp = 1 with the same weights and equal chunks (one untimed
+    loss-and-gradients call, then PIPE_STEPS steps through
+    ``launch.train.train``) while the other rank waits, and sends each rank
+    its stage's pp = 1 gradients.  Then, for the plain feed and MSP, each
+    rank takes one untimed loss-and-gradients call on fresh weights (held
+    against pp = 1: bitwise, or the worst leaf's relative L2) and
+    PIPE_STEPS steps through ``launch.train.train``, counting each step's
+    launches, row copies and hand-offs.  Last, the reduced fp32
+    ``fp32_layouts`` of this many ranks (``_fp32_layout``)."""
+    _port_path()
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.parallel import runner
+    from repro_torch.parallel.ctx import SINGLE, Ctx
+    from repro_torch.runtime import hostmem
+
+    t_up = time.time()
+    logging.basicConfig(level=logging.WARNING, format="%(asctime)s %(name)s %(message)s")
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=PIPE_LAYERS)
+    shape = ShapeConfig("pipeline", PIPE_SEQ, 1, "train")
+    ctx = Ctx(dp=1, pp=PIPE_PP, device=device)
+    stage, spp = ctx.stage_index(), PIPE_LAYERS // PIPE_PP
+    tokens, labels = (torch.from_numpy(a).to(device) for a in
+                      SyntheticLM(cfg.vocab_size, PIPE_SEQ, 1).sample_step(0))
+    out = {"rank": rank, "stage": stage, "t_up": t_up}
+
+    def peak_reset():
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        return torch.cuda.memory_allocated(device)
+
+    # pp = 1: the same weights (seed 0), equal chunks, on rank 0 alone
+    ref = {}
+    if rank == 0:
+        cell1 = runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, n_chunks=PIPE_CHUNKS,
+                                                               partition="length"))
+        params = serve.build_params(cell1, device, seed=0)
+        base = peak_reset()
+        loss1, grads1 = runner.loss_and_grads(cell1, params, tokens, labels)
+        out["pp1_grads_call_peak_over_weights"] = torch.cuda.max_memory_allocated(device) - base
+        ref = {path: g.cpu() for path, g in tree.items(grads1)}
+        out["pp1_loss"] = float(loss1)
+        del params, grads1
+        torch.cuda.empty_cache()
+        res = train_mod.train(cfg, steps=PIPE_STEPS, seq=PIPE_SEQ, batch=1,
+                              n_chunks=PIPE_CHUNKS, log_every=PIPE_STEPS, device=device,
+                              overrides=dict(partition="length"), ctx=SINGLE)
+        out["pp1"] = {"losses": [r["loss"] for r in res["history"]],
+                      "step_s": [r["dt"] for r in res["history"]],
+                      "peak_bytes": res["peak_bytes"], "chunks": list(res["cell"].sched.lengths)}
+        del res
+        torch.cuda.empty_cache()
+    # each rank's stage of the pp = 1 gradients, from rank 0
+    shapes = dict(tree.items({"stages": build_model(cfg).init_stage_params(
+        torch.Generator(), device="meta")}))
+    for r in range(1, PIPE_PP):
+        for path in sorted(shapes):
+            layer = int(path.split("/")[1])
+            if not r * spp <= layer < (r + 1) * spp:
+                continue
+            if rank == 0:
+                dist.send(ref[path].contiguous(), dst=r)
+            elif rank == r:
+                buf = torch.empty(shapes[path].shape, dtype=torch.bfloat16
+                                  if not path.endswith("gate") else torch.float32)
+                dist.recv(buf, src=0)
+                ref[path] = buf
+    ctx.barrier()
+    for label, msp in (("plain", False), ("msp", True)):
+        ov = dict(pp=PIPE_PP, msp=msp, msp_split=PIPE_SPLIT)
+        cell = runner.resolve_cell(cfg, shape, overrides=dict(ov, dp=1, n_chunks=PIPE_CHUNKS),
+                                   data_size=PIPE_PP)
+        # one untimed loss-and-gradients call on fresh weights
+        params = serve.build_params(cell, device, seed=0, stage=stage)
+        base = peak_reset()
+        loss0, grads = runner.loss_and_grads(cell, params, tokens, labels, ctx=ctx)
+        grads_peak = torch.cuda.max_memory_allocated(device) - base
+        cmp, worst = {"bitwise": 0, "differ": []}, 0.0
+        for path, g in tree.items(grads["stages"]):
+            i, rest = path.split("/", 1)
+            want = ref[f"stages/{stage * spp + int(i)}/{rest}"]
+            got = g.cpu()
+            rel = ((got.float() - want.float()).norm()
+                   / want.float().norm().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+            if torch.equal(got, want):
+                cmp["bitwise"] += 1
+            else:
+                cmp["differ"].append((f"stages/{stage * spp + int(i)}/{rest}", rel))
+        glob = {path: g for path, g in tree.items(grads["globals"])}
+        if rank == 0:
+            for path, g in glob.items():
+                got, want = g.cpu(), ref[f"globals/{path}"]
+                rel = ((got.float() - want.float()).norm()
+                       / want.float().norm().clamp_min(1e-30)).item()
+                worst = max(worst, rel)
+                if torch.equal(got, want):
+                    cmp["bitwise"] += 1
+                else:
+                    cmp["differ"].append((f"globals/{path}", rel))
+        prints = [None] * PIPE_PP
+        dist.all_gather_object(prints, [_fingerprint(g) for g in glob.values()])
+        cmp["differ"].sort(key=lambda d: -d[1])
+        cmp.update(worst_rel_l2=worst, globals_same_on_every_rank=all(p == prints[0]
+                                                                      for p in prints))
+        del params, grads, glob
+        torch.cuda.empty_cache()
+        # the train entry point, each step's launches, copies and hand-offs counted
+        after = []
+
+        def on_step(step, rec):
+            after.append({**fa.counts(), **{"copy_" + k: v for k, v in hostmem.counts().items()},
+                          **{"ctx_" + k: v for k, v in ctx.counts().items()}})
+
+        fa.reset_counts()
+        hostmem.reset_counts()
+        ctx.reset_counts()
+        res = train_mod.train(cfg, steps=PIPE_STEPS, seq=PIPE_SEQ, batch=1,
+                              n_chunks=PIPE_CHUNKS, log_every=PIPE_STEPS, device=device,
+                              overrides=ov, on_step=on_step, ctx=ctx)
+        per_step = [{k: a[k] - b.get(k, 0) for k in a} for a, b in zip(after, [{}] + after[:-1])]
+        rcell = res["cell"]
+        E = len(runner.pipeline_feed_events(rcell.plan, rcell.sched.n))
+        out[label] = {
+            "loss0_grads_call": float(loss0), "grads_vs_pp1": cmp,
+            "grads_call_peak_over_weights": grads_peak,
+            "losses": [r["loss"] for r in res["history"]],
+            "step_s": [r["dt"] for r in res["history"]],
+            "tokens_per_s_per_gpu": [r["tgs"] for r in res["history"]],
+            "peak_bytes": res["peak_bytes"], "base_bytes": res["base_bytes"],
+            "alphas": list(rcell.alphas), "events": E, "ticks": E + PIPE_PP - 1,
+            "valid_ticks": E, "idle_ticks": PIPE_PP - 1,
+            "closed_form_d2h_bytes": pipe_offload_bytes(rcell, stage, spp),
+            "closed_form_bcast_bytes": pipe_bcast_bytes(cfg, stage, PIPE_PP),
+            "launch_want": {"fwd_tc": 2 * E * spp, "bwd_dq_tc": E * spp, "bwd_dkv_tc": E * spp},
+            "per_step": per_step, "launches": after[-1] if after else {}}
+        del res
+        torch.cuda.empty_cache()
+    out["t_full_done"] = time.time()
+    out["fp32"] = {name: _fp32_layout(rank, device, layout, params_np, tokens_np, labels_np)
+                   for name, layout in fp32_layouts.items()}
+    out["t_done"] = time.time()
+    return out
+
+
+def pipe_fp32_rank(rank, device, layouts, params_np, tokens, labels):
+    """One rank of each reduced fp32 layout of ``layouts`` (name -> layout,
+    all of this many ranks), in turn; with the wall-clock times at which
+    the rank started and finished."""
+    t_up = time.time()
+    out = {name: _fp32_layout(rank, device, layout, params_np, tokens, labels)
+           for name, layout in layouts.items()}
+    return {"layouts": out, "t_up": t_up, "t_done": time.time()}
+
+
+def _fp32_layout(rank, device, layout, params_np, tokens, labels):
+    """One rank of a reduced fp32 layout: the loss and every gradient of the
+    rank's parameters under the default plan, through the CUDA-core
+    kernels, with its launches and copies and their closed forms."""
+    _port_path()
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core import tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.parallel import runner
+    from repro_torch.runtime import hostmem
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen2-7b").reduced()
+    world = layout["dp"] * layout["pp"]
+    cell = runner.resolve_cell(
+        cfg, ShapeConfig("pipeline_fp32", PIPE_FP32_SEQ, PIPE_FP32_BATCH, "train"),
+        overrides=dict(pp=layout["pp"], dp=layout["dp"], n_chunks=layout["n_chunks"],
+                       msp=layout.get("msp", False), grad_accum=1),
+        dtype=torch.float32, data_size=world)
+    ctx = cell.ctx(device=device)
+    stage, g = ctx.stage_index(), ctx.dp_index()
+    params = params_from_numpy(params_np, dtype=torch.float32, device=device, stage=stage,
+                               pp=layout["pp"], cfg=cfg)
+    spp = len(params["stages"])
+    rows = slice(g * cell.b_loc, (g + 1) * cell.b_loc)
+    fa.reset_counts()
+    hostmem.reset_counts()
+    loss, grads = runner.loss_and_grads(cell, params, torch.from_numpy(tokens[rows]).to(device),
+                                        torch.from_numpy(labels[rows]).to(device), ctx=ctx)
+    launched, copied = fa.counts(), hostmem.counts()
+    # the closed forms: per event (or chunk) and slot, the forward twice (its
+    # replay) with a merge per call that splits its KV range, dq and dk/dv once
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    G = cfg.n_heads // cfg.n_kv_heads
+    if cell.plan.pp > 1:
+        clen = PIPE_FP32_SEQ // cell.sched.n
+        seams = [(clen, (c + 1) * clen) for c, _, _ in
+                 runner.pipeline_feed_events(cell.plan, cell.sched.n)]
+    else:
+        seams = [(ln, off + ln) for off, ln in zip(cell.sched.offsets, cell.sched.lengths)]
+    splits = sum(fa._geometry(cell.b_loc, tq, kv, G, cfg.n_kv_heads, n_sm)[2] > 1
+                 for tq, kv in seams)
+    n = len(seams) * spp
+    want = {**{k: 0 for k in launched}, "fwd": 2 * n, "merge": 2 * splits * spp,
+            "bwd_dq": n, "bwd_dkv": n}
+    return {"rank": rank, "stage": stage, "dp_index": g, "spp": spp, "loss": float(loss),
+            "grads": {path: t.cpu().numpy() for path, t in tree.items(grads)},
+            "launched": launched, "launch_want": want, "copied": copied,
+            "closed_form_d2h_bytes": pipe_offload_bytes(cell, stage, spp, itemsize_ratio=2),
+            "events": len(seams), "alphas": list(cell.alphas)}
+
+
+def _stack_numpy(slots):
+    """A list of per-slot trees -> one tree of numpy arrays with a leading
+    slot dim (``convert.params_from_numpy``'s layout)."""
+    if isinstance(slots[0], dict):
+        return {k: _stack_numpy([s[k] for s in slots]) for k in slots[0]}
+    return np.stack([s.numpy() for s in slots]).astype(np.float32)
+
+
+def pipeline_phase(fa, mesh, runner, card):
+    """SPPO's multi-rank sequence pipeline (DESIGN.md §2, §4) with its ranks
+    as processes sharing the one card over gloo (``launch.mesh.spawn``; NCCL
+    refuses two ranks on one device): the full-width cell (``pipe_rank``)
+    and after it the reduced fp32 layouts of as many ranks, while a spawn
+    of its own runs the fp32 layouts of four ranks (``pipe_fp32_rank``)
+    beside them; every fp32 layout is held against the CPU.  Every time it
+    prints is marked SHARED_CARD.  Returns (the counts of the
+    kernels' launches by path, a summary)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model_zoo import build_model
+
+    gib = 2**30
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    # the reduced fp32 model, its batch and the CPU's pp = 1 step
+    cfg = get_config("qwen2-7b").reduced()
+    mdef = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = {"stages": mdef.init_stage_params(gen, torch.float32, "cpu"),
+              "globals": mdef.init_globals(gen, torch.float32, "cpu")}
+    params_np = {"stages": _stack_numpy(params["stages"]),
+                 "globals": tree_map(lambda t: t.numpy(), params["globals"])}
+    tokens, labels = SyntheticLM(cfg.vocab_size, PIPE_FP32_SEQ, PIPE_FP32_BATCH).sample_step(0)
+    cpu_cell = runner.resolve_cell(cfg, ShapeConfig("pipeline_fp32", PIPE_FP32_SEQ,
+                                                    PIPE_FP32_BATCH, "train"),
+                                   overrides=dict(pp=1, dp=1, grad_accum=1), dtype=torch.float32)
+    cpu_loss, cpu_grads = runner.loss_and_grads(cpu_cell, params, torch.from_numpy(tokens),
+                                                torch.from_numpy(labels))
+    cpu_grads = dict(tree.items(cpu_grads))
+    by_world = {}
+    for name, layout in PIPE_FP32_LAYOUTS.items():
+        by_world.setdefault(layout["dp"] * layout["pp"], {})[name] = layout
+    check(set(by_world) <= {PIPE_PP, 4}, f"fp32 layouts of {sorted(by_world)} ranks")
+    # the fp32 layouts of other rank counts in their own spawn, started
+    # beside the full-width one: their ranks' start-up (each process reaches
+    # the card in seconds) and their small steps overlap the full-width cell
+    others = {}
+
+    def spawn_others():
+        try:
+            for world, layouts in by_world.items():
+                if world != PIPE_PP:
+                    others[world] = mesh.spawn(pipe_fp32_rank, world, backend=PIPE_BACKEND,
+                                               device="cuda",
+                                               args=(layouts, params_np, tokens, labels),
+                                               timeout_s=PIPE_DEADLINE_S)
+        except BaseException as err:  # noqa: BLE001 -- raised again after the join
+            others["error"] = err
+        others["t_end"] = time.time()
+
+    t_wall = time.time()
+    side = threading.Thread(target=spawn_others, daemon=True)
+    side.start()
+    # the full-width cell, then the fp32 layouts of as many ranks
+    ranks = mesh.spawn(pipe_rank, PIPE_PP, backend=PIPE_BACKEND, device="cuda",
+                       args=(by_world.get(PIPE_PP, {}), params_np, tokens, labels),
+                       timeout_s=PIPE_DEADLINE_S)
+    t_full = time.perf_counter() - t0
+    t_full_end = time.time()
+    side.join()
+    if "error" in others:
+        raise others["error"]
+    print(f"pipeline spawns (s after the {PIPE_PP}-rank spawn began; {SHARED_CARD}): its ranks "
+          f"up at {[round(r['t_up'] - t_wall, 1) for r in ranks]}, full-width cell done at "
+          f"{[round(r['t_full_done'] - t_wall, 1) for r in ranks]}, done at "
+          f"{[round(r['t_done'] - t_wall, 1) for r in ranks]}, spawn returned at "
+          f"{t_full_end - t_wall:.1f}; " + "; ".join(
+              f"the {w}-rank spawn beside it: up at {[round(r['t_up'] - t_wall, 1) for r in got]}, "
+              f"done at {[round(r['t_done'] - t_wall, 1) for r in got]}, returned at "
+              f"{others['t_end'] - t_wall:.1f}" for w, got in others.items()
+              if isinstance(w, int)))
+    r0 = ranks[0]
+    pp1 = r0["pp1"]
+    print(f"pipeline [{card}] qwen2-7b {PIPE_LAYERS} layers at full width, B = 1, S = {PIPE_SEQ} "
+          f"in {PIPE_CHUNKS} equal chunks, pp = {PIPE_PP} as {PIPE_PP} ranks on one card over "
+          f"{PIPE_BACKEND} (hand-offs staged through pinned host memory), the default plan")
+    print(f"pipeline pp = 1 (rank 0 alone, same weights, chunks {pp1['chunks']}): losses "
+          f"{pp1['losses']}, step s {[round(x, 4) for x in pp1['step_s']]}, peak "
+          f"{pp1['peak_bytes'] / gib:.2f} GiB; grads-call loss {r0['pp1_loss']!r}")
+    counts, summary = {}, {"pp1": pp1, "full_width_seconds": t_full}
+    for label in ("plain", "msp"):
+        rows = [r[label] for r in ranks]
+        tot = {k: sum(r["launches"].get(k, 0) for r in rows) for k in rows[0]["launches"]
+               if not k.startswith(("copy_", "ctx_"))}
+        counts[label] = tot
+        for r, row in zip(ranks, rows):
+            for step, c in enumerate(row["per_step"]):
+                want = row["launch_want"]
+                check(all(c[k] == v for k, v in want.items()) and c["merged_in_kernel"] == 0
+                      and c["fwd"] == c["merge"] == c["bwd_dq"] == c["bwd_dkv"] == 0,
+                      f"pipeline [{label}] rank {r['rank']} step {step} launched "
+                      f"{ {k: v for k, v in c.items() if not k.startswith(('copy_', 'ctx_'))} }; "
+                      f"expected {want} ({row['events']} events x {PIPE_LAYERS // PIPE_PP} "
+                      "layers, the forward twice: its replay), no CUDA-core launch")
+                check(c["copy_d2h_bytes"] == c["copy_h2d_bytes"] == row["closed_form_d2h_bytes"]
+                      and c["copy_d2h_pinned"] == c["copy_d2h"] == c["copy_h2d"],
+                      f"pipeline [{label}] rank {r['rank']} step {step} copied "
+                      f"{c['copy_d2h_bytes']} / {c['copy_h2d_bytes']} bytes; closed form "
+                      f"{row['closed_form_d2h_bytes']}, every host buffer pinned")
+                check(c["ctx_bcast_bytes"] == row["closed_form_bcast_bytes"],
+                      f"pipeline [{label}] rank {r['rank']} step {step} sent "
+                      f"{c['ctx_bcast_bytes']} bytes of global gradients; closed form "
+                      f"{row['closed_form_bcast_bytes']} (the globals its stage alone uses)")
+            losses = row["losses"]
+            check(len(losses) == PIPE_STEPS and all(np.isfinite(losses)),
+                  f"pipeline [{label}] rank {r['rank']} losses {losses}")
+            check(losses == rows[0]["losses"], f"pipeline [{label}] ranks disagree on the loss")
+            cmp = row["grads_vs_pp1"]
+            check(cmp["globals_same_on_every_rank"],
+                  f"pipeline [{label}] the ranks' global gradients differ")
+            check(cmp["worst_rel_l2"] <= GRAD_PLAN_TOL,
+                  f"pipeline [{label}] rank {r['rank']} step-0 gradients differ from pp = 1's by "
+                  f"{cmp['worst_rel_l2']:.3e} relative L2 at the worst leaf (tol {GRAD_PLAN_TOL})")
+            ms = [1e3 * x for x in row["step_s"]]
+            last = row["per_step"][-1]
+            ticks = row["ticks"]
+            print(f"pipeline [{label}] rank {r['rank']} (stage {r['stage']}): losses {losses}; "
+                  f"step ms {[round(x, 1) for x in ms]} ({SHARED_CARD}); peak "
+                  f"{row['peak_bytes'] / gib:.2f} GiB (base {row['base_bytes'] / gib:.2f}); "
+                  f"ticks {ticks} = {row['valid_ticks']} valid + {row['idle_ticks']} idle; "
+                  f"hand-offs a step {last['ctx_handoffs']} ({last['ctx_handoff_bytes']} bytes "
+                  f"sent), {1e3 * last['ctx_handoff_s'] / ticks:.3f} ms a tick of which staging "
+                  f"{1e3 * last['ctx_staging_s'] / ticks:.3f} ms ({SHARED_CARD}); reductions: "
+                  f"{last['ctx_reduce_bytes']} bytes all-reduced and {last['ctx_bcast_bytes']} "
+                  f"bytes of global gradients sent (closed form "
+                  f"{row['closed_form_bcast_bytes']}), {1e3 * last['ctx_reduce_s']:.1f} ms "
+                  f"({SHARED_CARD}); "
+                  f"row copies {last['copy_d2h_bytes']} bytes each way (closed form "
+                  f"{row['closed_form_d2h_bytes']}); launches a step "
+                  f"{ {k: last[k] for k in row['launch_want']} }; step-0 gradients vs pp = 1: "
+                  f"{cmp['bitwise']} leaves bitwise, {len(cmp['differ'])} differ, worst relative "
+                  f"L2 {cmp['worst_rel_l2']:.3e} {cmp['differ'][:4]}")
+        summary[label] = [{k: v for k, v in row.items() if k != "per_step"} for row in rows]
+    plain0, msp0 = ranks[-1]["plain"]["losses"][0], ranks[-1]["msp"]["losses"][0]
+    check(abs(msp0 - plain0) <= 1e-3 * abs(plain0),
+          f"pipeline MSP's step-0 loss {msp0} vs plain's {plain0}")
+    print(f"pipeline step-0 loss: pp = 1 {pp1['losses'][0]!r}, pp = {PIPE_PP} plain {plain0!r} "
+          f"({'bitwise' if plain0 == pp1['losses'][0] else 'differs'}), MSP {msp0!r} "
+          f"(vs plain {msp0 - plain0:+.3e}); losses by step pp = 1 {pp1['losses']}, plain "
+          f"{ranks[-1]['plain']['losses']}, MSP {ranks[-1]['msp']['losses']}")
+    check(abs(plain0 - pp1["losses"][0]) <= 1e-3 * abs(pp1["losses"][0]),
+          f"pipeline step-0 loss {plain0} vs pp = 1's {pp1['losses'][0]}")
+
+    # the reduced fp32 layouts, each against the CPU's pp = 1 step
+    fp32 = {name: [r["fp32"][name] for r in ranks] for name in by_world.get(PIPE_PP, {})}
+    for world, got in others.items():
+        if isinstance(world, int):
+            fp32.update({name: [r["layouts"][name] for r in got] for name in by_world[world]})
+    summary["fp32"] = {"side_spawn_seconds": others["t_end"] - t_wall}
+    for name, layout in PIPE_FP32_LAYOUTS.items():
+        franks = fp32[name]
+        worst, loss_rel = 0.0, 0.0
+        for r in franks:
+            loss_rel = max(loss_rel, abs(r["loss"] - float(cpu_loss)) / abs(float(cpu_loss)))
+            for path, g in r["grads"].items():
+                kind, rest = path.split("/", 1)
+                if kind == "stages":
+                    i, leaf = rest.split("/", 1)
+                    j = r["stage"] * r["spp"] + int(i)
+                    if j >= cfg.n_layers:                  # a ghost slot
+                        check(not np.any(g), f"pipeline fp32 [{name}] ghost slot gradient")
+                        continue
+                    want = cpu_grads[f"stages/{j}/{leaf}"].numpy()
+                else:
+                    want = cpu_grads[path].numpy()
+                norm = np.linalg.norm(want)
+                if norm == 0:
+                    check(not np.any(g), f"pipeline fp32 [{name}] {path}: expected zeros")
+                    continue
+                worst = max(worst, float(np.linalg.norm(g - want) / norm))
+            check(r["launched"] == r["launch_want"],
+                  f"pipeline fp32 [{name}] rank {r['rank']} launched {r['launched']}, expected "
+                  f"{r['launch_want']}")
+            c = r["copied"]
+            check(c["d2h_bytes"] == c["h2d_bytes"] == r["closed_form_d2h_bytes"]
+                  and c["d2h_pinned"] == c["d2h"],
+                  f"pipeline fp32 [{name}] rank {r['rank']} copied {c}; closed form "
+                  f"{r['closed_form_d2h_bytes']} bytes each way, pinned")
+        check(loss_rel <= GRAD_REL_TOL and worst <= GRAD_REL_TOL,
+              f"pipeline fp32 [{name}] vs the CPU's pp = 1 step: loss {loss_rel:.3e}, worst "
+              f"gradient relative L2 {worst:.3e} (tol {GRAD_REL_TOL})")
+        lc = {k: sum(r["launched"][k] for r in franks) for k in franks[0]["launched"]}
+        counts[f"fp32_{name}"] = lc
+        summary["fp32"][name] = {"loss_rel": loss_rel, "worst_grad_rel_l2": worst,
+                                 "events": franks[0]["events"], "launches": lc,
+                                 "d2h_bytes": [r["copied"]["d2h_bytes"] for r in franks]}
+        print(f"pipeline fp32 [{name}] {layout} on one card over {PIPE_BACKEND}: loss "
+              f"{franks[0]['loss']:.6f} vs CPU pp = 1 {float(cpu_loss):.6f} (relative "
+              f"{loss_rel:.3e}), worst gradient relative L2 {worst:.3e} (every leaf of every "
+              f"rank), launches by the closed form on every rank {lc}, row copies "
+              f"{summary['fp32'][name]['d2h_bytes']} bytes (closed form)")
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"pipeline phase took {summary['seconds']:.1f} s (to the end of the {PIPE_PP}-rank "
+          f"spawn, the full-width cell and its fp32 layouts, {t_full:.1f} s; the fp32 layouts of "
+          f"other rank counts in a spawn beside it)")
+    return counts, summary
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1956,6 +2448,7 @@ def main():
     from repro_torch.core.costmodel import H100
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    from repro_torch.launch import mesh
     from repro_torch.launch import serve
     from repro_torch.launch import train as train_mod
     from repro_torch.parallel import runner
@@ -2089,6 +2582,8 @@ def main():
     packed_fp32, packed_fp32_counts = packed_cpu_check(fa, hostmem, serve, runner, cfg, card)
     config_counts, config_rows = config_phase(fa, hostmem, serve, runner, train_mod, card)
     print(f"packed and config phases took {time.perf_counter() - t_packed:.1f} s")
+    # ---- this slice's path: the multi-rank pipeline, its ranks sharing the card
+    pipe_counts, pipe_summary = pipeline_phase(fa, mesh, runner, card)
 
     tc_rows = [r["tensor_cores"] for r in rows]
     cc_rows = [r["cuda_cores"] for r in rows]
@@ -2102,7 +2597,11 @@ def main():
              "train_fp32": fp32_counts, "train_packed": packed_counts["packed_d"],
              "train_packed_plan_b": packed_counts["packed_b"],
              "train_pad_to_max": packed_counts["pad_d"], "train_packed_fp32": packed_fp32_counts,
-             **{f"train_{arch}": c for arch, c in config_counts.items()}}
+             **{f"train_{arch}": c for arch, c in config_counts.items()},
+             "train_pipeline_pp2": pipe_counts["plain"], "train_pipeline_pp2_msp": pipe_counts["msp"],
+             **{f"train_pipeline_{k}": c for k, c in pipe_counts.items() if k.startswith("fp32_")}}
+    pipe_tc = ("train_pipeline_pp2", "train_pipeline_pp2_msp")
+    pipe_cc = tuple(f"train_pipeline_{k}" for k in pipe_counts if k.startswith("fp32_"))
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
@@ -2117,7 +2616,8 @@ def main():
          "source": "src/repro_torch/kernels/csrc/flash_partial_tc.cu",
          "replaces": "src/repro/kernels/flash_attention.py:260",
          "launches": serve_counts["fwd_tc"] + train_counts["fwd_tc"]
-         + sum(c["fwd_tc"] for c in full.values()) + packed_counts["packed_d"]["fwd_tc"],
+         + sum(c["fwd_tc"] for c in full.values()) + packed_counts["packed_d"]["fwd_tc"]
+         + sum(paths[p]["fwd_tc"] for p in pipe_tc),
          "launches_by_path": by_path("fwd_tc"),
          "merged_in_kernel_by_path": by_path("merged_in_kernel"),
          **{key: tc_rows[0][key] for key in common},
@@ -2126,7 +2626,8 @@ def main():
         {"name": "flash_attention_partial", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_partial.cu",
          "replaces": "src/repro/kernels/flash_attention.py:260",
-         "launches": fp32_counts["fwd"] + packed_fp32_counts["fwd"],
+         "launches": fp32_counts["fwd"] + packed_fp32_counts["fwd"]
+         + sum(paths[p]["fwd"] for p in pipe_cc),
          "launches_by_path": by_path("fwd"),
          **{key: cc_rows[0][key] for key in common},
          "edge_grid_max_abs_err": grid_err["cuda_cores"],
@@ -2138,7 +2639,8 @@ def main():
         {"name": "flash_attention_partial_merge", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_partial.cu",
          "replaces": "src/repro/kernels/flash_attention.py:260",
-         "launches": fp32_counts["merge"] + packed_fp32_counts["merge"],
+         "launches": fp32_counts["merge"] + packed_fp32_counts["merge"]
+         + sum(paths[p]["merge"] for p in pipe_cc),
          "launches_by_path": by_path("merge"),
          "max_abs_err": decode_cc["max_abs_err"],
          **{key: decode_cc["merge"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
@@ -2147,8 +2649,8 @@ def main():
     # launches: on the main paths that run each pair (bf16 training at 4
     # layers, at full depth and packed for the tensor cores, the fp32
     # training checks for the CUDA cores)
-    tc_paths = ("train", *full, "train_packed")
-    cc_paths = ("train_fp32", "train_packed_fp32")
+    tc_paths = ("train", *full, "train_packed", *pipe_tc)
+    cc_paths = ("train_fp32", "train_packed_fp32", *pipe_cc)
     for part, name, line, source, main_paths in (
             ("dq_tc", "flash_attention_partial_bwd_dq_tc", 331, "flash_partial_bwd_tc.cu", tc_paths),
             ("dkv_tc", "flash_attention_partial_bwd_dkv_tc", 355, "flash_partial_bwd_tc.cu", tc_paths),
@@ -2174,7 +2676,7 @@ def main():
                "peak_bytes": peak, "cpu_check_rel_l2": rel,
                **profile, **train_summary, "train_cpu_check_rel_l2": train_rel,
                **packed_summary, "packed_fp32_check": packed_fp32, "train_configs": config_rows,
-               "train_chunks": list(train_cell.sched.lengths),
+               "train_chunks": list(train_cell.sched.lengths), "pipeline": pipe_summary,
                "seconds": time.perf_counter() - t_start}
     print("summary:", json.dumps(summary))
     print(card)

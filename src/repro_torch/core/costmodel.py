@@ -245,20 +245,36 @@ def moment_wire_bytes_per_param(opt_dtype="float32", moments_dtype: str = "none"
     return 2.0 * (1.0 + SCALE_ITEMSIZE / max(1, row_len))
 
 
-def count_active_params(params) -> int:
+def count_params(mdef, pp: int = 1) -> int:
+    """Deduped parameter count of ``mdef`` split into ``pp`` stages (the
+    reference's ``parallel/specs.py::count_params``): the padded stage stack,
+    ghost slots included, plus the globals.  Counted over meta-device
+    shapes, which allocate nothing.  The reference's ``data_size`` drops
+    out: its stack of ``data_size`` stage copies is divided by the
+    ``data_size / pp`` dp replicas of each stage, leaving ``pp`` stages."""
+    gen = torch.Generator()
+    stage = mdef.init_stage_params(gen, device="meta", stage=0, pp=pp)
+    glob = mdef.init_globals(gen, device="meta")
+    n_stage = pp * sum(t.numel() for t in tree.leaves(stage))
+    return n_stage + sum(t.numel() for t in tree.leaves(glob))
+
+
+def count_active_params(params, pp: int = 1) -> int:
     """The N of MFU = 6·N·T for the port's dense models: every parameter of
     the stage slots and the globals except the embedding table (the
-    reference's ``count_active_params`` at pp = 1, dp = 1; the MFU
-    convention counts non-embedding parameters).
+    reference's ``count_active_params``; the MFU convention counts
+    non-embedding parameters).
 
-    ``params`` is a parameter tree, or a ``ModelDef`` whose shapes are
-    counted before any parameter exists (``resolve_cell`` needs N to size
-    the offload ratios): its parameters are built on the meta device, which
-    allocates nothing."""
+    ``params`` is a parameter tree (its own slots counted), or a
+    ``ModelDef`` whose shapes are counted before any parameter exists
+    (``resolve_cell`` needs N to size the offload ratios) as the
+    reference's ``parallel/specs.py:133-150`` counts them at ``pp`` stages:
+    ``count_params`` less the embedding."""
     if not isinstance(params, dict):
-        gen = torch.Generator()
-        params = {"stages": params.init_stage_params(gen, device="meta"),
-                  "globals": params.init_globals(gen, device="meta")}
+        glob = params.init_globals(torch.Generator(), device="meta")
+        emb = sum(t.numel() for key in ("embed", "pos") if key in glob
+                  for t in tree.leaves(glob[key]))
+        return count_params(params, pp) - emb
     subtrees = [params["stages"]] + [sub for key, sub in params["globals"].items()
                                      if key not in ("embed", "pos")]
     return sum(leaf.numel() for sub in subtrees for leaf in tree.leaves(sub))

@@ -23,7 +23,8 @@
    as under the reference's policy) and the saved rows take their place.
    ``Link`` carries one step's host rows from the forward to the backward
    and reloads each chunk's rows one chunk ahead ("ahead") or at the
-   chunk's own backward ("sync").  The seam itself is
+   chunk's own backward ("sync"); at pp > 1 it is keyed by the rank's
+   event, not the chunk (an MSP ramp runs a chunk twice).  The seam itself is
    ``models/transformer.py::stage_apply`` with remat "sppo" or "full".
 """
 from __future__ import annotations
@@ -220,14 +221,24 @@ class ChunkOffload:
     link: Optional["Link"] = None
     codec: str = "none"
     scales: list = field(default_factory=list)   # (scale, dtype) per sent row set
+    # the seam's event on its rank at pp > 1 (None at pp = 1): two MSP
+    # sub-events share a chunk, and the seam before a rank's event e is
+    # its event e - 1, so the link is keyed by event there (``key``)
+    event: Optional[int] = None
+
+    @property
+    def key(self) -> int:
+        """The link's key: the event at pp > 1, else the chunk (the
+        reference's tags ``@t{t}`` / ``@c{c}``)."""
+        return self.chunk if self.event is None else self.event
 
     def send(self, t) -> None:
         if self.codec == "none":
-            self.link.send(self.chunk, t)
+            self.link.send(self.key, t)
             return
         payload, scale = hostmem.quantize(t, self.codec)
         self.scales.append((scale, t.dtype))
-        self.link.send(self.chunk, hostmem.to_transport(payload, self.codec))
+        self.link.send(self.key, hostmem.to_transport(payload, self.codec))
 
     def restore(self, staged: list):
         """The off rows from this chunk's reloaded ``staged`` tensors, in
@@ -237,57 +248,59 @@ class ChunkOffload:
             return staged
         scales, self.scales = self.scales, []
         if len(scales) != len(staged):
-            raise RuntimeError(f"chunk {self.chunk}: {len(staged)} payloads reloaded for "
+            raise RuntimeError(f"seam {self.key}: {len(staged)} payloads reloaded for "
                                f"{len(scales)} scales")
         return (hostmem.dequantize(hostmem.from_transport(p, self.codec), sc, self.codec, dt)
                 for p, (sc, dt) in zip(staged, scales))
 
 
 class Link:
-    """One step's host rows, chunk by chunk, from the forward to the
-    backward (the reference's ``link`` threaded through its prefetch seams,
-    DESIGN.md §12).
+    """One step's host rows, seam by seam, from the forward to the backward
+    (the reference's ``link`` threaded through its prefetch seams, DESIGN.md
+    §12).  A seam's key is its chunk at pp = 1 and its event on the rank at
+    pp > 1 (``ChunkOffload.key``); either way the seams of a rank run in
+    key order, so the seam before key k is k - 1.
 
-    ``send`` copies a chunk's off rows to host as its forward captures them.
-    In the backward, each chunk's seam calls ``begin``, then (under "ahead")
-    ``prefetch`` of the chunk before it, whose H2D has no data dependency on
-    this chunk's work and so overlaps it, then ``take``s its own rows:
-    reloaded one chunk ahead under "ahead" (the last chunk's by
-    ``runner.link_drain``), or now under "sync".  At most one chunk's rows
+    ``send`` copies a seam's off rows to host as its forward captures them.
+    In the backward, each seam calls ``begin``, then (under "ahead")
+    ``prefetch`` of the seam before it, whose H2D has no data dependency on
+    this seam's work and so overlaps it, then ``take``s its own rows:
+    reloaded one seam ahead under "ahead" (the last seam's by
+    ``runner.link_drain``), or now under "sync".  At most one seam's rows
     are staged ahead at any time."""
 
     def __init__(self, ahead: bool):
         self.ahead = ahead
-        self.host = {}      # chunk -> [Staged] host copies, in capture order
-        self.staged = {}    # chunk -> [Staged] device copies, reloaded
-        self.current = None  # the chunk whose backward runs
+        self.host = {}      # key -> [Staged] host copies, in capture order
+        self.staged = {}    # key -> [Staged] device copies, reloaded
+        self.current = None  # the seam whose backward runs
 
-    def send(self, chunk: int, t) -> None:
-        self.host.setdefault(chunk, []).append(hostmem.to_host(t, chunk))
+    def send(self, key: int, t) -> None:
+        self.host.setdefault(key, []).append(hostmem.to_host(t, key))
 
-    def prefetch(self, chunk: int) -> None:
-        """Issue the H2D of ``chunk``'s host rows (none: nothing to do)."""
-        rows = self.host.pop(chunk, [])
+    def prefetch(self, key: int) -> None:
+        """Issue the H2D of seam ``key``'s host rows (none: nothing to do)."""
+        rows = self.host.pop(key, [])
         if rows:
             ahead = set(self.staged) - {self.current}
             if ahead:
-                raise RuntimeError(f"chunk {chunk}'s rows reloaded while chunk(s) "
+                raise RuntimeError(f"seam {key}'s rows reloaded while seam(s) "
                                    f"{sorted(ahead)} are already staged ahead")
-            self.staged[chunk] = [hostmem.to_device(h, chunk) for h in rows]
+            self.staged[key] = [hostmem.to_device(h, key) for h in rows]
 
-    def begin(self, chunk: int) -> None:
-        """Chunk ``chunk``'s backward begins: its staged rows are no longer
+    def begin(self, key: int) -> None:
+        """Seam ``key``'s backward begins: its staged rows are no longer
         ahead of it."""
-        self.current = chunk
-        hostmem.note("bwd", chunk)
+        self.current = key
+        hostmem.note("bwd", key)
 
-    def take(self, chunk: int) -> list:
-        """``chunk``'s reloaded off rows on the device, in capture order, the
-        compute stream told to wait for their copies."""
-        if chunk in self.host:
+    def take(self, key: int) -> list:
+        """Seam ``key``'s reloaded off rows on the device, in capture order,
+        the compute stream told to wait for their copies."""
+        if key in self.host:
             if self.ahead:
-                raise RuntimeError(f"chunk {chunk}'s rows were not reloaded ahead "
+                raise RuntimeError(f"seam {key}'s rows were not reloaded ahead "
                                    "of its backward")
-            self.prefetch(chunk)
-        hostmem.note("replay", chunk)
-        return [hostmem.wait(s) for s in self.staged.pop(chunk, [])]
+            self.prefetch(key)
+        hostmem.note("replay", key)
+        return [hostmem.wait(s) for s in self.staged.pop(key, [])]

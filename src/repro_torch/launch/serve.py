@@ -71,12 +71,15 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def build_params(cell, device="cuda", seed: int = 0):
-    """Initialize the cell's parameters on ``device`` from ``seed``."""
+def build_params(cell, device="cuda", seed: int = 0, stage: int = 0):
+    """Initialize the cell's parameters on ``device`` from ``seed``: pipeline
+    stage ``stage`` of the plan's pp (the same tensors for its layers as pp =
+    1 draws) and the globals."""
     device = resolve_device(str(device))
     gen = torch.Generator(device=device).manual_seed(seed)
     mdef = cell.mdef
-    return {"stages": mdef.init_stage_params(gen, cell.dtype, device),
+    return {"stages": mdef.init_stage_params(gen, cell.dtype, device, stage=stage,
+                                             pp=cell.plan.pp),
             "globals": mdef.init_globals(gen, cell.dtype, device)}
 
 

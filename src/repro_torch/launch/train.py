@@ -1,35 +1,49 @@
-"""Training CLI on one device (port of ``repro/launch/train.py`` at pp = 1).
+"""Training CLI (port of ``repro/launch/train.py``), one device or a data axis of ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \
       --reduced --steps 12 --seq 256 --batch 8 --device cpu
 
-SPPO's chunked pipeline at pp = sp = dp = 1 under the reference's default
-training plan: remat "sppo", sequence-aware activation offload to pinned
-host memory, each chunk's rows reloaded one chunk ahead of its backward
-(DESIGN.md §5, §10, §12).  ``--no-offload`` keeps every tagged row on the
-device (remat "sppo" still); ``--prefetch sync`` reloads each chunk's rows at
-its own backward; ``--offload-dtype fp8|int8`` sends them compressed
-(DESIGN.md §14).  AdamW with fp32 moments on the device, or with
-``--offload-moments`` in pinned host memory (DESIGN.md §11; qwen2-7b's 28
-layers need 61.1 GB of it, 15.3 GB under ``--moments-dtype fp8|int8``);
-``--moments-mode`` takes "explicit" alone.  The reference's synthetic token
-stream, and TGS / MFU metering on the H100's peak.  Weights are random,
-drawn on the device from a seed.  It runs on the CUDA card; ``--device
-cpu`` runs the plain path on the CPU instead (the "host" copies are then
-CPU clones).
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --reduced --device cpu --mesh 2x1 --pp 2 --msp --seq 512 --n-chunks 4
+
+SPPO's chunked pipeline under the reference's default training plan: remat
+"sppo", sequence-aware activation offload to pinned host memory, each
+chunk's rows reloaded one chunk ahead of its backward (DESIGN.md §5, §10,
+§12).  ``--no-offload`` keeps every tagged row on the device (remat "sppo"
+still); ``--prefetch sync`` reloads each chunk's rows at its own backward;
+``--offload-dtype fp8|int8`` sends them compressed (DESIGN.md §14).  AdamW
+with fp32 moments on the device, or with ``--offload-moments`` in pinned
+host memory (DESIGN.md §11; qwen2-7b's 28 layers need 61.1 GB of it, 15.3
+GB under ``--moments-dtype fp8|int8``); ``--moments-mode`` takes "explicit"
+alone.  The reference's synthetic token stream, and TGS (tokens/s per GPU:
+the step's tokens over the ranks) / MFU metering on the H100's peak.
+Weights are random, drawn on the device from a seed.  It runs on the CUDA
+card; ``--device cpu`` runs the plain path on the CPU instead (the "host"
+copies are then CPU clones).
+
+Under ``torchrun --nproc-per-node D``, ``--mesh Dx1`` runs D ranks of the
+data axis: ``--pp P`` pipeline stages (dp = D / P groups), ``--msp
+[--msp-split K]`` the MSP ramp (DESIGN.md §2, §4; ``parallel/runner.py``).
+The process group runs NCCL on the card, which needs a card per rank and
+raises otherwise, and gloo with ``--device cpu``.  A caller that holds a
+process group of its own (``launch.mesh.spawn``, say gloo for ranks that
+share one card, their transfers staged through host memory) calls
+``train()``.
 
 The reference CLI's other flags belong to later slices of the port and are
-refused with the ROADMAP item that brings them.  ``train(cfg, ...)`` is the
-body, for callers that pass a config of their own (a depth-cut model), plan
-overrides (chip_smoke.py's ablations) or a packed variable-length batch
-(``packed=``, DESIGN.md §13; the reference's CLI has no flag for one
-either).
+refused with the ROADMAP item that brings them (a model axis above 1 in
+``--mesh`` too).  ``train(cfg, ...)`` is the body, for callers that pass a
+config of their own (a depth-cut model), plan overrides (chip_smoke.py's
+ablations), a packed variable-length batch (``packed=``, DESIGN.md §13; the
+reference's CLI has no flag for one either) or a process group they already
+hold (``ctx=``, or an initialised ``torch.distributed``).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import logging
+import os
 
 import torch
 
@@ -37,9 +51,11 @@ from repro_torch.configs.base import ShapeConfig, get_config
 from repro_torch.core import costmodel as cm
 from repro_torch.core import tree
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.serve import build_params, resolve_device
 from repro_torch.models.model_zoo import build_model
 from repro_torch.optim import adamw
+from repro_torch.parallel.ctx import Ctx, make_ctx
 from repro_torch.parallel.runner import make_train_step, resolve_cell
 from repro_torch.runtime.metrics import Meter
 
@@ -47,11 +63,7 @@ log = logging.getLogger("repro_torch.train")
 
 # flag -> (what it asks for, ROADMAP Queue 1 item that ports it)
 LATER = {
-    "mesh": ("a device mesh beyond 1x1", 3),
-    "pp": ("pipeline stages (pp > 1)", 3),
     "attn_mode": ("sequence-parallel attention schedules", 3),
-    "msp": ("multiplexed sequence partitioning (pp > 1)", 3),
-    "msp_split": ("multiplexed sequence partitioning (pp > 1)", 3),
     "audit": ("the trace-time contract auditor", 7),
     "ckpt_dir": ("checkpointing", 7),
     "ckpt_every": ("checkpointing", 7),
@@ -86,12 +98,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "only form; 'xla' is refused)")
     ap.add_argument("--moments-dtype", default=None, choices=["none", "fp8", "int8"],
                     help="codec of the host moments (needs --offload-moments)")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL ranks (MODEL 1): the torchrun world, e.g. 2x1")
+    ap.add_argument("--pp", type=int, default=None,
+                    help="pipeline stages of the data axis (dp = DATA / pp)")
+    ap.add_argument("--msp", action="store_true",
+                    help="multiplexed sequence partitioning, the ramp schedule (pp > 1)")
+    ap.add_argument("--msp-split", type=int, default=2,
+                    help="sub-chunks per MSP ramp chunk")
     # the reference CLI's flags of later slices: refused when given
-    ap.add_argument("--mesh", default=None)
-    ap.add_argument("--pp", type=int, default=None)
     ap.add_argument("--attn-mode", default=None)
-    ap.add_argument("--msp", action="store_true", default=None)
-    ap.add_argument("--msp-split", type=int, default=None)
     ap.add_argument("--audit", action="store_true", default=None)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=None)
@@ -102,8 +118,7 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_later_flags(ap, args):
     for dest, (what, item) in LATER.items():
         val = getattr(args, dest)
-        # the single-device values of the reference's flags are what runs here
-        if val is None or (dest == "mesh" and val == "1x1") or (dest == "pp" and val == 1):
+        if val is None:
             continue
         ap.error(f"--{dest.replace('_', '-')}: {what} comes with a later slice "
                  f"of the port (ROADMAP Queue 1, item {item})")
@@ -112,8 +127,16 @@ def _refuse_later_flags(ap, args):
 def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
           lr: float = 3e-4, log_every: int = 10, metrics_out=None,
           device="cuda", overrides=None, on_step=None, step_context=None,
-          packed=None):
+          packed=None, ctx: Ctx = None):
     """Train ``cfg`` for ``steps`` steps on ``device``.
+
+    Over a data axis of ranks, each rank calls ``train`` with the same
+    arguments: ``ctx`` (``parallel/ctx.py``), or else the initialised
+    ``torch.distributed`` process group (``launch.mesh``), gives the ranks;
+    ``overrides`` name ``pp`` (default 1: dp = the ranks), ``msp``,
+    ``msp_split``.  Each rank builds its stage of the seed's weights, takes
+    its dp group's rows of the batch, and meters tokens/s per GPU (the
+    step's tokens over the ranks).
 
     ``packed``, where given, is a ``data.pipeline.PackedBatch`` of ``batch``
     rows of ``seq`` tokens (``pack_documents``, or ``pad_to_max``'s one
@@ -133,10 +156,19 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
     peak_bytes: the CUDA peak of allocated bytes over the steps, base_bytes:
     the allocated bytes before the first step (weights, and the moments
     where they stay on the device); both None on the CPU; host_moment_bytes:
-    the moments' bytes in host memory, 0 on the device)."""
+    the moments' bytes in host memory, 0 on the device; ctx: the data axis)."""
     dev = resolve_device(str(device))
     mdef = build_model(cfg)
-    overrides = {**dict(pp=1, dp=1), **(overrides or {})}
+    if ctx is None:
+        import torch.distributed as dist
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+    else:
+        world = ctx.world
+    pp = (overrides or {}).get("pp", 1)
+    if world % pp:
+        raise ValueError(f"pp = {pp} does not divide the {world} ranks")
+    overrides = {**dict(pp=1, dp=world // pp), **(overrides or {})}
     if n_chunks:
         overrides["n_chunks"] = n_chunks
     doc_lens = None
@@ -145,20 +177,25 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
             raise ValueError(f"packed batch {packed.tokens.shape} is not [{batch}, {seq}]")
         doc_lens = [end - start for _, start, end, _ in sorted(packed.spans, key=lambda s: s[3])]
     cell = resolve_cell(mdef, ShapeConfig("cli_train", seq, batch, "train"),
-                        overrides=overrides, doc_lens=doc_lens)
+                        overrides=overrides, doc_lens=doc_lens, data_size=world)
+    if ctx is None:
+        ctx = make_ctx(cell.plan, device=dev)
     log.info("plan: %s  chunks=%s alphas=%s", cell.plan, cell.sched.lengths,
              [round(a, 3) for a in cell.alphas])
 
-    params = build_params(cell, dev, seed=0)
+    params = build_params(cell, dev, seed=0, stage=ctx.stage_index())
     plan = cell.plan
     opt_state = adamw.init_state(params, offload_moments=plan.offload_moments,
                                  moments_dtype=plan.moments_dtype,
                                  moments_mode=plan.moments_mode)
     step_fn = make_train_step(cell, lr_kwargs=dict(peak=lr, warmup=20,
-                                                   total=max(steps, 100)))
+                                                   total=max(steps, 100)), ctx=ctx)
     data = SyntheticLM(cfg.vocab_size, seq, batch)
-    n_active = cm.count_active_params(params)
-    meter = Meter(tokens_per_step=batch * seq, n_active_params=n_active)
+    # this rank's dp group's rows of the global batch
+    b_loc = cell.b_loc
+    rows = slice(ctx.dp_index() * b_loc, (ctx.dp_index() + 1) * b_loc)
+    n_active = cm.count_active_params(mdef) if world > 1 else cm.count_active_params(params)
+    meter = Meter(tokens_per_step=batch * seq // world, n_active_params=n_active)
     moment_bytes = sum(t.numel() * t.element_size()
                        for t in tree.leaves([opt_state.m, opt_state.v]))
     log.info("%s: %d parameters (%d without the embedding), %d layers; moments "
@@ -178,12 +215,11 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
     for step in range(steps):
         doc_start = None
         if packed is None:
-            tokens, labels = (torch.from_numpy(a).to(dev) for a in data.sample_step(step))
+            tokens, labels = (torch.from_numpy(a[rows]).to(dev) for a in data.sample_step(step))
         else:
-            tokens, labels, doc_start = (torch.from_numpy(a).to(dev) for a in
+            tokens, labels, doc_start = (torch.from_numpy(a[rows]).to(dev) for a in
                                          (packed.tokens, packed.labels, packed.doc_start))
-        ctx = step_context(step) if step_context else contextlib.nullcontext()
-        with ctx:
+        with step_context(step) if step_context else contextlib.nullcontext():
             sync()
             meter.start()
             params, opt_state, metrics = step_fn(params, opt_state, tokens, labels, doc_start)
@@ -202,19 +238,45 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     return dict(history=meter.history, cell=cell, n_active_params=n_active,
                 peak_bytes=peak, base_bytes=base,
-                host_moment_bytes=moment_bytes if plan.offload_moments else 0)
+                host_moment_bytes=moment_bytes if plan.offload_moments else 0, ctx=ctx)
 
 
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     _refuse_later_flags(ap, args)
+    try:
+        data, _ = mesh_mod.parse_mesh(args.mesh) if args.mesh else (None, 1)
+    except (ValueError, NotImplementedError) as err:
+        ap.error(f"--mesh: {err}")
+    pp = args.pp or 1
+    if args.msp and pp == 1:
+        ap.error("--msp needs a pipeline: pass --pp > 1")
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
+    import torch.distributed as dist
+
+    device = args.device
+    if (data or 1) > 1 or pp > 1:
+        if not dist.is_initialized():
+            if "RANK" not in os.environ:
+                ap.error("--mesh / --pp over several ranks: run under torchrun "
+                         "--nproc-per-node DATA (or hold a process group and call train())")
+            backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+            _, _, device = mesh_mod.init_from_env(backend, device)
+        world = dist.get_world_size()
+        if data is not None and data != world:
+            ap.error(f"--mesh {args.mesh}: {data} data ranks, but the process group has {world}")
+        if world % pp:
+            ap.error(f"--pp {pp} does not divide the {world} ranks")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     overrides = {}
+    if pp > 1:
+        overrides["pp"] = pp
+    if args.msp:
+        overrides.update(msp=True, msp_split=args.msp_split)
     if args.no_offload:
         overrides["offload"] = False
     if args.prefetch:
@@ -226,7 +288,7 @@ def main(argv=None):
             overrides[dest] = getattr(args, dest)
     return train(cfg, steps=args.steps, seq=args.seq, batch=args.batch,
                  n_chunks=args.n_chunks, lr=args.lr, log_every=args.log_every,
-                 metrics_out=args.metrics_out, device=args.device,
+                 metrics_out=args.metrics_out, device=device,
                  overrides=overrides)["history"]
 
 

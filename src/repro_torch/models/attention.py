@@ -120,16 +120,37 @@ class _ChunkAttention(torch.autograd.Function):
         return (dq.to(q.dtype), None, None, None, None, None, *dks, *dvs)
 
 
+def truncate_chunks(cache: KVCache, offset: int) -> None:
+    """Drop the training cache's chunk entries at or past slot ``offset``,
+    which must be a chunk boundary.  A chunk that runs again, as an MSP ramp
+    sub-event re-runs its whole chunk (DESIGN.md §2), then replaces its
+    entry instead of appending a second one; its rewrite of the buffer is
+    bitwise the values already there, as the reference's idempotent cache
+    write is."""
+    end, keep = 0, 0
+    for k, _ in cache.chunks:
+        if end >= offset:
+            break
+        end, keep = end + k.shape[1], keep + 1
+    if end != offset:
+        raise ValueError(f"slot {offset} is not a chunk boundary of the training "
+                         f"cache (chunks {[k.shape[1] for k, _ in cache.chunks]})")
+    del cache.chunks[keep:]
+
+
 def chunk_attention(q, k, v, q_pos, cache: KVCache, cache_offset: int,
                     kv_view: int, *, causal=True, q_start=None):
-    """Training counterpart of ``cache_append`` + ``dist_attention``: appends
-    the chunk's (k, v) to the cache's chunk list and attends the first
-    ``kv_view`` slots through ``_ChunkAttention``, under the document window
-    ``q_start`` where given.  The chunks must tile the slots in order: this
-    chunk lands at ``cache_offset = kv_view - T``."""
+    """Training counterpart of ``cache_append`` + ``dist_attention``: puts
+    the chunk's (k, v) in the cache's chunk list, after the chunks that end
+    at ``cache_offset`` (``truncate_chunks``: a re-run chunk replaces its
+    entry), and attends the first ``kv_view`` slots through
+    ``_ChunkAttention``, under the document window ``q_start`` where given.
+    The chunks must tile the slots in order: this chunk lands at
+    ``cache_offset = kv_view - T``."""
     if cache_offset != kv_view - k.shape[1]:
         raise ValueError(f"a training chunk of {k.shape[1]} tokens at slot "
                          f"{cache_offset} must end the view of {kv_view} slots")
+    truncate_chunks(cache, cache_offset)
     cache.chunks.append((k.to(cache.k.dtype), v.to(cache.v.dtype)))
     ks, vs = zip(*cache.chunks)
     qs = None if q_start is None else q_start.to(torch.int32)

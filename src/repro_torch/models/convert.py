@@ -4,7 +4,10 @@
 pytree as nested dicts of numpy arrays, in its names and layouts, with the
 leading slot dim on every stage leaf (``ModelDef.init_stage_params`` at
 pp = 1), and returns the port's parameters: the same globals, and the stage
-as a list of per-slot dicts.
+as a list of per-slot dicts.  With ``stage=s, pp=P`` it returns pipeline
+stage s of P: slots ``[s * spp, (s + 1) * spp)`` of that stack, ghost slots
+(``model_zoo.ghost_slot``: gate 0) appended past the last layer, as the
+reference's ``init_stage_params(rng, s, P)`` pads its stages.
 
 The caller passes float32 arrays: ``np.asarray`` of a JAX bf16 array is an
 ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` refuses.  The cast to
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import leaves
+from repro_torch.models.model_zoo import ghost_slot
 
 
 def _tensor(a, name: str, dtype, device):
@@ -34,12 +38,25 @@ def _map(tree, fn, prefix=""):
     return fn(tree, prefix.rstrip("/"))
 
 
-def params_from_numpy(tree, *, dtype=torch.bfloat16, device="cuda"):
+def params_from_numpy(tree, *, dtype=torch.bfloat16, device="cuda", stage: int = 0,
+                      pp: int = 1, cfg=None):
+    """``cfg`` (the model's config) is needed only where stage ``stage``
+    of ``pp`` has ghost slots."""
     stages = tree["stages"]
     n_slots = {np.shape(a)[0] for a in leaves(stages)}
     if len(n_slots) != 1:
         raise ValueError(f"stage leaves disagree on the slot dim: {n_slots}")
+    n = n_slots.pop()
+    if not 0 <= stage < pp:
+        raise ValueError(f"stage {stage} outside [0, {pp})")
+    spp = -(-n // pp)
+    lo, hi = stage * spp, min(n, (stage + 1) * spp)
     slots = [_map(stages, lambda a, name, i=i: _tensor(a[i], name, dtype, device))
-             for i in range(n_slots.pop())]
+             for i in range(lo, hi)]
+    if len(slots) < spp:
+        if cfg is None:
+            raise ValueError(f"stage {stage} of {pp} pads {spp - len(slots)} ghost "
+                             "slot(s): pass cfg")
+        slots += [ghost_slot(cfg, dtype, device) for _ in range(spp - len(slots))]
     glob = _map(tree["globals"], lambda a, name: _tensor(a, name, dtype, device))
     return {"stages": slots, "globals": glob}

@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.core import tree
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -75,13 +76,25 @@ def _out_scale(cfg):
 
 
 def init_slot(cfg: ModelConfig, gen, dtype, device):
-    """One dense slot's params.  The gate is 1 for a real layer; the ghost
-    slots that pad pipeline stages (gate 0) come with the multi-rank slice."""
+    """One dense slot's params, gate 1 (a real layer; ``ghost_slot`` pads a
+    pipeline stage)."""
     os_ = _out_scale(cfg)
     return {"ln1": _norm(cfg, dtype, device), "ln2": _norm(cfg, dtype, device),
             "attn": _attn(gen, cfg, dtype, device, os_),
             "mlp": _mlp(gen, cfg, dtype, device, out_scale=os_),
             "gate": torch.tensor(1.0, dtype=torch.float32, device=device)}
+
+
+def ghost_slot(cfg: ModelConfig, dtype, device):
+    """A slot that pads the last stages where ``n_layers % pp != 0``: gate
+    0, so ``_res`` makes it the identity and no gradient reaches its
+    weights.  Its weights are zeros (the reference draws them at random,
+    which at gate 0 changes neither the output nor a gradient), so they take
+    no draw from the generator and stay zero under AdamW."""
+    shape = init_slot(cfg, torch.Generator(), dtype, "meta")
+    slot = tree.map_(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device), shape)
+    slot["gate"] = torch.tensor(0.0, dtype=torch.float32, device=device)
+    return slot
 
 
 def init_globals(cfg: ModelConfig, gen, dtype, device):
@@ -100,8 +113,32 @@ class ModelDef:
     cfg: ModelConfig
     n_slots: int
 
-    def init_stage_params(self, gen, dtype=torch.bfloat16, device="cuda"):
-        return [init_slot(self.cfg, gen, dtype, device) for _ in range(self.n_slots)]
+    # ---- structure (reference ``model_zoo.py:457-462``) --------------------
+    def slots_per_stage(self, pp: int) -> int:
+        return -(-self.n_slots // pp)
+
+    def padded_slots(self, pp: int) -> int:
+        return self.slots_per_stage(pp) * pp
+
+    def init_stage_params(self, gen, dtype=torch.bfloat16, device="cuda", *,
+                          stage: int = 0, pp: int = 1):
+        """Stage ``stage`` of ``pp``: slots ``[stage * spp, (stage + 1) *
+        spp)`` of the model, ghost slots (``ghost_slot``) past its last
+        layer.  Every real slot is drawn from ``gen`` in layer order and the
+        other stages' are dropped, so a stage holds the very tensors pp = 1
+        draws for its layers, and ``gen`` ends where pp = 1 leaves it (the
+        globals drawn next come out the same on every stage)."""
+        spp = self.slots_per_stage(pp)
+        if not 0 <= stage < pp:
+            raise ValueError(f"stage {stage} outside [0, {pp})")
+        lo = stage * spp
+        slots = []
+        for i in range(self.n_slots):
+            slot = init_slot(self.cfg, gen, dtype, device)
+            if lo <= i < lo + spp:
+                slots.append(slot)
+        return slots + [ghost_slot(self.cfg, dtype, device)
+                        for _ in range(spp - len(slots))]
 
     def init_globals(self, gen, dtype=torch.bfloat16, device="cuda"):
         return init_globals(self.cfg, gen, dtype, device)
@@ -124,11 +161,13 @@ class ModelDef:
         return logits[..., :self.cfg.vocab_size]
 
     def init_state(self, batch: int, cache_loc: int, dtype, device, *,
-                   train: bool = False):
+                   train: bool = False, n_slots=None):
+        """One cache per slot: the model's (``n_slots`` None) or a pipeline
+        stage's ``n_slots``."""
         cfg = self.cfg
         return [{"kv": A.init_cache(batch, cache_loc, cfg.n_kv_heads, cfg.hd,
                                     cfg.hd, dtype, device, train=train)}
-                for _ in range(self.n_slots)]
+                for _ in range(self.n_slots if n_slots is None else n_slots)]
 
     def stage_apply(self, stage_params, state, x, meta, *, remat="none",
                     offload=None):

@@ -90,6 +90,10 @@ def stage_apply(cfg, stage_params, state, x, meta: ChunkMeta, *,
         return x, state
     if any(s["kv"].chunks is None for s in state):
         raise ValueError("the chunk seam needs training caches (init_state(train=True))")
+    # the seam's inputs are the chunks before this one (a re-run chunk
+    # replaces its own entry)
+    for s in state:
+        A.truncate_chunks(s["kv"], meta.cache_off)
     if offload is None:
         offload = ofl.ChunkOffload(chunk=len(state[0]["kv"].chunks), alpha=0.0)
     run = _SeamRun(cfg, stage_params, state, meta, remat, offload)
@@ -157,8 +161,9 @@ class _StageSeam(torch.autograd.Function):
     rows and sends its off rows to host through the offload's link
     (``ChunkOffload.send``: quantized under a codec, the scales kept on the
     device); under "full" nothing is kept.  Backward: ``Link.begin``, the
-    previous chunk's reload issued ahead (the link decides), this chunk's
-    rows taken (``ChunkOffload.restore``: dequantized under a codec), then
+    previous seam's reload issued ahead (the link decides; the link is keyed
+    by ``ChunkOffload.key``, the chunk at pp = 1 and the rank's event at pp
+    > 1, whose seams run in event order), this seam's rows taken (``ChunkOffload.restore``: dequantized under a codec), then
     the stack replayed with gradients on the staged rows (under "sppo" the
     replay writes the chunk's cache slots again with the staged K/V,
     bitwise the same, and no slot past ``kv_view``), and differentiated with respect to x, the
@@ -193,10 +198,10 @@ class _StageSeam(torch.autograd.Function):
         off = run.offload
         staged = []
         if off.link is not None:
-            off.link.begin(off.chunk)
-            if off.link.ahead and off.chunk > 0:
-                off.link.prefetch(off.chunk - 1)
-            staged = off.restore(off.link.take(off.chunk))
+            off.link.begin(off.key)
+            if off.link.ahead and off.key > 0:
+                off.link.prefetch(off.key - 1)
+            staged = off.restore(off.link.take(off.key))
         x, *inputs = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(t.requires_grad) for t in (x, *inputs)]

@@ -177,14 +177,18 @@ class _MomentStream:
 @torch.no_grad()
 def apply_update(params, grads, state: AdamWState, *, lr, b1=0.9, b2=0.95,
                  eps=1e-8, weight_decay=0.1, clip_norm=1.0,
-                 offload_moments=False, moments_mode="explicit", moments_dtype="none"):
+                 offload_moments=False, moments_mode="explicit", moments_dtype="none",
+                 grad_norm=None):
     """One AdamW step, in place.  Returns (params, state, metrics) with
-    metrics ``grad_norm`` (before clipping) and ``lr``.  With
+    metrics ``grad_norm`` (before clipping) and ``lr``.  ``grad_norm``, where
+    given, is the global norm the clip uses in place of ``global_norm(grads)``
+    (a pipeline rank holds one stage's gradients: ``runner.global_grad_norm``
+    sums the model's).  With
     ``offload_moments`` the moments in ``state`` are host buffers
     (``init_state(offload_moments=True, moments_dtype=...)``): each leaf's
     pass through the device is described in the module docstring."""
     _check_moments(offload_moments, moments_mode, moments_dtype)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
     stepf = step.to(torch.float32)

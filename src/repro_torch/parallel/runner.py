@@ -1,4 +1,4 @@
-"""The execution engine at pp = sp = dp = 1 (port of ``repro/parallel/runner.py``).
+"""The execution engine (port of ``repro/parallel/runner.py``), sp = 1.
 
 Builds the step functions of a cell:
 
@@ -6,26 +6,41 @@ Builds the step functions of a cell:
   prefill_step(params, tokens)                  -> (state, last_hidden)
   serve_step(params, state, tokens, pos)        -> (state, next_tokens)
 
-Training and prefill run the reference's pp == 1 pipeline branch: the
-sequence is split into FLOPs-balanced chunks (core/partition.py); each chunk
-is embedded, runs the layer stack (appending its K/V to the position-tagged
-cache and attending a prefix view of it), and hands its hidden state on;
-training adds each chunk's head loss, and autograd runs the backward through
-the chunks in reverse.  Decode feeds one token per step and attends the
-whole cache buffer.
+At pp = 1 training and prefill run the reference's pp == 1 pipeline branch:
+the sequence is split into FLOPs-balanced chunks (core/partition.py); each
+chunk is embedded, runs the layer stack (appending its K/V to the
+position-tagged cache and attending a prefix view of it), and hands its
+hidden state on; training adds each chunk's head loss, and autograd runs the
+backward through the chunks in reverse.  Decode feeds one token per step and
+attends the whole cache buffer.
+
+At pp > 1 (DESIGN.md §2, §4) each rank is a process that runs one pipeline
+stage of one dp group (``parallel/ctx.py``: ``dp x pp`` ranks, stage-major)
+and the sequence is cut into equal chunks fed as events (``
+pipeline_feed_events``: one per chunk, or the MSP ramp's sub-events).  At
+tick t, stage s runs event t - s: stage 0 embeds the fed chunk, the others
+take the previous stage's hand-off, and the last stage adds the event's head
+loss under its sub-chunk mask.  Each rank differentiates its own ticks; the
+hand-offs carry the gradients back (``Ctx.handoff``).  The loss is the sum
+of every rank's loss over the sum of their token counts, the stage
+gradients are summed over the dp group, each global one (embedding, head)
+is summed where it is used and sent to the other stages (``Ctx.psum_globals``),
+and every rank then runs AdamW on what it holds.
+Decode at pp > 1 is refused (ROADMAP Queue 1, item 5).
 
 Training runs the plan's remat policy and SPPO's executed activation
 offload (DESIGN.md §5, §10, §12): ``resolve_cell`` sizes each chunk's
 offload ratio α (``core/offload.py::sequence_aware_alphas``), each chunk's
 stack runs through the chunk seam of ``models/transformer.py``, its off rows
-go to pinned host memory on a copy stream, and each chunk's rows come back
-one chunk ahead of its backward (``prefetch="ahead"``, through a
+go to pinned host memory on a copy stream, and each seam's rows come back
+one seam ahead of its backward (``prefetch="ahead"``, through a
 ``core/offload.py::Link`` and ``link_drain``) or at it (``"sync"``); under
 ``offload_dtype`` "fp8" / "int8" the rows cross quantized, their scales
 kept on the device (DESIGN.md §14).  The update keeps AdamW's moments on
 the device or, under ``offload_moments``, in pinned host memory, raw or
-under ``moments_dtype`` (``optim/adamw.py``, DESIGN.md §11).  The
-reference's shard_map and pipeline ticks come with later slices.
+under ``moments_dtype`` (``optim/adamw.py``, DESIGN.md §11).  The model axis
+(sp > 1: sequence sharding, parameter gathers, the vocab-parallel loss) and
+ring attention come with later slices (ROADMAP Queue 1, items 3 and 4).
 """
 from __future__ import annotations
 
@@ -37,10 +52,13 @@ from repro_torch.configs.base import ModelConfig, ParallelPlan, ShapeConfig
 from repro_torch.core import costmodel as cm
 from repro_torch.core import offload as ofl
 from repro_torch.core import partition as part
+from repro_torch.core import schedule as sched_mod
+from repro_torch.core import simulate as sim_mod
 from repro_torch.core import tree
 from repro_torch.models import layers as L
 from repro_torch.models.model_zoo import ModelDef, build_model
 from repro_torch.models.transformer import ChunkMeta
+from repro_torch.parallel.ctx import SINGLE, Ctx, _later, make_ctx
 from repro_torch.parallel.plans import resolve_plan
 
 DECODE_BUDGET = 128  # extra decode slots beyond the shape's cache length
@@ -48,7 +66,7 @@ DECODE_BUDGET = 128  # extra decode slots beyond the shape's cache length
 
 @dataclass(frozen=True)
 class Cell:
-    """One resolved (arch x shape) configuration on one device."""
+    """One resolved (arch x shape x data axis) configuration."""
 
     mdef: ModelDef
     plan: ParallelPlan
@@ -60,10 +78,21 @@ class Cell:
     # layout).  When set, the batch carries a ``doc_start`` array and
     # attention masks cross-document visibility (DESIGN.md §13)
     doc_lens: tuple = ()
+    data_size: int = 1   # ranks of the data axis: dp x pp
 
     @property
     def cfg(self) -> ModelConfig:
         return self.mdef.cfg
+
+    @property
+    def b_loc(self) -> int:
+        """Rows of the batch a dp group takes."""
+        return max(1, self.shape.global_batch // self.plan.dp)
+
+    def ctx(self, *, device="cuda") -> Ctx:
+        """The data axis of this process for the cell (``parallel/ctx.py``):
+        one device at dp x pp = 1, else this rank of the process group."""
+        return make_ctx(self.plan, device=device)
 
     @property
     def varlen(self) -> bool:
@@ -79,26 +108,31 @@ class Cell:
         return (s + extra) // self.plan.sp
 
 
-def _later(what: str, item: int):
-    return NotImplementedError(f"{what} comes with a later slice of the port "
-                               f"(ROADMAP Queue 1, item {item})")
-
-
 def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
-                 dtype=torch.bfloat16, doc_lens=None) -> Cell:
-    """Resolve a train, prefill or decode cell at data = model = 1, pp = 1.
+                 dtype=torch.bfloat16, doc_lens=None, data_size: int = 1,
+                 model_size: int = 1) -> Cell:
+    """Resolve a train, prefill or decode cell over ``data_size`` ranks
+    (dp x pp; the model axis is 1).
 
     The chunk plan and the offload ratios are the reference's
     (``repro/parallel/runner.py::resolve_cell``): each chunk's forward time
     is its share of 6 N B S FLOPs at the H100's bf16 peak over (1 +
-    ``BWD_RATIO``), and α_i offloads what its host link (``d2h_bw``) moves
-    in the next chunk's forward, at the effective rate ``d2h_bw /
+    ``BWD_RATIO``) (N the stage-aware active count of
+    ``costmodel.count_active_params(mdef, pp)``, the time split
+    over the pp stages), and α_i offloads what its host link (``d2h_bw``)
+    moves in the next chunk's forward, at the effective rate ``d2h_bw /
     offload_wire_ratio`` under an activation codec; zeros with offload off.
     A training plan that offloads must run remat "sppo" (the policy whose
     saved rows the offload moves) in the explicit form; the moments move in
     the explicit form too, a moment codec needs the moment offload, and a
-    decode plan takes no codec.  pp > 1 is refused, naming the ROADMAP item
-    that brings it.
+    decode plan takes no codec.
+
+    At pp > 1 the chunks are equal (partition "length", ``S % N == 0``);
+    under MSP the chunk length must divide by ``msp_split``, and a family
+    with recurrent state is refused (a ramp sub-event re-runs its whole
+    chunk, which only a position-tagged cache absorbs, DESIGN.md §2).  A
+    model axis above 1 and decode at pp > 1 are refused, naming the ROADMAP
+    item that brings them, as are packed rows at pp > 1.
 
     ``doc_lens`` makes a packed variable-length cell (DESIGN.md §13), as in
     the reference: the documents are packed into rows of S tokens
@@ -109,11 +143,11 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     share of that profile.  A decode cell takes no ``doc_lens``."""
     mdef = arch if isinstance(arch, ModelDef) else build_model(arch)
     cfg = mdef.cfg
-    plan = resolve_plan(cfg, shape_cfg, data_size=1, model_size=1,
+    if model_size != 1:
+        raise _later(f"a model axis of {model_size} (sequence parallelism)", 3)
+    plan = resolve_plan(cfg, shape_cfg, data_size=data_size, model_size=1,
                         overrides=overrides)
     doc_lens = tuple(int(x) for x in (doc_lens if doc_lens is not None else ()))
-    if plan.pp != 1:
-        raise _later(f"pp = {plan.pp} (pipeline stages)", 3)
     for codec in (plan.offload_dtype, plan.moments_dtype):
         cm.codec_itemsize(codec)            # raises on an unknown codec
     if plan.moments_mode != "explicit":
@@ -123,6 +157,10 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     if plan.moments_dtype != "none" and not plan.offload_moments:
         raise ValueError(f"moments_dtype {plan.moments_dtype!r} requires offload_moments: "
                          "moments on the device have no host channel to compress")
+    if shape_cfg.kind == "decode" and plan.pp > 1:
+        raise _later(f"decode at pp = {plan.pp} (the microbatched decode pipeline)", 5)
+    if doc_lens and plan.pp > 1:
+        raise _later(f"packed variable-length rows at pp = {plan.pp}", 3)
     if shape_cfg.kind == "decode":
         if doc_lens:
             raise ValueError("packed variable-length layouts are train/prefill only")
@@ -137,7 +175,7 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
                              f"moments_dtype={plan.moments_dtype!r})")
         return Cell(mdef=mdef, plan=plan, shape=shape_cfg,
                     sched=part.ChunkSchedule((1,), (0,), 1, "decode"),
-                    alphas=(0.0,), dtype=dtype)
+                    alphas=(0.0,), dtype=dtype, data_size=data_size)
     if shape_cfg.kind not in ("prefill", "train"):
         raise ValueError(f"unknown shape kind {shape_cfg.kind!r}")
     if shape_cfg.kind == "train" and plan.offload:
@@ -151,6 +189,18 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     # reference's pp == 1 plan
     S, B = shape_cfg.seq_len, shape_cfg.global_batch
     r = part.flops_per_token_ratio(cfg)
+    n = plan.n_chunks
+    if plan.pp > 1:
+        if S % n:
+            raise ValueError(f"seq_len {S} does not split into {n} equal chunks (pp > 1)")
+        if plan.msp:
+            if (S // n) % plan.msp_split:
+                raise ValueError(f"chunk len {S // n} not divisible by msp_split "
+                                 f"{plan.msp_split}")
+            if cfg.sub_quadratic:
+                raise ValueError(f"msp unsupported for family {cfg.family!r}: recurrent "
+                                 "state updates are not idempotent under full-chunk "
+                                 "recompute (DESIGN.md §2)")
     if doc_lens:
         # the packed layout's cost profile: the causal sawtooth of each row
         # (cost restarts at every document), summed over the batch
@@ -169,11 +219,15 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
             sched = part.partition(S, plan.n_chunks, cfg, plan.partition, multiple=128)
         # the profile sums over the rows; α wants one row's share
         costs = [c / max(1, B) for c in part.profile_chunk_costs(profile, sched)]
+    elif plan.pp > 1:
+        sched = part.partition_length(S, n)
+        costs = part.chunk_costs(sched, r)
     else:
         sched = part.partition(S, plan.n_chunks, cfg, plan.partition, multiple=128)
         costs = part.chunk_costs(sched, r)
     # sequence-aware offload ratios from the cost model (§5.2)
-    scale = (6 * cm.count_active_params(mdef) * B * S
+    n_params = cm.count_active_params(mdef, plan.pp)
+    scale = (6 * n_params * B * S
              / sum(costs) / (plan.sp * plan.pp * cm.H100.peak_flops_bf16))
     times = [c * scale / (1.0 + cm.BWD_RATIO) for c in costs]
     acts = cm.chunk_act_bytes(cfg, sched.lengths, batch=max(1, B // plan.dp),
@@ -185,7 +239,7 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     if not plan.offload:
         alphas = tuple(0.0 for _ in alphas)
     return Cell(mdef=mdef, plan=plan, shape=shape_cfg, sched=sched,
-                alphas=alphas, dtype=dtype, doc_lens=doc_lens)
+                alphas=alphas, dtype=dtype, doc_lens=doc_lens, data_size=data_size)
 
 
 def _rope(cfg, q_pos):
@@ -200,50 +254,99 @@ def use_ahead_prefetch(plan: ParallelPlan, *, train: bool) -> bool:
             and plan.remat == "sppo" and plan.prefetch == "ahead")
 
 
-def chunk_tag(cell: Cell, chunk: int, link):
-    """What a training chunk's tag sites do with their rows (the
-    reference's per-chunk tag): split at the chunk's α and send the off rows
-    through ``link`` where the plan offloads, else None (every tagged row
-    stays on the device)."""
+def chunk_tag(cell: Cell, chunk: int, link, *, alpha=None, event=None):
+    """What a training seam's tag sites do with their rows (the reference's
+    per-chunk tag): split at α and send the off rows through ``link`` where
+    the plan offloads, else None (every tagged row stays on the device).
+    α is the chunk's, or ``alpha`` where given (at pp > 1 every stage tags
+    with the fed event's α); ``event`` keys the link at pp > 1."""
     if not cell.plan.offload:
         return None
-    return ofl.ChunkOffload(chunk=chunk, alpha=cell.alphas[chunk], link=link,
-                            codec=cell.plan.offload_dtype)
+    return ofl.ChunkOffload(chunk=chunk,
+                            alpha=cell.alphas[chunk] if alpha is None else alpha,
+                            link=link, codec=cell.plan.offload_dtype, event=event)
 
 
 class _LinkDrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, loss, link, chunk):
-        ctx.link, ctx.chunk = link, chunk
+    def forward(ctx, loss, link, key):
+        ctx.link, ctx.key = link, key
         return loss.view_as(loss)
 
     @staticmethod
     def backward(ctx, grad):
-        ctx.link.prefetch(ctx.chunk)
+        ctx.link.prefetch(ctx.key)
         return grad, None, None
 
 
 def link_drain(loss, link, last: int):
     """Identity on the loss whose backward issues the reload of the last
-    chunk's rows, as soon as the backward pass starts: the last chunk has no
+    seam's rows, as soon as the backward pass starts: the last seam has no
     later backward to hide it under (why ``reserve_last`` pins its α to 0)."""
     return _LinkDrain.apply(loss, link, last)
 
 
+class _AttachToken(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, loss, token):
+        return loss.detach().clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, torch.zeros((), dtype=torch.float32, device=grad.device)
+
+
+def attach_token(loss, token):
+    """Identity on a rank's loss that joins the last hand-off token to it,
+    so its backward reaches every hand-off of the rank in tick order
+    (``parallel/ctx.py::_HandOff``), as ``link_drain`` reaches the last
+    seam's reload."""
+    return _AttachToken.apply(loss, token)
+
+
+def pipeline_feed_events(plan: ParallelPlan, n_chunks: int):
+    """The (chunk, sub, n_sub) feed sequence the pp > 1 tick loop executes:
+    the MSP ramp (``core/schedule.py::msp_ramp_schedule``) under
+    ``plan.msp``, else one whole event per chunk.  The simulator
+    (``core/simulate.py``) plays out exactly this sequence (DESIGN.md §2,
+    §3)."""
+    if plan.msp and plan.pp > 1:
+        return sched_mod.msp_ramp_schedule(n_chunks, plan.pp, plan.msp_split)
+    return sim_mod.plain_events(n_chunks)
+
+
+def pipeline_tick_trace(cell: Cell):
+    """Static per-tick trace of the pp > 1 loop: one dict per tick with the
+    feed event entering stage 0 and the drain event leaving stage pp - 1."""
+    plan = cell.plan
+    events = pipeline_feed_events(plan, cell.sched.n)
+    n_ticks = len(events) + plan.pp - 1
+    trace = []
+    for t in range(n_ticks):
+        feed = events[t] if t < len(events) else None
+        e_last = t - (plan.pp - 1)
+        drain = events[e_last] if 0 <= e_last < len(events) else None
+        trace.append(dict(tick=t, feed=feed, drain=drain))
+    return trace
+
+
 def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
-                 with_loss: bool = False, doc_start=None):
-    """The pp == 1 chunk loop.  tokens, labels: [B, S] int.  ``doc_start``:
-    optional [B, S] int32 start of each token's document in a packed batch
-    (``PAD_START`` on padding), sliced chunk by chunk into the attention's
-    window (``ChunkMeta.q_start``), so documents never attend across their
-    boundaries.  With
-    ``with_loss`` each chunk adds its head loss over the tokens whose label
-    is >= 0 (the label sentinel: a negative label carries zero weight), and
-    the caches keep every chunk's K/V for the backward; where a gradient is
-    wanted, each chunk's stack runs through its seam under the plan's remat
-    policy and offload.  Returns dict(loss, denom, state, last_x, link);
+                 with_loss: bool = False, doc_start=None, ctx: Ctx = SINGLE):
+    """The chunk loop of this rank.  tokens, labels: [B, S] int (a dp
+    group's rows).  ``doc_start``: optional [B, S] int32 start of each
+    token's document in a packed batch (``PAD_START`` on padding), sliced
+    chunk by chunk into the attention's window (``ChunkMeta.q_start``), so
+    documents never attend across their boundaries.  With ``with_loss`` the
+    head loss is added over the tokens whose label is >= 0 (the label
+    sentinel: a negative label carries zero weight), and the caches keep
+    every chunk's K/V for the backward; where a gradient is wanted, each
+    chunk's stack runs through its seam under the plan's remat policy and
+    offload.  Returns dict(loss, denom, state, last_x, link, seed);
     loss and denom are None without ``with_loss``, link (the step's host
-    rows, ``core/offload.py::Link``) None where nothing offloads."""
+    rows, ``core/offload.py::Link``) None where nothing offloads; ``seed``
+    (the first hand-off token) None at pp = 1 (``_run_ticks``)."""
+    if cell.plan.pp > 1:
+        return _run_ticks(cell, ctx, stage_p, g, tokens, labels, with_loss=with_loss)
     mdef, plan = cell.mdef, cell.plan
     dev = tokens.device
     state = mdef.init_state(tokens.shape[0], cell.cache_loc, cell.dtype, dev,
@@ -273,13 +376,109 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
             denom = cnt if denom is None else denom + cnt
     if ahead:
         loss = link_drain(loss, link, cell.sched.n - 1)
-    return dict(loss=loss, denom=denom, state=state, last_x=x, link=link)
+    return dict(loss=loss, denom=denom, state=state, last_x=x, link=link, seed=None)
 
 
-def make_prefill_step(cell: Cell):
+def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: bool):
+    """The pp > 1 tick loop of this rank's stage (reference
+    ``runner.py:499-601``, DESIGN.md §2, §4).
+
+    At tick t, stage s runs event e = t - s of the feed events: stage 0
+    embeds the event's chunk (once for the sub-events of a ramp chunk:
+    the same tokens give the same rows, and their gradients then meet in
+    one embedding backward), the others take the carry stage s - 1 handed
+    on at the tick before; an MSP ramp sub-event runs its whole chunk (its
+    K/V rewrite replaces the chunk's cache entry, bitwise the same values:
+    ``attention.truncate_chunks``); the last stage adds the event's head
+    loss under its sub-chunk mask times the label sentinel, so each token
+    counts once.  Every stage tags its rows with the fed event's α, the
+    uniform SPMD program's constraint (``runner.py:553``), and its seams
+    are keyed by event in the offload link.  After its compute, each tick's
+    hand-off sends event e's output to stage s + 1 and receives event e +
+    1's input from stage s - 1 (``Ctx.handoff``).
+
+    Where the port departs from the reference's one SPMD program: a stage
+    runs no compute at its warmup and drain ticks (e outside [0, E)), which
+    is the reference's valid-tick mask (``runner.py:548-574``, its
+    drain-tick fix) done by not running, and posts no transfer there either,
+    since its peer's matching tick is idle too; the reference's ``kv_view``
+    is the fed chunk's end on every stage (PAD slots hide the rest), the
+    port's the stage's own chunk end.  Each rank runs its own backward:
+    every hand-off takes the previous one's token, and the loss takes the
+    last (``attach_token``), so each rank's backward meets every hand-off
+    its peers post, in tick order.  ``seed``, the first token, is a leaf
+    the caller differentiates too, so that no hand-off is pruned from the
+    backward."""
+    mdef, plan, cfg = cell.mdef, cell.plan, cell.cfg
+    pp, stage = plan.pp, ctx.stage_index()
+    if ctx.pp != pp or not ctx.distributed:
+        raise ValueError(f"pp = {pp} needs the context of a {pp}-stage process group "
+                         f"(got pp = {ctx.pp}, backend {ctx.backend!r})")
+    N, S = cell.sched.n, cell.shape.seq_len
+    clen = S // N
+    B, dev = tokens.shape[0], tokens.device
+    events = pipeline_feed_events(plan, N)
+    E = len(events)
+    state = mdef.init_state(B, cell.cache_loc, cell.dtype, dev, train=with_loss,
+                            n_slots=len(stage_p))
+    train = with_loss and torch.is_grad_enabled()
+    ahead = use_ahead_prefetch(plan, train=train)
+    link = ofl.Link(ahead=ahead) if train and plan.offload else None
+    seed = torch.zeros((), device=dev, requires_grad=train)
+    token, carry, x_last = seed, None, None
+    emb = emb_chunk = None
+    loss = denom = None
+    carry_like = ((B, clen, cfg.d_model), cell.dtype)
+    pos_in = torch.arange(clen, device=dev)
+    for t in range(E + pp - 1):
+        e = t - stage
+        x = None
+        if 0 <= e < E:
+            c, sub, n_sub = events[e]
+            off = c * clen
+            q_pos = off + torch.arange(clen, dtype=torch.int32, device=dev)
+            if stage == 0 and emb_chunk != c:
+                emb, emb_chunk = mdef.embed(g, tokens[:, off:off + clen]), c
+            h = emb if stage == 0 else carry
+            meta = ChunkMeta(q_pos=q_pos, cache_off=off, kv_view=off + clen,
+                             rope=_rope(cfg, q_pos))
+            if train:
+                fed = events[min(t, E - 1)][0]
+                x, state = mdef.stage_apply(
+                    stage_p, state, h, meta, remat=plan.remat,
+                    offload=chunk_tag(cell, c, link, alpha=cell.alphas[fed], event=e))
+            else:
+                x, state = mdef.stage_apply(stage_p, state, h, meta)
+            x_last = x
+            if with_loss and stage == pp - 1:
+                lab = labels[:, off:off + clen]
+                sublen = clen // n_sub
+                mask = ((pos_in >= sub * sublen) & (pos_in < (sub + 1) * sublen)).float()
+                ls, cnt = mdef.head_loss(g, x, lab, mask[None, :] * (lab >= 0).float())
+                loss = ls if loss is None else loss + ls
+                denom = cnt if denom is None else denom + cnt
+        send = x if stage < pp - 1 else None
+        recv = carry_like if stage > 0 and 0 <= e + 1 < E else None
+        carry = None
+        if send is not None or recv is not None:
+            carry, token = ctx.handoff(send, recv, token, t)
+    if with_loss:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        loss = zero if loss is None else loss
+        denom = zero if denom is None else denom
+        if train:
+            loss = attach_token(loss, token)
+            if ahead:
+                loss = link_drain(loss, link, E - 1)
+    return dict(loss=loss, denom=denom, state=state, last_x=x_last, link=link,
+                seed=seed if train else None)
+
+
+def make_prefill_step(cell: Cell, ctx: Ctx = SINGLE):
     def prefill_step(params, tokens):
-        """tokens: [B, S] int; returns (per-slot caches, last chunk's hidden)."""
-        out = run_pipeline(cell, params["stages"], params["globals"], tokens)
+        """tokens: [B, S] int; returns (per-slot caches, last chunk's hidden)
+        of this rank's stage."""
+        out = run_pipeline(cell, params["stages"], params["globals"], tokens, ctx=ctx)
         return out["state"], out["last_x"]
 
     return prefill_step
@@ -291,9 +490,25 @@ def trainable(path: str) -> bool:
     return not path.endswith("gate")
 
 
-def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None):
+def _check_ctx(cell: Cell, ctx: Ctx) -> None:
+    if (ctx.dp, ctx.pp) != (cell.plan.dp, cell.plan.pp):
+        raise ValueError(f"the cell's plan is dp x pp = {cell.plan.dp} x {cell.plan.pp}, "
+                         f"its context {ctx.dp} x {ctx.pp}")
+
+
+def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
+                   ctx: Ctx = SINGLE):
     """The loss ``sum / max(count, 1)`` of the chunked pipeline and its
     gradients, a tree like ``params`` (zeros for the gate).
+
+    Over several ranks (``ctx``) ``params`` are this rank's stage and the
+    globals, ``tokens`` its dp group's rows: the loss is the sum of every
+    rank's loss over the sum of their counts (``psum_loss_all``), each rank
+    differentiates its share of it, and the stage gradients are summed over
+    the dp group (``psum_grads``), the globals' over every rank
+    (``psum_globals``: each summed where it is used, then sent to the
+    stages that do not use it): every rank returns the loss and the
+    gradient of its parameters.
 
     With ``plan.grad_accum = A > 1`` the batch is cut into A microbatches of
     B / A rows, each run forward and backward on its own; the loss and the
@@ -302,6 +517,7 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None):
     the parameters' dtypes.  ``doc_start`` (a packed batch's [B, S] document
     starts) is split as the tokens are and reaches the attention only in a
     varlen cell (``cell.varlen``), as in the reference."""
+    _check_ctx(cell, ctx)
     if not cell.varlen:
         doc_start = None
 
@@ -311,12 +527,25 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None):
         leaves = [t.requires_grad_() for p, t in tree.items(alias) if trainable(p)]
         with torch.enable_grad():
             out = run_pipeline(cell, alias["stages"], alias["globals"], tok, lab,
-                               with_loss=True, doc_start=ds)
-            loss = out["loss"] / out["denom"].clamp_min(1.0)
-            grads = iter(torch.autograd.grad(loss, leaves))
-        flat = [next(grads) if trainable(p) else torch.zeros_like(t)
-                for p, t in tree.items(params)]
-        return loss.detach(), flat
+                               with_loss=True, doc_start=ds, ctx=ctx)
+            if ctx.distributed:
+                den = ctx.psum_loss_all(out["denom"]).clamp_min(1.0)
+                value = ctx.psum_loss_all(out["loss"]) / den
+                loss = out["loss"] / den
+            else:
+                loss = value = out["loss"] / out["denom"].clamp_min(1.0)
+            # the first hand-off token is differentiated too: no hand-off is
+            # pruned from this rank's backward (``_run_ticks``)
+            extra = [] if out["seed"] is None else [out["seed"]]
+            # a rank's stage uses only some of the globals (the embedding
+            # on stage 0, the head on the last): the others get zeros
+            grads = iter(torch.autograd.grad(loss, leaves + extra,
+                                             allow_unused=ctx.distributed)[:len(leaves)])
+        flat = [next(grads) if trainable(p) else None for p, t in tree.items(params)]
+        used = [g is not None for g in flat]
+        flat = [torch.zeros_like(t) if g is None else g
+                for g, t in zip(flat, tree.leaves(params))]
+        return value.detach(), flat, used
 
     A = cell.plan.grad_accum
     if A > 1:
@@ -327,8 +556,8 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None):
         loss, gsum = None, None
         for a in range(A):
             rows = slice(a * bm, (a + 1) * bm)
-            l, flat = one(tokens[rows], labels[rows],
-                          None if doc_start is None else doc_start[rows])
+            l, flat, used = one(tokens[rows], labels[rows],
+                                None if doc_start is None else doc_start[rows])
             if gsum is None:
                 loss, gsum = l, [g.float() for g in flat]
             else:
@@ -337,32 +566,56 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None):
                     acc.add_(g.float())
         loss, flat = loss / A, [g / A for g in gsum]
     else:
-        loss, flat = one(tokens, labels, doc_start)
-    it = iter(flat)
-    return loss, tree.map_(lambda _: next(it), params)
+        loss, flat, used = one(tokens, labels, doc_start)
+    it, it_used = iter(flat), iter(used)
+    grads = tree.map_(lambda _: next(it), params)
+    used = tree.map_(lambda _: next(it_used), params)
+    # stage gradients over the dp replicas of the stage, the globals' over
+    # every rank (their contributions live on different stages; the ones
+    # this rank's graph never reached are zeros here)
+    ctx.psum_grads(tree.leaves(grads["stages"]))
+    ctx.psum_globals(tree.leaves(grads["globals"]), tree.leaves(used["globals"]))
+    return loss, grads
 
 
-def make_train_step(cell: Cell, *, lr_kwargs=None):
+def global_grad_norm(grads, ctx: Ctx = SINGLE) -> torch.Tensor:
+    """The global norm of the model's gradients from this rank's share
+    (its stage's and the globals', already reduced): the stages' squares
+    summed over the stages of the dp group (``psum_stages``), each stage
+    and the globals counted once, the same on every rank, so every rank
+    clips alike and the replicated globals stay identical."""
+    from repro_torch.optim import adamw
+
+    if not ctx.distributed:
+        return adamw.global_norm(grads)
+    sq = adamw.global_norm(grads["stages"]).square().reshape(1)
+    ctx.psum_stages([sq])
+    return torch.sqrt(sq[0] + adamw.global_norm(grads["globals"]).square())
+
+
+def make_train_step(cell: Cell, *, lr_kwargs=None, ctx: Ctx = SINGLE):
     """Build the training step: loss and gradients of the chunked pipeline,
     then one AdamW update (global-norm clip, cosine schedule) in place, its
     moments where the plan keeps them (``offload_moments``,
     ``moments_dtype``: ``opt_state`` from ``adamw.init_state`` with the
-    same settings)."""
+    same settings).  Over several ranks each rank updates what it holds,
+    clipped by the model's global norm (``global_grad_norm``)."""
     from repro_torch.optim import adamw
 
     lr_kwargs = lr_kwargs or {}
 
     def train_step(params, opt_state, tokens, labels, doc_start=None):
         """tokens, labels (and a packed batch's doc_start): [B, S] int on the
-        parameters' device.  Returns (params, opt_state, metrics); metrics
-        hold tensors (loss, grad_norm, lr) that stay on the device until
-        read."""
-        loss, grads = loss_and_grads(cell, params, tokens, labels, doc_start)
+        parameters' device (a dp group's rows over several ranks).  Returns
+        (params, opt_state, metrics); metrics hold tensors (loss,
+        grad_norm, lr) that stay on the device until read."""
+        loss, grads = loss_and_grads(cell, params, tokens, labels, doc_start, ctx=ctx)
         lr = adamw.cosine_lr(opt_state.step, **lr_kwargs)
         plan = cell.plan
         params, opt_state, met = adamw.apply_update(
             params, grads, opt_state, lr=lr, offload_moments=plan.offload_moments,
-            moments_mode=plan.moments_mode, moments_dtype=plan.moments_dtype)
+            moments_mode=plan.moments_mode, moments_dtype=plan.moments_dtype,
+            grad_norm=global_grad_norm(grads, ctx) if ctx.distributed else None)
         met["loss"] = loss
         return params, opt_state, met
 
@@ -383,6 +636,8 @@ def make_serve_step(cell: Cell, *, decode_steps=None):
             f"decode_steps={decode_steps} exceeds the cache's decode budget "
             f"of {max_decode_steps(cell)} steps (DECODE_BUDGET={DECODE_BUDGET}"
             f" slots x sp={cell.plan.sp})")
+    if cell.plan.pp > 1:
+        raise _later(f"decode at pp = {cell.plan.pp} (the microbatched decode pipeline)", 5)
     S = cell.shape.seq_len
     mdef = cell.mdef
 

@@ -7,8 +7,9 @@ kernels); AdamW's moments through pinned host memory (bitwise the
 on-device update), the codec's torch ops (bitwise the CPU's), the
 embedding's deterministic backward; the kernels at a packed chunk (per-row
 document windows, dead padding rows) and at the group sizes of glm4-9b,
-nemotron-4-15b and starcoder2-3b (G = 16, 6, 12), and a packed step
-equal to its pad-to-max oracle through the kernels.
+nemotron-4-15b and starcoder2-3b (G = 16, 6, 12), a packed step equal
+to its pad-to-max oracle through the kernels, and the pipeline at pp = 2 as
+two ranks sharing the card over gloo against pp = 1.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips without
 one.  The file imports no JAX, since the machine with the card has none, and
@@ -752,3 +753,57 @@ def test_packed_step_equals_pad_to_max_through_the_kernels(cuda_device):
     np.testing.assert_allclose(float(lp), float(lo), rtol=0, atol=TOL)
     for (path, a), b in zip(tree.items(gp), tree.leaves(go)):
         np.testing.assert_allclose(to_np(a), to_np(b), rtol=0, atol=TOL, err_msg=path)
+
+
+@pytest.mark.cuda
+def test_pipeline_pp2_on_one_card_over_gloo_equals_pp1(cuda_device):
+    """pp = 2 as two ranks (processes) sharing the card over gloo, their
+    hand-offs and reductions staged through pinned host memory, fp32 reduced
+    qwen2-7b under the default plan: each rank's loss and every gradient of
+    its stage and the globals within 1e-4 relative L2 of pp = 1's on the
+    card (the CUDA-core kernels either way; equal chunks).  The ranks run
+    tests/_torch_pipeline_workers.py."""
+    import _torch_pipeline_workers as W
+    from repro_torch.launch import mesh
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("qwen2-7b").reduced()
+    S, B, N = 512, 2, 4
+    gen = torch.Generator().manual_seed(0)
+    mdef = build_model(cfg)
+    params = {"stages": mdef.init_stage_params(gen, torch.float32, "cpu"),
+              "globals": mdef.init_globals(gen, torch.float32, "cpu")}
+
+    def stack(slots):
+        if isinstance(slots[0], dict):
+            return {k: stack([s[k] for s in slots]) for k in slots[0]}
+        return np.stack([s.numpy() for s in slots]).astype(np.float32)
+
+    params_np = {"stages": stack(params["stages"]),
+                 "globals": tree.map_(lambda t: t.numpy(), params["globals"])}
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    cell = runner.resolve_cell(cfg, ShapeConfig("t", S, B, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=N, partition="length",
+                                              grad_accum=1), dtype=torch.float32)
+    on_card = tree.map_(lambda t: t.cuda(), params)
+    loss1, grads1 = runner.loss_and_grads(cell, on_card, torch.from_numpy(tokens).cuda(),
+                                          torch.from_numpy(labels).cuda())
+    want = {path: g.cpu() for path, g in tree.items(grads1)}
+    layout = dict(dp=1, pp=2, n_chunks=N, S=S, B=B)
+    ranks = mesh.spawn(W.pipeline_rank, 2, backend="gloo", device="cuda",
+                       args=([("pp2", layout, {"grads"})], params_np, tokens, labels),
+                       timeout_s=300.0)
+    for r in (x["pp2"] for x in ranks):
+        assert abs(r["loss"] - float(loss1)) <= 1e-4 * abs(float(loss1))
+        for path, g in tree.items(r["grads"]):
+            if path.startswith("stages/"):
+                i, rest = path.split("/", 2)[1:]
+                path = f"stages/{r['stage'] + int(i)}/{rest}"
+            ref_g = want[path].numpy()
+            norm = np.linalg.norm(ref_g)
+            if norm == 0:
+                assert not np.any(g), path
+                continue
+            assert np.linalg.norm(g - ref_g) / norm <= 1e-4, (r["rank"], path)

@@ -340,10 +340,10 @@ def test_resolve_cell_refuses_what_later_slices_bring():
     """The moment offload and the codecs run (tests/test_torch_optstate.py,
     tests/test_torch_offload.py), as do the executed activation offload and
     remat "sppo" / "full".  What later slices bring is refused naming its
-    ROADMAP Queue 1 item as ROADMAP.md numbers it: pp > 1 and the mesh
-    (item 3, multi-rank; a one-device plan's own validation refuses pp > 1
-    in ``resolve_cell``, the CLI's ``--pp 2`` names the item), the auditor
-    and checkpointing (item 7, tooling)."""
+    ROADMAP Queue 1 item as ROADMAP.md numbers it: a model axis and the
+    attention modes (item 3, multi-rank, whose data-axis half, pp > 1 and
+    dp, runs: tests/test_torch_pipeline.py), the auditor and checkpointing
+    (item 7, tooling)."""
     cfg = get_config("qwen2-7b").reduced()
     shape = ShapeConfig("t", 256, 2, "train")
     for ov in (dict(offload_moments=True), dict(offload_dtype="fp8"),
@@ -379,8 +379,8 @@ def test_cli_counts_no_kernel_launch_on_cpu():
                            "bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_tc": 0, "bwd_dkv_tc": 0}
 
 
-@pytest.mark.parametrize("flag,item", [(["--pp", "2"], 3), (["--attn-mode", "ring"], 3),
-                                       (["--msp"], 3), (["--ckpt-dir", "x"], 7),
+@pytest.mark.parametrize("flag,item", [(["--mesh", "1x2"], 3), (["--attn-mode", "ring"], 3),
+                                       (["--attn-mode", "gather_kv"], 3), (["--ckpt-dir", "x"], 7),
                                        (["--audit"], 7), (["--mesh", "2x2"], 3),
                                        (["--resume", "x"], 7)],
                          ids=[f"flag{i}" for i in range(7)])

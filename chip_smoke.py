@@ -126,8 +126,31 @@ Four phases, each of which exits non-zero on failure:
    losses, the launches by the closed form.  Phase 2 also holds the
    kernels at the packed cell's chunk shapes (3 rows, per-row windows),
    the packed fp32 check's (fp32, the CUDA cores) and one train chunk of
-   each of the three configs.  Every path's launches and copies are
-   counted from 0 just before it runs.
+   each of the three configs.  Then the multi-rank phases, their ranks
+   processes sharing the one card over gloo (``launch.mesh.spawn``;
+   every transfer staged through pinned host memory): the data axis
+   (``pipeline_phase``: pp = 2 plain and MSP at full width, 4 layers,
+   against pp = 1, and reduced fp32 layouts against the CPU) and the
+   model axis (``model_axis_phase``): qwen2-7b at full width cut to 2
+   layers, B = 1, S = 8192 in 4 chunks, the default plan, sp = 2 as two
+   ranks, SP_STEPS steps under gather_q and as many under gather_kv with
+   grad_compress; each mode's step-0 loss within 2e-3 of sp = 1's on the
+   card with the same weights, gather_q's gradients (one untimed call),
+   gathered to full, within 1e-2 relative L2 at the worst leaf; every
+   step's launches, row copies and model collectives (calls and bytes,
+   each kind) by their closed forms; then the reduced model in fp32 at S =
+   256 in four layouts (sp 2; pp 2 x sp 2 with MSP, four ranks; dp 2 x sp
+   2 with packed rows, four ranks, raw and with fp8 rows) within 1e-4 of
+   the CPU's sp = 1 step under the same plan, but for the fp8 layout's
+   gradients, held by the reference's codec law against the raw layout's
+   (SP_FP32_LAYOUTS says why).  Phase 2 holds the kernels at the model axis's shapes: the
+   last chunk's gather_q shape (every query of the chunk over one rank's
+   gapped cache shard) and gather_kv shape (one rank's queries over both
+   shards concatenated, positions that do not ascend), timed as the other
+   training shapes are, and untimed the first chunk's gather_q shape on
+   the rank whose slots every query of its first half precedes (those
+   rows exactly dead) and the fp32 layouts' shapes.  Every path's launches
+   and copies are counted from 0 just before it runs.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its check and times: the tensor-core and the CUDA-core
@@ -221,6 +244,34 @@ PIPE_FP32_LAYOUTS = {"pp4_msp": dict(dp=1, pp=4, n_chunks=4, msp=True),
                      "dp2_pp2": dict(dp=2, pp=2, n_chunks=4),
                      "dp2": dict(dp=2, pp=1, n_chunks=2)}
 SHARED_CARD = "two ranks share one card: not a pipeline speed"
+# the model axis (model_axis_phase, DESIGN.md §4): qwen2-7b at full width cut
+# to 2 layers, B = 1, S = 8192 in 4 chunks, the default plan, sp = 2 as two
+# ranks sharing the one card over gloo (every collective staged through
+# pinned host memory); SP_STEPS steps under gather_q, then as many under
+# gather_kv with grad_compress, each mode's step-0 loss, and gather_q's
+# step-0 gradients (one untimed call, gathered to full), against sp = 1 on
+# the card with the same weights; then the reduced model in fp32 at S = 256 in four layouts
+# against the CPU's sp = 1 step under the same plan
+SP, SP_LAYERS, SP_SEQ, SP_CHUNKS, SP_STEPS = 2, 2, 8192, 4, 2
+SP_LOSS_TOL = 2e-3       # step-0 loss against sp = 1's, relative
+SP_MODES = {"gather_q": dict(attn_mode="gather_q"),
+            "gather_kv": dict(attn_mode="gather_kv", grad_compress=True)}
+SP_FP32_SEQ, SP_FP32_BATCH = 256, 2
+# the packed layouts run FP32_PACKED_CORPUS in 4 rows (2 a dp group), chunk
+# 0 offloading every tagged row (α 1), raw and as fp8.  The fp8 layout is
+# held by the reference's codec law against the raw one (``drift_of``) and
+# against the CPU's fp8 step at the loss: a row whose last fp32 bit differs
+# between sp = 2 and sp = 1 (its GEMM has half the rows) may round to the
+# next fp8 step, which on the H100 moved the worst gradient leaf 1.1e-4
+# from sp = 1's, the raw layout's 1.7e-6 (PERF.md §6)
+SP_FP32_LAYOUTS = {"sp2": dict(dp=1, pp=1, sp=2, n_chunks=2),
+                   "pp2_sp2_msp": dict(dp=1, pp=2, sp=2, n_chunks=4, msp=True),
+                   "dp2_sp2_packed": dict(dp=2, pp=1, sp=2, n_chunks=2, packed=True,
+                                          alphas=(1.0, 0.0)),
+                   "dp2_sp2_packed_fp8": dict(dp=2, pp=1, sp=2, n_chunks=2, packed=True,
+                                              plan=dict(offload_dtype="fp8"), alphas=(1.0, 0.0),
+                                              drift_of="dp2_sp2_packed")}
+SP_SHARED = "ranks share one card over gloo: not a model-axis speed"
 
 
 def fail(msg: str):
@@ -2437,6 +2488,706 @@ def pipeline_phase(fa, mesh, runner, card):
     return counts, summary
 
 
+def shard_positions(offsets, lengths, sp: int, rank: int, upto: int):
+    """The positions of model rank ``rank``'s cache slots through chunk
+    ``upto``: chunk c's rows ``off + rank * ln / sp + arange(ln / sp)``, so
+    the slots ascend with gaps."""
+    return torch.cat([off + rank * (ln // sp) + torch.arange(ln // sp, dtype=torch.int32)
+                      for off, ln in list(zip(offsets, lengths))[:upto + 1]])
+
+
+def model_axis_inputs(gen, cell, c, mode, rank, dtype):
+    """The kernels' inputs at chunk ``c`` of a model-axis cell (sp =
+    ``cell.plan.sp``) as model rank ``rank`` passes them: under gather_q
+    every query of the chunk (a head slice of the fused q|k projection,
+    positions off + arange(ln)) over the rank's cache shard (a prefix view
+    of its buffer, gapped positions); under gather_kv the rank's queries
+    over every rank's shard concatenated rank by rank (positions that do
+    not ascend).  Returns (q, k, v, q_pos, kv_pos, do, dl, q_start None)."""
+    cfg, sp = cell.cfg, cell.plan.sp
+    B, dev = cell.b_loc, "cuda"
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    offs, lens = cell.sched.offsets, cell.sched.lengths
+    off, ln = offs[c], lens[c]
+    lloc, kv_view = ln // sp, (off + ln) // sp
+    loc = cell.shape.seq_len // sp
+
+    def shard(r):
+        k = torch.randn(B, loc, Hkv, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, loc, Hkv, hd, generator=gen, device=dev).to(dtype)
+        return k, v, shard_positions(offs, lens, sp, r, c).to(dev)
+
+    if mode == "gather_q":
+        k, v, kv_pos = shard(rank)
+        k, v = k[:, :kv_view], v[:, :kv_view]
+        q_pos = off + torch.arange(ln, dtype=torch.int32, device=dev)
+        tq = ln
+    else:
+        parts = [shard(r) for r in range(sp)]
+        k = torch.cat([p[0][:, :kv_view] for p in parts], dim=1)
+        v = torch.cat([p[1][:, :kv_view] for p in parts], dim=1)
+        kv_pos = torch.cat([p[2] for p in parts])
+        q_pos = off + rank * lloc + torch.arange(lloc, dtype=torch.int32, device=dev)
+        tq = lloc
+    qk = torch.randn(B, tq, H + Hkv, hd, generator=gen, device=dev).to(dtype)
+    do = torch.randn(B, tq, H, hd, generator=gen, device=dev)
+    dl = torch.randn(B, tq, H, generator=gen, device=dev)
+    return qk[:, :, :H], k, v, q_pos, kv_pos, do, dl, None
+
+
+def model_axis_cell(runner, cfg, seq, batch, n_chunks, dtype=torch.bfloat16, **ov):
+    """The sp = SP cell of ``cfg`` at pp = 1, the default plan."""
+    from repro_torch.configs.base import ShapeConfig
+
+    return runner.resolve_cell(cfg, ShapeConfig("model_axis", seq, batch, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=n_chunks, sp=SP, **ov),
+                               dtype=dtype, data_size=1, model_size=SP)
+
+
+def model_axis_check_shapes(fa, ref, gen, runner, cfg):
+    """The kernels at the model axis's shapes, untimed: the full-width
+    cell's first chunk under gather_q on rank 1's shard (whose first half
+    of the queries sees no slot: those rows must be exactly o = l = 0, m =
+    -1e30, in bf16 and fp32) and the fp32 layouts' chunk shapes (S = 256,
+    the reduced width: the CUDA-core kernels), each forward within 1e-5 and
+    each backward pair within 1e-5 x max |plain|.  Returns (forward's worst
+    error, backward's worst relative error)."""
+    fwd_err, bwd_rel = 0.0, 0.0
+    cell = model_axis_cell(runner, dataclasses.replace(cfg, n_layers=SP_LAYERS), SP_SEQ, 1,
+                           SP_CHUNKS)
+    small = model_axis_cell(runner, get_config_reduced(), SP_FP32_SEQ, SP_FP32_BATCH, 2,
+                            dtype=torch.float32)
+    cases = [(cell, 0, "gather_q", 1, dt) for dt in (torch.bfloat16, torch.float32)]
+    cases += [(small, c, mode, r, torch.float32) for c in (0, 1)
+              for mode in ("gather_q", "gather_kv") for r in (0, 1)]
+    for cl, c, mode, r, dt in cases:
+        q, k, v, q_pos, kv_pos, do, dl, qs = model_axis_inputs(gen, cl, c, mode, r, dt)
+        err, (o, m, l) = kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, qs)
+        _, rel, _ = bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, qs, do, dl)
+        dead = visible_mask(q.shape[0], q_pos, kv_pos, qs).any(dim=2).logical_not()
+        dead = dead[..., None].expand_as(m)
+        n_dead = int(dead.sum())
+        if cl is cell:      # the first half of the chunk's queries precede rank 1's slots
+            n_dead = q.shape[0] * (cl.sched.lengths[c] // SP) * q.shape[2]
+        if n_dead:
+            check_dead_rows(o, m, l, dead, n_dead, f"{mode} chunk {c} on rank {r} ({dt})")
+        fwd_err, bwd_rel = max(fwd_err, err), max(bwd_rel, *rel.values())
+        print(f"model-axis check shape [{mode} chunk {c} rank {r}] q {tuple(q.shape)} kv "
+              f"{tuple(k.shape)} {dt}: forward err {err:.3e}, backward rel err "
+              + ", ".join(f"{key} {val:.2e}" for key, val in rel.items())
+              + f", {int(dead[..., 0].sum())} dead rows, exact")
+    return fwd_err, bwd_rel
+
+
+def get_config_reduced():
+    from repro_torch.configs.base import get_config
+
+    return get_config("qwen2-7b").reduced()
+
+
+def model_axis_closed_form(cell, *, with_norm: bool) -> dict:
+    """What one rank's step moves over the model group at pp = 1, by the
+    closed form: {collective: (calls, bytes this rank puts in)} (a gather's
+    input is the rank's shard, the others' the whole tensor), written down
+    from the path before the first run on the card.  Per chunk (length ln,
+    lloc = ln / sp rows a rank, its cache view kv = (off + ln) / sp slots):
+    the embedding's reduce-scatter of [B, ln, d] and its backward's gather
+    of [B, lloc, d]; per layer, in each forward pass of the stack (2 under
+    remat "sppo" / "full": the seam's and its replay), the "ag" weights'
+    shards gathered and, under gather_q, the queries [B, lloc, H, hd] and
+    their int32 positions gathered, the fp32 max [B, ln, H] max-reduced,
+    o [B, ln, H, hd] (fp32, bf16 under merge_bf16) and l [B, ln, H]
+    reduce-scattered, under gather_kv the cache view's k and v [B, kv, Hkv,
+    hd] and its positions gathered; per layer in the backward the weights'
+    full gradients reduce-scattered (bf16 under grad_compress, else the
+    weights' dtype) and, under gather_q, o's and l's cotangents [B, lloc,
+    ...] gathered and the queries' [B, ln, H, hd] reduce-scattered, under
+    gather_kv dk and dv [B, sp kv, Hkv, hd] fp32 reduce-scattered; the loss
+    gathers x [B, lloc, d], max-reduces [B, ln] fp32, sums l and the picked
+    logit [B, ln] fp32 twice, and reduce-scatters x's gradient [B, ln, d].
+    Once a step the replicated leaves' gradients are summed over the model
+    group (``model_reduce``), with the global norm's two fp32 partial sums
+    where ``with_norm``."""
+    from repro_torch.core import tree
+    from repro_torch.models.model_zoo import build_model, marker_dim, param_markers
+
+    cfg, plan = cell.cfg, cell.plan
+    sp, B = plan.sp, cell.b_loc
+    e = torch.tensor([], dtype=cell.dtype).element_size()
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    mdef = build_model(cfg)
+    shapes = {"stages": mdef.init_stage_params(torch.Generator(), cell.dtype, "meta")[:1],
+              "globals": mdef.init_globals(torch.Generator(), cell.dtype, "meta")}
+    marks = param_markers(mdef, shapes)
+    ag = [t for t, m in zip(tree.leaves(shapes["stages"]), tree.leaves(marks["stages"]))
+          if isinstance(m, int)]
+    grad_e = 2 if plan.grad_compress else e
+
+    def rep_bytes(part):
+        return sum(t.numel() * e for (path, t), m in zip(tree.items(shapes[part]),
+                                                         tree.leaves(marks[part]))
+                   if marker_dim(m) is None and not path.endswith("gate"))
+
+    rep = cfg.n_layers * rep_bytes("stages") + rep_bytes("globals")
+    passes = 2 if plan.remat in ("sppo", "full") else 1
+    o_e = 2 if plan.merge_bf16 else 4
+    out = {k: [0, 0] for k in ("model_all_gather", "model_reduce_scatter", "model_psum",
+                               "model_pmax")}
+
+    def add(kind, calls, nbytes):
+        out[kind][0] += calls
+        out[kind][1] += int(calls * nbytes)
+
+    gq = plan.attn_mode == "gather_q"
+    for off, ln in zip(cell.sched.offsets, cell.sched.lengths):
+        lloc, kv = ln // sp, (off + ln) // sp
+        add("model_reduce_scatter", 1, B * ln * d * e)
+        add("model_all_gather", 1, B * lloc * d * e)
+        for _ in range(cfg.n_layers):
+            for _ in range(passes):
+                for t in ag:
+                    add("model_all_gather", 1, t.numel() * e / sp)
+                if gq:
+                    add("model_all_gather", 1, B * lloc * H * hd * e)
+                    add("model_all_gather", 1, 4 * lloc)
+                    if cell.varlen:
+                        add("model_all_gather", 1, 4 * B * lloc)
+                    add("model_pmax", 1, 4 * B * ln * H)
+                    add("model_reduce_scatter", 1, o_e * B * ln * H * hd)
+                    add("model_reduce_scatter", 1, 4 * B * ln * H)
+                else:
+                    add("model_all_gather", 2, B * kv * Hkv * hd * e)
+                    add("model_all_gather", 1, 4 * kv)
+            for t in ag:
+                add("model_reduce_scatter", 1, t.numel() * grad_e)
+            if gq:
+                add("model_all_gather", 1, o_e * B * lloc * H * hd)
+                add("model_all_gather", 1, 4 * B * lloc * H)
+                add("model_reduce_scatter", 1, B * ln * H * hd * e)
+            else:
+                add("model_reduce_scatter", 2, 4 * B * sp * kv * Hkv * hd)
+        add("model_all_gather", 1, B * lloc * d * e)
+        add("model_pmax", 1, 4 * B * ln)
+        add("model_psum", 2, 4 * B * ln)
+        add("model_reduce_scatter", 1, B * ln * d * e)
+    cf = {k: tuple(v) for k, v in out.items()}
+    cf["model_reduce"] = (None, rep + (8 if with_norm else 0))
+    return cf
+
+
+def model_axis_d2h_bytes(cell) -> int:
+    """A rank's row copies a step at pp = 1 by the closed form: Σ over
+    chunks of split_rows(ln / sp, α) x its rows x the tagged elements of a
+    token in every layer x their wire bytes (the cell's dtype, 1 byte under
+    an fp8 / int8 codec)."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import offload as ofl
+
+    wire = (1 if cell.plan.offload_dtype != "none"
+            else torch.tensor([], dtype=cell.dtype).element_size())
+    per_row = (cell.b_loc * cm.tagged_bytes_per_token(cell.cfg) // cm.ACT_ITEMSIZE
+               * cell.cfg.n_layers * wire)
+    return int(sum(ofl.split_rows(ln // cell.plan.sp, a) * per_row
+                   for ln, a in zip(cell.sched.lengths, cell.alphas)))
+
+
+def model_axis_launches(fa, cell, seams, device) -> dict:
+    """The kernels' launches of one rank's step by the closed form: per
+    seam (chunk at pp = 1, event at pp > 1: (chunk length, offset)) and
+    layer of the rank, the forward twice (its replay) with its KV splits
+    merged (in the launch on the tensor cores, by the merge kernel on the
+    CUDA cores) wherever the kernel's geometry splits the mode's shape
+    (gather_q: the chunk's queries over the rank's cache view; gather_kv:
+    its rows over every rank's), dq and dk/dv once."""
+    sp, B, cfg = cell.plan.sp, cell.b_loc, cell.cfg
+    G, Hkv = cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    tc = cell.dtype == torch.bfloat16
+    geometry = fa._tc_geometry if tc else fa._geometry
+    spp = -(-cfg.n_layers // cell.plan.pp)
+    splits = 0
+    for ln, off in seams:
+        kv = (off + ln) // sp
+        tq, s_kv = (ln, kv) if cell.plan.attn_mode == "gather_q" else (ln // sp, sp * kv)
+        splits += geometry(B, tq, s_kv, G, Hkv, n_sm)[2] > 1
+    n = len(seams) * spp
+    keys = (("fwd_tc", "merged_in_kernel", "bwd_dq_tc", "bwd_dkv_tc") if tc
+            else ("fwd", "merge", "bwd_dq", "bwd_dkv"))
+    return dict(zip(keys, (2 * n, 2 * splits * spp, n, n)))
+
+
+def sp_rank(rank, device, fp32_layouts, params_np, batches):
+    """One rank of the full-width model-axis cell (``model_axis_phase``).
+    Rank 0 first runs sp = 1 with the same weights (one untimed
+    loss-and-gradients call) while the other builds its shards.  Under the
+    first mode of SP_MODES each rank then takes one untimed
+    loss-and-gradients call on fresh weights and sends rank 0 its gradient
+    shards (rank 0 gathers them to full leaves and holds them against sp =
+    1's).  Per mode, each rank trains SP_STEPS steps through
+    ``launch.train.train``, counting each step's launches, row copies and
+    collectives.  Last, the reduced fp32 ``fp32_layouts`` of
+    this many ranks (``_sp_fp32_layout``)."""
+    _port_path()
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.convert import gather_model_shards
+    from repro_torch.parallel import runner
+    from repro_torch.parallel.ctx import Ctx
+    from repro_torch.runtime import hostmem
+
+    t_up = time.time()
+    logging.basicConfig(level=logging.WARNING, format="%(asctime)s %(name)s %(message)s")
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=SP_LAYERS)
+    shape = ShapeConfig("model_axis", SP_SEQ, 1, "train")
+    tokens, labels = (torch.from_numpy(a).to(device) for a in
+                      SyntheticLM(cfg.vocab_size, SP_SEQ, 1).sample_step(0))
+    out = {"rank": rank, "t_up": t_up}
+
+    def peak_reset():
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        return torch.cuda.memory_allocated(device)
+
+    ref = {}
+    if rank == 0:
+        cell1 = runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, n_chunks=SP_CHUNKS))
+        params = serve.build_params(cell1, device, seed=0)
+        t0 = time.perf_counter()
+        loss1, grads1 = runner.loss_and_grads(cell1, params, tokens, labels)
+        torch.cuda.synchronize(device)
+        out["sp1"] = {"loss": float(loss1), "grads_call_s": time.perf_counter() - t0,
+                      "chunks": list(cell1.sched.lengths)}
+        ref = {path: g.cpu() for path, g in tree.items(grads1)}
+        del params, grads1
+        torch.cuda.empty_cache()
+    for k, (label, mode_ov) in enumerate(SP_MODES.items()):
+        ov = dict(mode_ov, sp=SP)
+        cell = runner.resolve_cell(cfg, shape, overrides=dict(ov, pp=1, dp=1, n_chunks=SP_CHUNKS),
+                                   data_size=1, model_size=SP)
+        ctx = cell.ctx(device=device)
+        cmp = grads_s = grads_counts = grads_peak = loss0 = None
+        if k == 0:
+            # the first mode's step-0 loss and gradients in one untimed call
+            # on fresh weights, built while rank 0 runs sp = 1 (the barrier
+            # then starts the ranks' calls together)
+            params = serve.build_params(cell, device, seed=0, model_rank=ctx.model_index())
+            dist.barrier()
+            base = peak_reset()
+            fa.reset_counts()
+            ctx.reset_counts()
+            t0 = time.perf_counter()
+            loss0, grads = runner.loss_and_grads(cell, params, tokens, labels, ctx=ctx)
+            torch.cuda.synchronize(device)
+            grads_s = time.perf_counter() - t0
+            grads_counts = {**fa.counts(), **{"ctx_" + k: v for k, v in ctx.counts().items()}}
+            grads_peak = torch.cuda.max_memory_allocated(device) - base
+            loss0 = float(loss0)
+            mine = tree.map_(lambda t: t.cpu(), grads)
+            del params, grads
+            torch.cuda.empty_cache()
+            if rank == 0:
+                shards = [mine]
+                for r in range(1, SP):
+                    other = tree.map_(lambda t: torch.empty(t.shape, dtype=t.dtype), mine)
+                    for t in tree.leaves(other):
+                        dist.recv(t, src=r)
+                    shards.append(other)
+                full = gather_model_shards(shards, cfg)
+                cmp = {"bitwise": 0, "differ": []}
+                worst = 0.0
+                for path, g in tree.items(full):
+                    want = ref[path]
+                    rel = ((g.float() - want.float()).norm()
+                           / want.float().norm().clamp_min(1e-30)).item()
+                    worst = max(worst, rel)
+                    if torch.equal(g, want):
+                        cmp["bitwise"] += 1
+                    else:
+                        cmp["differ"].append((path, rel))
+                cmp["differ"].sort(key=lambda x: -x[1])
+                cmp["worst_rel_l2"] = worst
+                del full, shards
+            else:
+                for t in tree.leaves(mine):
+                    dist.send(t.contiguous(), dst=0)
+            del mine
+        dist.barrier()
+        # the train entry point, each step's launches, copies and collectives
+        after = []
+
+        def on_step(step, rec):
+            after.append({**fa.counts(), **{"copy_" + k: v for k, v in hostmem.counts().items()},
+                          **{"ctx_" + k: v for k, v in ctx.counts().items()}})
+
+        fa.reset_counts()
+        hostmem.reset_counts()
+        ctx.reset_counts()
+        res = train_mod.train(cfg, steps=SP_STEPS, seq=SP_SEQ, batch=1, n_chunks=SP_CHUNKS,
+                              log_every=SP_STEPS, device=device, overrides=ov,
+                              on_step=on_step, ctx=ctx)
+        per_step = [{k: a[k] - b.get(k, 0) for k in a} for a, b in zip(after, [{}] + after[:-1])]
+        rcell = res["cell"]
+        seams = list(zip(rcell.sched.lengths, rcell.sched.offsets))
+        out[label] = {
+            "loss0_grads_call": loss0, "grads_vs_sp1": cmp, "grads_call_s": grads_s,
+            "grads_call_peak_over_weights": grads_peak, "grads_call_counts": grads_counts,
+            "losses": [r["loss"] for r in res["history"]],
+            "step_s": [r["dt"] for r in res["history"]],
+            "tokens_per_s_per_gpu": [r["tgs"] for r in res["history"]],
+            "peak_bytes": res["peak_bytes"], "base_bytes": res["base_bytes"],
+            "alphas": list(rcell.alphas), "chunks": list(rcell.sched.lengths),
+            "closed_form": model_axis_closed_form(rcell, with_norm=True),
+            "closed_form_grads_call": model_axis_closed_form(rcell, with_norm=False),
+            "closed_form_d2h_bytes": model_axis_d2h_bytes(rcell),
+            "launch_want": model_axis_launches(fa, rcell, seams, device),
+            "per_step": per_step}
+        del res
+        torch.cuda.empty_cache()
+    out["t_full_done"] = time.time()
+    out["fp32"] = {name: _sp_fp32_layout(rank, device, layout, params_np, batches[name])
+                   for name, layout in fp32_layouts.items()}
+    out["t_done"] = time.time()
+    return out
+
+
+def sp_fp32_rank(rank, device, layouts, params_np, batches):
+    """One rank of each reduced fp32 layout of ``layouts`` (all of this
+    many ranks), in turn, with its start and end times."""
+    t_up = time.time()
+    out = {name: _sp_fp32_layout(rank, device, layout, params_np, batches[name])
+           for name, layout in layouts.items()}
+    return {"layouts": out, "t_up": t_up, "t_done": time.time()}
+
+
+def _sp_fp32_layout(rank, device, layout, params_np, batch):
+    """One rank of a reduced fp32 model-axis layout: the loss and its shard
+    of every gradient under the default plan (with the layout's plan
+    overrides and α), through the CUDA-core kernels, with its launches,
+    copies and collectives and their closed forms."""
+    _port_path()
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.parallel import runner
+    from repro_torch.runtime import hostmem
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config_reduced()
+    tokens, labels, doc_start, doc_lens = batch
+    B, seq = tokens.shape
+    sp, pp, dp = layout["sp"], layout["pp"], layout["dp"]
+    cell = runner.resolve_cell(
+        cfg, ShapeConfig("model_axis_fp32", seq, B, "train"),
+        overrides=dict(pp=pp, dp=dp, sp=sp, n_chunks=layout["n_chunks"],
+                       msp=layout.get("msp", False), grad_accum=1, **layout.get("plan", {})),
+        dtype=torch.float32, data_size=dp * pp, model_size=sp, doc_lens=doc_lens)
+    if "alphas" in layout:
+        cell = dataclasses.replace(cell, alphas=tuple(layout["alphas"]))
+    ctx = cell.ctx(device=device)
+    stage, g, m = ctx.stage_index(), ctx.dp_index(), ctx.model_index()
+    params = params_from_numpy(params_np, dtype=torch.float32, device=device, stage=stage,
+                               pp=pp, cfg=cfg, sp=sp, model_rank=m)
+    rows = slice(g * cell.b_loc, (g + 1) * cell.b_loc)
+    ds = None if doc_start is None else torch.from_numpy(doc_start[rows]).to(device)
+    fa.reset_counts()
+    hostmem.reset_counts()
+    ctx.reset_counts()
+    loss, grads = runner.loss_and_grads(cell, params, torch.from_numpy(tokens[rows]).to(device),
+                                        torch.from_numpy(labels[rows]).to(device), ds, ctx=ctx)
+    launched, copied = fa.counts(), hostmem.counts()
+    if pp > 1:
+        from repro_torch.parallel.runner import pipeline_feed_events
+
+        clen = seq // cell.sched.n
+        seams = [(clen, c * clen) for c, _, _ in pipeline_feed_events(cell.plan, cell.sched.n)]
+    else:
+        seams = list(zip(cell.sched.lengths, cell.sched.offsets))
+    want = {**{k: 0 for k in launched}, **model_axis_launches(fa, cell, seams, device)}
+    out = {"rank": rank, "stage": stage, "dp_index": g, "model_index": m, "loss": float(loss),
+           "grads": tree.map_(lambda t: t.cpu().numpy(), grads), "launched": launched,
+           "launch_want": want, "copied": copied, "alphas": list(cell.alphas),
+           "ctx_counts": ctx.counts(), "seams": len(seams)}
+    if pp == 1:
+        out["closed_form"] = model_axis_closed_form(cell, with_norm=False)
+        out["closed_form_d2h_bytes"] = model_axis_d2h_bytes(cell)
+    return out
+
+
+def _sp_fp32_batches(vocab):
+    """Each fp32 layout's batch: (tokens, labels, doc_start, doc_lens) as
+    numpy; the packed layout's rows are FP32_PACKED_CORPUS in 4 rows."""
+    from repro_torch.data import pipeline as dpipe
+    from repro_torch.data.pipeline import SyntheticLM
+
+    tokens, labels = SyntheticLM(vocab, SP_FP32_SEQ, SP_FP32_BATCH).sample_step(0)
+    docs = dpipe.sample_corpus(vocab_size=vocab, **FP32_PACKED_CORPUS)
+    pb = dpipe.pack_documents(docs, SP_FP32_SEQ, rows=4)
+    packed = (pb.tokens, pb.labels, pb.doc_start, doc_lengths(pb))
+    return {name: packed if lay.get("packed") else (tokens, labels, None, None)
+            for name, lay in SP_FP32_LAYOUTS.items()}
+
+
+def model_axis_phase(fa, mesh, runner, card):
+    """SPPO's model axis (DESIGN.md §4) with its ranks as processes sharing
+    the one card over gloo: the full-width cell (``sp_rank``) and after it
+    the reduced fp32 layouts of as many ranks, while a spawn of its own
+    runs the four-rank fp32 layouts beside them; every fp32 layout is held
+    against the CPU's sp = 1 step under the same plan (a codec layout's
+    gradients by the codec law against its raw twin).  Every time it prints
+    is marked SP_SHARED.  Returns (the counts of the kernels' launches by
+    path, a summary)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.models.convert import gather_model_shards
+    from repro_torch.models.model_zoo import build_model
+
+    gib = 2**30
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config_reduced()
+    mdef = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = {"stages": mdef.init_stage_params(gen, torch.float32, "cpu"),
+              "globals": mdef.init_globals(gen, torch.float32, "cpu")}
+    params_np = {"stages": _stack_numpy(params["stages"]),
+                 "globals": tree_map(lambda t: t.numpy(), params["globals"])}
+    batches = _sp_fp32_batches(cfg.vocab_size)
+    # the CPU's sp = 1 step of each layout's batch, under the layout's plan
+    cpu = {}
+    for name, lay in SP_FP32_LAYOUTS.items():
+        tokens, labels, doc_start, doc_lens = batches[name]
+        c1 = runner.resolve_cell(cfg, ShapeConfig("model_axis_fp32", SP_FP32_SEQ,
+                                                  tokens.shape[0], "train"),
+                                 overrides=dict(pp=1, dp=1, n_chunks=2, grad_accum=1,
+                                                **lay.get("plan", {})),
+                                 dtype=torch.float32, doc_lens=doc_lens)
+        if "alphas" in lay:
+            c1 = dataclasses.replace(c1, alphas=tuple(lay["alphas"]))
+        l1, g1 = runner.loss_and_grads(c1, params, torch.from_numpy(tokens),
+                                       torch.from_numpy(labels),
+                                       None if doc_start is None else torch.from_numpy(doc_start))
+        cpu[name] = (float(l1), {p: t.numpy() for p, t in tree.items(g1)})
+    by_world = {}
+    for name, lay in SP_FP32_LAYOUTS.items():
+        by_world.setdefault(lay["dp"] * lay["pp"] * lay["sp"], {})[name] = lay
+    check(set(by_world) <= {SP, 4}, f"fp32 layouts of {sorted(by_world)} ranks")
+    others = {}
+
+    def spawn_others():
+        try:
+            for world, layouts in by_world.items():
+                if world != SP:
+                    others[world] = mesh.spawn(sp_fp32_rank, world, backend=PIPE_BACKEND,
+                                               device="cuda",
+                                               args=(layouts, params_np, batches),
+                                               timeout_s=PIPE_DEADLINE_S)
+        except BaseException as err:  # noqa: BLE001 -- raised again after the join
+            others["error"] = err
+        others["t_end"] = time.time()
+
+    t_wall = time.time()
+    side = threading.Thread(target=spawn_others, daemon=True)
+    side.start()
+    ranks = mesh.spawn(sp_rank, SP, backend=PIPE_BACKEND, device="cuda",
+                       args=(by_world.get(SP, {}), params_np, batches),
+                       timeout_s=PIPE_DEADLINE_S)
+    t_full = time.perf_counter() - t0
+    t_full_end = time.time()
+    side.join()
+    if "error" in others:
+        raise others["error"]
+    print(f"model-axis spawns (s after the {SP}-rank spawn began; {SP_SHARED}): its ranks up at "
+          f"{[round(r['t_up'] - t_wall, 1) for r in ranks]}, full-width cell done at "
+          f"{[round(r['t_full_done'] - t_wall, 1) for r in ranks]}, done at "
+          f"{[round(r['t_done'] - t_wall, 1) for r in ranks]}, spawn returned at "
+          f"{t_full_end - t_wall:.1f}; " + "; ".join(
+              f"the {w}-rank spawn beside it: up at {[round(r['t_up'] - t_wall, 1) for r in got]}, "
+              f"done at {[round(r['t_done'] - t_wall, 1) for r in got]}, returned at "
+              f"{others['t_end'] - t_wall:.1f}" for w, got in others.items() if isinstance(w, int)))
+    sp1 = ranks[0]["sp1"]
+    print(f"model axis [{card}] qwen2-7b {SP_LAYERS} layers at full width, B = 1, S = {SP_SEQ} in "
+          f"chunks {sp1['chunks']}, sp = {SP} as {SP} ranks on one card over {PIPE_BACKEND} (every "
+          f"collective staged through pinned host memory), the default plan; sp = 1 (rank 0 "
+          f"alone, same weights): grads-call loss {sp1['loss']!r} in {sp1['grads_call_s']:.2f} s")
+    counts, summary = {}, {"sp1": sp1, "full_width_seconds": t_full}
+    kinds = ("model_all_gather", "model_reduce_scatter", "model_psum", "model_pmax")
+    for label in SP_MODES:
+        rows = [r[label] for r in ranks]
+        tot = {k: sum(r["per_step"][-1].get(k, 0) for r in rows) for k in rows[0]["per_step"][-1]
+               if not k.startswith(("copy_", "ctx_"))}
+        counts[label] = {k: sum(sum(s.get(k, 0) for s in r["per_step"]) for r in rows)
+                         for k in tot}
+        cmp = rows[0]["grads_vs_sp1"]
+        loss0 = rows[0]["loss0_grads_call"]
+        if cmp is not None:
+            check(abs(loss0 - sp1["loss"]) <= SP_LOSS_TOL * abs(sp1["loss"]),
+                  f"model axis [{label}] step-0 loss {loss0} vs sp = 1's {sp1['loss']} (tol "
+                  f"{SP_LOSS_TOL} relative)")
+            check(cmp["worst_rel_l2"] <= GRAD_PLAN_TOL,
+                  f"model axis [{label}] step-0 gradients differ from sp = 1's by "
+                  f"{cmp['worst_rel_l2']:.3e} relative L2 at the worst leaf (tol {GRAD_PLAN_TOL})")
+        for r, row in zip(ranks, rows):
+            cf = row["closed_form"]
+            gc = row["grads_call_counts"]
+            for kind in kinds if gc is not None else ():
+                calls, nbytes = row["closed_form_grads_call"][kind]
+                check(gc[f"ctx_{kind}_calls"] == calls and gc[f"ctx_{kind}_bytes"] == nbytes,
+                      f"model axis [{label}] rank {r['rank']} grads call: {kind} "
+                      f"{gc[f'ctx_{kind}_calls']} calls, {gc[f'ctx_{kind}_bytes']} bytes; closed "
+                      f"form {calls}, {nbytes}")
+            for step, c in enumerate(row["per_step"]):
+                want = row["launch_want"]
+                check(all(c[k] == v for k, v in want.items())
+                      and c["fwd"] == c["merge"] == c["bwd_dq"] == c["bwd_dkv"] == 0,
+                      f"model axis [{label}] rank {r['rank']} step {step} launched "
+                      f"{ {k: v for k, v in c.items() if not k.startswith(('copy_', 'ctx_'))} }; "
+                      f"expected {want}, no CUDA-core launch")
+                check(c["copy_d2h_bytes"] == c["copy_h2d_bytes"] == row["closed_form_d2h_bytes"]
+                      and c["copy_d2h_pinned"] == c["copy_d2h"] == c["copy_h2d"],
+                      f"model axis [{label}] rank {r['rank']} step {step} copied "
+                      f"{c['copy_d2h_bytes']} / {c['copy_h2d_bytes']} bytes; closed form "
+                      f"{row['closed_form_d2h_bytes']}, every host buffer pinned")
+                for kind in kinds:
+                    calls, nbytes = cf[kind]
+                    check(c[f"ctx_{kind}_calls"] == calls and c[f"ctx_{kind}_bytes"] == nbytes,
+                          f"model axis [{label}] rank {r['rank']} step {step}: {kind} "
+                          f"{c[f'ctx_{kind}_calls']} calls, {c[f'ctx_{kind}_bytes']} bytes; "
+                          f"closed form {calls}, {nbytes}")
+                check(c["ctx_model_reduce_bytes"] == cf["model_reduce"][1],
+                      f"model axis [{label}] rank {r['rank']} step {step}: replicated leaves' "
+                      f"gradients {c['ctx_model_reduce_bytes']} bytes; closed form "
+                      f"{cf['model_reduce'][1]}")
+            losses = row["losses"]
+            check(len(losses) == SP_STEPS and all(np.isfinite(losses)) and losses == rows[0]["losses"],
+                  f"model axis [{label}] rank {r['rank']} losses {losses} (rank 0 "
+                  f"{rows[0]['losses']})")
+            check(abs(losses[0] - sp1["loss"]) <= SP_LOSS_TOL * abs(sp1["loss"]),
+                  f"model axis [{label}] train step-0 loss {losses[0]} vs sp = 1's {sp1['loss']}")
+            last = row["per_step"][-1]
+            ms = [1e3 * x for x in row["step_s"]]
+            print(f"model axis [{label}] rank {r['rank']}: losses {losses}; step ms "
+                  f"{[round(x, 1) for x in ms]} ({SP_SHARED}); peak "
+                  f"{row['peak_bytes'] / gib:.2f} GiB (base {row['base_bytes'] / gib:.2f}); "
+                  + ("" if row["grads_call_s"] is None else
+                     f"grads call {row['grads_call_s']:.2f} s, peak "
+                     f"{row['grads_call_peak_over_weights'] / gib:.2f} GiB over the weights; ")
+                  + "; ".join(f"{kind[6:]} {last[f'ctx_{kind}_calls']} calls {last[f'ctx_{kind}_bytes']} "
+                              f"bytes (closed form {cf[kind][1]}) {1e3 * last[f'ctx_{kind}_s']:.1f} ms"
+                              for kind in kinds)
+                  + f"; replicated grads {last['ctx_model_reduce_bytes']} bytes "
+                  f"{1e3 * last['ctx_model_reduce_s']:.1f} ms ({SP_SHARED}); row copies "
+                  f"{last['copy_d2h_bytes']} bytes each way (closed form "
+                  f"{row['closed_form_d2h_bytes']}, α {[round(a, 4) for a in row['alphas']]}); "
+                  f"launches a step { {k: last[k] for k in row['launch_want']} }")
+        train0 = rows[0]["losses"][0]
+        print(f"model axis [{label}] step-0 loss: sp = 1 {sp1['loss']!r}, sp = {SP} train step 0 "
+              f"{train0!r} ({(train0 - sp1['loss']) / sp1['loss']:+.3e} relative)"
+              + ("" if cmp is None else
+                 f", grads call {loss0!r}; gradients gathered to full vs sp = 1: "
+                 f"{cmp['bitwise']} leaves bitwise, {len(cmp['differ'])} differ, worst relative "
+                 f"L2 {cmp['worst_rel_l2']:.3e} {cmp['differ'][:4]}"))
+        summary[label] = [{k: v for k, v in row.items() if k != "per_step"} for row in rows]
+    # the reduced fp32 layouts, each against the CPU's sp = 1 step
+    fp32 = {name: [r["fp32"][name] for r in ranks] for name in by_world.get(SP, {})}
+    for world, got in others.items():
+        if isinstance(world, int):
+            fp32.update({name: [r["layouts"][name] for r in got] for name in by_world[world]})
+    summary["fp32"] = {"side_spawn_seconds": others["t_end"] - t_wall}
+    for name, lay in SP_FP32_LAYOUTS.items():
+        franks = fp32[name]
+        cpu_loss, cpu_grads = cpu[name]
+        worst, loss_rel = 0.0, 0.0
+        spp = -(-cfg.n_layers // lay["pp"])
+        by = {}
+        for r in franks:
+            loss_rel = max(loss_rel, abs(r["loss"] - cpu_loss) / abs(cpu_loss))
+            by.setdefault((r["dp_index"], r["stage"]), []).append(r)
+            check(r["launched"] == r["launch_want"],
+                  f"model-axis fp32 [{name}] rank {r['rank']} launched {r['launched']}, expected "
+                  f"{r['launch_want']}")
+            c = r["copied"]
+            check(c["d2h_bytes"] == c["h2d_bytes"] and c["d2h_pinned"] == c["d2h"]
+                  and ("closed_form_d2h_bytes" not in r
+                       or c["d2h_bytes"] == r["closed_form_d2h_bytes"]),
+                  f"model-axis fp32 [{name}] rank {r['rank']} copied {c}; closed form "
+                  f"{r.get('closed_form_d2h_bytes')} bytes each way, pinned")
+            for kind, (calls, nbytes) in r.get("closed_form", {}).items():
+                if calls is not None:
+                    check(r["ctx_counts"][f"{kind}_calls"] == calls
+                          and r["ctx_counts"][f"{kind}_bytes"] == nbytes,
+                          f"model-axis fp32 [{name}] rank {r['rank']}: {kind} "
+                          f"{r['ctx_counts'][f'{kind}_calls']} calls "
+                          f"{r['ctx_counts'][f'{kind}_bytes']} bytes; closed form {calls}, {nbytes}")
+        for (g, stage), rs in by.items():
+            full = gather_model_shards([r["grads"] for r in sorted(rs, key=lambda x: x["model_index"])],
+                                       cfg)
+            for path, got in tree.items(full):
+                kind, rest = path.split("/", 1)
+                if kind == "stages":
+                    i, leaf = rest.split("/", 1)
+                    j = stage * spp + int(i)
+                    if j >= cfg.n_layers:
+                        check(not np.any(got), f"model-axis fp32 [{name}] ghost slot gradient")
+                        continue
+                    want = cpu_grads[f"stages/{j}/{leaf}"]
+                else:
+                    want = cpu_grads[path]
+                norm = np.linalg.norm(want)
+                if norm == 0:
+                    check(not np.any(got), f"model-axis fp32 [{name}] {path}: expected zeros")
+                    continue
+                worst = max(worst, float(np.linalg.norm(got - want) / norm))
+        drift = None
+        if "drift_of" in lay:
+            codec = lay["plan"]["offload_dtype"]
+
+            def flat(rs):
+                return (rs[0]["loss"], np.concatenate([
+                    np.asarray(a, np.float64).ravel()
+                    for r in sorted(rs, key=lambda x: x["rank"]) for a in tree.leaves(r["grads"])]))
+
+            (lc, gc), (lr, gr) = flat(franks), flat(fp32[lay["drift_of"]])
+            drift = (abs(lc - lr) / abs(lr), float(np.linalg.norm(gc - gr) / np.linalg.norm(gr)))
+            check(loss_rel <= GRAD_REL_TOL and drift[0] <= CODEC_LOSS_TOL
+                  and 1e-7 < drift[1] <= CODEC_GRAD_TOL[codec],
+                  f"model-axis fp32 [{name}]: loss {loss_rel:.3e} from the CPU's (tol "
+                  f"{GRAD_REL_TOL}); against [{lay['drift_of']}] loss drift {drift[0]:.3e} (tol "
+                  f"{CODEC_LOSS_TOL}), gradient drift {drift[1]:.3e} (in (1e-7, "
+                  f"{CODEC_GRAD_TOL[codec]}], the reference's codec law)")
+        else:
+            check(loss_rel <= GRAD_REL_TOL and worst <= GRAD_REL_TOL,
+                  f"model-axis fp32 [{name}] vs the CPU's sp = 1 step: loss {loss_rel:.3e}, "
+                  f"worst gradient relative L2 {worst:.3e} (tol {GRAD_REL_TOL})")
+        lc = {k: sum(r["launched"][k] for r in franks) for k in franks[0]["launched"]}
+        counts[f"fp32_{name}"] = lc
+        summary["fp32"][name] = {"loss_rel": loss_rel, "worst_grad_rel_l2": worst, "launches": lc,
+                                 "drift": drift,
+                                 "alphas": franks[0]["alphas"],
+                                 "d2h_bytes": [r["copied"]["d2h_bytes"] for r in franks]}
+        print(f"model-axis fp32 [{name}] {lay} on one card over {PIPE_BACKEND}: loss "
+              f"{franks[0]['loss']:.6f} vs the CPU's sp = 1 step {cpu_loss:.6f} (relative "
+              f"{loss_rel:.3e}), "
+              + ("" if drift is None else
+                 f"against [{lay['drift_of']}] loss drift {drift[0]:.3e}, gradient drift "
+                 f"{drift[1]:.3e}; ")
+              + f"worst gradient relative L2 {worst:.3e} (every leaf, gathered over the model "
+              f"ranks), launches by the closed form on every rank {lc}, row copies "
+              f"{summary['fp32'][name]['d2h_bytes']} bytes, α {franks[0]['alphas']}")
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"model-axis phase took {summary['seconds']:.1f} s (to the end of the {SP}-rank spawn, "
+          f"the full-width cell and its fp32 layout, {t_full:.1f} s; the four-rank fp32 layouts "
+          f"in a spawn beside it)")
+    return counts, summary
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2517,6 +3268,16 @@ def main():
         extra_measured.append(measure_bwd_shape(f"{arch} last chunk", fa, ref,
                                                 *g_in["last chunk"]))
         del g_in
+    # the model axis's shapes (sp = 2, the full-width cell's last chunk):
+    # gather_q, all of the chunk's queries over rank 1's gapped cache shard;
+    # gather_kv, rank 1's queries over both ranks' shards concatenated
+    ma_cell = model_axis_cell(runner, dataclasses.replace(cfg, n_layers=SP_LAYERS), SP_SEQ, 1,
+                              SP_CHUNKS)
+    for mode in SP_MODES:
+        args = model_axis_inputs(gen, ma_cell, ma_cell.sched.n - 1, mode, 1, torch.bfloat16)
+        extra_measured.append(measure_bwd_shape(f"model axis {mode} last chunk", fa, ref, *args))
+        del args
+    ma_fwd_err, ma_bwd_rel = model_axis_check_shapes(fa, ref, gen, runner, cfg)
     extra_fwd = [fwd for fwd, _ in extra_measured]
     extra_bwd = [bwd for _, bwd in extra_measured]
     del extra_measured
@@ -2582,8 +3343,10 @@ def main():
     packed_fp32, packed_fp32_counts = packed_cpu_check(fa, hostmem, serve, runner, cfg, card)
     config_counts, config_rows = config_phase(fa, hostmem, serve, runner, train_mod, card)
     print(f"packed and config phases took {time.perf_counter() - t_packed:.1f} s")
-    # ---- this slice's path: the multi-rank pipeline, its ranks sharing the card
+    # ---- the multi-rank pipeline, its ranks sharing the card
     pipe_counts, pipe_summary = pipeline_phase(fa, mesh, runner, card)
+    # ---- this slice's path: the model axis, its ranks sharing the card
+    ma_counts, ma_summary = model_axis_phase(fa, mesh, runner, card)
 
     tc_rows = [r["tensor_cores"] for r in rows]
     cc_rows = [r["cuda_cores"] for r in rows]
@@ -2599,9 +3362,12 @@ def main():
              "train_pad_to_max": packed_counts["pad_d"], "train_packed_fp32": packed_fp32_counts,
              **{f"train_{arch}": c for arch, c in config_counts.items()},
              "train_pipeline_pp2": pipe_counts["plain"], "train_pipeline_pp2_msp": pipe_counts["msp"],
-             **{f"train_pipeline_{k}": c for k, c in pipe_counts.items() if k.startswith("fp32_")}}
-    pipe_tc = ("train_pipeline_pp2", "train_pipeline_pp2_msp")
-    pipe_cc = tuple(f"train_pipeline_{k}" for k in pipe_counts if k.startswith("fp32_"))
+             **{f"train_pipeline_{k}": c for k, c in pipe_counts.items() if k.startswith("fp32_")},
+             **{f"train_model_axis_{k}": c for k, c in ma_counts.items()}}
+    pipe_tc = ("train_pipeline_pp2", "train_pipeline_pp2_msp",
+               *(f"train_model_axis_{k}" for k in SP_MODES))
+    pipe_cc = (*(f"train_pipeline_{k}" for k in pipe_counts if k.startswith("fp32_")),
+               *(f"train_model_axis_{k}" for k in ma_counts if k.startswith("fp32_")))
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
@@ -2633,6 +3399,7 @@ def main():
          "edge_grid_max_abs_err": grid_err["cuda_cores"],
          "fp32_check_shapes_max_abs_err": fp32_fwd_err,
          "fp32_packed_check_shapes_max_abs_err": fp32_packed_err,
+         "model_axis_check_shapes_max_abs_err": ma_fwd_err,
          "shapes": cc_rows + [r["cuda_cores"] for r in extra_fwd]},
         # the CUDA-core forward's split-KV merge (decode), launched by the
         # same wrapper call; its output is what the decode shape's check holds
@@ -2668,6 +3435,7 @@ def main():
             **({} if part.endswith("_tc") else {"fp32_check_shapes_max_rel_err": fp32_bwd_rel,
                                                 "fp32_packed_check_shapes_max_rel_err":
                                                     fp32_packed_rel}),
+            "model_axis_check_shapes_max_rel_err": ma_bwd_rel,
             "shapes": [r[part] for r in bwd_rows + extra_bwd]})
     summary = {"prefill_s_runs": pre_runs, "decode_s_runs": dec_runs,
                "prefill_s": pre_s, "prefill_tokens_per_s": BATCH * PREFILL_LEN / pre_s,
@@ -2677,6 +3445,7 @@ def main():
                **profile, **train_summary, "train_cpu_check_rel_l2": train_rel,
                **packed_summary, "packed_fp32_check": packed_fp32, "train_configs": config_rows,
                "train_chunks": list(train_cell.sched.lengths), "pipeline": pipe_summary,
+               "model_axis": ma_summary,
                "seconds": time.perf_counter() - t_start}
     print("summary:", json.dumps(summary))
     print(card)

@@ -201,21 +201,28 @@ class ParallelPlan:
     # decode-only: microbatch pipeline over batch dim when pp > 1
     decode_microbatch: int = 1
     # --- beyond-paper perf knobs (§Perf hillclimb; baseline keeps defaults)
-    # attn_mode: "gather_q" (paper-faithful flash-decoding merge) |
+    # attn_mode, the attention schedule over the model axis at sp > 1
+    # (models/attention.py):
+    #            "gather_q" (paper-faithful flash-decoding merge: all-gather
+    #              the chunk's queries, attend the local KV shard, merge the
+    #              partials with a pmax and two reduce-scatters) |
     #            "gather_kv" (all-gather the KV shard, no merge collectives)
     #            | "auto" (byte-count switch per call site)
     #            | "ring" (rotate KV blocks around the model axis via
     #              ppermute, fold per-hop partials in canonical source order
     #              — DESIGN.md §15; KV working set stays at two blocks, so
-    #              chunks whose visible KV exceeds one stage's HBM admit)
+    #              chunks whose visible KV exceeds one stage's HBM admit;
+    #              the port refuses it until ROADMAP Queue 1 item 4)
     #            | "local" (no attention collectives at all — executed only
     #              at sp == 1; in the cost model it prices full visible-KV
     #              residency per device, the mode the §15 memory model
     #              rejects for beyond-one-stage contexts)
     attn_mode: str = "gather_q"
     # cast the attention softmax-merge partials to bf16 before reduction
+    # (gather_q at sp > 1; no CLI flag: a plan override, as in the reference)
     merge_bf16: bool = False
-    # reduce-scatter weight gradients in bf16 (custom_vjp on the gather)
+    # reduce-scatter weight gradients in bf16 (the backward of the weights'
+    # all-gather at sp > 1; a plan override, as merge_bf16)
     grad_compress: bool = False
 
     def validate(self, data_size: int, model_size: int) -> None:

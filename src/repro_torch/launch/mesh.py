@@ -1,10 +1,11 @@
-"""The data axis's processes (port of ``repro/launch/mesh.py``).
+"""The mesh's processes (port of ``repro/launch/mesh.py``).
 
 The reference builds a JAX device mesh ``DATA x MODEL`` inside one program;
-here every rank of the data axis is a process (DESIGN.md §4):
+here every rank of the ``DATA x MODEL`` layout is a process (DESIGN.md §4;
+rank = data_index x MODEL + model_index, ``parallel/ctx.py``):
 
-- ``parse_mesh("DxM")``: the reference CLI's ``--mesh``; a model axis above
-  1 is refused (ROADMAP Queue 1, item 3);
+- ``parse_mesh("DxM")``: the reference CLI's ``--mesh``: D data ranks
+  (dp x pp) times M model ranks, a world of D x M;
 - ``init_from_env``: the process group of a ``torchrun`` launch, from its
   environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
   ``MASTER_PORT``);
@@ -15,8 +16,8 @@ here every rank of the data axis is a process (DESIGN.md §4):
   or a run that passes its deadline, fails the whole run: every process is
   stopped and ``spawn`` raises;
 - ``rank_device``: ``cuda:LOCAL_RANK`` under NCCL (a card per rank), the
-  caller's device for every rank under gloo (two ranks share one card; gloo
-  stages their transfers through host memory, ``parallel/ctx.py``).
+  caller's device for every rank under gloo (several ranks share one card;
+  gloo stages their transfers through host memory, ``parallel/ctx.py``).
 """
 from __future__ import annotations
 
@@ -29,19 +30,17 @@ import traceback
 
 import torch
 
-from repro_torch.parallel.ctx import _later, check_backend
+from repro_torch.parallel.ctx import check_backend
 
 
 def parse_mesh(text: str) -> tuple:
-    """``"DATAxMODEL"`` -> (data, model); a model axis above 1 raises."""
+    """``"DATAxMODEL"`` -> (data, model): the world is data x model ranks."""
     try:
         data, model = (int(x) for x in text.lower().split("x"))
     except ValueError:
         raise ValueError(f"--mesh {text!r}: expected DATAxMODEL, e.g. 2x1") from None
     if data < 1 or model < 1:
         raise ValueError(f"--mesh {text!r}: axes must be >= 1")
-    if model > 1:
-        raise _later(f"a model axis of {model} (--mesh {text})", 3)
     return data, model
 
 

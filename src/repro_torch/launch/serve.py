@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ShapeConfig, get_config
-from repro_torch.models.model_zoo import build_model
+from repro_torch.models.model_zoo import build_model, shard_params
 from repro_torch.parallel.runner import (make_prefill_step, make_serve_step,
                                          resolve_cell)
 
@@ -71,16 +71,18 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def build_params(cell, device="cuda", seed: int = 0, stage: int = 0):
+def build_params(cell, device="cuda", seed: int = 0, stage: int = 0, model_rank: int = 0):
     """Initialize the cell's parameters on ``device`` from ``seed``: pipeline
     stage ``stage`` of the plan's pp (the same tensors for its layers as pp =
-    1 draws) and the globals."""
+    1 draws) and the globals; at sp > 1 model rank ``model_rank``'s shard
+    of them (``model_zoo.shard_params``: drawn whole, then sliced)."""
     device = resolve_device(str(device))
     gen = torch.Generator(device=device).manual_seed(seed)
     mdef = cell.mdef
-    return {"stages": mdef.init_stage_params(gen, cell.dtype, device, stage=stage,
-                                             pp=cell.plan.pp),
-            "globals": mdef.init_globals(gen, cell.dtype, device)}
+    params = {"stages": mdef.init_stage_params(gen, cell.dtype, device, stage=stage,
+                                               pp=cell.plan.pp),
+              "globals": mdef.init_globals(gen, cell.dtype, device)}
+    return shard_params(params, mdef, cell.plan.sp, model_rank)
 
 
 def build_parser() -> argparse.ArgumentParser:

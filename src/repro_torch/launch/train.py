@@ -1,10 +1,13 @@
-"""Training CLI (port of ``repro/launch/train.py``), one device or a data axis of ranks.
+"""Training CLI (port of ``repro/launch/train.py``), one device or a mesh of ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \
       --reduced --steps 12 --seq 256 --batch 8 --device cpu
 
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --reduced --device cpu --mesh 2x1 --pp 2 --msp --seq 512 --n-chunks 4
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --reduced --device cpu --mesh 1x2 --seq 512 --n-chunks 2
 
 SPPO's chunked pipeline under the reference's default training plan: remat
 "sppo", sequence-aware activation offload to pinned host memory, each
@@ -21,19 +24,24 @@ Weights are random, drawn on the device from a seed.  It runs on the CUDA
 card; ``--device cpu`` runs the plain path on the CPU instead (the "host"
 copies are then CPU clones).
 
-Under ``torchrun --nproc-per-node D``, ``--mesh Dx1`` runs D ranks of the
-data axis: ``--pp P`` pipeline stages (dp = D / P groups), ``--msp
-[--msp-split K]`` the MSP ramp (DESIGN.md §2, §4; ``parallel/runner.py``).
-The process group runs NCCL on the card, which needs a card per rank and
-raises otherwise, and gloo with ``--device cpu``.  A caller that holds a
-process group of its own (``launch.mesh.spawn``, say gloo for ranks that
-share one card, their transfers staged through host memory) calls
+Under ``torchrun --nproc-per-node D*M``, ``--mesh DxM`` runs D ranks of
+the data axis times M of the model axis: ``--pp P`` pipeline stages (dp =
+D / P groups), ``--msp [--msp-split K]`` the MSP ramp (DESIGN.md §2, §4;
+``parallel/runner.py``), and at M > 1 each chunk sequence-sharded over the
+M model ranks, the weights gathered at use, the vocab-parallel loss and
+``--attn-mode gather_q|gather_kv|auto`` the attention schedule (default
+gather_q; ``local`` is sp = 1's).  ``merge_bf16`` and ``grad_compress`` are
+plan overrides of ``train()``, as in the reference, whose CLI has no flag
+for them.  The process group runs NCCL on the card, which needs a card per
+rank and raises otherwise, and gloo with ``--device cpu``.  A caller that
+holds a process group of its own (``launch.mesh.spawn``, say gloo for ranks
+that share one card, their transfers staged through host memory) calls
 ``train()``.
 
 The reference CLI's other flags belong to later slices of the port and are
-refused with the ROADMAP item that brings them (a model axis above 1 in
-``--mesh`` too).  ``train(cfg, ...)`` is the body, for callers that pass a
-config of their own (a depth-cut model), plan overrides (chip_smoke.py's
+refused with the ROADMAP item that brings them (``--attn-mode ring`` too:
+item 4).  ``train(cfg, ...)`` is the body, for callers that pass a config
+of their own (a depth-cut model), plan overrides (chip_smoke.py's
 ablations), a packed variable-length batch (``packed=``, DESIGN.md §13; the
 reference's CLI has no flag for one either) or a process group they already
 hold (``ctx=``, or an initialised ``torch.distributed``).
@@ -55,7 +63,7 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.serve import build_params, resolve_device
 from repro_torch.models.model_zoo import build_model
 from repro_torch.optim import adamw
-from repro_torch.parallel.ctx import Ctx, make_ctx
+from repro_torch.parallel.ctx import ATTN_MODES, Ctx, make_ctx
 from repro_torch.parallel.runner import make_train_step, resolve_cell
 from repro_torch.runtime.metrics import Meter
 
@@ -63,7 +71,6 @@ log = logging.getLogger("repro_torch.train")
 
 # flag -> (what it asks for, ROADMAP Queue 1 item that ports it)
 LATER = {
-    "attn_mode": ("sequence-parallel attention schedules", 3),
     "audit": ("the trace-time contract auditor", 7),
     "ckpt_dir": ("checkpointing", 7),
     "ckpt_every": ("checkpointing", 7),
@@ -99,15 +106,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--moments-dtype", default=None, choices=["none", "fp8", "int8"],
                     help="codec of the host moments (needs --offload-moments)")
     ap.add_argument("--mesh", default=None,
-                    help="DATAxMODEL ranks (MODEL 1): the torchrun world, e.g. 2x1")
+                    help="DATAxMODEL ranks, the torchrun world DATA x MODEL, e.g. 2x1 or 1x2")
     ap.add_argument("--pp", type=int, default=None,
                     help="pipeline stages of the data axis (dp = DATA / pp)")
     ap.add_argument("--msp", action="store_true",
                     help="multiplexed sequence partitioning, the ramp schedule (pp > 1)")
     ap.add_argument("--msp-split", type=int, default=2,
                     help="sub-chunks per MSP ramp chunk")
+    ap.add_argument("--attn-mode", default=None,
+                    help="attention schedule over the model axis: gather_q (default), "
+                         "gather_kv, auto, local (sp = 1); ring comes with a later slice")
     # the reference CLI's flags of later slices: refused when given
-    ap.add_argument("--attn-mode", default=None)
     ap.add_argument("--audit", action="store_true", default=None)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=None)
@@ -116,6 +125,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_later_flags(ap, args):
+    if args.attn_mode == "ring":
+        ap.error("--attn-mode ring: ring attention over the model axis comes with a later "
+                 "slice of the port (ROADMAP Queue 1, item 4)")
+    if args.attn_mode is not None and args.attn_mode not in ATTN_MODES:
+        ap.error(f"--attn-mode {args.attn_mode!r}: expected one of {ATTN_MODES}")
     for dest, (what, item) in LATER.items():
         val = getattr(args, dest)
         if val is None:
@@ -130,11 +144,13 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
           packed=None, ctx: Ctx = None):
     """Train ``cfg`` for ``steps`` steps on ``device``.
 
-    Over a data axis of ranks, each rank calls ``train`` with the same
+    Over a mesh of ranks, each rank calls ``train`` with the same
     arguments: ``ctx`` (``parallel/ctx.py``), or else the initialised
     ``torch.distributed`` process group (``launch.mesh``), gives the ranks;
-    ``overrides`` name ``pp`` (default 1: dp = the ranks), ``msp``,
-    ``msp_split``.  Each rank builds its stage of the seed's weights, takes
+    ``overrides`` name ``sp`` (the model axis, default 1), ``pp`` (default
+    1: dp = the ranks / (pp sp)), ``msp``, ``msp_split``, and at sp > 1
+    ``attn_mode``, ``merge_bf16``, ``grad_compress``.  Each rank builds its
+    stage of the seed's weights (at sp > 1 its model shard of them), takes
     its dp group's rows of the batch, and meters tokens/s per GPU (the
     step's tokens over the ranks).
 
@@ -165,10 +181,10 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
         world = dist.get_world_size() if dist.is_initialized() else 1
     else:
         world = ctx.world
-    pp = (overrides or {}).get("pp", 1)
-    if world % pp:
-        raise ValueError(f"pp = {pp} does not divide the {world} ranks")
-    overrides = {**dict(pp=1, dp=world // pp), **(overrides or {})}
+    pp, sp = (overrides or {}).get("pp", 1), (overrides or {}).get("sp", 1)
+    if world % (pp * sp):
+        raise ValueError(f"pp x sp = {pp} x {sp} does not divide the {world} ranks")
+    overrides = {**dict(pp=1, dp=world // (pp * sp)), **(overrides or {})}
     if n_chunks:
         overrides["n_chunks"] = n_chunks
     doc_lens = None
@@ -177,13 +193,15 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
             raise ValueError(f"packed batch {packed.tokens.shape} is not [{batch}, {seq}]")
         doc_lens = [end - start for _, start, end, _ in sorted(packed.spans, key=lambda s: s[3])]
     cell = resolve_cell(mdef, ShapeConfig("cli_train", seq, batch, "train"),
-                        overrides=overrides, doc_lens=doc_lens, data_size=world)
+                        overrides=overrides, doc_lens=doc_lens, data_size=world // sp,
+                        model_size=sp)
     if ctx is None:
         ctx = make_ctx(cell.plan, device=dev)
     log.info("plan: %s  chunks=%s alphas=%s", cell.plan, cell.sched.lengths,
              [round(a, 3) for a in cell.alphas])
 
-    params = build_params(cell, dev, seed=0, stage=ctx.stage_index())
+    params = build_params(cell, dev, seed=0, stage=ctx.stage_index(),
+                          model_rank=ctx.model_index())
     plan = cell.plan
     opt_state = adamw.init_state(params, offload_moments=plan.offload_moments,
                                  moments_dtype=plan.moments_dtype,
@@ -246,8 +264,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     _refuse_later_flags(ap, args)
     try:
-        data, _ = mesh_mod.parse_mesh(args.mesh) if args.mesh else (None, 1)
-    except (ValueError, NotImplementedError) as err:
+        data, model = mesh_mod.parse_mesh(args.mesh) if args.mesh else (None, 1)
+    except ValueError as err:
         ap.error(f"--mesh: {err}")
     pp = args.pp or 1
     if args.msp and pp == 1:
@@ -257,24 +275,30 @@ def main(argv=None):
     import torch.distributed as dist
 
     device = args.device
-    if (data or 1) > 1 or pp > 1:
+    if (data or 1) * model > 1 or pp > 1:
         if not dist.is_initialized():
             if "RANK" not in os.environ:
                 ap.error("--mesh / --pp over several ranks: run under torchrun "
-                         "--nproc-per-node DATA (or hold a process group and call train())")
+                         "--nproc-per-node DATA*MODEL (or hold a process group and call "
+                         "train())")
             backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
             _, _, device = mesh_mod.init_from_env(backend, device)
         world = dist.get_world_size()
-        if data is not None and data != world:
-            ap.error(f"--mesh {args.mesh}: {data} data ranks, but the process group has {world}")
-        if world % pp:
-            ap.error(f"--pp {pp} does not divide the {world} ranks")
+        if data is not None and data * model != world:
+            ap.error(f"--mesh {args.mesh}: {data} x {model} ranks, but the process group "
+                     f"has {world}")
+        if (world // model) % pp:
+            ap.error(f"--pp {pp} does not divide the {world // model} data ranks")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     overrides = {}
     if pp > 1:
         overrides["pp"] = pp
+    if model > 1:
+        overrides["sp"] = model
+    if args.attn_mode is not None:
+        overrides["attn_mode"] = args.attn_mode
     if args.msp:
         overrides.update(msp=True, msp_split=args.msp_split)
     if args.no_offload:

@@ -1,11 +1,28 @@
 """GQA attention blocks over the position-tagged KV cache (port of
-``repro/models/attention.py``, single-device path).
+``repro/models/attention.py``).
 
 The cache is position-tagged: every slot carries its global token position
 (PAD = 2**30 for empty slots), so causality across prefill chunks and decode
-steps is the same kernel call with different positions.  At sp = 1 the
-reference's cross-shard merge multiplies by exp(m - m) = 1 and is the
-identity, so attention is one ``attention_partial`` call and a normalize.
+steps is the same kernel call with different positions.  At sp = 1
+attention is one ``attention_partial`` call and a normalize.
+
+At sp > 1 (DESIGN.md §4) the activations and the cache are sequence-sharded
+over the model axis (``parallel/ctx.py``): model rank r holds rows ``[off +
+r * T / sp, off + (r + 1) * T / sp)`` of a chunk at ``off`` and their K/V
+at its cache slots ``[off / sp, (off + T) / sp)``, so its slots ascend with
+gaps and, gathered over the ranks, do not ascend at all.  Nothing here
+assumes contiguous positions: the kernels read every slot's position.  The
+plan's ``attn_mode`` picks the schedule (reference ``attention.py:71-145``):
+
+- "gather_q" (the default): all-gather the chunk's queries, their positions
+  and document windows, attend the local cache shard, and merge the
+  partial softmax statistics: a gradient-frozen max over the model group,
+  rescaled o and l reduce-scattered back to each rank's rows (o in bf16
+  under ``merge_bf16``);
+- "gather_kv": all-gather the local K/V shard and its positions; each rank
+  then attends its own queries with no merge;
+- "auto": the reference's byte count between the two;
+- "local": sp = 1 only.  "ring" comes with ROADMAP Queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -16,6 +33,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.parallel.ctx import SINGLE
 
 PAD = 2**30
 
@@ -52,17 +70,64 @@ def cache_append(cache: KVCache, k_new, v_new, pos_new, offset: int) -> KVCache:
     return cache
 
 
-def dist_attention(q, k_loc, v_loc, q_pos, kv_pos, *, causal=True, scale=None,
+def _pick_mode(ctx, q, k_loc, kv_view) -> str:
+    """The plan's schedule at sp > 1; "auto" is the reference's byte count:
+    gathering the KV shard moves ~(k + v) bytes, the gather-q merge q (bf16)
+    and o (fp32), so narrow GQA caches of short chunks gather KV."""
+    if ctx.sp == 1:
+        return "local"
+    if ctx.attn_mode != "auto":
+        return ctx.attn_mode
+    _, Tq, H, hdk = q.shape
+    kv_len = kv_view if kv_view is not None else k_loc.shape[1]
+    kv_bytes = 2 * kv_len * k_loc.shape[2] * k_loc.shape[-1] * 2
+    q_bytes = Tq * H * hdk * (2 + 4)
+    return "gather_kv" if kv_bytes < q_bytes else "gather_q"
+
+
+def _merge(o, m, l, ctx):
+    """The gather-q merge of every rank's partial (o, m, l) over the chunk's
+    queries: the max's pmax (gradient-frozen), o and l rescaled by exp(m -
+    max) and reduce-scattered to each rank's query rows, normalized."""
+    m = m.detach()
+    alpha = torch.exp(m - ctx.pmax_model(m))
+    o_s = o * alpha[..., None]
+    if ctx.merge_bf16:
+        o_s = o_s.to(torch.bfloat16)
+    o = ctx.reduce_scatter_model(o_s, axis=1).float()
+    l = ctx.reduce_scatter_model(l * alpha, axis=1)
+    return o / l.clamp_min(1e-30)[..., None]
+
+
+def _gather_queries(q, q_pos, q_start, ctx):
+    """Under gather_q, the chunk's queries of every rank (differentiable)
+    with their positions and document windows."""
+    qp = ctx.gather(q_pos, q_pos.dim() - 1)
+    qs = None if q_start is None else ctx.gather(q_start, 1)
+    return ctx.all_gather_model(q, axis=1), qp, qs
+
+
+def dist_attention(q, k_loc, v_loc, q_pos, kv_pos, ctx=SINGLE, *, causal=True, scale=None,
                    kv_view=None, q_start=None):
-    """q: [B, Tq, H, hd]; k_loc/v_loc/kv_pos: the cache.  ``kv_view`` is the
-    number of leading cache slots to attend over (a strided prefix view, no
-    copy; None = the whole buffer).  ``q_start``: optional [B, Tq] int32
-    document window of a packed batch: each query sees only the slots with
-    kv_pos >= its document's start (PAD_START on padding rows).  Returns [B,
-    Tq, H, hd_v] in q's dtype."""
+    """q: [B, Tq, H, hd] this rank's queries; k_loc/v_loc/kv_pos: its cache
+    shard.  ``kv_view`` is the number of leading cache slots to attend over
+    (a strided prefix view, no copy; None = the whole buffer).  ``q_start``:
+    optional [B, Tq] int32 document window of a packed batch: each query
+    sees only the slots with kv_pos >= its document's start (PAD_START on
+    padding rows).  At sp > 1 the schedule is ``ctx``'s (module docstring).
+    Returns [B, Tq, H, hd_v] in q's dtype."""
     if kv_view is not None:
         k_loc, v_loc, kv_pos = (k_loc[:, :kv_view], v_loc[:, :kv_view],
                                 kv_pos[:kv_view])
+    mode = _pick_mode(ctx, q, k_loc, kv_view)
+    if mode == "gather_q":
+        q_full, qp, qs = _gather_queries(q, q_pos, q_start, ctx)
+        o, m, l = kops.attention_partial(q_full, k_loc, v_loc, qp, kv_pos, causal=causal,
+                                         scale=scale, q_start=qs)
+        return _merge(o, m, l, ctx).to(q.dtype)
+    if mode == "gather_kv":
+        k_loc, v_loc = ctx.all_gather_model(k_loc, axis=1), ctx.all_gather_model(v_loc, axis=1)
+        kv_pos = ctx.gather(kv_pos, 0)
     o, m, l = kops.attention_partial(q, k_loc, v_loc, q_pos, kv_pos,
                                      causal=causal, scale=scale, q_start=q_start)
     out = o / l.clamp_min(1e-30)[..., None]
@@ -73,18 +138,22 @@ class _ChunkAttention(torch.autograd.Function):
     """One chunk's queries against the cache prefix that holds every chunk
     so far, differentiable in q and in each chunk's (k, v).
 
-    ``apply(q, q_pos, q_start, cache, kv_view, causal, k_0, ..., k_c, v_0,
-    ..., v_c)`` writes chunk c's k, v and positions into the buffer (the
-    other chunks are there already), runs the partial attention on the
-    prefix view ``[:kv_view]`` under the chunk's document window
-    ``q_start`` ([B, T] int32, or None) and returns (o, m, l).  The
-    backward splits the view's dk, dv by chunk length; autograd sums each
-    chunk's share over every later chunk that attended it.  Nothing is
-    copied: the buffer holds O(S) K/V per layer, as in serving.
+    ``apply(q, q_pos, q_start, kv_pos, cache, kv_view, causal, gather, k_0,
+    ..., k_c, v_0, ..., v_c)`` writes chunk c's k, v and their positions
+    ``kv_pos`` into the buffer (the other chunks are there already), runs
+    the partial attention of the queries at ``q_pos`` on the prefix view
+    ``[:kv_view]`` under the document window ``q_start`` ([B, Tq] int32, or
+    None) and returns (o, m, l).  With ``gather`` (a model-axis context,
+    the gather_kv schedule) the view is first all-gathered over the model
+    group, with its positions, and the backward reduce-scatters its dk, dv
+    back to this rank's slots.  The backward splits the view's dk, dv by
+    chunk length; autograd sums each chunk's share over every later chunk
+    that attended it.  Nothing of the local buffer is copied: it holds O(S /
+    sp) K/V per layer, as in serving.
     """
 
     @staticmethod
-    def forward(ctx, q, q_pos, q_start, cache, kv_view, causal, *kvs):
+    def forward(ctx, q, q_pos, q_start, kv_pos, cache, kv_view, causal, gather, *kvs):
         n = len(kvs) // 2
         k_c, v_c = kvs[n - 1], kvs[-1]
         lengths = [k.shape[1] for k in kvs[:n]]
@@ -94,9 +163,13 @@ class _ChunkAttention(torch.autograd.Function):
         off = kv_view - lengths[-1]
         cache.k[:, off:kv_view] = k_c
         cache.v[:, off:kv_view] = v_c
-        cache.pos[off:kv_view] = q_pos
+        cache.pos[off:kv_view] = kv_pos
         scale = 1.0 / (q.shape[-1] ** 0.5)
         k, v, pos = cache.k[:, :kv_view], cache.v[:, :kv_view], cache.pos[:kv_view]
+        ctx.gathered = None
+        if gather is not None:
+            k, v, pos = gather.gather(k, 1), gather.gather(v, 1), gather.gather(pos, 0)
+            ctx.gathered = (k, v, pos)
         o, m, l = fa.partial_forward(q, k, v, q_pos, pos, q_start, causal=causal,
                                      scale=scale)
         # the window is the chunk's own slice, not part of the shared buffer
@@ -104,7 +177,7 @@ class _ChunkAttention(torch.autograd.Function):
         # The buffer is kept on ctx, not saved: later chunks write it in place,
         # which would fail save_for_backward's version check, but they write
         # only slots >= kv_view, so this view reads back unchanged.
-        ctx.cache, ctx.kv_view, ctx.lengths = cache, kv_view, lengths
+        ctx.cache, ctx.kv_view, ctx.lengths, ctx.gather = cache, kv_view, lengths, gather
         ctx.opts = dict(causal=causal, scale=scale)
         ctx.mark_non_differentiable(m)
         return o, m, l
@@ -113,11 +186,14 @@ class _ChunkAttention(torch.autograd.Function):
     def backward(ctx, do, _dm, dl):
         q, q_pos, m, q_start = ctx.saved_tensors
         c, n = ctx.cache, ctx.kv_view
-        dq, dk, dv = fa.partial_backward(q, c.k[:, :n], c.v[:, :n], q_pos,
-                                         c.pos[:n], q_start, do, m, dl, **ctx.opts)
+        k, v, pos = ctx.gathered or (c.k[:, :n], c.v[:, :n], c.pos[:n])
+        ctx.gathered = None
+        dq, dk, dv = fa.partial_backward(q, k, v, q_pos, pos, q_start, do, m, dl, **ctx.opts)
+        if ctx.gather is not None:
+            dk, dv = ctx.gather.scatter_sum(dk, 1), ctx.gather.scatter_sum(dv, 1)
         dks = [d.to(c.k.dtype) for d in dk.split(ctx.lengths, dim=1)]
         dvs = [d.to(c.v.dtype) for d in dv.split(ctx.lengths, dim=1)]
-        return (dq.to(q.dtype), None, None, None, None, None, *dks, *dvs)
+        return (dq.to(q.dtype), None, None, None, None, None, None, None, *dks, *dvs)
 
 
 def truncate_chunks(cache: KVCache, offset: int) -> None:
@@ -139,23 +215,31 @@ def truncate_chunks(cache: KVCache, offset: int) -> None:
 
 
 def chunk_attention(q, k, v, q_pos, cache: KVCache, cache_offset: int,
-                    kv_view: int, *, causal=True, q_start=None):
+                    kv_view: int, *, causal=True, q_start=None, ctx=SINGLE):
     """Training counterpart of ``cache_append`` + ``dist_attention``: puts
     the chunk's (k, v) in the cache's chunk list, after the chunks that end
     at ``cache_offset`` (``truncate_chunks``: a re-run chunk replaces its
     entry), and attends the first ``kv_view`` slots through
     ``_ChunkAttention``, under the document window ``q_start`` where given.
     The chunks must tile the slots in order: this chunk lands at
-    ``cache_offset = kv_view - T``."""
+    ``cache_offset = kv_view - T``.  At sp > 1 the cache is this rank's
+    shard and the schedule ``ctx``'s (module docstring)."""
     if cache_offset != kv_view - k.shape[1]:
         raise ValueError(f"a training chunk of {k.shape[1]} tokens at slot "
                          f"{cache_offset} must end the view of {kv_view} slots")
     truncate_chunks(cache, cache_offset)
     cache.chunks.append((k.to(cache.k.dtype), v.to(cache.v.dtype)))
     ks, vs = zip(*cache.chunks)
+    q_pos = q_pos.to(torch.int32)
     qs = None if q_start is None else q_start.to(torch.int32)
-    o, _, l = _ChunkAttention.apply(q, q_pos.to(torch.int32), qs, cache, kv_view,
-                                    causal, *ks, *vs)
+    mode = _pick_mode(ctx, q, cache.k, kv_view)
+    if mode == "gather_q":
+        q_full, qp, qs_full = _gather_queries(q, q_pos, qs, ctx)
+        o, m, l = _ChunkAttention.apply(q_full, qp, qs_full, q_pos, cache, kv_view, causal,
+                                        None, *ks, *vs)
+        return _merge(o, m, l, ctx).to(q.dtype)
+    o, _, l = _ChunkAttention.apply(q, q_pos, qs, q_pos, cache, kv_view, causal,
+                                    ctx if mode == "gather_kv" else None, *ks, *vs)
     return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
@@ -210,7 +294,7 @@ class _SavedQKV(torch.autograd.Function):
 
 
 def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
-                       kv_view, rope, *, name_tag=None, q_start=None):
+                       kv_view, rope, *, name_tag=None, q_start=None, ctx=SINGLE):
     """x: [B, T, d]; q_pos: [T] global positions of the tokens, whose KV
     lands at slot ``cache_offset``; they attend the first ``kv_view`` slots
     (a prefill chunk) or, with ``kv_view=None``, the whole buffer, empty
@@ -222,8 +306,9 @@ def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
     applied to q, k and v after RoPE and to the attention output before
     ``@ wo``: the tag sites of SPPO's offload (core/offload.py), as in the
     reference.  A replay's tag (``replay`` true) hands out the saved q, k
-    and v, which are then not recomputed.  Returns (attn_out [B, T, d],
-    cache)."""
+    and v, which are then not recomputed.  At sp > 1 x, q_pos and q_start
+    are this model rank's rows and ``cache`` its shard (``ctx``, module
+    docstring).  Returns (attn_out [B, T, d], cache)."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     if name_tag is not None and name_tag.replay:
@@ -236,13 +321,13 @@ def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
             q, k, v = name_tag(q), name_tag(k), name_tag(v)
     if cache.chunks is not None:
         out = chunk_attention(q, k, v, q_pos, cache, cache_offset, kv_view,
-                              q_start=q_start)
+                              q_start=q_start, ctx=ctx)
         out = out.reshape(B, T, H * hd)
         if name_tag is not None:
             out = name_tag(out)
         return out @ p["wo"], cache
     cache = cache_append(cache, k, v, q_pos, cache_offset)
-    out = dist_attention(q, cache.k, cache.v, q_pos, cache.pos, causal=True,
+    out = dist_attention(q, cache.k, cache.v, q_pos, cache.pos, ctx, causal=True,
                          kv_view=kv_view, q_start=q_start).reshape(B, T, H * hd)
     if name_tag is not None:
         out = name_tag(out)

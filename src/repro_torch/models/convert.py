@@ -9,6 +9,11 @@ stage s of P: slots ``[s * spp, (s + 1) * spp)`` of that stack, ghost slots
 (``model_zoo.ghost_slot``: gate 0) appended past the last layer, as the
 reference's ``init_stage_params(rng, s, P)`` pads its stages.
 
+With ``sp=P, model_rank=r`` every leaf is model rank r's shard of P along
+its marker's dim (``model_zoo.shard_leaf``; replicated leaves whole), and
+``gather_model_shards`` is the inverse: the P ranks' trees (of gradients,
+say) back to full leaves.
+
 The caller passes float32 arrays: ``np.asarray`` of a JAX bf16 array is an
 ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` refuses.  The cast to
 the model dtype happens here, on the torch side, and is exact for values
@@ -19,8 +24,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import tree as tree_mod
 from repro_torch.core.tree import leaves
-from repro_torch.models.model_zoo import ghost_slot
+from repro_torch.models.model_zoo import (build_model, ghost_slot, marker_dim, param_markers,
+                                         shard_params)
 
 
 def _tensor(a, name: str, dtype, device):
@@ -39,9 +46,9 @@ def _map(tree, fn, prefix=""):
 
 
 def params_from_numpy(tree, *, dtype=torch.bfloat16, device="cuda", stage: int = 0,
-                      pp: int = 1, cfg=None):
-    """``cfg`` (the model's config) is needed only where stage ``stage``
-    of ``pp`` has ghost slots."""
+                      pp: int = 1, cfg=None, sp: int = 1, model_rank: int = 0):
+    """``cfg`` (the model's config) is needed where stage ``stage`` of
+    ``pp`` has ghost slots and at ``sp`` > 1 (its markers)."""
     stages = tree["stages"]
     n_slots = {np.shape(a)[0] for a in leaves(stages)}
     if len(n_slots) != 1:
@@ -59,4 +66,32 @@ def params_from_numpy(tree, *, dtype=torch.bfloat16, device="cuda", stage: int =
                              "slot(s): pass cfg")
         slots += [ghost_slot(cfg, dtype, device) for _ in range(spp - len(slots))]
     glob = _map(tree["globals"], lambda a, name: _tensor(a, name, dtype, device))
-    return {"stages": slots, "globals": glob}
+    params = {"stages": slots, "globals": glob}
+    if sp == 1:
+        return params
+    if cfg is None:
+        raise ValueError(f"model rank {model_rank} of {sp}: pass cfg (its shard markers)")
+    if not 0 <= model_rank < sp:
+        raise ValueError(f"model rank {model_rank} outside [0, {sp})")
+    return shard_params(params, build_model(cfg), sp, model_rank)
+
+
+def gather_model_shards(rank_trees, cfg):
+    """The inverse of ``params_from_numpy(sp=, model_rank=)``: ``rank_trees``,
+    one tree a model rank in rank order (a stage's slots and the globals,
+    numpy arrays or tensors), concatenated along each leaf's marker dim;
+    a replicated leaf is rank 0's."""
+    first = rank_trees[0]
+    flat = [tree_mod.leaves(t) for t in rank_trees]
+    marks = iter(tree_mod.leaves(param_markers(build_model(cfg), first)))
+    out = []
+    for parts in zip(*flat):
+        dim = marker_dim(next(marks))
+        if dim is None:
+            out.append(parts[0])
+        elif isinstance(parts[0], torch.Tensor):
+            out.append(torch.cat(parts, dim=dim))
+        else:
+            out.append(np.concatenate(parts, axis=dim))
+    it = iter(out)
+    return tree_mod.map_(lambda _: next(it), first)

@@ -3,13 +3,16 @@
 Conventions kept from the reference so the parity tests compare like with
 like: weights are ``[in, out]`` and applied as ``x @ W``; norm math runs in
 fp32 and returns the input dtype; matmul inputs and outputs stay in the
-model dtype.  The port runs at sp = 1, so the reference's vocab-parallel
-collectives reduce to the single-shard case.
+model dtype.  The embedding and the loss are the reference's vocab-parallel
+ones over the model axis of a ``parallel/ctx.py::Ctx`` (its collectives are
+the identity at sp = 1).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.ctx import SINGLE
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -124,19 +127,23 @@ def pad_vocab(v: int, multiple: int = 128) -> int:
     return (v + multiple - 1) // multiple * multiple
 
 
-def embed_tokens(ids, table, *, out_dtype=torch.bfloat16):
-    """ids: [B, T] token ids; table: [Vp, d].  Returns [B, T, d]; ids outside
-    the table give zero rows and no gradient, as the reference's masked
-    gather does.
+def embed_tokens(ids, table, ctx=SINGLE, *, out_dtype=torch.bfloat16):
+    """ids: [B, T] the chunk's token ids; table: [Vp / sp, d] this model
+    rank's rows of the vocab.  Returns this rank's sequence shard [B, T /
+    sp, d]: a masked local gather (ids outside the rank's rows give zero
+    rows and no gradient), then one reduce-scatter over the sequence (half
+    the bytes of a psum; reference ``layers.py:127-140``).
 
     The gather is ``F.embedding``: its CUDA backward reduces each id's rows
     in a fixed order, so the table's gradient is bitwise the same from run
     to run (``index_select``'s backward adds repeated ids' rows with
     atomics, in an order that varies)."""
-    vp = table.shape[0]
-    idx = ids.clamp(0, vp - 1)
-    hit = ((ids >= 0) & (ids < vp))[..., None]
-    return torch.where(hit, F.embedding(idx, table), 0).to(out_dtype)
+    vloc = table.shape[0]
+    lo = ctx.model_index() * vloc
+    idx = (ids - lo).clamp(0, vloc - 1)
+    hit = ((ids >= lo) & (ids < lo + vloc))[..., None]
+    out = torch.where(hit, F.embedding(idx, table), 0).to(out_dtype)
+    return ctx.reduce_scatter_model(out, axis=1)
 
 
 # ---------------------------------------------------------------------------
@@ -144,22 +151,28 @@ def embed_tokens(ids, table, *, out_dtype=torch.bfloat16):
 # ---------------------------------------------------------------------------
 
 
-def vocab_parallel_xent(x, head, labels, mask, *, real_vocab: int):
-    """The reference's vocab-parallel cross entropy at one vocab shard.
+def vocab_parallel_xent(x, head, labels, mask, ctx=SINGLE, *, real_vocab: int):
+    """The reference's vocab-parallel cross entropy (``layers.py:148-176``).
 
-    x: [B, T, d]; head: [d, Vp]; labels, mask: [B, T].  Logits are fp32 with
-    the padded vocab columns masked to -1e30; the row max is
-    gradient-frozen (it cancels in the softmax ratio).  Returns
-    (sum of (log l + m - logit[label]) * mask, sum of mask); a label outside
-    the table contributes no logit, as in the reference's masked pick."""
-    logits = (x @ head).float()                                # [B, T, Vp]
-    vp = logits.shape[-1]
-    col = torch.arange(vp, device=logits.device)
+    x: [B, T / sp, d] this model rank's sequence shard; head: [d, Vp / sp]
+    its vocab columns; labels, mask: [B, T], the chunk's.  x is all-gathered
+    over the sequence, the local logits are fp32 with the padded vocab
+    columns masked to -1e30, and the row max (gradient-frozen: it cancels
+    in the softmax ratio), the softmax sum and the picked logit are reduced
+    over the model axis, so no rank holds the full-vocab logits.  Returns
+    (sum of (log l + m - logit[label]) * mask, sum of mask), the same on
+    every model rank; a label outside the table contributes no logit, as in
+    the reference's masked pick."""
+    x = ctx.all_gather_model(x, axis=1)                          # [B, T, d]
+    logits = (x @ head).float()                                  # [B, T, Vp / sp]
+    vloc = logits.shape[-1]
+    lo = ctx.model_index() * vloc
+    col = lo + torch.arange(vloc, device=logits.device)
     logits = torch.where(col < real_vocab, logits, -1e30)
-    m = logits.detach().amax(dim=-1)
-    l = torch.exp(logits - m[..., None]).sum(dim=-1)         # [B, T]
-    idx = labels.clamp(0, vp - 1).long()
+    m = ctx.pmax_model(logits.detach().amax(dim=-1))
+    l = ctx.psum_model(torch.exp(logits - m[..., None]).sum(dim=-1))   # [B, T]
+    idx = (labels - lo).clamp(0, vloc - 1).long()
     picked = logits.gather(-1, idx[..., None])[..., 0]
-    hit = torch.where((labels >= 0) & (labels < vp), picked, 0.0)
+    hit = ctx.psum_model(torch.where((labels >= lo) & (labels < lo + vloc), picked, 0.0))
     tok_loss = (torch.log(l) + m - hit) * mask
     return tok_loss.sum(), mask.sum()

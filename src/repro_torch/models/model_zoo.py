@@ -9,6 +9,18 @@ Init draws from an explicit ``torch.Generator`` with the reference's
 distributions (truncated normal at +-2 sigma, the same standard deviations,
 zero biases, zero RMSNorm scales), not its bits.  Values are drawn in fp32
 and cast to the model dtype, as the reference does.
+
+Shard-dim markers (the reference's, leaves of a tree mirroring the params):
+
+- int d: "ag", stored sharded on dim d over the model axis, all-gathered
+  at each use (``transformer.gather_params``);
+- ``"keepN"``: stored and used sharded on dim N (the embedding table on
+  the vocab, the head's vocab columns);
+- ``"rep"``: replicated over the model axis; each model rank's gradient is
+  its own shard's, summed over the model group by the runner.
+
+The markers describe one slot's (or one global leaf's) layout; a model
+rank holds slice ``rank`` of ``sp`` of every marked dim (``shard_params``).
 """
 from __future__ import annotations
 
@@ -22,6 +34,7 @@ from repro_torch.core import tree
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel.ctx import SINGLE
 
 
 def trunc_normal(gen, shape, std, dtype, device):
@@ -69,6 +82,87 @@ def _mlp(gen, cfg, dtype, device, out_scale=1.0):
         p["b1"] = torch.zeros((ff,), dtype=dtype, device=device)
         p["b2"] = torch.zeros((d,), dtype=dtype, device=device)
     return p
+
+
+def keep(d: int) -> str:
+    return f"keep{d}"
+
+
+def _norm_spec(cfg):
+    if cfg.norm == "rmsnorm":
+        return {"scale": "rep"}
+    return {"scale": "rep", "bias": "rep"}
+
+
+def _attn_spec(cfg):
+    s = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+    if cfg.qkv_bias:
+        s.update({"bq": "rep", "bk": "rep", "bv": "rep"})
+    return s
+
+
+def _mlp_spec(cfg):
+    s = {"w1": 1, "w2": 0}
+    if cfg.act in ("swiglu", "geglu"):
+        s["w3"] = 1
+    elif cfg.mlp_bias:
+        s.update({"b1": "rep", "b2": "rep"})
+    return s
+
+
+def slot_spec(cfg: ModelConfig):
+    """The markers of one dense slot (reference ``slot_spec``)."""
+    return {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg), "attn": _attn_spec(cfg),
+            "mlp": _mlp_spec(cfg), "gate": "rep"}
+
+
+def globals_spec(cfg: ModelConfig):
+    """The globals' markers (reference ``globals_spec``, untied head)."""
+    return {"embed": {"table": keep(0)}, "final_norm": _norm_spec(cfg),
+            "head": {"w": keep(1)}}
+
+
+def marker_dim(marker):
+    """The sharded dim of a marker, None for "rep" (the reference's
+    ``parallel/specs.py::_marker_spec`` without its ``NamedSharding``)."""
+    if isinstance(marker, int):
+        return marker
+    if isinstance(marker, str) and marker.startswith("keep"):
+        return int(marker[4:])
+    if marker == "rep":
+        return None
+    raise ValueError(f"unknown shard marker {marker!r}")
+
+
+def shard_leaf(t, marker, sp: int, rank: int):
+    """Model rank ``rank``'s slice of ``t`` (a contiguous copy), ``t`` itself
+    where it is replicated or sp = 1."""
+    dim = marker_dim(marker)
+    if dim is None or sp == 1:
+        return t
+    if t.shape[dim] % sp:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {sp} model ranks")
+    return t.chunk(sp, dim=dim)[rank].contiguous()
+
+
+def shard_params(params, mdef, sp: int, rank: int):
+    """``params`` (a stage's slots and the globals, full leaves) -> model
+    rank ``rank``'s shard of every leaf."""
+    if sp == 1:
+        return params
+    spec = mdef.stage_spec()
+    return {"stages": [tree.map_(lambda t, m: shard_leaf(t, m, sp, rank), slot, spec)
+                       for slot in params["stages"]],
+            "globals": tree.map_(lambda t, m: shard_leaf(t, m, sp, rank),
+                                 params["globals"], mdef.globals_spec())}
+
+
+def param_markers(mdef, params):
+    """A tree like ``params`` (a stage's slots and the globals, or their
+    gradients), in its key order, of the leaves' markers."""
+    spec = mdef.stage_spec()
+    return {"stages": [tree.map_(lambda _, m: m, slot, spec) for slot in params["stages"]],
+            "globals": tree.map_(lambda _, m: m, params["globals"], mdef.globals_spec())}
 
 
 def _out_scale(cfg):
@@ -143,15 +237,25 @@ class ModelDef:
     def init_globals(self, gen, dtype=torch.bfloat16, device="cuda"):
         return init_globals(self.cfg, gen, dtype, device)
 
-    def embed(self, g, ids):
-        table = g["embed"]["table"]
-        return L.embed_tokens(ids, table, out_dtype=table.dtype)
+    def stage_spec(self):
+        return slot_spec(self.cfg)
 
-    def head_loss(self, g, x, labels, mask):
+    def globals_spec(self):
+        return globals_spec(self.cfg)
+
+    def embed(self, g, ids, ctx=SINGLE):
+        """ids: [B, T] the chunk's token ids (every model rank's); returns
+        this rank's sequence shard [B, T / sp, d] (``layers.embed_tokens``)."""
+        table = g["embed"]["table"]
+        return L.embed_tokens(ids, table, ctx, out_dtype=table.dtype)
+
+    def head_loss(self, g, x, labels, mask, ctx=SINGLE):
         """(sum of token losses, sum of weights) of one chunk: the final
-        norm, then the fp32 cross entropy over the real vocab."""
+        norm on this rank's sequence shard x, then the fp32 vocab-parallel
+        cross entropy over the real vocab, labels and mask the chunk's
+        ([B, T]); the same sums on every model rank."""
         x = L.apply_norm(x, g["final_norm"], self.cfg.norm)
-        return L.vocab_parallel_xent(x, g["head"]["w"], labels, mask,
+        return L.vocab_parallel_xent(x, g["head"]["w"], labels, mask, ctx,
                                      real_vocab=self.cfg.vocab_size)
 
     def head_logits(self, g, x):
@@ -171,6 +275,10 @@ class ModelDef:
 
     def stage_apply(self, stage_params, state, x, meta, *, remat="none",
                     offload=None):
+        """The stack on one chunk; at sp > 1 (``meta.ctx``) each slot's "ag"
+        leaves are gathered at use (``transformer.gather_params``)."""
+        if meta.ctx is not None and meta.ctx.sp > 1 and meta.spec is None:
+            meta = meta._replace(spec=self.stage_spec())
         return T.stage_apply(self.cfg, stage_params, state, x, meta,
                              remat=remat, offload=offload)
 

@@ -21,6 +21,13 @@ one of three remat policies (DESIGN.md §10, §12):
 
 The seam is one ``torch.autograd.Function`` a chunk, the counterpart of the
 reference's ``jax.checkpoint`` / ``prefetch_chunk`` ``custom_vjp``.
+
+At sp > 1 (``ChunkMeta.ctx``) a stage's parameters are this model rank's
+shards: each slot's "ag" leaves are all-gathered at use
+(``gather_params``, reference ``transformer.py:265-274``), in the seam's
+forward and again in its replay, so the replay recomputes the same values
+and the gathers' backward reduce-scatters the weight gradients; x, the
+tagged rows and the cache are the rank's sequence shard.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from repro_torch.core import offload as ofl
 from repro_torch.core import tree
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.parallel.ctx import SINGLE
 
 
 class ChunkMeta(NamedTuple):
@@ -43,6 +51,10 @@ class ChunkMeta(NamedTuple):
     # packed variable-length batches (DESIGN.md §13): [B, T] int32 start of
     # each query's document; attention masks kv_pos < q_start.  None: unpacked
     q_start: Any = None
+    # the model axis (parallel/ctx.py::Ctx; None: one device) and the slot's
+    # shard markers (model_zoo.slot_spec), for the gathers at sp > 1
+    ctx: Any = None
+    spec: Any = None
 
 
 def _res(x, delta, gate):
@@ -53,11 +65,24 @@ def _res(x, delta, gate):
     return torch.addcmul(x, gate.detach().to(x.dtype), delta)
 
 
+def gather_params(p_slot, spec, ctx):
+    """All-gather the "ag" leaves (int marker: the gather dim) of one slot
+    over the model axis; "rep" / "keepN" leaves pass through.  Under
+    ``ctx.grad_compress`` the gathers' backward (the weight gradients'
+    reduce-scatter) runs in bf16."""
+    if ctx is None or ctx.sp == 1:
+        return p_slot
+    return tree.map_(lambda t, m: ctx.all_gather_param(t, m) if isinstance(m, int) else t,
+                     p_slot, spec)
+
+
 def dense_slot(cfg, p, s, x, meta: ChunkMeta):
+    p = gather_params(p, meta.spec, meta.ctx)
     h = L.apply_norm(x, p["ln1"], cfg.norm)
     a, kv = A.gqa_self_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
                                  meta.cache_off, meta.kv_view, meta.rope,
-                                 name_tag=meta.tag, q_start=meta.q_start)
+                                 name_tag=meta.tag, q_start=meta.q_start,
+                                 ctx=meta.ctx or SINGLE)
     x = _res(x, a, p["gate"])
     h2 = L.apply_norm(x, p["ln2"], cfg.norm)
     m = L.mlp(h2, p["mlp"], cfg.act, name_tag=meta.tag)

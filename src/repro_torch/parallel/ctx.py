@@ -1,40 +1,63 @@
 """Parallel context over ``torch.distributed`` (port of ``repro/parallel/ctx.py``).
 
 The reference's ``Ctx`` binds named mesh axes inside one SPMD program; here
-each rank is a process of its own and ``Ctx`` holds the process groups of
-the data axis (DESIGN.md §4): ``dp x pp`` ranks, stage-major, so rank ``i``
-runs pipeline stage ``i % pp`` of dp group ``i // pp``.
+each rank is a process of its own and ``Ctx`` holds the process groups of a
+2-D layout (DESIGN.md §4): ``dp x pp`` data ranks (stage-major: data index
+``d`` runs pipeline stage ``d % pp`` of dp group ``d // pp``) times ``sp``
+model ranks, model-minor: rank = data_index x sp + model_index, so the
+ranks of one model group are neighbours.
+
+The data axis, at each model index:
 
 - ``psum_grads``: the stage's gradients over its dp group (the ranks of the
-  same stage), ``_dp_groups``;
+  same stage and model index), ``_dp_groups``;
 - ``psum_globals``: the globals' gradients, whose contributions live on
   different stages: a leaf that one stage alone uses (the embedding, the
   head) is summed over that stage's dp group and sent from there to the
-  other stages, the rest summed over every rank;
-- ``psum_loss_all``: over every rank of the data axis;
+  other stages of the same model index, the rest summed over the data axis;
+- ``psum_loss_all``: over the data axis (every model rank holds the same
+  replicated loss, so the model axis is not summed);
 - ``psum_stages``: over the stages of one dp group;
 - ``handoff``: the pipeline's stage hand-off (the reference's
   ``ppermute_stage`` along ``next_stage_perm``) as a differentiable
-  exchange: this stage's output goes to stage + 1 and stage - 1's comes in,
-  posted together as one ``batch_isend_irecv``; its backward is the
-  transpose (the carry's gradient back to stage - 1, the output's gradient
-  in from stage + 1).
+  exchange: this stage's output goes to stage + 1 of the same model index
+  and stage - 1's comes in, posted together as one ``batch_isend_irecv``;
+  its backward is the transpose.
 
-The model axis is 1: the reference's model-axis methods are the identity at
-``sp = 1`` and are not ported; ``sp > 1`` is refused (ROADMAP Queue 1, item
-3).  ``SINGLE`` is the one-device context: every reduction is the identity.
+The model axis (the reference's ``ctx.py:59-101``): ``psum_model``,
+``pmax_model``, ``all_gather_model``, ``all_gather_param`` and
+``reduce_scatter_model`` over the ranks of one model group.  Each is a
+``torch.autograd.Function`` whose backward is its transpose under one
+convention: every rank differentiates the same replicated scalar loss.  So
+an all-gather's backward is a reduce-scatter and the other way round, the
+max is gradient-frozen (the reference's ``stop_gradient``s), and a psum
+whose result is replicated downstream passes its cotangent through
+unchanged.  That last is where the port departs from the reference, whose
+``shard_map`` runs with ``check_vma=False``: there a psum transposes to a
+psum, which scales every all-gathered leaf's gradient by sp, and no
+replicated ("rep") leaf's gradient is summed over the model axis.  The port
+computes the gradient of the global loss (``parallel/runner.py``, PERF.md
+§6).  Under ``grad_compress`` the weight gather's backward
+reduce-scatters in bf16 (the reference's ``_ag_bf16_grad``).
+``ppermute_model`` (ring attention, ROADMAP Queue 1 item 4) and
+``all_to_all_model`` (expert parallelism, item 7) are refused.
+``SINGLE`` is the one-device context: every reduction is the identity.
 
 The backend is the process group's, named by whoever started it
 (``launch.mesh``), never picked here.  ``"nccl"`` needs a CUDA device of
 its own for every rank of the host and raises otherwise.  ``"gloo"`` has no
-CUDA send/recv: with CUDA tensors every hand-off and reduction is staged
-explicitly through pinned host buffers (a synchronous D2H, the transfer,
-an H2D), which is how two ranks share one card.  The context counts what
-it moves (``counts()``): its exchanges (``handoffs``, forward and backward
-alike) with the bytes it sent and their host seconds, the seconds of the
-hand-offs' staging copies among them, its all-reduces' bytes, the globals'
-bytes it sent to other stages (``bcast_bytes``), and the seconds of both
-(their staging included).
+CUDA collectives: with CUDA tensors every hand-off, reduction and model
+collective is staged explicitly through pinned host buffers (a synchronous
+D2H, the transfer, an H2D), which is how several ranks share one card.  The
+context counts what it moves (``counts()``): its exchanges (``handoffs``,
+forward and backward alike) with the bytes it sent and their host seconds,
+the seconds of the hand-offs' staging copies among them, its all-reduces'
+bytes (``reduce_*`` over the data axis, ``model_reduce_*`` the replicated
+leaves' gradients over the model group), the globals' bytes it sent to
+other stages (``bcast_bytes``), and, per model collective (``model_all_gather``,
+``model_reduce_scatter``, ``model_psum``, ``model_pmax``), its calls, the
+bytes this rank put in (its shard for a gather, the whole tensor for the
+others) and its seconds, staging included.
 """
 from __future__ import annotations
 
@@ -45,6 +68,10 @@ from typing import Optional, Sequence
 import torch
 
 BACKENDS = ("gloo", "nccl")
+MODEL_COLLECTIVES = ("model_all_gather", "model_reduce_scatter", "model_psum", "model_pmax")
+# the plan's attention schedules at sp > 1 (models/attention.py); "ring"
+# comes with ROADMAP Queue 1 item 4
+ATTN_MODES = ("gather_q", "gather_kv", "auto", "local")
 
 
 def _later(what: str, item: int):
@@ -70,46 +97,56 @@ def check_backend(backend: str, device: torch.device, local_world: int) -> None:
 
 
 class Ctx:
-    """The data axis of one rank: ``dp`` groups of ``pp`` stages, ``sp = 1``.
+    """One rank of ``dp`` groups of ``pp`` stages times ``sp`` model ranks.
 
-    At ``dp x pp = 1`` the single-device context (``SINGLE``): every
+    At ``dp x pp x sp = 1`` the single-device context (``SINGLE``): every
     reduction is the identity and nothing is exchanged.  Over several ranks
-    it takes the initialised process group's rank (the rank in the data
-    axis) and backend; ``device`` is where this rank's tensors live."""
+    it takes the initialised process group's rank and backend; ``device``
+    is where this rank's tensors live.  ``attn_mode``, ``merge_bf16`` and
+    ``grad_compress`` are the plan's knobs of the model axis, as in the
+    reference."""
 
-    def __init__(self, *, dp: int = 1, pp: int = 1, sp: int = 1, device="cuda"):
-        if sp != 1:
-            raise _later(f"sp = {sp} (a model axis)", 3)
+    def __init__(self, *, dp: int = 1, pp: int = 1, sp: int = 1, device="cuda",
+                 attn_mode: str = "gather_q", merge_bf16: bool = False,
+                 grad_compress: bool = False):
+        if attn_mode == "ring":
+            raise _later("attn_mode 'ring' (ring attention over the model axis)", 4)
+        if attn_mode not in ATTN_MODES:
+            raise ValueError(f"attn_mode {attn_mode!r}: expected one of {ATTN_MODES}")
+        if attn_mode == "local" and sp > 1:
+            raise ValueError("attn_mode 'local' moves no KV between model ranks: sp = 1 only")
         self.dp, self.pp, self.sp, self.rank = dp, pp, sp, 0
+        self.attn_mode, self.merge_bf16, self.grad_compress = attn_mode, merge_bf16, grad_compress
         self.backend = None
         self.device = torch.device(device)
-        self._dp_group = self._stage_group = None
+        self._dp_group = self._stage_group = self._model_group = self._data_group = None
         self._counts = {}
         self.reset_counts()
-        if dp * pp == 1:
+        if self.world == 1:
             return
         import torch.distributed as dist
 
         if not dist.is_initialized():
-            raise RuntimeError(f"dp x pp = {dp * pp} ranks need an initialised process "
+            raise RuntimeError(f"dp x pp x sp = {self.world} ranks need an initialised process "
                                "group (launch.mesh.init_from_env or launch.mesh.spawn)")
-        if dist.get_world_size() != dp * pp:
-            raise ValueError(f"dp x pp = {dp} x {pp} does not match the process "
+        if dist.get_world_size() != self.world:
+            raise ValueError(f"dp x pp x sp = {dp} x {pp} x {sp} does not match the process "
                              f"group's {dist.get_world_size()} ranks")
         self.rank, self.backend = dist.get_rank(), dist.get_backend()
         check_backend(self.backend, self.device,
-                      int(os.environ.get("LOCAL_WORLD_SIZE", dp * pp)))
-        rank = self.rank
+                      int(os.environ.get("LOCAL_WORLD_SIZE", self.world)))
         # every rank creates every group, in the same order (new_group is
         # collective); each keeps its own
-        for group in self._dp_groups():
-            g = dist.new_group(group) if dp > 1 else None
-            if rank in group:
-                self._dp_group = g
-        for group in self._stage_rows():
-            g = dist.new_group(group) if pp > 1 else None
-            if rank in group:
-                self._stage_group = g
+        for attr, groups, size in (("_dp_group", self._dp_groups(), dp),
+                                   ("_stage_group", self._stage_rows(), pp),
+                                   ("_model_group", self._model_groups(), sp),
+                                   ("_data_group", self._data_groups(), dp * pp)):
+            for group in groups:
+                # the data axis at sp = 1 is the whole world: the default group
+                g = (dist.new_group(group) if 1 < size < self.world
+                     else None)
+                if self.rank in group:
+                    setattr(self, attr, g)
 
     # ----- sizes / indices -------------------------------------------------
     @property
@@ -118,26 +155,48 @@ class Ctx:
 
     @property
     def world(self) -> int:
-        return self.dp * self.pp
+        return self.dp * self.pp * self.sp
+
+    def model_index(self) -> int:
+        return self.rank % self.sp
 
     def data_index(self) -> int:
-        return self.rank
+        return self.rank // self.sp
 
     def stage_index(self) -> int:
         """Pipeline stage of this rank: data_index % pp (stage-major)."""
-        return self.rank % self.pp
+        return self.data_index() % self.pp
 
     def dp_index(self) -> int:
-        return self.rank // self.pp
+        return self.data_index() // self.pp
+
+    def rank_of(self, data_index: int, model_index: Optional[int] = None) -> int:
+        """The rank at ``data_index`` and ``model_index`` (this rank's by
+        default)."""
+        m = self.model_index() if model_index is None else model_index
+        return data_index * self.sp + m
 
     def _dp_groups(self):
-        """The ranks of each stage across the dp groups (the reference's
-        ``axis_index_groups`` of ``psum_grads``)."""
-        return [[g * self.pp + s for g in range(self.dp)] for s in range(self.pp)]
+        """The ranks of each stage and model index across the dp groups
+        (the reference's ``axis_index_groups`` of ``psum_grads``)."""
+        return [[self.rank_of(g * self.pp + s, m) for g in range(self.dp)]
+                for s in range(self.pp) for m in range(self.sp)]
 
     def _stage_rows(self):
-        """The stages of each dp group (``psum_stages``' grouping)."""
-        return [[g * self.pp + s for s in range(self.pp)] for g in range(self.dp)]
+        """The stages of each dp group at each model index (``psum_stages``'
+        grouping)."""
+        return [[self.rank_of(g * self.pp + s, m) for s in range(self.pp)]
+                for g in range(self.dp) for m in range(self.sp)]
+
+    def _model_groups(self):
+        """The model ranks of each data index."""
+        return [[self.rank_of(d, m) for m in range(self.sp)]
+                for d in range(self.dp * self.pp)]
+
+    def _data_groups(self):
+        """The data axis at each model index."""
+        return [[self.rank_of(d, m) for d in range(self.dp * self.pp)]
+                for m in range(self.sp)]
 
     # ----- counters --------------------------------------------------------
     def counts(self) -> dict:
@@ -145,7 +204,10 @@ class Ctx:
 
     def reset_counts(self) -> None:
         self._counts.update(handoffs=0, handoff_bytes=0, handoff_s=0.0, staging_s=0.0,
-                            reduce_bytes=0, bcast_bytes=0, reduce_s=0.0)
+                            reduce_bytes=0, bcast_bytes=0, reduce_s=0.0,
+                            model_reduce_bytes=0, model_reduce_s=0.0)
+        for kind in MODEL_COLLECTIVES:
+            self._counts.update({f"{kind}_calls": 0, f"{kind}_bytes": 0, f"{kind}_s": 0.0})
 
     # ----- reductions ------------------------------------------------------
     def _staged(self) -> bool:
@@ -164,10 +226,10 @@ class Ctx:
         for t, part in zip(ts, flat.split([t.numel() for t in ts])):
             t.copy_(part.view_as(t))
 
-    def _all_reduce(self, tensors: Sequence[torch.Tensor], group) -> None:
+    def _all_reduce(self, tensors: Sequence[torch.Tensor], group, key: str = "reduce") -> None:
         """Sum ``tensors`` in place over ``group``: one all-reduce per dtype
         over a flat buffer of its tensors (staged through pinned host memory
-        under gloo with CUDA tensors)."""
+        under gloo with CUDA tensors), counted under ``key``."""
         import torch.distributed as dist
 
         t_start = time.perf_counter()
@@ -181,14 +243,14 @@ class Ctx:
             else:
                 dist.all_reduce(flat, group=group)
             self._unflatten(flat, ts)
-            self._counts["reduce_bytes"] += flat.numel() * flat.element_size()
-        self._counts["reduce_s"] += time.perf_counter() - t_start
+            self._counts[f"{key}_bytes"] += flat.numel() * flat.element_size()
+        self._counts[f"{key}_s"] += time.perf_counter() - t_start
 
     def _send_from_owners(self, by_owner: dict) -> None:
         """In place: ``by_owner[s]``, the leaves that stage s alone holds
         the sum of, go from stage s to the other stages of this rank's dp
-        group; every send and receive posted together, one flat buffer per
-        owner and dtype."""
+        group at its model index; every send and receive posted together,
+        one flat buffer per owner and dtype."""
         import torch.distributed as dist
 
         t_start = time.perf_counter()
@@ -205,13 +267,14 @@ class Ctx:
                         flat = host.copy_(flat)
                     for peer in range(self.pp):
                         if peer != stage:
-                            ops.append(dist.P2POp(dist.isend, flat, row + peer, tag=tag))
+                            ops.append(dist.P2POp(dist.isend, flat, self.rank_of(row + peer),
+                                                  tag=tag))
                             self._counts["bcast_bytes"] += flat.numel() * flat.element_size()
                 else:
                     buf = torch.empty(sum(t.numel() for t in ts), dtype=ts[0].dtype,
                                       pin_memory=staged,
                                       device="cpu" if staged else self.device)
-                    ops.append(dist.P2POp(dist.irecv, buf, row + s, tag=tag))
+                    ops.append(dist.P2POp(dist.irecv, buf, self.rank_of(row + s), tag=tag))
                     recvs.append((buf, ts))
         if ops:
             for work in dist.batch_isend_irecv(ops):
@@ -221,13 +284,24 @@ class Ctx:
         self._counts["reduce_s"] += time.perf_counter() - t_start
 
     def psum_grads(self, tensors) -> None:
-        """In place: gradient reduction across the dp replicas of this stage."""
+        """In place: gradient reduction across the dp replicas of this stage
+        (at this model index)."""
         if self.distributed and self.dp > 1:
             self._all_reduce(list(tensors), self._dp_group)
 
+    def psum_model_grads(self, tensors) -> None:
+        """In place: the replicated ("rep") leaves' gradients summed over
+        the model group: each model rank differentiated its own sequence
+        shard through the same leaf."""
+        if self.distributed and self.sp > 1:
+            tensors = list(tensors)
+            if tensors:
+                self._all_reduce(tensors, self._model_group, key="model_reduce")
+
     def psum_globals(self, tensors, used: Optional[Sequence[bool]] = None) -> None:
-        """In place: the global parameters' gradients summed over every rank
-        (their contributions live on different stages).
+        """In place: the global parameters' gradients summed over the data
+        axis at this model index (their contributions live on different
+        stages).
 
         ``used[i]`` says whether ``tensors[i]``'s gradient came out of this
         rank's graph (default: all of them).  A leaf that one stage alone
@@ -236,10 +310,10 @@ class Ctx:
         from there to the other stages of each dp group: each stage sends
         what it owns and receives the rest, where an all-reduce would move
         every leaf twice and add the other stages' zeros.  A leaf that
-        several stages use (a tied embedding) is all-reduced over every
-        rank.  Every rank learns which stages use what from one small
+        several stages use (a tied embedding) is all-reduced over the data
+        axis.  Every rank learns which stages use what from one small
         all-reduce, so that all split the leaves alike."""
-        if not (self.distributed and self.world > 1):
+        if not (self.distributed and self.dp * self.pp > 1):
             return
         tensors = list(tensors)
         if not tensors:
@@ -247,27 +321,28 @@ class Ctx:
         mask = torch.zeros((self.pp, len(tensors)), dtype=torch.int32, device=self.device)
         mask[self.stage_index()] = torch.tensor(
             [True] * len(tensors) if used is None else list(used), dtype=torch.int32)
-        self._all_reduce([mask], None)
+        self._all_reduce([mask], self._data_group)
         rows = mask.tolist()
         owners = [[s for s in range(self.pp) if rows[s][i]] for i in range(len(tensors))]
         shared = [t for t, o in zip(tensors, owners) if len(o) > 1]
         if shared:
-            self._all_reduce(shared, None)
+            self._all_reduce(shared, self._data_group)
         by_owner = {s: [t for t, o in zip(tensors, owners) if o == [s]] for s in range(self.pp)}
         self.psum_grads(by_owner[self.stage_index()])
         self._send_from_owners({s: ts for s, ts in by_owner.items() if ts})
 
     def psum_loss_all(self, x: torch.Tensor) -> torch.Tensor:
-        """A scalar summed over every rank (a new tensor, no gradient)."""
+        """A scalar summed over the data axis (a new tensor, no gradient):
+        the model ranks of a data index hold the same replicated value."""
         x = x.detach().clone()
-        if self.distributed and self.world > 1:
-            self._all_reduce([x], None)
+        if self.distributed and self.dp * self.pp > 1:
+            self._all_reduce([x], self._data_group)
         return x
 
     def psum_stages(self, tensors) -> None:
         """In place: a sum over the pipeline stages of this rank's dp group
-        (the reference replicates the last stage's sampled decode tokens
-        with it)."""
+        at its model index (the reference replicates the last stage's
+        sampled decode tokens with it)."""
         if self.distributed and self.pp > 1:
             self._all_reduce(list(tensors), self._stage_group)
 
@@ -276,6 +351,103 @@ class Ctx:
             import torch.distributed as dist
 
             dist.barrier()
+
+    # ----- the model axis --------------------------------------------------
+    def _model_op(self, kind: str, x: torch.Tensor) -> torch.Tensor:
+        """One collective of the model group on ``x`` (a new tensor):
+        ``model_all_gather`` concatenates the ranks' ``x`` along dim 0,
+        ``model_reduce_scatter`` sums them and keeps this rank's 1 / sp of
+        dim 0, ``model_psum`` / ``model_pmax`` sum or take the max.  Staged
+        through pinned host memory under gloo with CUDA tensors."""
+        import torch.distributed as dist
+
+        t_start = time.perf_counter()
+        sp, group = self.sp, self._model_group
+        x = x.contiguous()
+        staged = self._staged()
+        if staged:
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            x = host.copy_(x)
+
+        def empty(shape):
+            return torch.empty(shape, dtype=x.dtype, device=x.device, pin_memory=staged)
+
+        if kind == "model_all_gather":
+            out = empty((sp * x.shape[0], *x.shape[1:]))
+            _collective("all_gather_single", "all_gather_into_tensor")(out, x, group=group)
+        elif kind == "model_reduce_scatter":
+            if x.shape[0] % sp:
+                raise ValueError(f"reduce-scatter of {x.shape[0]} rows over {sp} ranks")
+            out = empty((x.shape[0] // sp, *x.shape[1:]))
+            _collective("reduce_scatter_single", "reduce_scatter_tensor")(out, x, group=group)
+        else:
+            out = x if staged else x.clone()
+            op = dist.ReduceOp.MAX if kind == "model_pmax" else dist.ReduceOp.SUM
+            dist.all_reduce(out, op=op, group=group)
+        if staged:
+            out = out.to(self.device)
+        self._counts[f"{kind}_calls"] += 1
+        self._counts[f"{kind}_bytes"] += x.numel() * x.element_size()
+        self._counts[f"{kind}_s"] += time.perf_counter() - t_start
+        return out
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim`` (no gradient)."""
+        if self.sp == 1:
+            return x
+        return self._model_op("model_all_gather", x.movedim(dim, 0)).movedim(0, dim)
+
+    def scatter_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` summed, this rank's 1 / sp of ``dim`` (no
+        gradient)."""
+        if self.sp == 1:
+            return x
+        return self._model_op("model_reduce_scatter", x.movedim(dim, 0)).movedim(0, dim)
+
+    def psum_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the model group of a value replicated downstream: the
+        backward passes the cotangent through unchanged."""
+        if self.sp == 1:
+            return x
+        return _PsumReplicated.apply(self, x)
+
+    def pmax_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Max over the model group, gradient-frozen."""
+        if self.sp == 1:
+            return x.detach()
+        return self._model_op("model_pmax", x.detach())
+
+    def all_gather_model(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """Gather shards along ``axis`` (tiled: sp x the local dim); the
+        backward reduce-scatters."""
+        if self.sp == 1:
+            return x
+        return _AllGather.apply(self, axis, False, x)
+
+    def all_gather_param(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """A weight's gather for compute; under ``grad_compress`` its
+        backward (the weight gradient's reduce-scatter, the dominant train
+        collective) runs in bf16 (reference ``_ag_bf16_grad``)."""
+        if self.sp == 1:
+            return x
+        return _AllGather.apply(self, axis, self.grad_compress, x)
+
+    def reduce_scatter_model(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """Sum over the model group, this rank's 1 / sp of ``axis``; the
+        backward all-gathers."""
+        if self.sp == 1:
+            return x
+        return _ReduceScatter.apply(self, axis, x)
+
+    def ppermute_model(self, x, perm):
+        if self.sp == 1:
+            return x
+        raise _later("ppermute_model (ring attention's KV rotation)", 4)
+
+    def all_to_all_model(self, x, split_axis: int, concat_axis: int):
+        if self.sp == 1:
+            return x
+        raise _later("all_to_all_model (expert parallelism)", 7)
 
     # ----- the stage hand-off ----------------------------------------------
     def exchange(self, send: Optional[torch.Tensor], to: Optional[int],
@@ -323,16 +495,69 @@ class Ctx:
                 token: torch.Tensor, tick: int):
         """The stage hand-off of tick ``tick``: ``x`` (this stage's output,
         or None) goes to stage + 1, and a tensor of ``recv_like`` = (shape,
-        dtype) (or None) comes in from stage - 1.  Returns (carry, token):
-        the received tensor (None if nothing) and a new ordering token, a
-        scalar that threads every hand-off of the rank into one chain (see
-        ``_HandOff``)."""
+        dtype) (or None) comes in from stage - 1, both at this rank's model
+        index.  Returns (carry, token): the received tensor (None if
+        nothing) and a new ordering token, a scalar that threads every
+        hand-off of the rank into one chain (see ``_HandOff``)."""
         stage = self.stage_index()
         if x is not None and stage == self.pp - 1:
             raise ValueError("the last stage hands nothing on")
         if recv_like is not None and stage == 0:
             raise ValueError("stage 0 receives nothing")
         return _HandOff.apply(self, tick, recv_like, token, x)
+
+
+def _collective(name: str, older: str):
+    """``torch.distributed``'s ``name``, or its older spelling ``older``
+    where this torch predates it."""
+    import torch.distributed as dist
+
+    return getattr(dist, name, None) or getattr(dist, older)
+
+
+class _AllGather(torch.autograd.Function):
+    """``apply(ctx, dim, compress, x)``: the tiled all-gather along ``dim``;
+    backward, the reduce-scatter of the cotangent (in bf16 under
+    ``compress``, cast back to x's dtype)."""
+
+    @staticmethod
+    def forward(fctx, ctx: Ctx, dim: int, compress: bool, x):
+        fctx.ctx, fctx.dim, fctx.compress, fctx.dtype = ctx, dim, compress, x.dtype
+        return ctx.gather(x, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        if fctx.compress:
+            g = g.to(torch.bfloat16)
+        return None, None, None, fctx.ctx.scatter_sum(g, fctx.dim).to(fctx.dtype)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """``apply(ctx, dim, x)``: the sum over the model group, this rank's
+    slice of ``dim``; backward, the all-gather of the cotangent."""
+
+    @staticmethod
+    def forward(fctx, ctx: Ctx, dim: int, x):
+        fctx.ctx, fctx.dim = ctx, dim
+        return ctx.scatter_sum(x, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, None, fctx.ctx.gather(g.contiguous(), fctx.dim)
+
+
+class _PsumReplicated(torch.autograd.Function):
+    """``apply(ctx, x)``: the sum over the model group of a value every
+    rank then uses alike; the backward is the identity (each rank holds the
+    cotangent of the same replicated loss)."""
+
+    @staticmethod
+    def forward(fctx, ctx: Ctx, x):
+        return ctx._model_op("model_psum", x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, g
 
 
 class _HandOff(torch.autograd.Function):
@@ -354,21 +579,22 @@ class _HandOff(torch.autograd.Function):
     @staticmethod
     def forward(fctx, ctx: Ctx, tick: int, recv_like, token, x):
         fctx.set_materialize_grads(False)
-        rank = ctx.rank
-        carry = ctx.exchange(x, rank + 1, recv_like, rank - 1, tag=tick)
+        nxt, prv = ctx.rank + ctx.sp, ctx.rank - ctx.sp
+        carry = ctx.exchange(x, nxt, recv_like, prv, tag=tick)
         fctx.ctx, fctx.tick, fctx.recv_like = ctx, tick, recv_like
         fctx.x_like = None if x is None else (tuple(x.shape), x.dtype)
         return carry, token.detach().clone()
 
     @staticmethod
     def backward(fctx, g_carry, g_token):
-        ctx, rank = fctx.ctx, fctx.ctx.rank
+        ctx = fctx.ctx
         send = None
         if fctx.recv_like is not None:
             shape, dtype = fctx.recv_like
             send = (g_carry if g_carry is not None
                     else torch.zeros(shape, dtype=dtype, device=ctx.device))
-        g_x = ctx.exchange(send, rank - 1, fctx.x_like, rank + 1, tag=fctx.tick)
+        g_x = ctx.exchange(send, ctx.rank - ctx.sp, fctx.x_like, ctx.rank + ctx.sp,
+                           tag=fctx.tick)
         if g_token is None:
             g_token = torch.zeros((), device=ctx.device)
         return None, None, None, g_token, g_x
@@ -378,6 +604,7 @@ SINGLE = Ctx()
 
 
 def make_ctx(plan, *, device="cuda") -> Ctx:
-    """The context of ``plan`` for this process: one device at dp x pp =
-    1, else this rank of the initialised process group."""
-    return Ctx(dp=plan.dp, pp=plan.pp, sp=plan.sp, device=device)
+    """The context of ``plan`` for this process: one device at dp x pp x sp
+    = 1, else this rank of the initialised process group."""
+    return Ctx(dp=plan.dp, pp=plan.pp, sp=plan.sp, device=device, attn_mode=plan.attn_mode,
+               merge_bf16=plan.merge_bf16, grad_compress=plan.grad_compress)

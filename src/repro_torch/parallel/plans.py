@@ -2,8 +2,9 @@
 
 A copy of ``repro/parallel/plans.py`` (the JAX package), held against it by
 tests/test_torch_serve.py.  Defaults follow the SPPO heuristics (§6.1,
-DESIGN.md §4); the port resolves them at model = 1, over a data axis of
-one device or of dp x pp ranks (``runner.resolve_cell(data_size=)``).
+DESIGN.md §4); the port resolves them over a data axis of one device or
+of dp x pp ranks times a model axis of sp ranks
+(``runner.resolve_cell(data_size=, model_size=)``).
 
 One departure: pp is capped at ``data_size``, so dp >= 1.  The reference
 asks for pp = 2 at S >= 32768 with >= 24 layers whatever the data axis, and

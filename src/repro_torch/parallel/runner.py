@@ -1,4 +1,4 @@
-"""The execution engine (port of ``repro/parallel/runner.py``), sp = 1.
+"""The execution engine (port of ``repro/parallel/runner.py``).
 
 Builds the step functions of a cell:
 
@@ -14,10 +14,11 @@ hidden state on; training adds each chunk's head loss, and autograd runs the
 backward through the chunks in reverse.  Decode feeds one token per step and
 attends the whole cache buffer.
 
-At pp > 1 (DESIGN.md §2, §4) each rank is a process that runs one pipeline
-stage of one dp group (``parallel/ctx.py``: ``dp x pp`` ranks, stage-major)
-and the sequence is cut into equal chunks fed as events (``
-pipeline_feed_events``: one per chunk, or the MSP ramp's sub-events).  At
+Each rank is a process (``parallel/ctx.py``: ``dp x pp`` data ranks,
+stage-major, times ``sp`` model ranks, model-minor).  At pp > 1 (DESIGN.md
+§2, §4) a rank runs one pipeline stage of one dp group and the sequence is
+cut into equal chunks fed as events (``pipeline_feed_events``: one per
+chunk, or the MSP ramp's sub-events).  At
 tick t, stage s runs event t - s: stage 0 embeds the fed chunk, the others
 take the previous stage's hand-off, and the last stage adds the event's head
 loss under its sub-chunk mask.  Each rank differentiates its own ticks; the
@@ -26,7 +27,23 @@ of every rank's loss over the sum of their token counts, the stage
 gradients are summed over the dp group, each global one (embedding, head)
 is summed where it is used and sent to the other stages (``Ctx.psum_globals``),
 and every rank then runs AdamW on what it holds.
-Decode at pp > 1 is refused (ROADMAP Queue 1, item 5).
+
+At sp > 1 (the model axis, DESIGN.md §4) every chunk is sequence-sharded:
+model rank r embeds the chunk's tokens into its rows ``[off + r * T / sp,
+off + (r + 1) * T / sp)`` (a reduce-scatter, ``layers.embed_tokens``),
+runs the stack on them with the slots' weights gathered at use and the
+attention schedule of ``plan.attn_mode`` over its cache shard (slots ``[off
+/ sp, (off + T) / sp)``), and takes the vocab-parallel loss of the whole
+chunk.  Every model rank holds the same replicated loss and
+differentiates it (``parallel/ctx.py``'s convention), so the gathers'
+backward leaves each rank the gradient of its shard of every "ag" and
+"keepN" leaf; the "rep" leaves' gradients are summed over the model group
+(``Ctx.psum_model_grads``), then the data axis's reductions run at each
+model index.  This is the gradient of the global loss: the reference's
+``shard_map`` (``check_vma=False``) transposes its psums to psums, giving
+sp x the gradient of every all-gathered leaf, and sums no replicated
+leaf's over the model axis (PERF.md §6).  Prefill and decode at sp
+> 1, and decode at pp > 1, are refused (ROADMAP Queue 1, item 5).
 
 Training runs the plan's remat policy and SPPO's executed activation
 offload (DESIGN.md §5, §10, §12): ``resolve_cell`` sizes each chunk's
@@ -38,9 +55,9 @@ one seam ahead of its backward (``prefetch="ahead"``, through a
 ``offload_dtype`` "fp8" / "int8" the rows cross quantized, their scales
 kept on the device (DESIGN.md §14).  The update keeps AdamW's moments on
 the device or, under ``offload_moments``, in pinned host memory, raw or
-under ``moments_dtype`` (``optim/adamw.py``, DESIGN.md §11).  The model axis
-(sp > 1: sequence sharding, parameter gathers, the vocab-parallel loss) and
-ring attention come with later slices (ROADMAP Queue 1, items 3 and 4).
+under ``moments_dtype`` (``optim/adamw.py``, DESIGN.md §11).  ZeRO-1 and
+the pod axis (ROADMAP Queue 1, item 3) and ring attention (item 4) come
+with later slices.
 """
 from __future__ import annotations
 
@@ -56,7 +73,7 @@ from repro_torch.core import schedule as sched_mod
 from repro_torch.core import simulate as sim_mod
 from repro_torch.core import tree
 from repro_torch.models import layers as L
-from repro_torch.models.model_zoo import ModelDef, build_model
+from repro_torch.models.model_zoo import ModelDef, build_model, marker_dim, param_markers
 from repro_torch.models.transformer import ChunkMeta
 from repro_torch.parallel.ctx import SINGLE, Ctx, _later, make_ctx
 from repro_torch.parallel.plans import resolve_plan
@@ -78,7 +95,7 @@ class Cell:
     # layout).  When set, the batch carries a ``doc_start`` array and
     # attention masks cross-document visibility (DESIGN.md §13)
     doc_lens: tuple = ()
-    data_size: int = 1   # ranks of the data axis: dp x pp
+    data_size: int = 1   # ranks of the data axis: dp x pp (the model axis: plan.sp)
 
     @property
     def cfg(self) -> ModelConfig:
@@ -90,8 +107,8 @@ class Cell:
         return max(1, self.shape.global_batch // self.plan.dp)
 
     def ctx(self, *, device="cuda") -> Ctx:
-        """The data axis of this process for the cell (``parallel/ctx.py``):
-        one device at dp x pp = 1, else this rank of the process group."""
+        """This process's rank for the cell (``parallel/ctx.py``): one
+        device at dp x pp x sp = 1, else this rank of the process group."""
         return make_ctx(self.plan, device=device)
 
     @property
@@ -111,8 +128,8 @@ class Cell:
 def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
                  dtype=torch.bfloat16, doc_lens=None, data_size: int = 1,
                  model_size: int = 1) -> Cell:
-    """Resolve a train, prefill or decode cell over ``data_size`` ranks
-    (dp x pp; the model axis is 1).
+    """Resolve a train, prefill or decode cell over ``data_size`` data ranks
+    (dp x pp) times ``model_size`` model ranks (sp).
 
     The chunk plan and the offload ratios are the reference's
     (``repro/parallel/runner.py::resolve_cell``): each chunk's forward time
@@ -127,26 +144,35 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     the explicit form too, a moment codec needs the moment offload, and a
     decode plan takes no codec.
 
-    At pp > 1 the chunks are equal (partition "length", ``S % N == 0``);
-    under MSP the chunk length must divide by ``msp_split``, and a family
-    with recurrent state is refused (a ramp sub-event re-runs its whole
-    chunk, which only a position-tagged cache absorbs, DESIGN.md §2).  A
-    model axis above 1 and decode at pp > 1 are refused, naming the ROADMAP
-    item that brings them, as are packed rows at pp > 1.
+    At pp > 1 the chunks are equal (partition "length", ``S % (N sp) ==
+    0``); under MSP the chunk length must divide by ``msp_split``, and a
+    family with recurrent state is refused (a ramp sub-event re-runs its
+    whole chunk, which only a position-tagged cache absorbs, DESIGN.md §2).
+    At pp = 1 the boundaries fall on multiples of max(sp, 128), and α sees
+    each model rank's share of a chunk's rows (``chunk_act_bytes(sp=)``).
+    Prefill and decode at sp > 1 and decode at pp > 1 (item 5), ZeRO-1 and
+    the pod axis (item 3) and ring attention (item 4) are refused, naming
+    the ROADMAP item that brings them.
 
     ``doc_lens`` makes a packed variable-length cell (DESIGN.md §13), as in
     the reference: the documents are packed into rows of S tokens
     (``pack_lengths``; they must fit ``global_batch`` rows, the filler rows
     costing the dense work alone), the chunks balance the summed per-row
     causal sawtooth (``partition_profile``, snapping to document boundaries
-    common to every row) under policy "flops", and α sees each chunk's
-    share of that profile.  A decode cell takes no ``doc_lens``."""
+    common to every row) under policy "flops" at pp = 1 and are equal at pp
+    > 1, and α sees each chunk's share of that profile.  A decode cell takes
+    no ``doc_lens``."""
     mdef = arch if isinstance(arch, ModelDef) else build_model(arch)
     cfg = mdef.cfg
-    if model_size != 1:
-        raise _later(f"a model axis of {model_size} (sequence parallelism)", 3)
-    plan = resolve_plan(cfg, shape_cfg, data_size=data_size, model_size=1,
+    plan = resolve_plan(cfg, shape_cfg, data_size=data_size, model_size=model_size,
                         overrides=overrides)
+    sp = plan.sp
+    if plan.attn_mode == "ring":
+        raise _later("attn_mode 'ring' (ring attention over the model axis)", 4)
+    if plan.zero1:
+        raise _later("ZeRO-1 over the pod axis", 3)
+    if sp > 1 and shape_cfg.kind != "train":
+        raise _later(f"{shape_cfg.kind} at sp = {sp} (the sequence-sharded serving cache)", 5)
     doc_lens = tuple(int(x) for x in (doc_lens if doc_lens is not None else ()))
     for codec in (plan.offload_dtype, plan.moments_dtype):
         cm.codec_itemsize(codec)            # raises on an unknown codec
@@ -159,8 +185,6 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
                          "moments on the device have no host channel to compress")
     if shape_cfg.kind == "decode" and plan.pp > 1:
         raise _later(f"decode at pp = {plan.pp} (the microbatched decode pipeline)", 5)
-    if doc_lens and plan.pp > 1:
-        raise _later(f"packed variable-length rows at pp = {plan.pp}", 3)
     if shape_cfg.kind == "decode":
         if doc_lens:
             raise ValueError("packed variable-length layouts are train/prefill only")
@@ -185,14 +209,16 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
         if plan.offload_mode != "explicit":
             raise ValueError(f"offload_mode {plan.offload_mode!r}: the port places the "
                              "rows itself ('explicit'); 'xla' is the reference's remat hint")
-    # chunk boundaries on multiples of max(model_size, 128), as the
-    # reference's pp == 1 plan
+    # chunk boundaries on multiples of max(sp, 128), as the reference's pp
+    # == 1 plan
     S, B = shape_cfg.seq_len, shape_cfg.global_batch
     r = part.flops_per_token_ratio(cfg)
     n = plan.n_chunks
+    mult = max(sp, 128)
     if plan.pp > 1:
-        if S % n:
-            raise ValueError(f"seq_len {S} does not split into {n} equal chunks (pp > 1)")
+        if S % (n * sp):
+            raise ValueError(f"seq_len {S} does not split into {n} equal chunks of "
+                             f"{sp} model shards (pp > 1)")
         if plan.msp:
             if (S // n) % plan.msp_split:
                 raise ValueError(f"chunk len {S // n} not divisible by msp_split "
@@ -201,6 +227,7 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
                 raise ValueError(f"msp unsupported for family {cfg.family!r}: recurrent "
                                  "state updates are not idempotent under full-chunk "
                                  "recompute (DESIGN.md §2)")
+    profile = None
     if doc_lens:
         # the packed layout's cost profile: the causal sawtooth of each row
         # (cost restarts at every document), summed over the batch
@@ -211,19 +238,17 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
         row_lens = ([[doc_lens[i] for i in row] for row in rows]
                     + [[] for _ in range(B - len(rows))])
         profile = part.packed_cost_profile(row_lens, S, r)
-        if plan.partition == "flops":
-            sched = part.partition_profile(
-                profile, plan.n_chunks, multiple=128,
-                doc_bounds=part.aligned_doc_bounds(row_lens, S))
-        else:
-            sched = part.partition(S, plan.n_chunks, cfg, plan.partition, multiple=128)
+    if plan.pp > 1:
+        sched = part.partition_length(S, n)
+    elif profile is not None and plan.partition == "flops":
+        sched = part.partition_profile(profile, n, multiple=mult,
+                                       doc_bounds=part.aligned_doc_bounds(row_lens, S))
+    else:
+        sched = part.partition(S, n, cfg, plan.partition, multiple=mult)
+    if profile is not None:
         # the profile sums over the rows; α wants one row's share
         costs = [c / max(1, B) for c in part.profile_chunk_costs(profile, sched)]
-    elif plan.pp > 1:
-        sched = part.partition_length(S, n)
-        costs = part.chunk_costs(sched, r)
     else:
-        sched = part.partition(S, plan.n_chunks, cfg, plan.partition, multiple=128)
         costs = part.chunk_costs(sched, r)
     # sequence-aware offload ratios from the cost model (§5.2)
     n_params = cm.count_active_params(mdef, plan.pp)
@@ -330,13 +355,29 @@ def pipeline_tick_trace(cell: Cell):
     return trace
 
 
+def _chunk_meta(cell: Cell, ctx: Ctx, off: int, ln: int, doc_start, dev, *,
+                cache_off: int, kv_view: int):
+    """The ChunkMeta of this model rank's rows of the chunk [off, off + ln):
+    positions ``off + rank * lloc + arange(lloc)`` (lloc = ln / sp, the
+    reference's ``chunk_positions``), their RoPE tables and document
+    windows, and the cache slots given."""
+    lloc = ln // cell.plan.sp
+    lo = off + ctx.model_index() * lloc
+    q_pos = lo + torch.arange(lloc, dtype=torch.int32, device=dev)
+    return ChunkMeta(q_pos=q_pos, cache_off=cache_off, kv_view=kv_view,
+                     rope=_rope(cell.cfg, q_pos),
+                     q_start=None if doc_start is None else doc_start[:, lo:lo + lloc],
+                     ctx=ctx if cell.plan.sp > 1 else None)
+
+
 def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
                  with_loss: bool = False, doc_start=None, ctx: Ctx = SINGLE):
     """The chunk loop of this rank.  tokens, labels: [B, S] int (a dp
-    group's rows).  ``doc_start``: optional [B, S] int32 start of each
-    token's document in a packed batch (``PAD_START`` on padding), sliced
-    chunk by chunk into the attention's window (``ChunkMeta.q_start``), so
-    documents never attend across their boundaries.  With ``with_loss`` the
+    group's rows, every model rank's alike).  ``doc_start``: optional [B, S]
+    int32 start of each token's document in a packed batch (``PAD_START``
+    on padding), sliced chunk by chunk, at this model rank's rows, into the
+    attention's window (``ChunkMeta.q_start``), so documents never attend
+    across their boundaries.  With ``with_loss`` the
     head loss is added over the tokens whose label is >= 0 (the label
     sentinel: a negative label carries zero weight), and the caches keep
     every chunk's K/V for the backward; where a gradient is wanted, each
@@ -346,7 +387,8 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
     rows, ``core/offload.py::Link``) None where nothing offloads; ``seed``
     (the first hand-off token) None at pp = 1 (``_run_ticks``)."""
     if cell.plan.pp > 1:
-        return _run_ticks(cell, ctx, stage_p, g, tokens, labels, with_loss=with_loss)
+        return _run_ticks(cell, ctx, stage_p, g, tokens, labels, with_loss=with_loss,
+                          doc_start=doc_start)
     mdef, plan = cell.mdef, cell.plan
     dev = tokens.device
     state = mdef.init_state(tokens.shape[0], cell.cache_loc, cell.dtype, dev,
@@ -356,11 +398,9 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
     link = ofl.Link(ahead=ahead) if train and plan.offload else None
     loss = denom = x = None
     for c, (off, ln) in enumerate(zip(cell.sched.offsets, cell.sched.lengths)):
-        q_pos = off + torch.arange(ln, dtype=torch.int32, device=dev)
-        x = mdef.embed(g, tokens[:, off:off + ln])
-        q_start = None if doc_start is None else doc_start[:, off:off + ln]
-        meta = ChunkMeta(q_pos=q_pos, cache_off=off, kv_view=off + ln,
-                         rope=_rope(cell.cfg, q_pos), q_start=q_start)
+        x = mdef.embed(g, tokens[:, off:off + ln], ctx)
+        meta = _chunk_meta(cell, ctx, off, ln, doc_start, dev, cache_off=off // plan.sp,
+                           kv_view=(off + ln) // plan.sp)
         if train:
             # the chunk's seam (the reference's prefetch_chunk): its backward
             # takes the chunk's reloaded rows from the link and, under
@@ -371,7 +411,7 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
             x, state = mdef.stage_apply(stage_p, state, x, meta)
         if with_loss:
             lab = labels[:, off:off + ln]
-            ls, cnt = mdef.head_loss(g, x, lab, (lab >= 0).float())
+            ls, cnt = mdef.head_loss(g, x, lab, (lab >= 0).float(), ctx)
             loss = ls if loss is None else loss + ls
             denom = cnt if denom is None else denom + cnt
     if ahead:
@@ -379,7 +419,8 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
     return dict(loss=loss, denom=denom, state=state, last_x=x, link=link, seed=None)
 
 
-def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: bool):
+def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: bool,
+               doc_start=None):
     """The pp > 1 tick loop of this rank's stage (reference
     ``runner.py:499-601``, DESIGN.md §2, §4).
 
@@ -395,7 +436,10 @@ def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: b
     uniform SPMD program's constraint (``runner.py:553``), and its seams
     are keyed by event in the offload link.  After its compute, each tick's
     hand-off sends event e's output to stage s + 1 and receives event e +
-    1's input from stage s - 1 (``Ctx.handoff``).
+    1's input from stage s - 1 (``Ctx.handoff``), at this model index.  A
+    packed batch's document windows are the stage's chunk's, at this model
+    rank's rows (the reference's ``ds_loc``); at sp > 1 the chunk's rows
+    and cache slots are the model rank's (``cache_off = c * lloc``).
 
     Where the port departs from the reference's one SPMD program: a stage
     runs no compute at its warmup and drain ticks (e outside [0, E)), which
@@ -416,6 +460,7 @@ def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: b
                          f"(got pp = {ctx.pp}, backend {ctx.backend!r})")
     N, S = cell.sched.n, cell.shape.seq_len
     clen = S // N
+    lloc = clen // plan.sp
     B, dev = tokens.shape[0], tokens.device
     events = pipeline_feed_events(plan, N)
     E = len(events)
@@ -428,7 +473,7 @@ def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: b
     token, carry, x_last = seed, None, None
     emb = emb_chunk = None
     loss = denom = None
-    carry_like = ((B, clen, cfg.d_model), cell.dtype)
+    carry_like = ((B, lloc, cfg.d_model), cell.dtype)
     pos_in = torch.arange(clen, device=dev)
     for t in range(E + pp - 1):
         e = t - stage
@@ -436,12 +481,11 @@ def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: b
         if 0 <= e < E:
             c, sub, n_sub = events[e]
             off = c * clen
-            q_pos = off + torch.arange(clen, dtype=torch.int32, device=dev)
             if stage == 0 and emb_chunk != c:
-                emb, emb_chunk = mdef.embed(g, tokens[:, off:off + clen]), c
+                emb, emb_chunk = mdef.embed(g, tokens[:, off:off + clen], ctx), c
             h = emb if stage == 0 else carry
-            meta = ChunkMeta(q_pos=q_pos, cache_off=off, kv_view=off + clen,
-                             rope=_rope(cfg, q_pos))
+            meta = _chunk_meta(cell, ctx, off, clen, doc_start, dev, cache_off=c * lloc,
+                               kv_view=(c + 1) * lloc)
             if train:
                 fed = events[min(t, E - 1)][0]
                 x, state = mdef.stage_apply(
@@ -454,7 +498,7 @@ def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: b
                 lab = labels[:, off:off + clen]
                 sublen = clen // n_sub
                 mask = ((pos_in >= sub * sublen) & (pos_in < (sub + 1) * sublen)).float()
-                ls, cnt = mdef.head_loss(g, x, lab, mask[None, :] * (lab >= 0).float())
+                ls, cnt = mdef.head_loss(g, x, lab, mask[None, :] * (lab >= 0).float(), ctx)
                 loss = ls if loss is None else loss + ls
                 denom = cnt if denom is None else denom + cnt
         send = x if stage < pp - 1 else None
@@ -491,9 +535,14 @@ def trainable(path: str) -> bool:
 
 
 def _check_ctx(cell: Cell, ctx: Ctx) -> None:
-    if (ctx.dp, ctx.pp) != (cell.plan.dp, cell.plan.pp):
-        raise ValueError(f"the cell's plan is dp x pp = {cell.plan.dp} x {cell.plan.pp}, "
-                         f"its context {ctx.dp} x {ctx.pp}")
+    plan = cell.plan
+    if (ctx.dp, ctx.pp, ctx.sp) != (plan.dp, plan.pp, plan.sp):
+        raise ValueError(f"the cell's plan is dp x pp x sp = {plan.dp} x {plan.pp} x "
+                         f"{plan.sp}, its context {ctx.dp} x {ctx.pp} x {ctx.sp}")
+    if plan.sp > 1 and (ctx.attn_mode, ctx.merge_bf16, ctx.grad_compress) != (
+            plan.attn_mode, plan.merge_bf16, plan.grad_compress):
+        raise ValueError("the context's attn_mode / merge_bf16 / grad_compress differ "
+                         "from the plan's (make it with cell.ctx())")
 
 
 def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
@@ -502,13 +551,17 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
     gradients, a tree like ``params`` (zeros for the gate).
 
     Over several ranks (``ctx``) ``params`` are this rank's stage and the
-    globals, ``tokens`` its dp group's rows: the loss is the sum of every
-    rank's loss over the sum of their counts (``psum_loss_all``), each rank
-    differentiates its share of it, and the stage gradients are summed over
-    the dp group (``psum_grads``), the globals' over every rank
+    globals (at sp > 1 its model shard of each), ``tokens`` its dp group's
+    rows: the loss is the sum of every data rank's loss over the sum of
+    their counts (``psum_loss_all``), each rank differentiates its share
+    of it, the replicated leaves' gradients are summed over the model group
+    (``psum_model_grads``), and the stage gradients are summed over the dp
+    group (``psum_grads``), the globals' over the data axis
     (``psum_globals``: each summed where it is used, then sent to the
     stages that do not use it): every rank returns the loss and the
-    gradient of its parameters.
+    gradient of its parameters (of its shards), the gradient of the global
+    loss (the module docstring says where this departs from the
+    reference).
 
     With ``plan.grad_accum = A > 1`` the batch is cut into A microbatches of
     B / A rows, each run forward and backward on its own; the loss and the
@@ -570,27 +623,47 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
     it, it_used = iter(flat), iter(used)
     grads = tree.map_(lambda _: next(it), params)
     used = tree.map_(lambda _: next(it_used), params)
+    if ctx.sp > 1:
+        # each model rank differentiated its sequence shard through the
+        # replicated leaves: their gradients are summed over the model group
+        marks = tree.leaves(param_markers(cell.mdef, params))
+        ctx.psum_model_grads([t for t, m, u in zip(tree.leaves(grads), marks, tree.leaves(used))
+                              if marker_dim(m) is None and u])
     # stage gradients over the dp replicas of the stage, the globals' over
-    # every rank (their contributions live on different stages; the ones
+    # the data axis (their contributions live on different stages; the ones
     # this rank's graph never reached are zeros here)
     ctx.psum_grads(tree.leaves(grads["stages"]))
     ctx.psum_globals(tree.leaves(grads["globals"]), tree.leaves(used["globals"]))
     return loss, grads
 
 
-def global_grad_norm(grads, ctx: Ctx = SINGLE) -> torch.Tensor:
+def global_grad_norm(grads, ctx: Ctx = SINGLE, mdef: ModelDef = None) -> torch.Tensor:
     """The global norm of the model's gradients from this rank's share
-    (its stage's and the globals', already reduced): the stages' squares
-    summed over the stages of the dp group (``psum_stages``), each stage
-    and the globals counted once, the same on every rank, so every rank
-    clips alike and the replicated globals stay identical."""
+    (its stage's and the globals', already reduced): at sp > 1 the squares
+    of the sharded leaves (``mdef``'s markers) summed over the model group
+    and the replicated ones counted once; the stages' squares summed over
+    the stages of the dp group (``psum_stages``), each stage and the
+    globals counted once, the same on every rank, so every rank clips
+    alike and the replicated leaves stay identical."""
     from repro_torch.optim import adamw
 
     if not ctx.distributed:
         return adamw.global_norm(grads)
-    sq = adamw.global_norm(grads["stages"]).square().reshape(1)
-    ctx.psum_stages([sq])
-    return torch.sqrt(sq[0] + adamw.global_norm(grads["globals"]).square())
+    if ctx.sp > 1:
+        marks = param_markers(mdef, grads)
+        sq = torch.zeros(2, 2, dtype=torch.float32, device=ctx.device)
+        for row, part in enumerate(("stages", "globals")):
+            for g, m in zip(tree.leaves(grads[part]), tree.leaves(marks[part])):
+                sq[row, int(marker_dim(m) is not None)] += g.float().square().sum()
+        sharded = sq[:, 1].clone()
+        ctx.psum_model_grads([sharded])
+        sq = sq[:, 0] + sharded
+    else:
+        sq = torch.stack([adamw.global_norm(grads[part]).square()
+                          for part in ("stages", "globals")])
+    stages = sq[:1].clone()
+    ctx.psum_stages([stages])
+    return torch.sqrt(stages[0] + sq[1])
 
 
 def make_train_step(cell: Cell, *, lr_kwargs=None, ctx: Ctx = SINGLE):
@@ -599,7 +672,8 @@ def make_train_step(cell: Cell, *, lr_kwargs=None, ctx: Ctx = SINGLE):
     moments where the plan keeps them (``offload_moments``,
     ``moments_dtype``: ``opt_state`` from ``adamw.init_state`` with the
     same settings).  Over several ranks each rank updates what it holds,
-    clipped by the model's global norm (``global_grad_norm``)."""
+    clipped by the model's global norm (``global_grad_norm``); at sp > 1
+    the moments are those of the rank's shards."""
     from repro_torch.optim import adamw
 
     lr_kwargs = lr_kwargs or {}
@@ -615,7 +689,7 @@ def make_train_step(cell: Cell, *, lr_kwargs=None, ctx: Ctx = SINGLE):
         params, opt_state, met = adamw.apply_update(
             params, grads, opt_state, lr=lr, offload_moments=plan.offload_moments,
             moments_mode=plan.moments_mode, moments_dtype=plan.moments_dtype,
-            grad_norm=global_grad_norm(grads, ctx) if ctx.distributed else None)
+            grad_norm=global_grad_norm(grads, ctx, cell.mdef) if ctx.distributed else None)
         met["loss"] = loss
         return params, opt_state, met
 
@@ -638,6 +712,8 @@ def make_serve_step(cell: Cell, *, decode_steps=None):
             f" slots x sp={cell.plan.sp})")
     if cell.plan.pp > 1:
         raise _later(f"decode at pp = {cell.plan.pp} (the microbatched decode pipeline)", 5)
+    if cell.plan.sp > 1:
+        raise _later(f"decode at sp = {cell.plan.sp} (the sequence-sharded serving cache)", 5)
     S = cell.shape.seq_len
     mdef = cell.mdef
 

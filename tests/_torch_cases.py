@@ -62,3 +62,29 @@ def to_torch(arrays, dtype, device="cpu"):
 
 def to_np(x):
     return np.asarray(x.float().cpu()) if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def shard_positions(lengths, sp, rank, upto):
+    """Model rank ``rank``'s cache slot positions through chunk ``upto`` of
+    chunks of ``lengths`` (from 0): chunk c's rows ``off + rank * ln / sp +
+    arange(ln / sp)``, ascending with gaps."""
+    offs = np.cumsum([0, *lengths[:-1]])
+    return np.concatenate([off + rank * (ln // sp) + np.arange(ln // sp)
+                           for off, ln in list(zip(offs, lengths))[:upto + 1]]).astype(np.int32)
+
+
+def model_axis_case(mode, B, lengths, c, sp, rank, H, Hkv, hd, seed=0):
+    """(q, k, v) arrays and q_pos / kv_pos of chunk ``c`` at sp > 1 as model
+    rank ``rank`` passes them to the kernels: "gather_q", every query of the
+    chunk over the rank's gapped cache shard; "gather_kv", the rank's
+    queries over every rank's shard concatenated rank by rank (positions
+    that do not ascend)."""
+    off, ln = int(np.sum(lengths[:c])), lengths[c]
+    lloc = ln // sp
+    if mode == "gather_q":
+        q_pos = off + np.arange(ln, dtype=np.int32)
+        kv_pos = shard_positions(lengths, sp, rank, c)
+    else:
+        q_pos = (off + rank * lloc + np.arange(lloc)).astype(np.int32)
+        kv_pos = np.concatenate([shard_positions(lengths, sp, r, c) for r in range(sp)])
+    return inputs(B, len(q_pos), len(kv_pos), H, Hkv, hd, hd, seed=seed), q_pos, kv_pos

@@ -807,3 +807,82 @@ def test_pipeline_pp2_on_one_card_over_gloo_equals_pp1(cuda_device):
                 assert not np.any(g), path
                 continue
             assert np.linalg.norm(g - ref_g) / norm <= 1e-4, (r["rank"], path)
+
+
+# the model axis's shapes (sp = 2): chunks of (256, 192, 128) rows, the
+# last and the first chunk, each rank
+MODEL_AXIS = sorted({(mode, c, r, dtype, kernels) for mode in ("gather_q", "gather_kv")
+                     for c in (0, 2) for r in (0, 1) for dtype in ("float32", "bfloat16")
+                     for kernels in _kernels(dtype)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,c,rank,dtype,kernels", MODEL_AXIS)
+def test_kernels_at_the_model_axis_shapes(cuda_device, mode, c, rank, dtype, kernels):
+    """The forward and the backward pair at sp = 2's shapes: gather_q, the
+    chunk's queries over one rank's gapped cache shard (at chunk 0 on rank
+    1 the first half of the queries sees no slot: dead rows, exact);
+    gather_kv, one rank's queries over both shards concatenated, positions
+    that do not ascend.  Forward within 1e-5, backward within 1e-5 x max
+    |plain|."""
+    from _torch_cases import model_axis_case
+
+    arrays, q_pos, kv_pos = model_axis_case(mode, 2, (256, 192, 128), c, 2, rank, 8, 2, 64)
+    o, m, l = _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels)
+    dead = torch.from_numpy(q_pos[:, None] < kv_pos[None, :]).all(1).to(cuda_device)
+    if mode == "gather_q" and c == 0 and rank == 1:
+        assert int(dead.sum()) == 128
+    assert bool((o[:, dead] == 0).all() and (l[:, dead] == 0).all()
+                and (m[:, dead] == -1e30).all())
+    _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels)
+
+
+@pytest.mark.cuda
+def test_model_axis_sp2_on_one_card_over_gloo_equals_cpu(cuda_device):
+    """sp = 2 as two ranks (processes) sharing the card over gloo, every
+    collective staged through pinned host memory, fp32 reduced qwen2-7b
+    under the default plan: each rank's loss, and every gradient leaf
+    gathered over the ranks, within 1e-4 relative L2 of the CPU's sp = 1
+    step.  The ranks run tests/_torch_model_axis_workers.py."""
+    import _torch_model_axis_workers as W
+    from repro_torch.launch import mesh
+    from repro_torch.models.convert import gather_model_shards
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("qwen2-7b").reduced()
+    S, B = 256, 2
+    gen = torch.Generator().manual_seed(0)
+    mdef = build_model(cfg)
+    params = {"stages": mdef.init_stage_params(gen, torch.float32, "cpu"),
+              "globals": mdef.init_globals(gen, torch.float32, "cpu")}
+
+    def stack(slots):
+        if isinstance(slots[0], dict):
+            return {k: stack([s[k] for s in slots]) for k in slots[0]}
+        return np.stack([s.numpy() for s in slots]).astype(np.float32)
+
+    params_np = {"stages": stack(params["stages"]),
+                 "globals": tree.map_(lambda t: t.numpy(), params["globals"])}
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    cell = runner.resolve_cell(cfg, ShapeConfig("t", S, B, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=2, grad_accum=1),
+                               dtype=torch.float32)
+    loss1, grads1 = runner.loss_and_grads(cell, params, torch.from_numpy(tokens),
+                                          torch.from_numpy(labels))
+    want = {path: g.numpy() for path, g in tree.items(grads1)}
+    job = dict(name="sp2", arch="qwen2-7b", layout=dict(sp=2, n_chunks=2), params=params_np,
+               tokens=tokens, labels=labels)
+    ranks = [r["sp2"] for r in mesh.spawn(W.layout_rank, 2, backend="gloo", device="cuda",
+                                          args=([job],), timeout_s=300.0)]
+    for r in ranks:
+        assert abs(r["loss"] - float(loss1)) <= 1e-4 * abs(float(loss1))
+    full = gather_model_shards([r["grads"] for r in sorted(ranks, key=lambda x: x["model_index"])],
+                               cfg)
+    for path, g in tree.items(full):
+        norm = np.linalg.norm(want[path])
+        if norm == 0:
+            assert not np.any(g), path
+            continue
+        assert np.linalg.norm(g - want[path]) / norm <= 1e-4, path

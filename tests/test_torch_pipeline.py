@@ -402,26 +402,43 @@ def test_params_from_numpy_splits_stages_as_the_reference_builds_them():
 
 
 def test_what_the_multi_rank_slice_refuses():
-    """A model axis and packed rows at pp > 1 (item 3), decode at pp > 1
-    (item 5), chunks that do not tile S, MSP chunks that do not split, NCCL without a card per rank, a
-    multi-rank context without a process group."""
+    """What stays refused: ZeRO-1 over the pod axis (item 3), prefill and
+    decode at sp > 1 and decode at pp > 1 (item 5), ring attention (item
+    4; ``ppermute_model`` in tests/test_torch_model_axis.py); chunks that do not tile S (at sp, their
+    model shards too), MSP chunks that do not split, NCCL without a card
+    per rank, a multi-rank context without a process group.  A model axis
+    (tests/test_torch_model_axis.py) and packed rows at pp > 1 resolve."""
     cfg = get_config("qwen2-7b").reduced()
     shape = ShapeConfig("t", 256, 2, "train")
+    cell = runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1), model_size=2)
+    assert cell.plan.sp == 2 and all(ln % 128 == 0 for ln in cell.sched.lengths)
     with pytest.raises(NotImplementedError, match="item 3"):
-        runner.resolve_cell(cfg, shape, model_size=2)
+        runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, zero1=True))
+    for kind in ("prefill", "decode"):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            runner.resolve_cell(cfg, ShapeConfig("p", 256, 2, kind),
+                                overrides=dict(pp=1, dp=1), model_size=2)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, attn_mode="ring"),
+                            model_size=2)
     with pytest.raises(NotImplementedError, match="item 5"):
         runner.resolve_cell(cfg, ShapeConfig("d", 256, 2, "decode"),
                             overrides=dict(pp=2, dp=1), data_size=2)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        runner.resolve_cell(cfg, shape, overrides=dict(pp=2, dp=1, n_chunks=2),
-                            doc_lens=[100, 156, 256], data_size=2)
+    packed = runner.resolve_cell(cfg, shape, overrides=dict(pp=2, dp=1, n_chunks=2),
+                                 doc_lens=[100, 156, 256], data_size=2)
+    assert packed.varlen and packed.sched.lengths == (128, 128)
+    with pytest.raises(ValueError, match="model shards"):
+        runner.resolve_cell(cfg, ShapeConfig("t", 264, 2, "train"),
+                            overrides=dict(pp=2, dp=1, n_chunks=4), data_size=2, model_size=4)
     with pytest.raises(ValueError, match="equal chunks"):
         runner.resolve_cell(cfg, ShapeConfig("t", 250, 2, "train"),
                             overrides=dict(pp=2, dp=1, n_chunks=4), data_size=2)
     with pytest.raises(ValueError, match="msp_split"):
         runner.resolve_cell(cfg, shape, overrides=dict(pp=2, dp=1, n_chunks=4, msp=True,
                                                        msp_split=3), data_size=2)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 4"):
+        ctx_mod.Ctx(sp=2, device="cpu", attn_mode="ring")
+    with pytest.raises(RuntimeError, match="initialised process group"):
         ctx_mod.Ctx(sp=2, device="cpu")
     with pytest.raises(RuntimeError, match="initialised process group"):
         ctx_mod.Ctx(dp=2, device="cpu")
@@ -437,8 +454,9 @@ def test_what_the_multi_rank_slice_refuses():
         mesh.spawn(W.failing_rank, torch.cuda.device_count() + 1, backend="nccl",
                    device="cuda", args=(0,))
     assert mesh.parse_mesh("2x1") == (2, 1)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        mesh.parse_mesh("1x2")
+    assert mesh.parse_mesh("1x2") == (1, 2) and mesh.parse_mesh("2x2") == (2, 2)
+    with pytest.raises(ValueError, match=">= 1"):
+        mesh.parse_mesh("1x0")
     with pytest.raises(ValueError, match="DATAxMODEL"):
         mesh.parse_mesh("two")
     assert ctx_mod.SINGLE.psum_loss_all(torch.tensor(2.0)) == 2.0

@@ -167,6 +167,7 @@ import contextlib
 import dataclasses
 import json
 import logging
+import math
 import subprocess
 import sys
 import threading
@@ -214,6 +215,15 @@ CARD_BYTES = 80e9
 # deliver before copy_timeline refuses its reading (the copies themselves
 # are counted exactly by runtime/hostmem.py)
 MISSED_COPY_SHARE = 0.01
+# kineto keeps only the device records whose times, converted to the host's
+# clock, fall between the profiler's start and stop, and that conversion
+# drifts from session to session: on the H100 machine a full-depth step's
+# last 0.47 s of moment copies (136 of 734 H2D, 138 of 734 D2H) once fell
+# past the stop, and kineto's "Record counts: Out-of-range" read 4 to 12
+# records in other sessions of that step.  A profiled step is therefore
+# padded with idle host time (seconds, before and after it) inside its
+# profiling session; the step's own times are taken inside the padding.
+PROFILE_PAD_S = (0.5, 2.0)
 # packed variable-length training (DESIGN.md §13): qwen2-7b at full width, 4
 # layers, S = 8192 in 4 chunks; 32 Zipf documents (24574 real tokens) packed
 # into 3 rows, one row a microbatch, against the pad-to-max baseline (one
@@ -248,14 +258,17 @@ SHARED_CARD = "two ranks share one card: not a pipeline speed"
 # to 2 layers, B = 1, S = 8192 in 4 chunks, the default plan, sp = 2 as two
 # ranks sharing the one card over gloo (every collective staged through
 # pinned host memory); SP_STEPS steps under gather_q, then as many under
-# gather_kv with grad_compress, each mode's step-0 loss, and gather_q's
-# step-0 gradients (one untimed call, gathered to full), against sp = 1 on
-# the card with the same weights; then the reduced model in fp32 at S = 256 in four layouts
-# against the CPU's sp = 1 step under the same plan
+# gather_kv with grad_compress and under the ring (DESIGN.md §15), each
+# mode's step-0 loss, and the step-0 gradients of the SP_GRADS_MODES (one
+# untimed call each, gathered to full), against sp = 1 on the card with the
+# same weights; then the reduced model in fp32 at S = 256 in the
+# SP_FP32_LAYOUTS against the CPU's sp = 1 step under the same plan
 SP, SP_LAYERS, SP_SEQ, SP_CHUNKS, SP_STEPS = 2, 2, 8192, 4, 2
 SP_LOSS_TOL = 2e-3       # step-0 loss against sp = 1's, relative
 SP_MODES = {"gather_q": dict(attn_mode="gather_q"),
-            "gather_kv": dict(attn_mode="gather_kv", grad_compress=True)}
+            "gather_kv": dict(attn_mode="gather_kv", grad_compress=True),
+            "ring": dict(attn_mode="ring")}
+SP_GRADS_MODES = ("gather_q", "ring")
 SP_FP32_SEQ, SP_FP32_BATCH = 256, 2
 # the packed layouts run FP32_PACKED_CORPUS in 4 rows (2 a dp group), chunk
 # 0 offloading every tagged row (α 1), raw and as fp8.  The fp8 layout is
@@ -270,7 +283,17 @@ SP_FP32_LAYOUTS = {"sp2": dict(dp=1, pp=1, sp=2, n_chunks=2),
                                           alphas=(1.0, 0.0)),
                    "dp2_sp2_packed_fp8": dict(dp=2, pp=1, sp=2, n_chunks=2, packed=True,
                                               plan=dict(offload_dtype="fp8"), alphas=(1.0, 0.0),
-                                              drift_of="dp2_sp2_packed")}
+                                              drift_of="dp2_sp2_packed"),
+                   # the ring (DESIGN.md §15) at sp 2 and under pp 2 with MSP; the pod
+                   # axis at pods 2 x sp 2 with ZeRO-1 and the moments in pinned host
+                   # memory, which also takes one update (its parameters against the
+                   # CPU's sp = 1 update, its host moment bytes at the closed form)
+                   "sp2_ring": dict(dp=1, pp=1, sp=2, n_chunks=2, plan=dict(attn_mode="ring")),
+                   "pp2_sp2_msp_ring": dict(dp=1, pp=2, sp=2, n_chunks=4, msp=True,
+                                            plan=dict(attn_mode="ring")),
+                   "pods2_sp2_zero1": dict(dp=1, pp=1, sp=2, pods=2, n_chunks=2,
+                                           plan=dict(offload_moments=True), update=True)}
+SP_FP32_LR = dict(peak=1e-4, warmup=1, total=10)
 SP_SHARED = "ranks share one card over gloo: not a model-axis speed"
 
 
@@ -1096,6 +1119,16 @@ def overlap_us(iv, union, starts):
     return cov
 
 
+@contextlib.contextmanager
+def padded(prof):
+    """``prof``'s profiling session with PROFILE_PAD_S of idle host time on
+    either side of the work it wraps."""
+    with prof:
+        time.sleep(PROFILE_PAD_S[0])
+        yield prof
+        time.sleep(PROFILE_PAD_S[1])
+
+
 def copy_timeline(prof, moment_copies=(0, 0)):
     """From a torch.profiler run's device events: the device's busy time
     (the union of every kernel's and copy's interval), and for the pinned
@@ -1298,7 +1331,7 @@ def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n
         if step != steps - 1:
             return contextlib.nullcontext()
         prof["p"] = profile(activities=[ProfilerActivity.CUDA])
-        return prof["p"]
+        return padded(prof["p"])
 
     check(packed is None or grads == "none", "a packed run takes no untimed gradients call")
     batch = 1 if packed is None else packed.tokens.shape[0]
@@ -2496,14 +2529,16 @@ def shard_positions(offsets, lengths, sp: int, rank: int, upto: int):
                       for off, ln in list(zip(offsets, lengths))[:upto + 1]])
 
 
-def model_axis_inputs(gen, cell, c, mode, rank, dtype):
+def model_axis_inputs(gen, cell, c, mode, rank, dtype, kv_rank=None):
     """The kernels' inputs at chunk ``c`` of a model-axis cell (sp =
     ``cell.plan.sp``) as model rank ``rank`` passes them: under gather_q
     every query of the chunk (a head slice of the fused q|k projection,
     positions off + arange(ln)) over the rank's cache shard (a prefix view
     of its buffer, gapped positions); under gather_kv the rank's queries
     over every rank's shard concatenated rank by rank (positions that do
-    not ascend).  Returns (q, k, v, q_pos, kv_pos, do, dl, q_start None)."""
+    not ascend); under the ring, one hop: the rank's queries over the
+    block that started on ``kv_rank`` (its cache view, gapped positions).
+    Returns (q, k, v, q_pos, kv_pos, do, dl, q_start None)."""
     cfg, sp = cell.cfg, cell.plan.sp
     B, dev = cell.b_loc, "cuda"
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -2522,6 +2557,11 @@ def model_axis_inputs(gen, cell, c, mode, rank, dtype):
         k, v = k[:, :kv_view], v[:, :kv_view]
         q_pos = off + torch.arange(ln, dtype=torch.int32, device=dev)
         tq = ln
+    elif mode == "ring":
+        k, v, kv_pos = shard(kv_rank)
+        k, v = k[:, :kv_view], v[:, :kv_view]
+        q_pos = off + rank * lloc + torch.arange(lloc, dtype=torch.int32, device=dev)
+        tq = lloc
     else:
         parts = [shard(r) for r in range(sp)]
         k = torch.cat([p[0][:, :kv_view] for p in parts], dim=1)
@@ -2548,30 +2588,39 @@ def model_axis_check_shapes(fa, ref, gen, runner, cfg):
     """The kernels at the model axis's shapes, untimed: the full-width
     cell's first chunk under gather_q on rank 1's shard (whose first half
     of the queries sees no slot: those rows must be exactly o = l = 0, m =
-    -1e30, in bf16 and fp32) and the fp32 layouts' chunk shapes (S = 256,
-    the reduced width: the CUDA-core kernels), each forward within 1e-5 and
-    each backward pair within 1e-5 x max |plain|.  Returns (forward's worst
-    error, backward's worst relative error)."""
+    -1e30, in bf16 and fp32), the ring's hop of its first chunk on rank 0
+    over the block of rank 1 (wholly in the queries' future: every row
+    exactly dead) and the fp32 layouts' chunk shapes (S = 256, the reduced
+    width: the CUDA-core kernels; the ring's four hops of each chunk), each
+    forward within 1e-5 and each backward pair within 1e-5 x max |plain|.
+    Returns (forward's worst error, backward's worst relative error)."""
     fwd_err, bwd_rel = 0.0, 0.0
     cell = model_axis_cell(runner, dataclasses.replace(cfg, n_layers=SP_LAYERS), SP_SEQ, 1,
                            SP_CHUNKS)
     small = model_axis_cell(runner, get_config_reduced(), SP_FP32_SEQ, SP_FP32_BATCH, 2,
                             dtype=torch.float32)
-    cases = [(cell, 0, "gather_q", 1, dt) for dt in (torch.bfloat16, torch.float32)]
-    cases += [(small, c, mode, r, torch.float32) for c in (0, 1)
+    cases = [(cell, 0, mode, r, kv, dt) for mode, r, kv in (("gather_q", 1, None), ("ring", 0, 1))
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(small, c, mode, r, None, torch.float32) for c in (0, 1)
               for mode in ("gather_q", "gather_kv") for r in (0, 1)]
-    for cl, c, mode, r, dt in cases:
-        q, k, v, q_pos, kv_pos, do, dl, qs = model_axis_inputs(gen, cl, c, mode, r, dt)
+    cases += [(small, c, "ring", r, kv, torch.float32) for c in (0, 1) for r in (0, 1)
+              for kv in (0, 1)]
+    for cl, c, mode, r, kv, dt in cases:
+        q, k, v, q_pos, kv_pos, do, dl, qs = model_axis_inputs(gen, cl, c, mode, r, dt,
+                                                               kv_rank=kv)
         err, (o, m, l) = kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, qs)
         _, rel, _ = bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, qs, do, dl)
         dead = visible_mask(q.shape[0], q_pos, kv_pos, qs).any(dim=2).logical_not()
         dead = dead[..., None].expand_as(m)
         n_dead = int(dead.sum())
-        if cl is cell:      # the first half of the chunk's queries precede rank 1's slots
+        if cl is cell:
+            # gather_q: the first half of the chunk's queries precede rank
+            # 1's slots; the ring's hop: all of rank 0's do
             n_dead = q.shape[0] * (cl.sched.lengths[c] // SP) * q.shape[2]
         if n_dead:
             check_dead_rows(o, m, l, dead, n_dead, f"{mode} chunk {c} on rank {r} ({dt})")
         fwd_err, bwd_rel = max(fwd_err, err), max(bwd_rel, *rel.values())
+        mode = mode if kv is None else f"{mode} hop from rank {kv}"
         print(f"model-axis check shape [{mode} chunk {c} rank {r}] q {tuple(q.shape)} kv "
               f"{tuple(k.shape)} {dt}: forward err {err:.3e}, backward rel err "
               + ", ".join(f"{key} {val:.2e}" for key, val in rel.items())
@@ -2602,12 +2651,18 @@ def model_axis_closed_form(cell, *, with_norm: bool) -> dict:
     full gradients reduce-scattered (bf16 under grad_compress, else the
     weights' dtype) and, under gather_q, o's and l's cotangents [B, lloc,
     ...] gathered and the queries' [B, ln, H, hd] reduce-scattered, under
-    gather_kv dk and dv [B, sp kv, Hkv, hd] fp32 reduce-scattered; the loss
+    gather_kv dk and dv [B, sp kv, Hkv, hd] fp32 reduce-scattered; under
+    the ring (``model_ppermute``) sp - 1 hops of the cache view's k, v and
+    int32 positions in each forward pass (``costmodel.ring_hop_bytes`` of
+    kv slots, which prices bf16 rows: the cell's dtype scales them) and sp -
+    1 hops of dk, dv (the rows without the positions) in the backward, no
+    gather, max or reduce-scatter of the attention; the loss
     gathers x [B, lloc, d], max-reduces [B, ln] fp32, sums l and the picked
     logit [B, ln] fp32 twice, and reduce-scatters x's gradient [B, ln, d].
     Once a step the replicated leaves' gradients are summed over the model
     group (``model_reduce``), with the global norm's two fp32 partial sums
     where ``with_norm``."""
+    from repro_torch.core import costmodel as cm
     from repro_torch.core import tree
     from repro_torch.models.model_zoo import build_model, marker_dim, param_markers
 
@@ -2632,22 +2687,25 @@ def model_axis_closed_form(cell, *, with_norm: bool) -> dict:
     passes = 2 if plan.remat in ("sppo", "full") else 1
     o_e = 2 if plan.merge_bf16 else 4
     out = {k: [0, 0] for k in ("model_all_gather", "model_reduce_scatter", "model_psum",
-                               "model_pmax")}
+                               "model_pmax", "model_ppermute")}
 
     def add(kind, calls, nbytes):
         out[kind][0] += calls
         out[kind][1] += int(calls * nbytes)
 
-    gq = plan.attn_mode == "gather_q"
+    gq, ring = plan.attn_mode == "gather_q", plan.attn_mode == "ring"
     for off, ln in zip(cell.sched.offsets, cell.sched.lengths):
         lloc, kv = ln // sp, (off + ln) // sp
+        kv_rows = (cm.ring_hop_bytes(cfg, kv, B) - 4 * kv) * e // cm.ACT_ITEMSIZE
         add("model_reduce_scatter", 1, B * ln * d * e)
         add("model_all_gather", 1, B * lloc * d * e)
         for _ in range(cfg.n_layers):
             for _ in range(passes):
                 for t in ag:
                     add("model_all_gather", 1, t.numel() * e / sp)
-                if gq:
+                if ring:
+                    add("model_ppermute", sp - 1, kv_rows + 4 * kv)
+                elif gq:
                     add("model_all_gather", 1, B * lloc * H * hd * e)
                     add("model_all_gather", 1, 4 * lloc)
                     if cell.varlen:
@@ -2660,7 +2718,9 @@ def model_axis_closed_form(cell, *, with_norm: bool) -> dict:
                     add("model_all_gather", 1, 4 * kv)
             for t in ag:
                 add("model_reduce_scatter", 1, t.numel() * grad_e)
-            if gq:
+            if ring:
+                add("model_ppermute", sp - 1, kv_rows)
+            elif gq:
                 add("model_all_gather", 1, o_e * B * lloc * H * hd)
                 add("model_all_gather", 1, 4 * B * lloc * H)
                 add("model_reduce_scatter", 1, B * ln * H * hd * e)
@@ -2698,29 +2758,32 @@ def model_axis_launches(fa, cell, seams, device) -> dict:
     merged (in the launch on the tensor cores, by the merge kernel on the
     CUDA cores) wherever the kernel's geometry splits the mode's shape
     (gather_q: the chunk's queries over the rank's cache view; gather_kv:
-    its rows over every rank's), dq and dk/dv once."""
+    its rows over every rank's; the ring: its rows over one rank's view, sp
+    hops), dq and dk/dv once (the ring: once a hop)."""
     sp, B, cfg = cell.plan.sp, cell.b_loc, cell.cfg
     G, Hkv = cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     tc = cell.dtype == torch.bfloat16
     geometry = fa._tc_geometry if tc else fa._geometry
     spp = -(-cfg.n_layers // cell.plan.pp)
+    mode = cell.plan.attn_mode
+    hops = sp if mode == "ring" else 1
     splits = 0
     for ln, off in seams:
         kv = (off + ln) // sp
-        tq, s_kv = (ln, kv) if cell.plan.attn_mode == "gather_q" else (ln // sp, sp * kv)
+        tq, s_kv = {"gather_q": (ln, kv), "ring": (ln // sp, kv)}.get(mode, (ln // sp, sp * kv))
         splits += geometry(B, tq, s_kv, G, Hkv, n_sm)[2] > 1
-    n = len(seams) * spp
+    n = len(seams) * spp * hops
     keys = (("fwd_tc", "merged_in_kernel", "bwd_dq_tc", "bwd_dkv_tc") if tc
             else ("fwd", "merge", "bwd_dq", "bwd_dkv"))
-    return dict(zip(keys, (2 * n, 2 * splits * spp, n, n)))
+    return dict(zip(keys, (2 * n, 2 * splits * spp * hops, n, n)))
 
 
 def sp_rank(rank, device, fp32_layouts, params_np, batches):
     """One rank of the full-width model-axis cell (``model_axis_phase``).
     Rank 0 first runs sp = 1 with the same weights (one untimed
-    loss-and-gradients call) while the other builds its shards.  Under the
-    first mode of SP_MODES each rank then takes one untimed
+    loss-and-gradients call) while the other builds its shards.  Under each
+    of SP_GRADS_MODES each rank then takes one untimed
     loss-and-gradients call on fresh weights and sends rank 0 its gradient
     shards (rank 0 gathers them to full leaves and holds them against sp =
     1's).  Per mode, each rank trains SP_STEPS steps through
@@ -2766,16 +2829,16 @@ def sp_rank(rank, device, fp32_layouts, params_np, batches):
         ref = {path: g.cpu() for path, g in tree.items(grads1)}
         del params, grads1
         torch.cuda.empty_cache()
-    for k, (label, mode_ov) in enumerate(SP_MODES.items()):
+    for label, mode_ov in SP_MODES.items():
         ov = dict(mode_ov, sp=SP)
         cell = runner.resolve_cell(cfg, shape, overrides=dict(ov, pp=1, dp=1, n_chunks=SP_CHUNKS),
                                    data_size=1, model_size=SP)
         ctx = cell.ctx(device=device)
         cmp = grads_s = grads_counts = grads_peak = loss0 = None
-        if k == 0:
-            # the first mode's step-0 loss and gradients in one untimed call
-            # on fresh weights, built while rank 0 runs sp = 1 (the barrier
-            # then starts the ranks' calls together)
+        if label in SP_GRADS_MODES:
+            # the mode's step-0 loss and gradients in one untimed call on
+            # fresh weights (the first mode's built while rank 0 runs sp =
+            # 1; the barrier then starts the ranks' calls together)
             params = serve.build_params(cell, device, seed=0, model_rank=ctx.model_index())
             dist.barrier()
             base = peak_reset()
@@ -2869,7 +2932,10 @@ def _sp_fp32_layout(rank, device, layout, params_np, batch):
     """One rank of a reduced fp32 model-axis layout: the loss and its shard
     of every gradient under the default plan (with the layout's plan
     overrides and α), through the CUDA-core kernels, with its launches,
-    copies and collectives and their closed forms."""
+    copies and collectives and their closed forms; where the layout asks
+    (``update``), one training step after it (ZeRO-1 at pods > 1): the
+    rank's parameters, its moments' host bytes beside their closed form
+    over its slices, and its pod gathers."""
     _port_path()
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import tree
@@ -2883,25 +2949,25 @@ def _sp_fp32_layout(rank, device, layout, params_np, batch):
     cfg = get_config_reduced()
     tokens, labels, doc_start, doc_lens = batch
     B, seq = tokens.shape
-    sp, pp, dp = layout["sp"], layout["pp"], layout["dp"]
+    sp, pp, dp, pods = layout["sp"], layout["pp"], layout["dp"], layout.get("pods", 1)
     cell = runner.resolve_cell(
         cfg, ShapeConfig("model_axis_fp32", seq, B, "train"),
         overrides=dict(pp=pp, dp=dp, sp=sp, n_chunks=layout["n_chunks"],
                        msp=layout.get("msp", False), grad_accum=1, **layout.get("plan", {})),
-        dtype=torch.float32, data_size=dp * pp, model_size=sp, doc_lens=doc_lens)
+        dtype=torch.float32, data_size=dp * pp, model_size=sp, doc_lens=doc_lens, pods=pods)
     if "alphas" in layout:
         cell = dataclasses.replace(cell, alphas=tuple(layout["alphas"]))
     ctx = cell.ctx(device=device)
     stage, g, m = ctx.stage_index(), ctx.dp_index(), ctx.model_index()
     params = params_from_numpy(params_np, dtype=torch.float32, device=device, stage=stage,
                                pp=pp, cfg=cfg, sp=sp, model_rank=m)
-    rows = slice(g * cell.b_loc, (g + 1) * cell.b_loc)
-    ds = None if doc_start is None else torch.from_numpy(doc_start[rows]).to(device)
+    tok, lab, *ds = (torch.from_numpy(a).to(device) for a in cell.rows(
+        ctx, tokens, labels, *(() if doc_start is None else (doc_start,))))
+    ds = ds[0] if ds else None
     fa.reset_counts()
     hostmem.reset_counts()
     ctx.reset_counts()
-    loss, grads = runner.loss_and_grads(cell, params, torch.from_numpy(tokens[rows]).to(device),
-                                        torch.from_numpy(labels[rows]).to(device), ds, ctx=ctx)
+    loss, grads = runner.loss_and_grads(cell, params, tok, lab, ds, ctx=ctx)
     launched, copied = fa.counts(), hostmem.counts()
     if pp > 1:
         from repro_torch.parallel.runner import pipeline_feed_events
@@ -2911,13 +2977,50 @@ def _sp_fp32_layout(rank, device, layout, params_np, batch):
     else:
         seams = list(zip(cell.sched.lengths, cell.sched.offsets))
     want = {**{k: 0 for k in launched}, **model_axis_launches(fa, cell, seams, device)}
-    out = {"rank": rank, "stage": stage, "dp_index": g, "model_index": m, "loss": float(loss),
+    out = {"rank": rank, "stage": stage, "dp_index": g, "model_index": m,
+           "pod_index": ctx.pod_index(), "loss": float(loss),
            "grads": tree.map_(lambda t: t.cpu().numpy(), grads), "launched": launched,
            "launch_want": want, "copied": copied, "alphas": list(cell.alphas),
            "ctx_counts": ctx.counts(), "seams": len(seams)}
     if pp == 1:
         out["closed_form"] = model_axis_closed_form(cell, with_norm=False)
         out["closed_form_d2h_bytes"] = model_axis_d2h_bytes(cell)
+    if layout.get("update"):
+        from repro_torch.core import costmodel as cm
+
+        del grads
+        step = runner.make_train_step(cell, lr_kwargs=SP_FP32_LR, ctx=ctx)
+        state = runner.init_opt_state(cell, params, ctx)
+        slices = runner.pod_slices(cell, params, ctx)
+        shapes = [tuple(slices.of(i, t).shape) for i, t in enumerate(tree.leaves(params))]
+        ctx.reset_counts()
+        params, state, _ = step(params, state, tok, lab, ds)
+        gathers = (ctx.counts()["pod_all_gather_calls"], ctx.counts()["pod_all_gather_bytes"])
+        # the same update without ZeRO-1 (whole moments on every pod)
+        plain = dataclasses.replace(cell, plan=dataclasses.replace(cell.plan, zero1=False))
+        p2 = params_from_numpy(params_np, dtype=torch.float32, device=device, stage=stage,
+                               pp=pp, cfg=cfg, sp=sp, model_rank=m)
+        s2 = runner.init_opt_state(plain, p2, ctx)
+        p2, s2, _ = runner.make_train_step(plain, lr_kwargs=SP_FP32_LR, ctx=ctx)(
+            p2, s2, tok, lab, ds)
+        bitwise = all(torch.equal(a, b) for a, b in zip(tree.leaves(params), tree.leaves(p2)))
+        for i, (a, b) in enumerate(zip(tree.leaves([state.m, state.v]),
+                                       tree.leaves([s2.m, s2.v]))):
+            bitwise &= torch.equal(a, slices.of(i % len(shapes), b))
+        out["update"] = {
+            "params": tree.map_(lambda t: t.cpu().numpy(), params),
+            "bitwise_zero1_false": bitwise,
+            "moments_in_pinned_host_memory": bool(
+                state.host is not None and state.host.tensor.is_pinned()
+                and all(t.device.type == "cpu" for t in tree.leaves([state.m, state.v]))),
+            "moment_bytes": sum(t.numel() * t.element_size()
+                                for t in tree.leaves([state.m, state.v])),
+            "closed_form": cm.moment_bytes_from_shapes(shapes),
+            "whole_moment_bytes": cm.moment_bytes_from_shapes(
+                [tuple(t.shape) for t in tree.leaves(params)]),
+            "pod_all_gather": gathers,
+            "pod_all_gather_closed_form": (1, 4 * sum(
+                math.prod(sh) for sh, d in zip(shapes, slices.dims) if d is not None))}
     return out
 
 
@@ -2975,9 +3078,17 @@ def model_axis_phase(fa, mesh, runner, card):
                                        torch.from_numpy(labels),
                                        None if doc_start is None else torch.from_numpy(doc_start))
         cpu[name] = (float(l1), {p: t.numpy() for p, t in tree.items(g1)})
+        if lay.get("update"):
+            # the CPU's sp = 1 update of the same plan, on a copy of the weights
+            p1 = tree_map(lambda t: t.clone(), params)
+            p1, _, _ = runner.make_train_step(c1, lr_kwargs=SP_FP32_LR)(
+                p1, runner.init_opt_state(c1, p1), torch.from_numpy(tokens),
+                torch.from_numpy(labels))
+            cpu[name] += ({p: t.numpy() for p, t in tree.items(p1)},)
     by_world = {}
     for name, lay in SP_FP32_LAYOUTS.items():
-        by_world.setdefault(lay["dp"] * lay["pp"] * lay["sp"], {})[name] = lay
+        world = lay.get("pods", 1) * lay["dp"] * lay["pp"] * lay["sp"]
+        by_world.setdefault(world, {})[name] = lay
     check(set(by_world) <= {SP, 4}, f"fp32 layouts of {sorted(by_world)} ranks")
     others = {}
 
@@ -3018,7 +3129,8 @@ def model_axis_phase(fa, mesh, runner, card):
           f"collective staged through pinned host memory), the default plan; sp = 1 (rank 0 "
           f"alone, same weights): grads-call loss {sp1['loss']!r} in {sp1['grads_call_s']:.2f} s")
     counts, summary = {}, {"sp1": sp1, "full_width_seconds": t_full}
-    kinds = ("model_all_gather", "model_reduce_scatter", "model_psum", "model_pmax")
+    kinds = ("model_all_gather", "model_reduce_scatter", "model_psum", "model_pmax",
+             "model_ppermute")
     for label in SP_MODES:
         rows = [r[label] for r in ranks]
         tot = {k: sum(r["per_step"][-1].get(k, 0) for r in rows) for k in rows[0]["per_step"][-1]
@@ -3103,13 +3215,13 @@ def model_axis_phase(fa, mesh, runner, card):
     summary["fp32"] = {"side_spawn_seconds": others["t_end"] - t_wall}
     for name, lay in SP_FP32_LAYOUTS.items():
         franks = fp32[name]
-        cpu_loss, cpu_grads = cpu[name]
+        cpu_loss, cpu_grads = cpu[name][:2]
         worst, loss_rel = 0.0, 0.0
         spp = -(-cfg.n_layers // lay["pp"])
         by = {}
         for r in franks:
             loss_rel = max(loss_rel, abs(r["loss"] - cpu_loss) / abs(cpu_loss))
-            by.setdefault((r["dp_index"], r["stage"]), []).append(r)
+            by.setdefault((r["pod_index"], r["dp_index"], r["stage"]), []).append(r)
             check(r["launched"] == r["launch_want"],
                   f"model-axis fp32 [{name}] rank {r['rank']} launched {r['launched']}, expected "
                   f"{r['launch_want']}")
@@ -3126,7 +3238,7 @@ def model_axis_phase(fa, mesh, runner, card):
                           f"model-axis fp32 [{name}] rank {r['rank']}: {kind} "
                           f"{r['ctx_counts'][f'{kind}_calls']} calls "
                           f"{r['ctx_counts'][f'{kind}_bytes']} bytes; closed form {calls}, {nbytes}")
-        for (g, stage), rs in by.items():
+        for (_, g, stage), rs in by.items():
             full = gather_model_shards([r["grads"] for r in sorted(rs, key=lambda x: x["model_index"])],
                                        cfg)
             for path, got in tree.items(full):
@@ -3166,10 +3278,59 @@ def model_axis_phase(fa, mesh, runner, card):
             check(loss_rel <= GRAD_REL_TOL and worst <= GRAD_REL_TOL,
                   f"model-axis fp32 [{name}] vs the CPU's sp = 1 step: loss {loss_rel:.3e}, "
                   f"worst gradient relative L2 {worst:.3e} (tol {GRAD_REL_TOL})")
+        update = None
+        if lay.get("update"):
+            # one update (ZeRO-1 over the pods): bitwise the same layout's
+            # update without ZeRO-1 on every rank, and every pod's
+            # parameters, gathered over its model ranks, against the CPU's
+            # sp = 1 update.  The key bias is left out of that comparison: a
+            # key bias shifts every score of a query alike, so its exact
+            # gradient is zero, and AdamW's first step, g / (|g| + eps),
+            # turns the rounding noise there into an update of any sign
+            worst_p, worst_leaf = 0.0, None
+            for pod in range(lay.get("pods", 1)):
+                rs = sorted((r for r in franks if r["pod_index"] == pod),
+                            key=lambda x: x["model_index"])
+                full = gather_model_shards([r["update"]["params"] for r in rs], cfg)
+                for path, got in tree.items(full):
+                    if path.endswith("attn/bk"):
+                        continue
+                    want = cpu[name][2][path]
+                    rel = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+                    if rel > worst_p:
+                        worst_p, worst_leaf = rel, path
+            for r in franks:
+                u = r["update"]
+                check(u["bitwise_zero1_false"],
+                      f"model-axis fp32 [{name}] rank {r['rank']}: the ZeRO-1 update's "
+                      "parameters and moments are not the bits of the update without it")
+                check(u["moments_in_pinned_host_memory"]
+                      and u["moment_bytes"] == u["closed_form"] < u["whole_moment_bytes"]
+                      and tuple(u["pod_all_gather"]) == u["pod_all_gather_closed_form"],
+                      f"model-axis fp32 [{name}] rank {r['rank']} update: moments pinned on the "
+                      f"host {u['moments_in_pinned_host_memory']}, {u['moment_bytes']} bytes "
+                      f"(closed form over its ZeRO-1 slices {u['closed_form']}, whole "
+                      f"{u['whole_moment_bytes']}); pod gathers {u['pod_all_gather']} (closed "
+                      f"form {u['pod_all_gather_closed_form']})")
+            check(worst_p <= GRAD_REL_TOL,
+                  f"model-axis fp32 [{name}] parameters after one update differ from the CPU's "
+                  f"sp = 1 update by {worst_p:.3e} relative L2 at {worst_leaf} (tol "
+                  f"{GRAD_REL_TOL})")
+            update = {"worst_param_rel_l2": worst_p,
+                      "moment_bytes": [r["update"]["moment_bytes"] for r in franks],
+                      "whole_moment_bytes": franks[0]["update"]["whole_moment_bytes"],
+                      "pod_all_gather": [r["update"]["pod_all_gather"] for r in franks]}
+            print(f"model-axis fp32 [{name}] one update with ZeRO-1 over {lay['pods']} pods, "
+                  f"moments in pinned host memory: bitwise the update without ZeRO-1 on every "
+                  f"rank; parameters {worst_p:.3e} from the CPU's sp = 1 update (relative L2, "
+                  f"worst leaf {worst_leaf}, the key bias aside); host moment bytes a rank "
+                  f"{update['moment_bytes']} (the closed form over its slices; whole moments "
+                  f"{update['whole_moment_bytes']}); pod gathers (calls, bytes) "
+                  f"{update['pod_all_gather']}")
         lc = {k: sum(r["launched"][k] for r in franks) for k in franks[0]["launched"]}
         counts[f"fp32_{name}"] = lc
         summary["fp32"][name] = {"loss_rel": loss_rel, "worst_grad_rel_l2": worst, "launches": lc,
-                                 "drift": drift,
+                                 "drift": drift, "update": update,
                                  "alphas": franks[0]["alphas"],
                                  "d2h_bytes": [r["copied"]["d2h_bytes"] for r in franks]}
         print(f"model-axis fp32 [{name}] {lay} on one card over {PIPE_BACKEND}: loss "
@@ -3270,12 +3431,16 @@ def main():
         del g_in
     # the model axis's shapes (sp = 2, the full-width cell's last chunk):
     # gather_q, all of the chunk's queries over rank 1's gapped cache shard;
-    # gather_kv, rank 1's queries over both ranks' shards concatenated
+    # gather_kv, rank 1's queries over both ranks' shards concatenated; the
+    # ring's two hops on rank 1, its 832 queries over its resident 4096-slot
+    # gapped shard, then over rank 0's
     ma_cell = model_axis_cell(runner, dataclasses.replace(cfg, n_layers=SP_LAYERS), SP_SEQ, 1,
                               SP_CHUNKS)
-    for mode in SP_MODES:
-        args = model_axis_inputs(gen, ma_cell, ma_cell.sched.n - 1, mode, 1, torch.bfloat16)
-        extra_measured.append(measure_bwd_shape(f"model axis {mode} last chunk", fa, ref, *args))
+    for label, mode, kv in (("gather_q", "gather_q", None), ("gather_kv", "gather_kv", None),
+                            ("ring resident hop", "ring", 1), ("ring peer hop", "ring", 0)):
+        args = model_axis_inputs(gen, ma_cell, ma_cell.sched.n - 1, mode, 1, torch.bfloat16,
+                                 kv_rank=kv)
+        extra_measured.append(measure_bwd_shape(f"model axis {label} last chunk", fa, ref, *args))
         del args
     ma_fwd_err, ma_bwd_rel = model_axis_check_shapes(fa, ref, gen, runner, cfg)
     extra_fwd = [fwd for fwd, _ in extra_measured]

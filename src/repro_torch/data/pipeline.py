@@ -1,6 +1,6 @@
 """Deterministic synthetic LM streams and packed batches (a copy of
-``SyntheticLM`` and of the packing half of ``repro/data/pipeline.py``,
-numpy only).
+``SyntheticLM``, of the packing half of ``repro/data/pipeline.py`` and of
+its ``shard_batch``, numpy only).
 
 A seeded Zipfian sampler with document boundaries: the same seed and step
 give the reference's tokens, token for token, so loss curves are
@@ -228,3 +228,29 @@ def packed_batch_for(doc_lens: Sequence[int], seq_len: int, *, rows: int,
         d[0] = bos_id
         docs.append(d)
     return pack_documents(docs, seq_len, rows=rows)
+
+
+def shard_batch(tokens: np.ndarray, labels: np.ndarray, *, pods: int,
+                data_size: int, pp: int,
+                doc_start: Optional[np.ndarray] = None) -> dict:
+    """[B, S] -> the stage-major [pods, data, B_loc, S] layout (a copy of
+    the reference's): entry (p, i) holds the rows of dp group (p, i // pp),
+    which every stage of that group takes.  A packed batch's ``doc_start``
+    rides along under the same layout."""
+    B, S = tokens.shape
+    dp = data_size // pp
+    b_loc = B // (pods * dp)
+
+    def lay(x):
+        out = np.empty((pods, data_size, b_loc, S), x.dtype)
+        for p in range(pods):
+            for i in range(data_size):
+                g = i // pp
+                lo = (p * dp + g) * b_loc
+                out[p, i] = x[lo:lo + b_loc]
+        return out
+
+    batch = {"tokens": lay(tokens), "labels": lay(labels)}
+    if doc_start is not None:
+        batch["doc_start"] = lay(doc_start)
+    return batch

@@ -9,6 +9,9 @@
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --reduced --device cpu --mesh 1x2 --seq 512 --n-chunks 2
 
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --reduced --device cpu --mesh 1x2 --attn-mode ring --seq 512 --n-chunks 2
+
 SPPO's chunked pipeline under the reference's default training plan: remat
 "sppo", sequence-aware activation offload to pinned host memory, each
 chunk's rows reloaded one chunk ahead of its backward (DESIGN.md §5, §10,
@@ -29,8 +32,10 @@ the data axis times M of the model axis: ``--pp P`` pipeline stages (dp =
 D / P groups), ``--msp [--msp-split K]`` the MSP ramp (DESIGN.md §2, §4;
 ``parallel/runner.py``), and at M > 1 each chunk sequence-sharded over the
 M model ranks, the weights gathered at use, the vocab-parallel loss and
-``--attn-mode gather_q|gather_kv|auto`` the attention schedule (default
-gather_q; ``local`` is sp = 1's).  ``merge_bf16`` and ``grad_compress`` are
+``--attn-mode gather_q|gather_kv|auto|ring`` the attention schedule
+(default gather_q; ``ring`` rotates the KV shards around the model ranks,
+and at M = 1 is the reference's degenerate ring, one partial and a
+normalize; ``local`` is sp = 1's).  ``merge_bf16`` and ``grad_compress`` are
 plan overrides of ``train()``, as in the reference, whose CLI has no flag
 for them.  The process group runs NCCL on the card, which needs a card per
 rank and raises otherwise, and gloo with ``--device cpu``.  A caller that
@@ -39,12 +44,13 @@ that share one card, their transfers staged through host memory) calls
 ``train()``.
 
 The reference CLI's other flags belong to later slices of the port and are
-refused with the ROADMAP item that brings them (``--attn-mode ring`` too:
-item 4).  ``train(cfg, ...)`` is the body, for callers that pass a config
-of their own (a depth-cut model), plan overrides (chip_smoke.py's
-ablations), a packed variable-length batch (``packed=``, DESIGN.md §13; the
-reference's CLI has no flag for one either) or a process group they already
-hold (``ctx=``, or an initialised ``torch.distributed``).
+refused with the ROADMAP item that brings them.  ``train(cfg, ...)`` is the
+body, for callers that pass a config of their own (a depth-cut model), plan
+overrides (chip_smoke.py's ablations), a pod axis (``overrides=dict(pods=)``,
+with ZeRO-1; the reference's CLI has no pod flag either), a packed
+variable-length batch (``packed=``, DESIGN.md §13; nor a flag for one) or a
+process group they already hold (``ctx=``, or an initialised
+``torch.distributed``).
 """
 from __future__ import annotations
 
@@ -62,9 +68,8 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.serve import build_params, resolve_device
 from repro_torch.models.model_zoo import build_model
-from repro_torch.optim import adamw
 from repro_torch.parallel.ctx import ATTN_MODES, Ctx, make_ctx
-from repro_torch.parallel.runner import make_train_step, resolve_cell
+from repro_torch.parallel.runner import init_opt_state, make_train_step, resolve_cell
 from repro_torch.runtime.metrics import Meter
 
 log = logging.getLogger("repro_torch.train")
@@ -115,7 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sub-chunks per MSP ramp chunk")
     ap.add_argument("--attn-mode", default=None,
                     help="attention schedule over the model axis: gather_q (default), "
-                         "gather_kv, auto, local (sp = 1); ring comes with a later slice")
+                         "gather_kv, auto, ring, local (sp = 1)")
     # the reference CLI's flags of later slices: refused when given
     ap.add_argument("--audit", action="store_true", default=None)
     ap.add_argument("--ckpt-dir", default=None)
@@ -125,9 +130,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_later_flags(ap, args):
-    if args.attn_mode == "ring":
-        ap.error("--attn-mode ring: ring attention over the model axis comes with a later "
-                 "slice of the port (ROADMAP Queue 1, item 4)")
     if args.attn_mode is not None and args.attn_mode not in ATTN_MODES:
         ap.error(f"--attn-mode {args.attn_mode!r}: expected one of {ATTN_MODES}")
     for dest, (what, item) in LATER.items():
@@ -147,12 +149,13 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
     Over a mesh of ranks, each rank calls ``train`` with the same
     arguments: ``ctx`` (``parallel/ctx.py``), or else the initialised
     ``torch.distributed`` process group (``launch.mesh``), gives the ranks;
-    ``overrides`` name ``sp`` (the model axis, default 1), ``pp`` (default
-    1: dp = the ranks / (pp sp)), ``msp``, ``msp_split``, and at sp > 1
+    ``overrides`` name ``pods`` (the pod axis, default 1; ZeRO-1 where
+    > 1), ``sp`` (the model axis, default 1), ``pp`` (default 1: dp = the
+    ranks / (pods pp sp)), ``msp``, ``msp_split``, and at sp > 1
     ``attn_mode``, ``merge_bf16``, ``grad_compress``.  Each rank builds its
     stage of the seed's weights (at sp > 1 its model shard of them), takes
-    its dp group's rows of the batch, and meters tokens/s per GPU (the
-    step's tokens over the ranks).
+    its dp group's rows of the batch in its pod (``Cell.rows``), and meters
+    tokens/s per GPU (the step's tokens over the ranks).
 
     ``packed``, where given, is a ``data.pipeline.PackedBatch`` of ``batch``
     rows of ``seq`` tokens (``pack_documents``, or ``pad_to_max``'s one
@@ -181,10 +184,13 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
         world = dist.get_world_size() if dist.is_initialized() else 1
     else:
         world = ctx.world
-    pp, sp = (overrides or {}).get("pp", 1), (overrides or {}).get("sp", 1)
-    if world % (pp * sp):
-        raise ValueError(f"pp x sp = {pp} x {sp} does not divide the {world} ranks")
-    overrides = {**dict(pp=1, dp=world // (pp * sp)), **(overrides or {})}
+    overrides = dict(overrides or {})
+    pods = overrides.pop("pods", 1)
+    pp, sp = overrides.get("pp", 1), overrides.get("sp", 1)
+    if world % (pods * pp * sp):
+        raise ValueError(f"pods x pp x sp = {pods} x {pp} x {sp} does not divide the "
+                         f"{world} ranks")
+    overrides = {**dict(pp=1, dp=world // (pods * pp * sp)), **overrides}
     if n_chunks:
         overrides["n_chunks"] = n_chunks
     doc_lens = None
@@ -193,25 +199,20 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
             raise ValueError(f"packed batch {packed.tokens.shape} is not [{batch}, {seq}]")
         doc_lens = [end - start for _, start, end, _ in sorted(packed.spans, key=lambda s: s[3])]
     cell = resolve_cell(mdef, ShapeConfig("cli_train", seq, batch, "train"),
-                        overrides=overrides, doc_lens=doc_lens, data_size=world // sp,
-                        model_size=sp)
+                        overrides=overrides, doc_lens=doc_lens,
+                        data_size=world // (pods * sp), model_size=sp, pods=pods)
     if ctx is None:
-        ctx = make_ctx(cell.plan, device=dev)
+        ctx = make_ctx(cell.plan, pods=pods, device=dev)
     log.info("plan: %s  chunks=%s alphas=%s", cell.plan, cell.sched.lengths,
              [round(a, 3) for a in cell.alphas])
 
     params = build_params(cell, dev, seed=0, stage=ctx.stage_index(),
                           model_rank=ctx.model_index())
     plan = cell.plan
-    opt_state = adamw.init_state(params, offload_moments=plan.offload_moments,
-                                 moments_dtype=plan.moments_dtype,
-                                 moments_mode=plan.moments_mode)
+    opt_state = init_opt_state(cell, params, ctx)
     step_fn = make_train_step(cell, lr_kwargs=dict(peak=lr, warmup=20,
                                                    total=max(steps, 100)), ctx=ctx)
     data = SyntheticLM(cfg.vocab_size, seq, batch)
-    # this rank's dp group's rows of the global batch
-    b_loc = cell.b_loc
-    rows = slice(ctx.dp_index() * b_loc, (ctx.dp_index() + 1) * b_loc)
     n_active = cm.count_active_params(mdef) if world > 1 else cm.count_active_params(params)
     meter = Meter(tokens_per_step=batch * seq // world, n_active_params=n_active)
     moment_bytes = sum(t.numel() * t.element_size()
@@ -232,11 +233,13 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
         base = torch.cuda.memory_allocated(dev)
     for step in range(steps):
         doc_start = None
+        # this rank's dp group's rows of the global batch
         if packed is None:
-            tokens, labels = (torch.from_numpy(a[rows]).to(dev) for a in data.sample_step(step))
+            tokens, labels = (torch.from_numpy(a).to(dev)
+                              for a in cell.rows(ctx, *data.sample_step(step)))
         else:
-            tokens, labels, doc_start = (torch.from_numpy(a[rows]).to(dev) for a in
-                                         (packed.tokens, packed.labels, packed.doc_start))
+            tokens, labels, doc_start = (torch.from_numpy(a).to(dev) for a in cell.rows(
+                ctx, packed.tokens, packed.labels, packed.doc_start))
         with step_context(step) if step_context else contextlib.nullcontext():
             sync()
             meter.start()

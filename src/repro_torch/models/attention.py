@@ -21,8 +21,17 @@ plan's ``attn_mode`` picks the schedule (reference ``attention.py:71-145``):
   under ``merge_bf16``);
 - "gather_kv": all-gather the local K/V shard and its positions; each rank
   then attends its own queries with no merge;
-- "auto": the reference's byte count between the two;
-- "local": sp = 1 only.  "ring" comes with ROADMAP Queue 1 item 4.
+- "auto": the reference's byte count between the two (never "ring");
+- "ring": rotate the local K/V shard and its positions around the model
+  group, one partial a hop, folded in canonical source order
+  (``parallel/ring.py``, DESIGN.md §15): its forward holds two KV blocks
+  at a time, never the gathered view (a differentiated call keeps each
+  hop's block for the kernels' backward, as the reference's autodiff
+  does); a training chunk rotates its cache view, the concatenation of
+  every chunk's K/V so far (a re-run MSP chunk's view is the truncated
+  one, on every model rank alike);
+- "local": sp = 1 only.  At sp = 1 every mode is one partial and a
+  normalize.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.parallel import ring
 from repro_torch.parallel.ctx import SINGLE
 
 PAD = 2**30
@@ -73,7 +83,8 @@ def cache_append(cache: KVCache, k_new, v_new, pos_new, offset: int) -> KVCache:
 def _pick_mode(ctx, q, k_loc, kv_view) -> str:
     """The plan's schedule at sp > 1; "auto" is the reference's byte count:
     gathering the KV shard moves ~(k + v) bytes, the gather-q merge q (bf16)
-    and o (fp32), so narrow GQA caches of short chunks gather KV."""
+    and o (fp32), so narrow GQA caches of short chunks gather KV (it never
+    picks the ring, as the reference's does not)."""
     if ctx.sp == 1:
         return "local"
     if ctx.attn_mode != "auto":
@@ -120,6 +131,10 @@ def dist_attention(q, k_loc, v_loc, q_pos, kv_pos, ctx=SINGLE, *, causal=True, s
         k_loc, v_loc, kv_pos = (k_loc[:, :kv_view], v_loc[:, :kv_view],
                                 kv_pos[:kv_view])
     mode = _pick_mode(ctx, q, k_loc, kv_view)
+    if mode == "ring":
+        # q, q_pos and q_start are query-side and stay; the shard rotates
+        return ring.ring_attention(q, k_loc, v_loc, q_pos, kv_pos, ctx, causal=causal,
+                                   scale=scale, q_start=q_start)
     if mode == "gather_q":
         q_full, qp, qs = _gather_queries(q, q_pos, q_start, ctx)
         o, m, l = kops.attention_partial(q_full, k_loc, v_loc, qp, kv_pos, causal=causal,
@@ -223,7 +238,9 @@ def chunk_attention(q, k, v, q_pos, cache: KVCache, cache_offset: int,
     ``_ChunkAttention``, under the document window ``q_start`` where given.
     The chunks must tile the slots in order: this chunk lands at
     ``cache_offset = kv_view - T``.  At sp > 1 the cache is this rank's
-    shard and the schedule ``ctx``'s (module docstring)."""
+    shard and the schedule ``ctx``'s (module docstring); the ring rotates
+    the view's K/V, the chunks concatenated (differentiable in each), with
+    the positions written to the buffer's slots."""
     if cache_offset != kv_view - k.shape[1]:
         raise ValueError(f"a training chunk of {k.shape[1]} tokens at slot "
                          f"{cache_offset} must end the view of {kv_view} slots")
@@ -233,6 +250,11 @@ def chunk_attention(q, k, v, q_pos, cache: KVCache, cache_offset: int,
     q_pos = q_pos.to(torch.int32)
     qs = None if q_start is None else q_start.to(torch.int32)
     mode = _pick_mode(ctx, q, cache.k, kv_view)
+    if mode == "ring":
+        cache.pos[cache_offset:kv_view] = q_pos
+        k_view, v_view = (torch.cat(ts, dim=1) if len(ts) > 1 else ts[0] for ts in (ks, vs))
+        return ring.ring_attention(q, k_view, v_view, q_pos, cache.pos[:kv_view].clone(), ctx,
+                                   causal=causal, q_start=qs)
     if mode == "gather_q":
         q_full, qp, qs_full = _gather_queries(q, q_pos, qs, ctx)
         o, m, l = _ChunkAttention.apply(q_full, qp, qs_full, q_pos, cache, kv_view, causal,

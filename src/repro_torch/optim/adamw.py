@@ -36,6 +36,14 @@ embedding table's m and v, not the 61 GB of all of them (chip_smoke.py
 checks the bound on the card).  The reference's ``moments_mode="xla"``
 (placement left to XLA through shardings) has no counterpart here and is
 refused.
+
+ZeRO-1 over the pod axis (``PodSlices``, ``parallel/specs.py``): a rank
+keeps only its pod's slice of some leaves' moments, on the device or in
+host memory alike, updates that slice of the parameter (the global norm is
+the full gradients', taken before), and hands the updated slices to a
+``gather`` that fills in the other pods' (``Ctx.all_gather_pod``).  The
+update is elementwise, so the parameters come out the same bits as
+without the slicing.
 """
 from __future__ import annotations
 
@@ -46,6 +54,29 @@ import torch
 
 from repro_torch.core import tree
 from repro_torch.runtime import hostmem
+
+
+class PodSlices(NamedTuple):
+    """ZeRO-1 over ``n`` pods: ``dims[i]`` is the dim along which this
+    rank's moments of parameter leaf i cover slice ``index`` of ``n`` equal
+    parts, and its update writes only that slice; None: the whole leaf."""
+
+    dims: tuple
+    n: int
+    index: int
+
+    def of(self, i: int, t):
+        """Leaf i's slice of ``t`` (a view), or ``t``."""
+        d = self.dims[i]
+        if d is None:
+            return t
+        k = t.shape[d] // self.n
+        return t.narrow(d, self.index * k, k)
+
+
+def _slices(pod_slices, flat):
+    """Each leaf of ``flat`` as the update sees it (its pod slice)."""
+    return flat if pod_slices is None else [pod_slices.of(i, t) for i, t in enumerate(flat)]
 
 
 class AdamWState(NamedTuple):
@@ -72,21 +103,28 @@ def _scale_shape(shape):
     return tuple(shape[:-1]) + (1,) if len(shape) >= 1 else ()
 
 
+def _zeros32(p):
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def init_state(params, *, offload_moments=False, moments_dtype="none",
-               moments_mode="explicit") -> AdamWState:
+               moments_mode="explicit", pod_slices: PodSlices = None) -> AdamWState:
     """Zero fp32 moments beside each parameter, or, with
     ``offload_moments``, born in host memory (pinned where the parameters
     are on a CUDA device): fp32, or under ``moments_dtype`` a (payload,
-    scale) pair per leaf, zeros (a zero payload dequantizes to zero)."""
+    scale) pair per leaf, zeros (a zero payload dequantizes to zero).
+    Under ZeRO-1 (``pod_slices``) each leaf's moments have its pod slice's
+    shape."""
     _check_moments(offload_moments, moments_mode, moments_dtype)
-    flat = tree.leaves(params)
+    flat = _slices(pod_slices, tree.leaves(params))
     dev = flat[0].device
     step = torch.zeros((), dtype=torch.int32, device=dev)
     if not offload_moments:
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        def zeros():
+            it = iter(flat)
+            return tree.map_(lambda _: _zeros32(next(it)), params)
 
-        return AdamWState(step=step, m=tree.map_(zeros, params), v=tree.map_(zeros, params))
+        return AdamWState(step=step, m=zeros(), v=zeros())
     wire = hostmem.codec_wire_dtype(moments_dtype)
     if wire is None:
         specs = [(tuple(p.shape), torch.float32) for p in flat] * 2
@@ -178,7 +216,7 @@ class _MomentStream:
 def apply_update(params, grads, state: AdamWState, *, lr, b1=0.9, b2=0.95,
                  eps=1e-8, weight_decay=0.1, clip_norm=1.0,
                  offload_moments=False, moments_mode="explicit", moments_dtype="none",
-                 grad_norm=None):
+                 grad_norm=None, pod_slices: PodSlices = None, gather=None):
     """One AdamW step, in place.  Returns (params, state, metrics) with
     metrics ``grad_norm`` (before clipping) and ``lr``.  ``grad_norm``, where
     given, is the global norm the clip uses in place of ``global_norm(grads)``
@@ -186,7 +224,10 @@ def apply_update(params, grads, state: AdamWState, *, lr, b1=0.9, b2=0.95,
     sums the model's).  With
     ``offload_moments`` the moments in ``state`` are host buffers
     (``init_state(offload_moments=True, moments_dtype=...)``): each leaf's
-    pass through the device is described in the module docstring."""
+    pass through the device is described in the module docstring.  Under
+    ZeRO-1 (``pod_slices``, with ``state`` from ``init_state(pod_slices=)``)
+    each leaf's update covers its pod slice, and ``gather(params, dims)``
+    then fills in the other pods' slices of the sliced leaves."""
     _check_moments(offload_moments, moments_mode, moments_dtype)
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -195,7 +236,8 @@ def apply_update(params, grads, state: AdamWState, *, lr, b1=0.9, b2=0.95,
     bc1 = 1 - b1 ** stepf
     bc2 = 1 - b2 ** stepf
     lr = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)
-    flat_p, flat_g = tree.leaves(params), tree.leaves(grads)
+    flat_p = _slices(pod_slices, tree.leaves(params))
+    flat_g = _slices(pod_slices, tree.leaves(grads))
     ms, vs = _moment_entries(params, state.m), _moment_entries(params, state.v)
     moving = None
     if offload_moments:
@@ -235,4 +277,7 @@ def apply_update(params, grads, state: AdamWState, *, lr, b1=0.9, b2=0.95,
         p.copy_(p.float() - lr * u)
     if moving is not None:
         moving.finish()
+    if pod_slices is not None:
+        sliced = [(p, d) for p, d in zip(tree.leaves(params), pod_slices.dims) if d is not None]
+        gather([p for p, _ in sliced], [d for _, d in sliced])
     return params, state._replace(step=step), {"grad_norm": gnorm, "lr": lr}

@@ -2,21 +2,24 @@
 
 The reference's ``Ctx`` binds named mesh axes inside one SPMD program; here
 each rank is a process of its own and ``Ctx`` holds the process groups of a
-2-D layout (DESIGN.md §4): ``dp x pp`` data ranks (stage-major: data index
-``d`` runs pipeline stage ``d % pp`` of dp group ``d // pp``) times ``sp``
-model ranks, model-minor: rank = data_index x sp + model_index, so the
-ranks of one model group are neighbours.
+3-D layout (DESIGN.md §4): ``pods`` (pure data parallelism, the outermost
+axis) times ``dp x pp`` data ranks (stage-major: data index ``d`` runs
+pipeline stage ``d % pp`` of dp group ``d // pp``) times ``sp`` model
+ranks, model-minor: rank = (pod x dp x pp + data_index) x sp +
+model_index, so the ranks of one model group are neighbours.
 
-The data axis, at each model index:
+The data axis, at each model index, with the pod sum added where the
+reference adds it (its ``ctx.py:112-139``):
 
-- ``psum_grads``: the stage's gradients over its dp group (the ranks of the
-  same stage and model index), ``_dp_groups``;
+- ``psum_grads``: the stage's gradients over its dp group and the pods
+  (the ranks of the same stage and model index), ``_dp_groups``;
 - ``psum_globals``: the globals' gradients, whose contributions live on
   different stages: a leaf that one stage alone uses (the embedding, the
-  head) is summed over that stage's dp group and sent from there to the
-  other stages of the same model index, the rest summed over the data axis;
-- ``psum_loss_all``: over the data axis (every model rank holds the same
-  replicated loss, so the model axis is not summed);
+  head) is summed over that stage's dp groups of every pod and sent from
+  there to the other stages of the same pod and model index, the rest
+  summed over the data axis of every pod;
+- ``psum_loss_all``: over the data axis and the pods (every model rank
+  holds the same replicated loss, so the model axis is not summed);
 - ``psum_stages``: over the stages of one dp group;
 - ``handoff``: the pipeline's stage hand-off (the reference's
   ``ppermute_stage`` along ``next_stage_perm``) as a differentiable
@@ -39,9 +42,14 @@ replicated ("rep") leaf's gradient is summed over the model axis.  The port
 computes the gradient of the global loss (``parallel/runner.py``, PERF.md
 §6).  Under ``grad_compress`` the weight gather's backward
 reduce-scatters in bf16 (the reference's ``_ag_bf16_grad``).
-``ppermute_model`` (ring attention, ROADMAP Queue 1 item 4) and
-``all_to_all_model`` (expert parallelism, item 7) are refused.
-``SINGLE`` is the one-device context: every reduction is the identity.
+``ppermute_model`` (ring attention's KV rotation, ``parallel/ring.py``)
+sends each rank's tensors along a permutation of the model group, one
+``batch_isend_irecv``; its backward sends the cotangents along the inverse
+permutation (no sp factor: the loss every rank holds is the global one).
+``all_to_all_model`` (expert parallelism, ROADMAP Queue 1 item 7) is
+refused.  The pod axis carries ZeRO-1's gather of the updated parameter
+slices (``all_gather_pod``).  ``SINGLE`` is the one-device context: every
+reduction is the identity.
 
 The backend is the process group's, named by whoever started it
 (``launch.mesh``), never picked here.  ``"nccl"`` needs a CUDA device of
@@ -57,7 +65,9 @@ leaves' gradients over the model group), the globals' bytes it sent to
 other stages (``bcast_bytes``), and, per model collective (``model_all_gather``,
 ``model_reduce_scatter``, ``model_psum``, ``model_pmax``), its calls, the
 bytes this rank put in (its shard for a gather, the whole tensor for the
-others) and its seconds, staging included.
+others, what it sent for a permutation) and its seconds, staging
+included; ``model_ppermute`` counts forward and backward alike, and
+``pod_all_gather`` the ZeRO-1 gathers the same way.
 """
 from __future__ import annotations
 
@@ -68,10 +78,10 @@ from typing import Optional, Sequence
 import torch
 
 BACKENDS = ("gloo", "nccl")
-MODEL_COLLECTIVES = ("model_all_gather", "model_reduce_scatter", "model_psum", "model_pmax")
-# the plan's attention schedules at sp > 1 (models/attention.py); "ring"
-# comes with ROADMAP Queue 1 item 4
-ATTN_MODES = ("gather_q", "gather_kv", "auto", "local")
+MODEL_COLLECTIVES = ("model_all_gather", "model_reduce_scatter", "model_psum", "model_pmax",
+                     "model_ppermute")
+# the plan's attention schedules at sp > 1 (models/attention.py)
+ATTN_MODES = ("gather_q", "gather_kv", "auto", "ring", "local")
 
 
 def _later(what: str, item: int):
@@ -97,29 +107,29 @@ def check_backend(backend: str, device: torch.device, local_world: int) -> None:
 
 
 class Ctx:
-    """One rank of ``dp`` groups of ``pp`` stages times ``sp`` model ranks.
+    """One rank of ``pods`` times ``dp`` groups of ``pp`` stages times ``sp``
+    model ranks.
 
-    At ``dp x pp x sp = 1`` the single-device context (``SINGLE``): every
-    reduction is the identity and nothing is exchanged.  Over several ranks
+    At ``pods x dp x pp x sp = 1`` the single-device context (``SINGLE``):
+    every reduction is the identity and nothing is exchanged.  Over several ranks
     it takes the initialised process group's rank and backend; ``device``
     is where this rank's tensors live.  ``attn_mode``, ``merge_bf16`` and
     ``grad_compress`` are the plan's knobs of the model axis, as in the
     reference."""
 
-    def __init__(self, *, dp: int = 1, pp: int = 1, sp: int = 1, device="cuda",
+    def __init__(self, *, dp: int = 1, pp: int = 1, sp: int = 1, pods: int = 1, device="cuda",
                  attn_mode: str = "gather_q", merge_bf16: bool = False,
                  grad_compress: bool = False):
-        if attn_mode == "ring":
-            raise _later("attn_mode 'ring' (ring attention over the model axis)", 4)
         if attn_mode not in ATTN_MODES:
             raise ValueError(f"attn_mode {attn_mode!r}: expected one of {ATTN_MODES}")
         if attn_mode == "local" and sp > 1:
             raise ValueError("attn_mode 'local' moves no KV between model ranks: sp = 1 only")
-        self.dp, self.pp, self.sp, self.rank = dp, pp, sp, 0
+        self.dp, self.pp, self.sp, self.pods, self.rank = dp, pp, sp, pods, 0
         self.attn_mode, self.merge_bf16, self.grad_compress = attn_mode, merge_bf16, grad_compress
         self.backend = None
         self.device = torch.device(device)
         self._dp_group = self._stage_group = self._model_group = self._data_group = None
+        self._pod_group = None
         self._counts = {}
         self.reset_counts()
         if self.world == 1:
@@ -127,23 +137,25 @@ class Ctx:
         import torch.distributed as dist
 
         if not dist.is_initialized():
-            raise RuntimeError(f"dp x pp x sp = {self.world} ranks need an initialised process "
-                               "group (launch.mesh.init_from_env or launch.mesh.spawn)")
+            raise RuntimeError(f"pods x dp x pp x sp = {self.world} ranks need an initialised "
+                               "process group (launch.mesh.init_from_env or launch.mesh.spawn)")
         if dist.get_world_size() != self.world:
-            raise ValueError(f"dp x pp x sp = {dp} x {pp} x {sp} does not match the process "
-                             f"group's {dist.get_world_size()} ranks")
+            raise ValueError(f"pods x dp x pp x sp = {pods} x {dp} x {pp} x {sp} does not match "
+                             f"the process group's {dist.get_world_size()} ranks")
         self.rank, self.backend = dist.get_rank(), dist.get_backend()
         check_backend(self.backend, self.device,
                       int(os.environ.get("LOCAL_WORLD_SIZE", self.world)))
         # every rank creates every group, in the same order (new_group is
         # collective); each keeps its own
-        for attr, groups, size in (("_dp_group", self._dp_groups(), dp),
-                                   ("_stage_group", self._stage_rows(), pp),
-                                   ("_model_group", self._model_groups(), sp),
-                                   ("_data_group", self._data_groups(), dp * pp)):
+        for attr, groups in (("_dp_group", self._dp_groups()),
+                             ("_stage_group", self._stage_rows()),
+                             ("_model_group", self._model_groups()),
+                             ("_data_group", self._data_groups()),
+                             ("_pod_group", self._pod_groups())):
             for group in groups:
-                # the data axis at sp = 1 is the whole world: the default group
-                g = (dist.new_group(group) if 1 < size < self.world
+                # a group of the whole world (the data axis at sp = 1, say)
+                # is the default group
+                g = (dist.new_group(group) if 1 < len(group) < self.world
                      else None)
                 if self.rank in group:
                     setattr(self, attr, g)
@@ -155,13 +167,17 @@ class Ctx:
 
     @property
     def world(self) -> int:
-        return self.dp * self.pp * self.sp
+        return self.pods * self.dp * self.pp * self.sp
 
     def model_index(self) -> int:
         return self.rank % self.sp
 
     def data_index(self) -> int:
-        return self.rank // self.sp
+        """The rank's index on the data axis of its pod."""
+        return (self.rank // self.sp) % (self.dp * self.pp)
+
+    def pod_index(self) -> int:
+        return self.rank // (self.sp * self.dp * self.pp)
 
     def stage_index(self) -> int:
         """Pipeline stage of this rank: data_index % pp (stage-major)."""
@@ -170,33 +186,42 @@ class Ctx:
     def dp_index(self) -> int:
         return self.data_index() // self.pp
 
-    def rank_of(self, data_index: int, model_index: Optional[int] = None) -> int:
-        """The rank at ``data_index`` and ``model_index`` (this rank's by
-        default)."""
+    def rank_of(self, data_index: int, model_index: Optional[int] = None,
+                pod: Optional[int] = None) -> int:
+        """The rank at ``data_index``, ``model_index`` and ``pod`` (this
+        rank's by default)."""
         m = self.model_index() if model_index is None else model_index
-        return data_index * self.sp + m
+        p = self.pod_index() if pod is None else pod
+        return (p * self.dp * self.pp + data_index) * self.sp + m
 
     def _dp_groups(self):
-        """The ranks of each stage and model index across the dp groups
-        (the reference's ``axis_index_groups`` of ``psum_grads``)."""
-        return [[self.rank_of(g * self.pp + s, m) for g in range(self.dp)]
+        """The ranks of each stage and model index across the dp groups and
+        the pods (the reference's ``axis_index_groups`` of ``psum_grads``
+        and its pod sum, in one group)."""
+        return [[self.rank_of(g * self.pp + s, m, p) for p in range(self.pods)
+                 for g in range(self.dp)]
                 for s in range(self.pp) for m in range(self.sp)]
 
     def _stage_rows(self):
         """The stages of each dp group at each model index (``psum_stages``'
         grouping)."""
-        return [[self.rank_of(g * self.pp + s, m) for s in range(self.pp)]
-                for g in range(self.dp) for m in range(self.sp)]
+        return [[self.rank_of(g * self.pp + s, m, p) for s in range(self.pp)]
+                for p in range(self.pods) for g in range(self.dp) for m in range(self.sp)]
 
     def _model_groups(self):
         """The model ranks of each data index."""
-        return [[self.rank_of(d, m) for m in range(self.sp)]
-                for d in range(self.dp * self.pp)]
+        return [[self.rank_of(d, m, p) for m in range(self.sp)]
+                for p in range(self.pods) for d in range(self.dp * self.pp)]
 
     def _data_groups(self):
-        """The data axis at each model index."""
-        return [[self.rank_of(d, m) for d in range(self.dp * self.pp)]
+        """The data axis of every pod at each model index."""
+        return [[self.rank_of(d, m, p) for p in range(self.pods) for d in range(self.dp * self.pp)]
                 for m in range(self.sp)]
+
+    def _pod_groups(self):
+        """The pods' ranks of each data and model index."""
+        return [[self.rank_of(d, m, p) for p in range(self.pods)]
+                for d in range(self.dp * self.pp) for m in range(self.sp)]
 
     # ----- counters --------------------------------------------------------
     def counts(self) -> dict:
@@ -206,7 +231,7 @@ class Ctx:
         self._counts.update(handoffs=0, handoff_bytes=0, handoff_s=0.0, staging_s=0.0,
                             reduce_bytes=0, bcast_bytes=0, reduce_s=0.0,
                             model_reduce_bytes=0, model_reduce_s=0.0)
-        for kind in MODEL_COLLECTIVES:
+        for kind in (*MODEL_COLLECTIVES, "pod_all_gather"):
             self._counts.update({f"{kind}_calls": 0, f"{kind}_bytes": 0, f"{kind}_s": 0.0})
 
     # ----- reductions ------------------------------------------------------
@@ -285,8 +310,8 @@ class Ctx:
 
     def psum_grads(self, tensors) -> None:
         """In place: gradient reduction across the dp replicas of this stage
-        (at this model index)."""
-        if self.distributed and self.dp > 1:
+        and the pods (at this model index)."""
+        if self.distributed and self.dp * self.pods > 1:
             self._all_reduce(list(tensors), self._dp_group)
 
     def psum_model_grads(self, tensors) -> None:
@@ -300,20 +325,20 @@ class Ctx:
 
     def psum_globals(self, tensors, used: Optional[Sequence[bool]] = None) -> None:
         """In place: the global parameters' gradients summed over the data
-        axis at this model index (their contributions live on different
-        stages).
+        axis and the pods at this model index (their contributions live on
+        different stages).
 
         ``used[i]`` says whether ``tensors[i]``'s gradient came out of this
         rank's graph (default: all of them).  A leaf that one stage alone
         uses (at pp > 1 the embedding on stage 0, the final norm and the
-        head on the last) is summed over that stage's dp group and sent
-        from there to the other stages of each dp group: each stage sends
-        what it owns and receives the rest, where an all-reduce would move
-        every leaf twice and add the other stages' zeros.  A leaf that
-        several stages use (a tied embedding) is all-reduced over the data
-        axis.  Every rank learns which stages use what from one small
-        all-reduce, so that all split the leaves alike."""
-        if not (self.distributed and self.dp * self.pp > 1):
+        head on the last) is summed over that stage's dp groups of every
+        pod and sent from there to the other stages of each dp group: each
+        stage sends what it owns and receives the rest, where an all-reduce
+        would move every leaf twice and add the other stages' zeros.  A leaf
+        that several stages use (a tied embedding) is all-reduced over the
+        data axis of every pod.  Every rank learns which stages use what
+        from one small all-reduce, so that all split the leaves alike."""
+        if not (self.distributed and self.dp * self.pp * self.pods > 1):
             return
         tensors = list(tensors)
         if not tensors:
@@ -332,10 +357,11 @@ class Ctx:
         self._send_from_owners({s: ts for s, ts in by_owner.items() if ts})
 
     def psum_loss_all(self, x: torch.Tensor) -> torch.Tensor:
-        """A scalar summed over the data axis (a new tensor, no gradient):
-        the model ranks of a data index hold the same replicated value."""
+        """A scalar summed over the data axis and the pods (a new tensor, no
+        gradient): the model ranks of a data index hold the same replicated
+        value."""
         x = x.detach().clone()
-        if self.distributed and self.dp * self.pp > 1:
+        if self.distributed and self.dp * self.pp * self.pods > 1:
             self._all_reduce([x], self._data_group)
         return x
 
@@ -439,57 +465,162 @@ class Ctx:
             return x
         return _ReduceScatter.apply(self, axis, x)
 
-    def ppermute_model(self, x, perm):
+    def ppermute_model(self, x, perm, *, pending: Optional[list] = None):
+        """``x`` (a tensor, or a tuple of tensors sent together) along
+        ``perm``, (source, destination) pairs of model indices: this rank
+        sends to its destination and receives from its source, every tensor
+        posted in one ``batch_isend_irecv`` (zeros where no rank sends to
+        this one).  Differentiable in the floating tensors (``_Permute``):
+        the backward sends their cotangents along the inverse permutation.
+        ``pending``, a list: under NCCL the forward's transfer is left in
+        flight, its handles appended there, and the caller must ``wait``
+        on them before the received tensors are read (the ring posts its
+        next hop before its kernel call so); staged through host memory
+        under gloo, the transfer is done when this returns."""
         if self.sp == 1:
             return x
-        raise _later("ppermute_model (ring attention's KV rotation)", 4)
+        xs = (x,) if isinstance(x, torch.Tensor) else tuple(x)
+        out = _Permute.apply(self, tuple(perm), pending, *xs)
+        return out[0] if isinstance(x, torch.Tensor) else out
+
+    @staticmethod
+    def wait(pending: list) -> None:
+        """Wait on (and drop) the handles ``ppermute_model`` left in
+        ``pending``."""
+        for work in pending:
+            work.wait()
+        pending.clear()
+
+    def _peers(self, perm):
+        """(rank this one sends to, rank it receives from) under ``perm``
+        (model indices), None where it has none."""
+        m = self.model_index()
+        to = [d for s, d in perm if s == m]
+        frm = [s for s, d in perm if d == m]
+        if len(to) > 1 or len(frm) > 1:
+            raise ValueError(f"{list(perm)} is not a permutation of the model group")
+        return (self.rank_of(self.data_index(), to[0]) if to else None,
+                self.rank_of(self.data_index(), frm[0]) if frm else None)
+
+    def _permute(self, xs, to, frm, pending=None):
+        """``xs`` to rank ``to``, their likes from rank ``frm`` (zeros where
+        ``frm`` is None), counted as ``model_ppermute``."""
+        if self._staged():
+            torch.cuda.current_stream(self.device).synchronize()
+        t_start = time.perf_counter()
+        likes = [(tuple(x.shape), x.dtype) for x in xs]
+        got, nbytes, _ = self._p2p(xs if to is not None else [], to,
+                                   likes if frm is not None else [], frm, pending=pending)
+        if frm is None:
+            got = [torch.zeros(s, dtype=d, device=self.device) for s, d in likes]
+        self._counts["model_ppermute_calls"] += 1
+        self._counts["model_ppermute_bytes"] += nbytes
+        self._counts["model_ppermute_s"] += time.perf_counter() - t_start
+        return got
+
+    def all_gather_pod(self, params, dims) -> None:
+        """ZeRO-1's gather, in place: of each ``params[i]`` this rank
+        updated slice ``pod_index`` of ``pods`` equal parts along
+        ``dims[i]`` (``optim/adamw.py``'s ``PodSlices``); every pod's slices
+        are gathered into the others, one all-gather of a flat buffer per
+        dtype over the pod group (staged through pinned host memory under
+        gloo with CUDA tensors), counted as ``pod_all_gather``."""
+        if not (self.distributed and self.pods > 1):
+            return
+        t_start = time.perf_counter()
+        me, staged = self.pod_index(), self._staged()
+
+        def part(p, d, pod):
+            n = p.shape[d] // self.pods
+            return p.narrow(d, pod * n, n)
+
+        by_dtype = {}
+        for p, d in zip(params, dims):
+            by_dtype.setdefault(p.dtype, []).append((p, d))
+        for group in by_dtype.values():
+            mine = [part(p, d, me) for p, d in group]
+            flat = torch.cat([t.reshape(-1) for t in mine])
+            if staged:
+                flat = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True).copy_(flat)
+            out = torch.empty(self.pods * flat.numel(), dtype=flat.dtype, device=flat.device,
+                              pin_memory=staged)
+            _collective("all_gather_single", "all_gather_into_tensor")(
+                out, flat, group=self._pod_group)
+            out = out.to(self.device).view(self.pods, -1)
+            for pod in range(self.pods):
+                if pod != me:
+                    pieces = out[pod].split([t.numel() for t in mine])
+                    for (p, d), t, piece in zip(group, mine, pieces):
+                        part(p, d, pod).copy_(piece.view(t.shape))
+            self._counts["pod_all_gather_calls"] += 1
+            self._counts["pod_all_gather_bytes"] += flat.numel() * flat.element_size()
+        self._counts["pod_all_gather_s"] += time.perf_counter() - t_start
 
     def all_to_all_model(self, x, split_axis: int, concat_axis: int):
         if self.sp == 1:
             return x
         raise _later("all_to_all_model (expert parallelism)", 7)
 
+    # ----- point to point ---------------------------------------------------
+    def _p2p(self, sends, to, recv_likes, frm, *, tag: int = 0, pending=None):
+        """Post ``sends`` to rank ``to`` and receives of ``recv_likes``
+        ((shape, dtype) each) from rank ``frm`` as one ``batch_isend_irecv``,
+        the i-th of each side under tag ``tag + i``.  Returns (the received tensors on
+        this rank's device, bytes sent, staging seconds).  Under gloo with
+        CUDA tensors both sides are staged through pinned host memory (the
+        caller has synchronized the stream); else, with ``pending`` given,
+        the transfer's handles are appended there unwaited (``wait``)."""
+        import torch.distributed as dist
+
+        staged = self._staged()
+        t0 = time.perf_counter()
+        ops, bufs, nbytes = [], [], 0
+        for i, t in enumerate(sends):
+            buf = t.detach().contiguous()
+            if staged:
+                buf = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True).copy_(buf)
+            ops.append(dist.P2POp(dist.isend, buf, to, tag=tag + i))
+            nbytes += buf.numel() * buf.element_size()
+        for i, (shape, dtype) in enumerate(recv_likes):
+            buf = torch.empty(shape, dtype=dtype, pin_memory=staged,
+                              device="cpu" if staged else self.device)
+            ops.append(dist.P2POp(dist.irecv, buf, frm, tag=tag + i))
+            bufs.append(buf)
+        staging = time.perf_counter() - t0
+        works = dist.batch_isend_irecv(ops) if ops else []
+        if pending is not None and not staged:
+            pending.extend(works)
+        else:
+            for work in works:
+                work.wait()
+        if staged and bufs:
+            t0 = time.perf_counter()
+            bufs = [b.to(self.device) for b in bufs]
+            staging += time.perf_counter() - t0
+        return bufs, nbytes, staging
+
     # ----- the stage hand-off ----------------------------------------------
     def exchange(self, send: Optional[torch.Tensor], to: Optional[int],
                  recv_like: Optional[tuple], frm: Optional[int], tag: int):
         """Send ``send`` to rank ``to`` and receive a tensor of ``recv_like``
-        = (shape, dtype) from rank ``frm``, posted together; either side may
-        be None.  Returns the received tensor on this rank's device (None
-        where nothing was received)."""
-        import torch.distributed as dist
-
-        staged = self._staged()
-        ops, recv_buf = [], None
-        if staged:
+        = (shape, dtype) from rank ``frm``, posted together under ``tag``;
+        either side may be None.  Returns the received tensor on this rank's
+        device (None where nothing was received)."""
+        if send is None and recv_like is None:
+            return None
+        if self._staged():
             # the staging copies wait for the work queued on the stream:
             # wait here, so that their time is the copies' own
             torch.cuda.current_stream(self.device).synchronize()
-        t_start = t0 = time.perf_counter()
-        if send is not None:
-            buf = send.detach().contiguous()
-            if staged:
-                host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-                host.copy_(buf)
-                buf = host
-            ops.append(dist.P2POp(dist.isend, buf, to, tag=tag))
-            self._counts["handoff_bytes"] += buf.numel() * buf.element_size()
-        if recv_like is not None:
-            shape, dtype = recv_like
-            recv_buf = torch.empty(shape, dtype=dtype, pin_memory=staged,
-                                   device="cpu" if staged else self.device)
-            ops.append(dist.P2POp(dist.irecv, recv_buf, frm, tag=tag))
-        self._counts["staging_s"] += time.perf_counter() - t0
-        if not ops:
-            return None
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        t_start = time.perf_counter()
+        got, nbytes, staging = self._p2p([] if send is None else [send], to,
+                                         [] if recv_like is None else [recv_like], frm,
+                                         tag=tag)
         self._counts["handoffs"] += 1
-        if recv_buf is not None and staged:
-            t0 = time.perf_counter()
-            recv_buf = recv_buf.to(self.device)
-            self._counts["staging_s"] += time.perf_counter() - t0
+        self._counts["handoff_bytes"] += nbytes
+        self._counts["staging_s"] += staging
         self._counts["handoff_s"] += time.perf_counter() - t_start
-        return recv_buf
+        return got[0] if got else None
 
     def handoff(self, x: Optional[torch.Tensor], recv_like: Optional[tuple],
                 token: torch.Tensor, tick: int):
@@ -544,6 +675,41 @@ class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def backward(fctx, g):
         return None, None, fctx.ctx.gather(g.contiguous(), fctx.dim)
+
+
+class _Permute(torch.autograd.Function):
+    """``apply(ctx, perm, pending, *xs)``: ``xs`` sent along ``perm`` over
+    the model group (``Ctx.ppermute_model``); backward, the floating
+    tensors' cotangents along the inverse permutation (to the rank this one
+    received from, from the rank it sent to), zeros sent for a cotangent
+    autograd did not produce, so that the peer's receive is always met.
+    The integer tensors (positions) get no gradient and are not sent back.
+    Each rank runs its own backward: its permutations' backward meet the
+    peers' in the order autograd reaches them, the same on every rank of
+    one program."""
+
+    @staticmethod
+    def forward(fctx, ctx: Ctx, perm, pending, *xs):
+        fctx.set_materialize_grads(False)
+        to, frm = ctx._peers(perm)
+        fctx.ctx, fctx.peers = ctx, (to, frm)
+        fctx.likes = [(tuple(x.shape), x.dtype) for x in xs]
+        out = ctx._permute(xs, to, frm, pending)
+        fctx.mark_non_differentiable(*[t for t in out if not t.is_floating_point()])
+        return tuple(out)
+
+    @staticmethod
+    def backward(fctx, *gs):
+        ctx, (to, frm) = fctx.ctx, fctx.peers
+        flo = [i for i, (_, dtype) in enumerate(fctx.likes) if dtype.is_floating_point]
+        sends = [gs[i] if gs[i] is not None
+                 else torch.zeros(fctx.likes[i][0], dtype=fctx.likes[i][1], device=ctx.device)
+                 for i in flo]
+        back = ctx._permute(sends, frm, to)
+        grads = [None] * len(fctx.likes)
+        for i, g in zip(flo, back):
+            grads[i] = g
+        return (None, None, None, *grads)
 
 
 class _PsumReplicated(torch.autograd.Function):
@@ -603,8 +769,10 @@ class _HandOff(torch.autograd.Function):
 SINGLE = Ctx()
 
 
-def make_ctx(plan, *, device="cuda") -> Ctx:
-    """The context of ``plan`` for this process: one device at dp x pp x sp
-    = 1, else this rank of the initialised process group."""
-    return Ctx(dp=plan.dp, pp=plan.pp, sp=plan.sp, device=device, attn_mode=plan.attn_mode,
-               merge_bf16=plan.merge_bf16, grad_compress=plan.grad_compress)
+def make_ctx(plan, *, pods: int = 1, device="cuda") -> Ctx:
+    """The context of ``plan`` over ``pods`` pods for this process: one
+    device at pods x dp x pp x sp = 1, else this rank of the initialised
+    process group."""
+    return Ctx(dp=plan.dp, pp=plan.pp, sp=plan.sp, pods=pods, device=device,
+               attn_mode=plan.attn_mode, merge_bf16=plan.merge_bf16,
+               grad_compress=plan.grad_compress)

@@ -14,8 +14,8 @@ hidden state on; training adds each chunk's head loss, and autograd runs the
 backward through the chunks in reverse.  Decode feeds one token per step and
 attends the whole cache buffer.
 
-Each rank is a process (``parallel/ctx.py``: ``dp x pp`` data ranks,
-stage-major, times ``sp`` model ranks, model-minor).  At pp > 1 (DESIGN.md
+Each rank is a process (``parallel/ctx.py``: ``pods`` times ``dp x pp``
+data ranks, stage-major, times ``sp`` model ranks, model-minor).  At pp > 1 (DESIGN.md
 §2, §4) a rank runs one pipeline stage of one dp group and the sequence is
 cut into equal chunks fed as events (``pipeline_feed_events``: one per
 chunk, or the MSP ramp's sub-events).  At
@@ -55,9 +55,17 @@ one seam ahead of its backward (``prefetch="ahead"``, through a
 ``offload_dtype`` "fp8" / "int8" the rows cross quantized, their scales
 kept on the device (DESIGN.md §14).  The update keeps AdamW's moments on
 the device or, under ``offload_moments``, in pinned host memory, raw or
-under ``moments_dtype`` (``optim/adamw.py``, DESIGN.md §11).  ZeRO-1 and
-the pod axis (ROADMAP Queue 1, item 3) and ring attention (item 4) come
-with later slices.
+under ``moments_dtype`` (``optim/adamw.py``, DESIGN.md §11).
+
+The pod axis is pure data parallelism around the rest: the batch splits
+over pods x dp groups (``data/pipeline.py::shard_batch``), the gradients
+and the loss are also summed over the pods, and under ZeRO-1 (the plan's
+``zero1``, set where pods > 1) each rank keeps its pod's slice of the
+widened leaves' moments (``parallel/specs.py``), updates that slice, and
+the pods gather the updated slices (``Ctx.all_gather_pod``): the
+parameters are the same bits as with ``zero1=False``.  The ring attention
+schedule (``attn_mode="ring"``, ``parallel/ring.py``) runs at sp > 1 under
+every pipeline layout.
 """
 from __future__ import annotations
 
@@ -72,11 +80,13 @@ from repro_torch.core import partition as part
 from repro_torch.core import schedule as sched_mod
 from repro_torch.core import simulate as sim_mod
 from repro_torch.core import tree
+from repro_torch.data.pipeline import shard_batch
 from repro_torch.models import layers as L
 from repro_torch.models.model_zoo import ModelDef, build_model, marker_dim, param_markers
 from repro_torch.models.transformer import ChunkMeta
 from repro_torch.parallel.ctx import SINGLE, Ctx, _later, make_ctx
 from repro_torch.parallel.plans import resolve_plan
+from repro_torch.parallel.specs import zero1_dims
 
 DECODE_BUDGET = 128  # extra decode slots beyond the shape's cache length
 
@@ -96,6 +106,7 @@ class Cell:
     # attention masks cross-document visibility (DESIGN.md §13)
     doc_lens: tuple = ()
     data_size: int = 1   # ranks of the data axis: dp x pp (the model axis: plan.sp)
+    pods: int = 1        # the pod axis, outermost: pure data parallelism
 
     @property
     def cfg(self) -> ModelConfig:
@@ -103,13 +114,22 @@ class Cell:
 
     @property
     def b_loc(self) -> int:
-        """Rows of the batch a dp group takes."""
-        return max(1, self.shape.global_batch // self.plan.dp)
+        """Rows of the batch a dp group of a pod takes."""
+        return max(1, self.shape.global_batch // (self.pods * self.plan.dp))
 
     def ctx(self, *, device="cuda") -> Ctx:
         """This process's rank for the cell (``parallel/ctx.py``): one
-        device at dp x pp x sp = 1, else this rank of the process group."""
-        return make_ctx(self.plan, device=device)
+        device at pods x dp x pp x sp = 1, else this rank of the process
+        group."""
+        return make_ctx(self.plan, pods=self.pods, device=device)
+
+    def rows(self, ctx: Ctx, *arrays):
+        """This rank's rows of each [B, S] numpy array (its dp group's in
+        its pod), by the reference's ``shard_batch`` layout."""
+        lay = shard_batch(*arrays[:2], pods=self.pods, data_size=self.data_size,
+                          pp=self.plan.pp, doc_start=arrays[2] if len(arrays) > 2 else None)
+        at = (ctx.pod_index(), ctx.data_index())
+        return tuple(lay[k][at] for k in ("tokens", "labels", "doc_start")[:len(arrays)])
 
     @property
     def varlen(self) -> bool:
@@ -127,9 +147,10 @@ class Cell:
 
 def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
                  dtype=torch.bfloat16, doc_lens=None, data_size: int = 1,
-                 model_size: int = 1) -> Cell:
-    """Resolve a train, prefill or decode cell over ``data_size`` data ranks
-    (dp x pp) times ``model_size`` model ranks (sp).
+                 model_size: int = 1, pods: int = 1) -> Cell:
+    """Resolve a train, prefill or decode cell over ``pods`` pods of
+    ``data_size`` data ranks (dp x pp) times ``model_size`` model ranks
+    (sp); the plan's ``zero1`` follows pods > 1, as in the reference.
 
     The chunk plan and the offload ratios are the reference's
     (``repro/parallel/runner.py::resolve_cell``): each chunk's forward time
@@ -150,9 +171,8 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     whole chunk, which only a position-tagged cache absorbs, DESIGN.md §2).
     At pp = 1 the boundaries fall on multiples of max(sp, 128), and α sees
     each model rank's share of a chunk's rows (``chunk_act_bytes(sp=)``).
-    Prefill and decode at sp > 1 and decode at pp > 1 (item 5), ZeRO-1 and
-    the pod axis (item 3) and ring attention (item 4) are refused, naming
-    the ROADMAP item that brings them.
+    Prefill and decode at sp > 1 and decode at pp > 1 are refused, naming
+    the ROADMAP item that brings them (Queue 1, item 5).
 
     ``doc_lens`` makes a packed variable-length cell (DESIGN.md §13), as in
     the reference: the documents are packed into rows of S tokens
@@ -165,12 +185,8 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     mdef = arch if isinstance(arch, ModelDef) else build_model(arch)
     cfg = mdef.cfg
     plan = resolve_plan(cfg, shape_cfg, data_size=data_size, model_size=model_size,
-                        overrides=overrides)
+                        pods=pods, overrides=overrides)
     sp = plan.sp
-    if plan.attn_mode == "ring":
-        raise _later("attn_mode 'ring' (ring attention over the model axis)", 4)
-    if plan.zero1:
-        raise _later("ZeRO-1 over the pod axis", 3)
     if sp > 1 and shape_cfg.kind != "train":
         raise _later(f"{shape_cfg.kind} at sp = {sp} (the sequence-sharded serving cache)", 5)
     doc_lens = tuple(int(x) for x in (doc_lens if doc_lens is not None else ()))
@@ -199,7 +215,7 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
                              f"moments_dtype={plan.moments_dtype!r})")
         return Cell(mdef=mdef, plan=plan, shape=shape_cfg,
                     sched=part.ChunkSchedule((1,), (0,), 1, "decode"),
-                    alphas=(0.0,), dtype=dtype, data_size=data_size)
+                    alphas=(0.0,), dtype=dtype, data_size=data_size, pods=pods)
     if shape_cfg.kind not in ("prefill", "train"):
         raise ValueError(f"unknown shape kind {shape_cfg.kind!r}")
     if shape_cfg.kind == "train" and plan.offload:
@@ -255,7 +271,7 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     scale = (6 * n_params * B * S
              / sum(costs) / (plan.sp * plan.pp * cm.H100.peak_flops_bf16))
     times = [c * scale / (1.0 + cm.BWD_RATIO) for c in costs]
-    acts = cm.chunk_act_bytes(cfg, sched.lengths, batch=max(1, B // plan.dp),
+    acts = cm.chunk_act_bytes(cfg, sched.lengths, batch=max(1, B // (pods * plan.dp)),
                               pp=plan.pp, sp=plan.sp, grad_accum=plan.grad_accum)
     # compressed rows cross the link at wire_ratio of their bytes: α is
     # planned at the effective rate of raw bytes (DESIGN.md §14)
@@ -264,7 +280,7 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     if not plan.offload:
         alphas = tuple(0.0 for _ in alphas)
     return Cell(mdef=mdef, plan=plan, shape=shape_cfg, sched=sched,
-                alphas=alphas, dtype=dtype, doc_lens=doc_lens, data_size=data_size)
+                alphas=alphas, dtype=dtype, doc_lens=doc_lens, data_size=data_size, pods=pods)
 
 
 def _rope(cfg, q_pos):
@@ -536,9 +552,10 @@ def trainable(path: str) -> bool:
 
 def _check_ctx(cell: Cell, ctx: Ctx) -> None:
     plan = cell.plan
-    if (ctx.dp, ctx.pp, ctx.sp) != (plan.dp, plan.pp, plan.sp):
-        raise ValueError(f"the cell's plan is dp x pp x sp = {plan.dp} x {plan.pp} x "
-                         f"{plan.sp}, its context {ctx.dp} x {ctx.pp} x {ctx.sp}")
+    if (ctx.pods, ctx.dp, ctx.pp, ctx.sp) != (cell.pods, plan.dp, plan.pp, plan.sp):
+        raise ValueError(f"the cell is pods x dp x pp x sp = {cell.pods} x {plan.dp} x "
+                         f"{plan.pp} x {plan.sp}, its context {ctx.pods} x {ctx.dp} x "
+                         f"{ctx.pp} x {ctx.sp}")
     if plan.sp > 1 and (ctx.attn_mode, ctx.merge_bf16, ctx.grad_compress) != (
             plan.attn_mode, plan.merge_bf16, plan.grad_compress):
         raise ValueError("the context's attn_mode / merge_bf16 / grad_compress differ "
@@ -666,14 +683,39 @@ def global_grad_norm(grads, ctx: Ctx = SINGLE, mdef: ModelDef = None) -> torch.T
     return torch.sqrt(stages[0] + sq[1])
 
 
+def pod_slices(cell: Cell, params, ctx: Ctx):
+    """ZeRO-1's slices of this rank's parameter leaves
+    (``adamw.PodSlices``, the widening rule of ``parallel/specs.py``), or
+    None where the plan runs no ZeRO-1 or there is one pod."""
+    from repro_torch.optim import adamw
+
+    if not (cell.plan.zero1 and cell.pods > 1):
+        return None
+    return adamw.PodSlices(tuple(zero1_dims(cell.mdef, params, cell.plan.sp, cell.pods)),
+                           cell.pods, ctx.pod_index())
+
+
+def init_opt_state(cell: Cell, params, ctx: Ctx = SINGLE):
+    """AdamW's state for this rank's ``params`` where the plan keeps it
+    (``offload_moments``, ``moments_dtype``), of the pod slices under
+    ZeRO-1."""
+    from repro_torch.optim import adamw
+
+    plan = cell.plan
+    return adamw.init_state(params, offload_moments=plan.offload_moments,
+                            moments_dtype=plan.moments_dtype, moments_mode=plan.moments_mode,
+                            pod_slices=pod_slices(cell, params, ctx))
+
+
 def make_train_step(cell: Cell, *, lr_kwargs=None, ctx: Ctx = SINGLE):
     """Build the training step: loss and gradients of the chunked pipeline,
     then one AdamW update (global-norm clip, cosine schedule) in place, its
     moments where the plan keeps them (``offload_moments``,
-    ``moments_dtype``: ``opt_state`` from ``adamw.init_state`` with the
-    same settings).  Over several ranks each rank updates what it holds,
-    clipped by the model's global norm (``global_grad_norm``); at sp > 1
-    the moments are those of the rank's shards."""
+    ``moments_dtype``: ``opt_state`` from ``init_opt_state``).  Over
+    several ranks each rank updates what it holds, clipped by the model's
+    global norm (``global_grad_norm``); at sp > 1 the moments are those of
+    the rank's shards, under ZeRO-1 of their pod slices, whose update the
+    pods then gather."""
     from repro_torch.optim import adamw
 
     lr_kwargs = lr_kwargs or {}
@@ -689,7 +731,8 @@ def make_train_step(cell: Cell, *, lr_kwargs=None, ctx: Ctx = SINGLE):
         params, opt_state, met = adamw.apply_update(
             params, grads, opt_state, lr=lr, offload_moments=plan.offload_moments,
             moments_mode=plan.moments_mode, moments_dtype=plan.moments_dtype,
-            grad_norm=global_grad_norm(grads, ctx, cell.mdef) if ctx.distributed else None)
+            grad_norm=global_grad_norm(grads, ctx, cell.mdef) if ctx.distributed else None,
+            pod_slices=pod_slices(cell, params, ctx), gather=ctx.all_gather_pod)
         met["loss"] = loss
         return params, opt_state, met
 

@@ -73,17 +73,21 @@ def shard_positions(lengths, sp, rank, upto):
                            for off, ln in list(zip(offs, lengths))[:upto + 1]]).astype(np.int32)
 
 
-def model_axis_case(mode, B, lengths, c, sp, rank, H, Hkv, hd, seed=0):
+def model_axis_case(mode, B, lengths, c, sp, rank, H, Hkv, hd, seed=0, kv_rank=None):
     """(q, k, v) arrays and q_pos / kv_pos of chunk ``c`` at sp > 1 as model
     rank ``rank`` passes them to the kernels: "gather_q", every query of the
     chunk over the rank's gapped cache shard; "gather_kv", the rank's
     queries over every rank's shard concatenated rank by rank (positions
-    that do not ascend)."""
+    that do not ascend); "ring", one hop: the rank's queries over the
+    gapped shard of ``kv_rank``."""
     off, ln = int(np.sum(lengths[:c])), lengths[c]
     lloc = ln // sp
     if mode == "gather_q":
         q_pos = off + np.arange(ln, dtype=np.int32)
         kv_pos = shard_positions(lengths, sp, rank, c)
+    elif mode == "ring":
+        q_pos = (off + rank * lloc + np.arange(lloc)).astype(np.int32)
+        kv_pos = shard_positions(lengths, sp, kv_rank, c)
     else:
         q_pos = (off + rank * lloc + np.arange(lloc)).astype(np.int32)
         kv_pos = np.concatenate([shard_positions(lengths, sp, r, c) for r in range(sp)])

@@ -59,13 +59,12 @@ def collectives_rank(rank, device, data):
     shard = x[:, 3 * m:3 * m + 3].clone().requires_grad_()
     comp.all_gather_param(shard, 1).backward(g)
     out["all_gather_param_bf16_grad"] = _np(shard.grad)
-    for name, fn in (("ppermute", lambda: ctx.ppermute_model(x, [(0, 1), (1, 0)])),
-                     ("all_to_all", lambda: ctx.all_to_all_model(x, 0, 1))):
-        try:
-            fn()
-            out[name] = "ran"
-        except NotImplementedError as err:
-            out[name] = str(err)
+    out["ppermute"] = _np(ctx.ppermute_model(x * (m + 1), [(0, 1), (1, 0)]))
+    try:
+        ctx.all_to_all_model(x, 0, 1)
+        out["all_to_all"] = "ran"
+    except NotImplementedError as err:
+        out["all_to_all"] = str(err)
     # the attention schedules: this rank's rows of q, k, v of a chunk, the
     # cache shard holding this rank's positions
     a = data["attn"]

@@ -837,6 +837,100 @@ def test_kernels_at_the_model_axis_shapes(cuda_device, mode, c, rank, dtype, ker
     _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels)
 
 
+# the ring's hop shapes (sp = 2): each rank's queries of the first and the
+# last chunk over each rank's shard
+RING_HOPS = sorted({(c, r, kv, dtype, kernels) for c in (0, 2) for r in (0, 1) for kv in (0, 1)
+                    for dtype in ("float32", "bfloat16") for kernels in _kernels(dtype)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,rank,kv_rank,dtype,kernels", RING_HOPS)
+def test_kernels_at_the_ring_hop_shapes(cuda_device, c, rank, kv_rank, dtype, kernels):
+    """The forward and the backward pair at the ring's hops: a rank's
+    queries over the gapped shard that started on ``kv_rank``.  The first
+    chunk's hop of rank 0 over rank 1's block lies wholly in the queries'
+    future: every row comes out exactly dead (o = l = 0, m = -1e30) and
+    its NaN cotangents give zero gradients.  Forward within 1e-5, backward
+    within 1e-5 x max |plain|."""
+    from _torch_cases import model_axis_case
+
+    arrays, q_pos, kv_pos = model_axis_case("ring", 2, (256, 192, 128), c, 2, rank, 8, 2, 64,
+                                            kv_rank=kv_rank)
+    o, m, l = _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels)
+    dead = torch.from_numpy(q_pos[:, None] < kv_pos[None, :]).all(1).to(cuda_device)
+    if (c, rank, kv_rank) == (0, 0, 1):
+        assert bool(dead.all())
+    assert bool((o[:, dead] == 0).all() and (l[:, dead] == 0).all()
+                and (m[:, dead] == -1e30).all())
+    got = _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels,
+                     dead=dead[None].expand(2, -1) if bool(dead.any()) else None)
+    if bool(dead.all()):
+        assert all(bool((g == 0).all()) for g in got)
+
+
+def _sp2_step_over_gloo_equals_cpu(plan):
+    """sp = 2 as two ranks (processes) sharing the card over gloo under
+    the plan overrides ``plan`` (the default plan's otherwise), fp32
+    reduced qwen2-7b: each rank's loss, and every gradient leaf gathered
+    over the ranks, within 1e-4 relative L2 of the CPU's sp = 1 step.  The
+    ranks run tests/_torch_model_axis_workers.py."""
+    import _torch_model_axis_workers as W
+    from repro_torch.launch import mesh
+    from repro_torch.models.convert import gather_model_shards
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("qwen2-7b").reduced()
+    S, B = 256, 2
+    gen = torch.Generator().manual_seed(0)
+    mdef = build_model(cfg)
+    params = {"stages": mdef.init_stage_params(gen, torch.float32, "cpu"),
+              "globals": mdef.init_globals(gen, torch.float32, "cpu")}
+
+    def stack(slots):
+        if isinstance(slots[0], dict):
+            return {k: stack([s[k] for s in slots]) for k in slots[0]}
+        return np.stack([s.numpy() for s in slots]).astype(np.float32)
+
+    params_np = {"stages": stack(params["stages"]),
+                 "globals": tree.map_(lambda t: t.numpy(), params["globals"])}
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    cell = runner.resolve_cell(cfg, ShapeConfig("t", S, B, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=2, grad_accum=1),
+                               dtype=torch.float32)
+    loss1, grads1 = runner.loss_and_grads(cell, params, torch.from_numpy(tokens),
+                                          torch.from_numpy(labels))
+    want = {path: g.numpy() for path, g in tree.items(grads1)}
+    job = dict(name="sp2", arch="qwen2-7b", layout=dict(sp=2, n_chunks=2, plan=plan),
+               params=params_np, tokens=tokens, labels=labels)
+    ranks = [r["sp2"] for r in mesh.spawn(W.layout_rank, 2, backend="gloo", device="cuda",
+                                          args=([job],), timeout_s=300.0)]
+    for r in ranks:
+        assert abs(r["loss"] - float(loss1)) <= 1e-4 * abs(float(loss1))
+    full = gather_model_shards([r["grads"] for r in sorted(ranks, key=lambda x: x["model_index"])],
+                               cfg)
+    for path, g in tree.items(full):
+        norm = np.linalg.norm(want[path])
+        if norm == 0:
+            assert not np.any(g), path
+            continue
+        assert np.linalg.norm(g - want[path]) / norm <= 1e-4, path
+    return ranks
+
+
+@pytest.mark.cuda
+def test_ring_sp2_on_one_card_over_gloo_equals_cpu(cuda_device):
+    """The ring (``attn_mode="ring"``) at sp = 2 on one card over gloo: the
+    loss and every gradient within 1e-4 of the CPU's sp = 1 step; each
+    rank's hops (a layer and chunk in the seam, its replay and the
+    backward) counted."""
+    ranks = _sp2_step_over_gloo_equals_cpu(dict(attn_mode="ring"))
+    for r in ranks:
+        c = r["ctx_counts"]
+        assert c["model_ppermute_calls"] == 2 * 2 * 3 and c["model_pmax_calls"] == 2, c
+
+
 @pytest.mark.cuda
 def test_model_axis_sp2_on_one_card_over_gloo_equals_cpu(cuda_device):
     """sp = 2 as two ranks (processes) sharing the card over gloo, every

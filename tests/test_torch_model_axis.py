@@ -298,7 +298,9 @@ def _collectives():
 def test_collectives_and_their_backward_against_dense_sums():
     """all-gather <-> reduce-scatter, the psum of a replicated value (its
     cotangent passes through), the gradient-frozen max, the bf16
-    reduce-scatter of grad_compress, and what stays refused."""
+    reduce-scatter of grad_compress, the permutation (its backward in
+    tests/test_torch_ring.py), and what stays refused (the all-to-all of
+    expert parallelism, item 7)."""
     data, ranks = _collectives()
     x, g = data["x"], data["g"]
     gsum = g[0] + g[1]
@@ -317,7 +319,8 @@ def test_collectives_and_their_backward_against_dense_sums():
         got = r["all_gather_param_bf16_grad"]
         assert np.abs(got - gsum[:, 3 * m:3 * m + 3]).max() <= 1e-2 * np.abs(gsum).max()
         assert np.array_equal(got, torch.from_numpy(got).bfloat16().float().numpy())
-        assert "item 4" in r["ppermute"] and "item 7" in r["all_to_all"]
+        np.testing.assert_array_equal(r["ppermute"], x * (2 - m))
+        assert "item 7" in r["all_to_all"]
 
 
 @pytest.mark.parametrize("mode", ["gather_q", "gather_kv"])

@@ -402,25 +402,26 @@ def test_params_from_numpy_splits_stages_as_the_reference_builds_them():
 
 
 def test_what_the_multi_rank_slice_refuses():
-    """What stays refused: ZeRO-1 over the pod axis (item 3), prefill and
-    decode at sp > 1 and decode at pp > 1 (item 5), ring attention (item
-    4; ``ppermute_model`` in tests/test_torch_model_axis.py); chunks that do not tile S (at sp, their
+    """What stays refused: prefill and decode at sp > 1 and decode at pp >
+    1 (item 5; ``all_to_all_model``, item 7, in
+    tests/test_torch_model_axis.py); chunks that do not tile S (at sp, their
     model shards too), MSP chunks that do not split, NCCL without a card
-    per rank, a multi-rank context without a process group.  A model axis
-    (tests/test_torch_model_axis.py) and packed rows at pp > 1 resolve."""
+    per rank, a multi-rank context without a process group, an unknown
+    attention schedule.  A model axis (tests/test_torch_model_axis.py),
+    ring attention, ZeRO-1 over a pod axis (tests/test_torch_ring.py) and
+    packed rows at pp > 1 resolve."""
     cfg = get_config("qwen2-7b").reduced()
     shape = ShapeConfig("t", 256, 2, "train")
     cell = runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1), model_size=2)
     assert cell.plan.sp == 2 and all(ln % 128 == 0 for ln in cell.sched.lengths)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, zero1=True))
+    zero1 = runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1), pods=2)
+    assert zero1.plan.zero1 and zero1.pods == 2 and zero1.b_loc == 1
     for kind in ("prefill", "decode"):
         with pytest.raises(NotImplementedError, match="item 5"):
             runner.resolve_cell(cfg, ShapeConfig("p", 256, 2, kind),
                                 overrides=dict(pp=1, dp=1), model_size=2)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, attn_mode="ring"),
-                            model_size=2)
+    assert runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, attn_mode="ring"),
+                               model_size=2).plan.attn_mode == "ring"
     with pytest.raises(NotImplementedError, match="item 5"):
         runner.resolve_cell(cfg, ShapeConfig("d", 256, 2, "decode"),
                             overrides=dict(pp=2, dp=1), data_size=2)
@@ -436,8 +437,10 @@ def test_what_the_multi_rank_slice_refuses():
     with pytest.raises(ValueError, match="msp_split"):
         runner.resolve_cell(cfg, shape, overrides=dict(pp=2, dp=1, n_chunks=4, msp=True,
                                                        msp_split=3), data_size=2)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(RuntimeError, match="initialised process group"):
         ctx_mod.Ctx(sp=2, device="cpu", attn_mode="ring")
+    with pytest.raises(ValueError, match="expected one of"):
+        ctx_mod.Ctx(sp=2, device="cpu", attn_mode="striped")
     with pytest.raises(RuntimeError, match="initialised process group"):
         ctx_mod.Ctx(sp=2, device="cpu")
     with pytest.raises(RuntimeError, match="initialised process group"):

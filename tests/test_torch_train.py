@@ -339,11 +339,13 @@ def _queue1_titles():
 def test_resolve_cell_refuses_what_later_slices_bring():
     """The moment offload and the codecs run (tests/test_torch_optstate.py,
     tests/test_torch_offload.py), as do the executed activation offload and
-    remat "sppo" / "full", and the model axis with its attention modes
-    (tests/test_torch_model_axis.py).  What later slices bring is refused
-    naming its ROADMAP Queue 1 item as ROADMAP.md numbers it: ZeRO-1 over
-    the pod axis (item 3, multi-rank, whose data and model axes run), ring
-    attention (item 4), the auditor and checkpointing (item 7, tooling)."""
+    remat "sppo" / "full", the model axis with its attention modes
+    (tests/test_torch_model_axis.py), and ring attention (item 4) and
+    ZeRO-1 over the pod axis (item 3's last part; tests/test_torch_ring.py).
+    What later slices bring is refused naming its ROADMAP Queue 1 item as
+    ROADMAP.md numbers it: prefill and decode at sp > 1 and decode at pp >
+    1 (item 5, paged serving), the auditor and checkpointing (item 7,
+    tooling)."""
     cfg = get_config("qwen2-7b").reduced()
     shape = ShapeConfig("t", 256, 2, "train")
     for ov in (dict(offload_moments=True), dict(offload_dtype="fp8"),
@@ -357,11 +359,13 @@ def test_resolve_cell_refuses_what_later_slices_bring():
     assert titles[4].startswith("Ring attention")
     assert titles[7].startswith("Remaining families and tooling")
     assert {item for _, item in train.LATER.values()} == {7}
-    with pytest.raises(NotImplementedError, match="item 3"):
-        runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, zero1=True))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, attn_mode="ring"),
-                            model_size=2)
+    assert runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1), pods=2).plan.zero1
+    assert runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, attn_mode="ring"),
+                               model_size=2).plan.attn_mode == "ring"
+    assert titles[5].startswith("Paged serving")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        runner.resolve_cell(cfg, ShapeConfig("p", 256, 2, "prefill"),
+                            overrides=dict(pp=1, dp=1, attn_mode="ring"), model_size=2)
     assert {dest for dest, (_, item) in train.LATER.items() if item == 7} == {
         "audit", "ckpt_dir", "ckpt_every", "resume"}
     assert "item 3" in str(runner._later("pp = 2 (pipeline stages)", 3))
@@ -385,16 +389,18 @@ def test_cli_counts_no_kernel_launch_on_cpu():
                            "bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_tc": 0, "bwd_dkv_tc": 0}
 
 
-@pytest.mark.parametrize("flag,item", [(["--mesh", "1x2", "--attn-mode", "ring"], 4),
-                                       (["--attn-mode", "ring"], 4),
+@pytest.mark.parametrize("flag,item", [(["--mesh", "1x2", "--attn-mode", "ring", "--ckpt-dir", "x"], 7),
+                                       (["--attn-mode", "ring", "--audit"], 7),
                                        (["--ckpt-every", "5"], 7), (["--ckpt-dir", "x"], 7),
-                                       (["--audit"], 7), (["--mesh", "2x2", "--attn-mode", "ring"], 4),
+                                       (["--audit"], 7),
+                                       (["--mesh", "2x2", "--attn-mode", "ring", "--resume", "x"], 7),
                                        (["--resume", "x"], 7)],
                          ids=[f"flag{i}" for i in range(7)])
 def test_cli_refuses_flags_of_later_slices(flag, item, capsys):
-    """What the CLI still refuses: ring attention (item 4), checkpointing
-    and the auditor (item 7).  A model axis in ``--mesh`` and the other
-    attention modes run (tests/test_torch_model_axis.py)."""
+    """What the CLI still refuses: checkpointing and the auditor (item 7),
+    beside ring attention too.  A model axis in ``--mesh`` and every
+    attention mode run (tests/test_torch_model_axis.py; ``--attn-mode ring``
+    in tests/test_torch_ring.py)."""
     with pytest.raises(SystemExit):
         train.main(["--reduced", "--steps", "1", "--device", "cpu", *flag])
     assert f"ROADMAP Queue 1, item {item}" in capsys.readouterr().err

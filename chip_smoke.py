@@ -152,6 +152,31 @@ Four phases, each of which exits non-zero on failure:
    rows exactly dead) and the fp32 layouts' shapes.  Every path's launches
    and copies are counted from 0 just before it runs.
 
+Paged continuous-batching serving (DESIGN.md §16; ``paged_serve_phase``,
+right after phase 3): ``launch.serve.ServeEngine`` with qwen2-7b at full
+width, all 28 layers, bf16, random weights from seed 0: a 2048-token
+prompt bucket, 64 new tokens at most, 8 slots, blocks of 16 slots (the
+default pool of 8 x 132 = 1056 blocks); 24 requests from
+``numpy.random.default_rng(0)`` (prompts of 256-2048 tokens, 8-64 new
+tokens, arrivals at steps 0-48) run continuously (the main path), then in
+lock-step waves (static), then three of them alone; every request's tokens
+bitwise alike in the three, the blocks recycled (peak <= the concurrency
+bound <= the pool < blocks allocated), the pool's bytes at the closed form
+(the cost model's ``kv_pool_bytes`` plus the sink), the tensor-core forward
+launched 28 x (steps + prefill chunks x waves) times and no other kernel,
+and the decode loop under ``torch.cuda.set_sync_debug_mode("error")``
+(any torch call that makes the host wait for the card raises); then 8 warm
+steps under the profiler (busy ms and idle share).  Phase 2 times both
+forwards at the paged step's shape (8 rows at their own positions, each
+over its 2112 gathered slots) and checks the CUDA-core forward in fp32 at
+the multi-rank serving shapes.  Last, serving over ranks sharing the card
+over gloo (``serve_ranks_phase``): qwen2-7b at full width cut to 2 layers
+in fp32, static sp = 2 (prefill 256, 8 decode steps), static pp = 2 (4
+rows in 4 microbatches) and the engine at mesh 1 x 2 on a short trace,
+each rank's tokens as the CPU's one device's (a token may differ only where
+the CPU's top-2 logit gap is under 1e-4, printed as a tie), each rank's
+model collectives and hand-offs at their closed forms.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its check and times: the tensor-core and the CUDA-core
 forward, the latter's merge, and the tensor-core and CUDA-core backward
@@ -295,6 +320,31 @@ SP_FP32_LAYOUTS = {"sp2": dict(dp=1, pp=1, sp=2, n_chunks=2),
                                            plan=dict(offload_moments=True), update=True)}
 SP_FP32_LR = dict(peak=1e-4, warmup=1, total=10)
 SP_SHARED = "ranks share one card over gloo: not a model-axis speed"
+# paged continuous-batching serving (paged_serve_phase, DESIGN.md §16):
+# qwen2-7b at full width, all 28 layers, bf16; the engine's geometry (the
+# default pool: slots x 132 blocks of a 2112-slot request = 1056) and a
+# trace from numpy.random.default_rng(0): 24 requests, prompts of 256-2048
+# tokens, 8-64 new tokens each, arrivals at steps 0-48; run continuous, then
+# static, then PAGED_SOLO of its requests alone; PAGED_PROFILE_STEPS warm
+# steps under the profiler
+PAGED = dict(s_bucket=2048, max_new=64, slots=8, block_tokens=16, admit_min_free=2)
+PAGED_TRACE = dict(n=24, prompt=(256, 2048), max_new=(8, 64), arrival=(0, 48))
+PAGED_SOLO, PAGED_PROFILE_STEPS = 3, 8
+# serving over ranks sharing the card (serve_ranks_phase): qwen2-7b at full
+# width cut to 2 layers, fp32, the CPU's one device the oracle.  sp = 2
+# static: prefill 256 and 8 decode steps of 2 rows; pp = 2 static: 4 rows
+# in M = min(8, 4) = 4 microbatches, the planner's rule for a decode plan
+# at pp > 1 (its pp here comes from an override, which the planner's
+# microbatch count does not see); the engine at 1 x 2 on a 3-request trace.
+# Weights are gathered over gloo at every use (≈ 0.9 GB a decode step a
+# rank at 2 layers), which sets the depth and the step counts
+SERVE_FP32_LAYERS = 2
+SERVE_SP_SEQ, SERVE_SP_BATCH, SERVE_SP_STEPS = 256, 2, 8
+SERVE_PP_SEQ, SERVE_PP_BATCH, SERVE_PP_MICRO, SERVE_PP_STEPS = 256, 4, 4, 4
+SERVE_ENGINE = dict(s_bucket=128, slots=2, max_new=4, block_tokens=16, admit_min_free=1)
+# a card token may differ from the CPU's only where the CPU's top-2 logit
+# gap at that step is under this (a tie the two devices may break apart)
+TIE_GAP = 1e-4
 
 
 def fail(msg: str):
@@ -3349,6 +3399,540 @@ def model_axis_phase(fa, mesh, runner, card):
     return counts, summary
 
 
+# ---------------------------------------------------------------------------
+# Paged continuous-batching serving (DESIGN.md §16): the engine at full
+# width on the card, and serving at sp = 2 / pp = 2 with ranks sharing it
+# ---------------------------------------------------------------------------
+
+
+def paged_trace(vocab: int, seed: int = 0):
+    """PAGED_TRACE's requests from ``numpy.random.default_rng(seed)``:
+    (rid, prompt, max_new, arrival) dicts."""
+    rng = np.random.default_rng(seed)
+    t = PAGED_TRACE
+    reqs = []
+    for i in range(t["n"]):
+        plen = int(rng.integers(t["prompt"][0], t["prompt"][1] + 1))
+        reqs.append(dict(rid=i, prompt=rng.integers(2, vocab, size=plen).astype(np.int32),
+                         max_new=int(rng.integers(t["max_new"][0], t["max_new"][1] + 1)),
+                         arrival=int(rng.integers(t["arrival"][0], t["arrival"][1] + 1))))
+    return reqs
+
+
+def paged_step_shape(gen, geo, K: int):
+    """The kernel's inputs at the paged step's shape: K rows at their own
+    positions ([K, 1] q_pos, a request at each decode depth up to the
+    budget), each over its gathered [K, l_loc, Hkv, hd] logical slots, the
+    rank's shared position map."""
+    from repro_torch.runtime import kvpool
+
+    dev, bf16 = "cuda", torch.bfloat16
+    H, Hkv, hd = 28, 4, 128
+    sched = dataclasses.make_dataclass("Sched", ["offsets", "lengths"])(
+        (0,), (geo.s_bucket,))
+    pos_map = torch.from_numpy(kvpool.pos_map(geo, sched)[0]).to(dev)
+    q = torch.randn(K, 1, H, hd, generator=gen, device=dev).to(bf16)
+    k = torch.randn(K, geo.l_loc, Hkv, hd, generator=gen, device=dev).to(bf16)
+    v = torch.randn(K, geo.l_loc, Hkv, hd, generator=gen, device=dev).to(bf16)
+    depth = torch.linspace(0, geo.max_new - 1, K, device=dev).round().to(torch.int32)
+    q_pos = (geo.s_bucket + depth)[:, None]
+    return q, k, v, q_pos, pos_map, None
+
+
+def serve_fp32_shapes(fa, ref, gen, runner, cfg):
+    """Untimed fp32 checks of the forward (the CUDA cores, with their
+    split-KV merge) at the multi-rank serving phase's call shapes (full
+    width, fp32): a decode step over one rank's sp = 2 cache shard (the
+    prefill's shard, then the striped decode slots, PAD beyond), a pp = 2
+    stage's microbatch over its cache, and the 1 x 2 engine's paged step
+    (per-row q_pos over the gathered slots of rank 1's position map).
+    Returns the worst normalized error."""
+    from repro_torch.runtime import kvpool
+
+    dev, f32 = "cuda", torch.float32
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    worst = 0.0
+
+    def run(B, Tq, kv_pos, q_pos):
+        nonlocal worst
+        S = kv_pos.shape[0]
+        q = torch.randn(B, Tq, H, hd, generator=gen, device=dev, dtype=f32)
+        k = torch.randn(B, S, Hkv, hd, generator=gen, device=dev, dtype=f32)
+        v = torch.randn(B, S, Hkv, hd, generator=gen, device=dev, dtype=f32)
+        worst = max(worst, kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None)[0])
+
+    # sp = 2, rank 1 at decode step 3: its prefill shard's 128 slots
+    # (positions 64..127 and 192..255 of two 128-token chunks), decode
+    # tokens 1 and 3 at slots 128, 129 (positions 257, 259), PAD beyond
+    S, steps = SERVE_SP_SEQ, 3
+    loc = S // 2 + runner.DECODE_BUDGET
+    pos = torch.full((loc,), PAD, dtype=torch.int32, device=dev)
+    half = S // 4
+    pos[:half] = torch.arange(half, 2 * half, dtype=torch.int32, device=dev)
+    pos[half:2 * half] = torch.arange(3 * half, 4 * half, dtype=torch.int32, device=dev)
+    for i in range(1, steps + 1, 2):
+        pos[S // 2 + i // 2] = S + i
+    run(SERVE_SP_BATCH, 1, pos, torch.full((1,), S + steps, dtype=torch.int32, device=dev))
+    # pp = 2: a microbatch's rows over the stage's whole cache at step 2
+    S = SERVE_PP_SEQ
+    pos = torch.full((S + runner.DECODE_BUDGET,), PAD, dtype=torch.int32, device=dev)
+    pos[:S + 3] = torch.arange(S + 3, dtype=torch.int32, device=dev)
+    run(SERVE_PP_BATCH // SERVE_PP_MICRO, 1, pos,
+        torch.full((1,), S + 2, dtype=torch.int32, device=dev))
+    # the 1 x 2 engine's paged step on rank 1
+    e = SERVE_ENGINE
+    geo = kvpool.PoolGeometry(s_bucket=e["s_bucket"], sp=2, max_new=e["max_new"],
+                              block_tokens=e["block_tokens"], n_blocks=8, n_slots=e["slots"])
+    sched = dataclasses.make_dataclass("Sched", ["offsets", "lengths"])((0,), (e["s_bucket"],))
+    pos_map = torch.from_numpy(kvpool.pos_map(geo, sched)[1]).to(dev)
+    run(e["slots"], 1, pos_map,
+        torch.tensor([[e["s_bucket"] + 1], [e["s_bucket"] + 3]], dtype=torch.int32, device=dev))
+    print(f"fp32 serving shapes (sp = 2 decode shard, pp = 2 microbatch, 1 x 2 paged step): "
+          f"the CUDA-core forward within {KERNEL_TOL} (worst {worst:.3e})")
+    return worst
+
+
+@contextlib.contextmanager
+def recorded_gaps(model_def_cls, gaps: list):
+    """Within the block, every ``head_logits`` call appends the top-2 gap of
+    each row's logits ([rows] fp32 numpy) to ``gaps``: the CPU oracle's
+    record of how near a greedy choice was to a tie."""
+    orig = model_def_cls.head_logits
+
+    def recording(self, g, x, ctx=None):
+        logits = orig(self, g, x) if ctx is None else orig(self, g, x, ctx)
+        top = logits.topk(2, dim=-1).values
+        gaps.append((top[..., 0] - top[..., 1]).reshape(-1).numpy())
+        return logits
+
+    model_def_cls.head_logits = recording
+    try:
+        yield
+    finally:
+        model_def_cls.head_logits = orig
+
+
+def static_decode(runner, cell_pre, cell_dec, params, prompts, steps, dev, ctx=None):
+    """Prefill ``prompts`` [B, S] and decode ``steps`` greedy tokens on one
+    device (tokens [B, steps])."""
+    kw = {} if ctx is None else {"ctx": ctx}
+    S = prompts.shape[1]
+    state, _ = runner.make_prefill_step(cell_pre, **kw)(params, torch.from_numpy(prompts).to(dev))
+    step = runner.make_serve_step(cell_dec, decode_steps=steps, **kw)
+    cur, toks = torch.from_numpy(np.ascontiguousarray(prompts[:, -1:])).to(dev), []
+    for i in range(steps):
+        state, cur = step(params, state, cur, S + i)
+        toks.append(cur[:, 0].cpu().numpy())
+    return np.stack(toks, axis=1)
+
+
+def held_against_cpu(got, want, gaps, what):
+    """Tokens [rows, steps] of the card against the CPU's, with the CPU's
+    top-2 gap of each (row, step): a token may differ only where that gap
+    is under TIE_GAP (a tie the two devices may break apart), and the row is
+    not compared past it.  Returns the ties allowed."""
+    ties = []
+    for b in range(want.shape[0]):
+        for i in range(want.shape[1]):
+            if got[b, i] == want[b, i]:
+                continue
+            check(gaps[b, i] < TIE_GAP, f"{what}: row {b} step {i} decoded {got[b, i]}, the CPU "
+                  f"{want[b, i]}, with a top-2 gap of {gaps[b, i]:.3e} >= {TIE_GAP}")
+            ties.append((b, i, float(gaps[b, i])))
+            print(f"  tie allowed [{what}]: row {b} step {i}: card {got[b, i]}, CPU "
+                  f"{want[b, i]}, the CPU's top-2 gap {gaps[b, i]:.3e}")
+            break
+    return ties
+
+
+def decode_collectives(cfg, B: int, steps: int) -> dict:
+    """The model collectives of ``steps`` sp = 2 decode steps of B rows on
+    one rank by the closed form: (calls, bytes this rank put in) of each.
+    A step embeds (a sum of [B, 1, d]), gathers each layer's 7 "ag" weight
+    leaves (its shard of each), merges each layer's attention (a max of m
+    [B, 1, H], sums of o [B, 1, H, hd] and l) and gathers its vocab shard's
+    logits ([B, 1, Vp / 2], fp32)."""
+    from repro_torch.models import layers as L
+
+    d, H, Hkv, hd, ff, n = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.n_layers
+    it = 4
+    ag = (d * H * hd + 2 * d * Hkv * hd + H * hd * d + 3 * d * ff) // 2 * it
+    vp = L.pad_vocab(cfg.vocab_size, 2048)
+    return {"model_all_gather": (steps * (7 * n + 1), steps * (n * ag + B * vp // 2 * it)),
+            "model_psum": (steps * (2 * n + 1),
+                           steps * (B * d * it + n * B * H * (hd + 1) * it)),
+            "model_pmax": (steps * n, steps * n * B * H * it),
+            "model_reduce_scatter": (0, 0)}
+
+
+def prefill_collectives(cfg, B: int, lengths) -> dict:
+    """The calls of an sp = 2 gather_q prefill's model collectives by the
+    closed form: each chunk's embedding reduce-scatter, and each layer's 7
+    weight gathers, its query and position gathers, the merge's max and
+    its two reduce-scatters."""
+    n, c = cfg.n_layers, len(lengths)
+    return {"model_all_gather": c * n * 9, "model_pmax": c * n,
+            "model_reduce_scatter": c * (2 * n + 1), "model_psum": 0}
+
+
+def serve_fp32_rank(rank, device, jobs):
+    """One rank of the multi-rank serving layouts (fp32, full width cut to
+    SERVE_FP32_LAYERS layers, weights drawn on the card from seed 0 and
+    sliced to the rank's stage and model shard): static sp = 2 and pp = 2
+    decode, and the engine at 1 x 2.  Returns each job's tokens, the
+    context's counts (decode steps alone for the static jobs) and the
+    forward's launches."""
+    _port_path()
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.parallel import runner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_up = time.time()
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=SERVE_FP32_LAYERS)
+    out = {"t_up": t_up, "rank": rank}
+    for job in jobs:
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        if job["kind"] == "static":
+            prompts, lay = job["prompts"], job["layout"]
+            B, S = prompts.shape
+            pp, sp = lay.get("pp", 1), lay.get("sp", 1)
+            sizes = dict(data_size=pp, model_size=sp, dtype=torch.float32)
+            pre = runner.resolve_cell(cfg, ShapeConfig("serve_fp32", S, B, "prefill"),
+                                      overrides=dict(pp=pp, dp=1, n_chunks=max(1, S // 64),
+                                                     offload=False, remat="none"), **sizes)
+            dec = runner.resolve_cell(cfg, ShapeConfig("serve_fp32", S, B, "decode"),
+                                      overrides=dict(pp=pp, dp=1, **lay.get("dec_plan", {})),
+                                      **sizes)
+            ctx = dec.ctx(device=device)
+            params = serve.build_params(pre, device, seed=0, stage=ctx.stage_index(),
+                                        model_rank=ctx.model_index())
+            prefill = runner.make_prefill_step(pre, ctx)
+            state, _ = prefill(params, torch.from_numpy(prompts).to(device))
+            pre_counts = ctx.counts()
+            ctx.reset_counts()
+            step = runner.make_serve_step(dec, decode_steps=job["steps"], ctx=ctx)
+            cur, toks = torch.from_numpy(np.ascontiguousarray(prompts[:, -1:])).to(device), []
+            for i in range(job["steps"]):
+                state, cur = step(params, state, cur, S + i)
+                toks.append(cur[:, 0].cpu().numpy())
+            res = dict(tokens=np.stack(toks, axis=1), counts=ctx.counts(),
+                       prefill_counts=pre_counts, chunks=pre.sched.lengths,
+                       microbatch=dec.plan.decode_microbatch, stage=ctx.stage_index(),
+                       model=ctx.model_index())
+            del state, params
+        else:
+            eng = serve.ServeEngine(cfg, (1, 2), device=device, dtype=torch.float32,
+                                    **SERVE_ENGINE)
+            eng.ctx.reset_counts()
+            fa.reset_counts()
+            reqs = [serve.Request(**r) for r in job["trace"]]
+            toks, stats = eng.run(reqs, mode="continuous")
+            res = dict(tokens=toks, stats=stats, counts=eng.ctx.counts(),
+                       chunks=eng.pre_cell.sched.lengths,
+                       pool_closed_form=eng.predicted_pool_bytes())
+            del eng
+        torch.cuda.synchronize()
+        res.update(launches=fa.counts(), seconds=time.perf_counter() - t0)
+        out[job["name"]] = res
+        torch.cuda.empty_cache()
+    out["t_done"] = time.time()
+    return out
+
+
+def serve_ranks_phase(fa, mesh, runner, serve, card):
+    """Serving over ranks that share the one card over gloo (every transfer
+    staged through pinned host memory), qwen2-7b at full width cut to
+    SERVE_FP32_LAYERS layers in fp32 (the CUDA-core kernels), the CPU's one
+    device (same weights, plain path) the oracle: static sp = 2 (prefill
+    SERVE_SP_SEQ, SERVE_SP_STEPS decode steps), static pp = 2
+    (SERVE_PP_BATCH rows in SERVE_PP_MICRO microbatches) and the engine at
+    mesh 1 x 2 on a short trace.  Tokens as the CPU's but where the CPU's
+    top-2 gap is under TIE_GAP; each rank's collectives and hand-offs by
+    their closed forms.  Returns (launches by path, a summary)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.models.model_zoo import ModelDef
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=SERVE_FP32_LAYERS)
+    rng = np.random.default_rng(5)
+    sp_prompts = rng.integers(2, cfg.vocab_size, size=(SERVE_SP_BATCH, SERVE_SP_SEQ)).astype(
+        np.int32)
+    pp_prompts = rng.integers(2, cfg.vocab_size, size=(SERVE_PP_BATCH, SERVE_PP_SEQ)).astype(
+        np.int32)
+    e = SERVE_ENGINE
+    trace = [dict(rid=i, prompt=rng.integers(2, cfg.vocab_size, size=int(n)).astype(np.int32),
+                  max_new=int(m), arrival=int(a))
+             for i, (n, m, a) in enumerate(zip(rng.integers(16, e["s_bucket"] + 1, size=3),
+                                               rng.integers(1, e["max_new"] + 1, size=3),
+                                               (0, 0, 1)))]
+    jobs = [dict(kind="static", name="sp2", prompts=sp_prompts, steps=SERVE_SP_STEPS,
+                 layout=dict(sp=2)),
+            dict(kind="static", name="pp2", prompts=pp_prompts, steps=SERVE_PP_STEPS,
+                 layout=dict(pp=2, dec_plan=dict(decode_microbatch=SERVE_PP_MICRO))),
+            dict(kind="engine", name="engine_1x2", trace=trace)]
+    # the CPU oracle: the same seed-built weights (drawn on the card, as
+    # every rank draws them), fp32, one device, each step's top-2 gaps
+    t_cpu = time.perf_counter()
+    cell = runner.resolve_cell(cfg, ShapeConfig("serve_fp32", SERVE_SP_SEQ, 1, "prefill"),
+                               overrides=dict(pp=1, dp=1, offload=False, remat="none"),
+                               dtype=torch.float32)
+    params = tree_map(lambda t: t.cpu(), serve.build_params(cell, "cuda", seed=0))
+    torch.cuda.empty_cache()
+
+    def cells(S, B):
+        pre = runner.resolve_cell(cfg, ShapeConfig("serve_fp32", S, B, "prefill"),
+                                  overrides=dict(pp=1, dp=1, n_chunks=max(1, S // 64),
+                                                 offload=False, remat="none"),
+                                  dtype=torch.float32)
+        dec = runner.resolve_cell(cfg, ShapeConfig("serve_fp32", S, B, "decode"),
+                                  overrides=dict(pp=1, dp=1), dtype=torch.float32)
+        return pre, dec
+
+    cpu = {}
+    for name, prompts, steps in (("sp2", sp_prompts, SERVE_SP_STEPS),
+                                 ("pp2", pp_prompts, SERVE_PP_STEPS)):
+        gaps = []
+        with recorded_gaps(ModelDef, gaps):
+            toks = static_decode(runner, *cells(*prompts.shape[::-1]), params, prompts, steps,
+                                 "cpu")
+        cpu[name] = (toks, np.stack(gaps, axis=1))
+    # each request alone, right-aligned in the bucket: the engine's tokens
+    for r in trace:
+        row = np.zeros((1, e["s_bucket"]), np.int32)
+        row[0, e["s_bucket"] - len(r["prompt"]):] = r["prompt"]
+        gaps = []
+        with recorded_gaps(ModelDef, gaps):
+            toks = static_decode(runner, *cells(e["s_bucket"], 1), params, row, r["max_new"],
+                                 "cpu")
+        cpu[("engine", r["rid"])] = (toks, np.stack(gaps, axis=1))
+    del params
+    t_cpu = time.perf_counter() - t_cpu
+    # the ranks after the oracle: beside it (a thread) they ran slower on
+    # the H100 machine's 8 shared cores, the phase 87 s against 70
+    t_spawn = time.perf_counter()
+    ranks = mesh.spawn(serve_fp32_rank, 2, backend=PIPE_BACKEND, device="cuda", args=(jobs,),
+                       timeout_s=PIPE_DEADLINE_S)
+    t_spawn = time.perf_counter() - t_spawn
+    counts, ties, summary = {}, {}, {}
+    for name in ("sp2", "pp2", "engine_1x2"):
+        rows = [r[name] for r in ranks]
+        counts[f"serve_{name}_fp32"] = {k: sum(r["launches"][k] for r in rows)
+                                        for k in rows[0]["launches"]}
+        check(all(r["launches"]["fwd"] > 0 for r in rows)
+              and all(r["launches"][k] == 0 for r in rows
+                      for k in ("fwd_tc", "merged_in_kernel", "bwd_dq", "bwd_dkv", "bwd_dq_tc",
+                                "bwd_dkv_tc")),
+              f"serving [{name}] launched {[r['launches'] for r in rows]}: the fp32 path runs "
+              "the CUDA-core forward alone")
+        summary[name] = {"seconds": [r["seconds"] for r in rows],
+                         "launches": [r["launches"] for r in rows]}
+    # static sp = 2: tokens, and each rank's collectives
+    for r in ranks:
+        got = r["sp2"]
+        ties.setdefault("sp2", []).extend(held_against_cpu(got["tokens"], *cpu["sp2"],
+                                                           f"sp2 rank {r["rank"]}"))
+        want = decode_collectives(cfg, SERVE_SP_BATCH, SERVE_SP_STEPS)
+        for kind, (calls, nbytes) in want.items():
+            c = got["counts"]
+            check(c[f"{kind}_calls"] == calls and c[f"{kind}_bytes"] == nbytes,
+                  f"sp2 decode {kind}: {c[f'{kind}_calls']} calls, {c[f'{kind}_bytes']} bytes; "
+                  f"closed form {calls}, {nbytes}")
+        for kind, calls in prefill_collectives(cfg, SERVE_SP_BATCH, got["chunks"]).items():
+            check(got["prefill_counts"][f"{kind}_calls"] == calls,
+                  f"sp2 prefill {kind}: {got['prefill_counts'][f'{kind}_calls']} calls, closed "
+                  f"form {calls}")
+    # static pp = 2: tokens on both stages, the hand-offs and the stage sum
+    for r in ranks:
+        got = r["pp2"]
+        check(got["microbatch"] == SERVE_PP_MICRO, f"pp2 ran {got['microbatch']} microbatches")
+        ties.setdefault("pp2", []).extend(held_against_cpu(got["tokens"], *cpu["pp2"],
+                                                           f"pp2 stage {got['stage']}"))
+        c, M = got["counts"], SERVE_PP_MICRO
+        sent = (SERVE_PP_STEPS * M * (SERVE_PP_BATCH // M) * cfg.d_model * 4
+                if got["stage"] == 0 else 0)
+        check(c["handoffs"] == SERVE_PP_STEPS * M and c["handoff_bytes"] == sent
+              and c["reduce_bytes"] == SERVE_PP_STEPS * SERVE_PP_BATCH * 4,
+              f"pp2 stage {got['stage']}: {c['handoffs']} hand-offs, {c['handoff_bytes']} bytes "
+              f"sent, {c['reduce_bytes']} bytes summed; closed form {SERVE_PP_STEPS * M}, {sent}, "
+              f"{SERVE_PP_STEPS * SERVE_PP_BATCH * 4}")
+    # the engine at 1 x 2
+    for r in ranks:
+        got = r["engine_1x2"]
+        st = got["stats"]
+        for q in trace:
+            want_toks, want_gaps = cpu[("engine", q["rid"])]
+            ties.setdefault("engine_1x2", []).extend(held_against_cpu(
+                got["tokens"][q["rid"]][None], want_toks, want_gaps,
+                f"engine 1 x 2 rank {r["rank"]} request {q['rid']}"))
+        check(st.pool_bytes == got["pool_closed_form"],
+              f"engine 1 x 2 pool {st.pool_bytes} bytes, closed form {got['pool_closed_form']}")
+        dec = decode_collectives(cfg, e["slots"], st.steps)
+        pre = prefill_collectives(cfg, e["slots"], got["chunks"])
+        c = got["counts"]
+        for kind in ("model_all_gather", "model_psum", "model_pmax", "model_reduce_scatter"):
+            calls = dec[kind][0] + st.waves * pre[kind]
+            check(c[f"{kind}_calls"] == calls,
+                  f"engine 1 x 2 {kind}: {c[f'{kind}_calls']} calls, closed form {calls} "
+                  f"({st.steps} steps, {st.waves} waves)")
+        summary["engine_1x2"].update(steps=st.steps, waves=st.waves, wall_s=st.wall_s)
+    print(f"serving over ranks [{card}] qwen2-7b {SERVE_FP32_LAYERS} layers at full width, "
+          f"fp32, 2 ranks on one card over {PIPE_BACKEND} ({SP_SHARED}): sp = 2 static "
+          f"(prefill {SERVE_SP_SEQ} in chunks {ranks[0]['sp2']['chunks']}, {SERVE_SP_STEPS} "
+          f"steps), pp = 2 static ({SERVE_PP_BATCH} rows in {SERVE_PP_MICRO} microbatches, "
+          f"{SERVE_PP_STEPS} steps), the engine at 1 x 2 ({ranks[0]['engine_1x2']['stats'].steps} "
+          f"steps, {ranks[0]['engine_1x2']['stats'].waves} waves): tokens as the CPU's "
+          f"({sum(len(v) for v in ties.values())} ties allowed), collectives and hand-offs at "
+          f"their closed forms; job seconds {json.dumps({k: v['seconds'] for k, v in summary.items()})}, "
+          f"CPU oracle {t_cpu:.1f} s, spawn {t_spawn:.1f} s")
+    summary.update(ties=ties, cpu_oracle_s=t_cpu, spawn_s=t_spawn,
+                   seconds=time.perf_counter() - t0)
+    print(f"serving-over-ranks phase took {summary['seconds']:.1f} s")
+    return counts, summary
+
+
+def paged_profile(eng, runner, serve, card):
+    """Where a paged step's time goes: all slots admitted in one wave, two
+    warm steps, then PAGED_PROFILE_STEPS steps under torch.profiler, each
+    pushing its host state as the engine's loop does (one pinned buffer a
+    step).  Device busy time over the profiled wall gives the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import kvpool
+
+    geo, K, dev = eng.geo, eng.slots, eng.device
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(2, eng.cfg.vocab_size, size=(K, geo.s_bucket)).astype(np.int32)
+    btab = np.stack([kvpool.block_table_row(geo, range(i * geo.max_blocks,
+                                                       (i + 1) * geo.max_blocks))
+                     for i in range(K)])
+    pool = runner.make_pool_state(eng.dec_cell, geo, dev)
+    state, _ = eng._prefill(eng.params, torch.from_numpy(prompts).to(dev))
+    mb = geo.max_blocks
+
+    def host_state(i, admit):
+        arr = np.concatenate([btab, np.full((K, 1), geo.s_bucket + i, np.int32),
+                              np.full((K, 1), int(admit), np.int32), prompts[:, -1:]], axis=1)
+        h = serve._push(arr, dev)
+        return h[:, :mb], h[:, mb], h[:, mb + 1].bool(), h[:, mb + 2:]
+
+    bt, qp, adm, atok = host_state(0, True)
+    pool = eng._ingest(state, pool, bt, adm)
+    del state
+    tokens = torch.zeros((K, 1), dtype=torch.int32, device=dev)
+    pool, tokens = eng._step(eng.params, pool, tokens, qp, bt, adm, atok)
+    for i in (1, 2):
+        bt, qp, adm, atok = host_state(i, False)
+        pool, tokens = eng._step(eng.params, pool, tokens, qp, bt, adm, atok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3, 3 + PAGED_PROFILE_STEPS):
+            bt, qp, adm, atok = host_state(i, False)
+            pool, tokens = eng._step(eng.params, pool, tokens, qp, bt, adm, atok)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / PAGED_PROFILE_STEPS
+    busy, groups, top = device_time(prof)
+    busy, groups = busy / PAGED_PROFILE_STEPS, {k: v / PAGED_PROFILE_STEPS for k, v in groups.items()}
+    print(f"paged step profile ({card}): {K} rows, device busy {busy:.3f} ms of {wall:.3f} ms "
+          f"wall a step (idle {1 - busy / wall:.1%}), {json.dumps(groups)}")
+    for name, ms in top:
+        print(f"  paged step top kernel: {ms / PAGED_PROFILE_STEPS:9.3f} ms  {name}")
+    check(busy > 0, "profiler captured no device time of the paged step")
+    return {"paged_step_device_ms": busy, "paged_step_profiled_wall_ms": wall,
+            "paged_step_idle_share": 1 - busy / wall, "paged_step_device_ms_by_group": groups}
+
+
+def paged_serve_phase(fa, runner, serve, cfg, card):
+    """The paged engine at full width on the card (DESIGN.md §16): qwen2-7b,
+    all layers, bf16, random weights from seed 0; PAGED's geometry with the
+    default block count; PAGED_TRACE's requests continuous (the main path,
+    its loop under ``set_sync_debug_mode("error")``), then static, then
+    PAGED_SOLO of them alone.  Tokens bitwise alike across the three, the
+    blocks recycled within the concurrency bound, the pool's bytes at the
+    closed form, the tensor-core forward launched 28 x (steps + prefill
+    chunks x waves) times.  Returns (launches by path, a summary)."""
+    from repro_torch.runtime import kvpool
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    eng = serve.ServeEngine(cfg, **PAGED)
+    geo = eng.geo
+    check(geo.n_blocks == PAGED["slots"] * geo.max_blocks == 1056,
+          f"default pool {geo.n_blocks} blocks of {geo.max_blocks} a request")
+    reqs = [serve.Request(**r) for r in paged_trace(cfg.vocab_size)]
+    counts, runs = {}, {}
+    for mode in ("continuous", "static"):
+        fa.reset_counts()
+        torch.cuda.synchronize()
+        toks, stats = eng.run(reqs, mode=mode, sync_debug="error")
+        counts[f"serve_paged_{mode}"] = fa.counts()
+        runs[mode] = (toks, stats)
+        n = counts[f"serve_paged_{mode}"]["fwd_tc"]
+        want = cfg.n_layers * (stats.steps + eng.pre_cell.sched.n * stats.waves)
+        dec_tokens = sum(r.max_new for r in reqs)
+        print(f"paged engine [{mode}] ({card}) {cfg.name} {cfg.n_layers} layers, {len(reqs)} "
+              f"requests: {stats.steps} steps, {stats.waves} waves ({eng.pre_cell.sched.n} "
+              f"prefill chunks each), {stats.wall_s:.3f} s wall, {dec_tokens / stats.wall_s:.1f} "
+              f"decoded tokens/s, {1e3 * stats.wall_s / stats.steps:.3f} ms a step (prefill "
+              f"waves included); blocks peak {stats.peak_blocks[0]} / total "
+              f"{stats.total_blocks[0]} of {geo.n_blocks}; tensor-core forward launches {n} "
+              f"(closed form {want}); all {counts[f'serve_paged_{mode}']}")
+        check(n == want, f"paged {mode}: the tensor-core forward launched {n} times, expected {want}")
+        check(all(v == 0 for k, v in counts[f"serve_paged_{mode}"].items()
+                  if k not in ("fwd_tc", "merged_in_kernel")),
+              f"paged {mode} launched other kernels: {counts[f'serve_paged_{mode}']}")
+    cont, stats = runs["continuous"]
+    stat, _ = runs["static"]
+    for r in reqs:
+        check(len(cont[r.rid]) == r.max_new and np.array_equal(cont[r.rid], stat[r.rid]),
+              f"request {r.rid}: continuous {cont[r.rid][:8]} != static {stat[r.rid][:8]}")
+        check(bool(((cont[r.rid] >= 0) & (cont[r.rid] < cfg.vocab_size)).all()),
+              f"request {r.rid}: token ids out of range")
+    solo_ids = [r.rid for r in reqs[:PAGED_SOLO]]
+    fa.reset_counts()
+    for r in reqs[:PAGED_SOLO]:
+        solo, _ = eng.run([serve.Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new)],
+                          mode="static", sync_debug="error")
+        check(np.array_equal(solo[r.rid], cont[r.rid]),
+              f"request {r.rid}: solo {solo[r.rid][:8]} != continuous {cont[r.rid][:8]}")
+    counts["serve_paged_solo"] = fa.counts()
+    bound = kvpool.concurrent_peak([(s, e, geo.blocks_for(r.max_new))
+                                    for r in reqs for (s, e) in [stats.spans[r.rid]]])
+    check(stats.peak_blocks[0] <= bound <= geo.n_blocks < stats.total_blocks[0],
+          f"blocks: peak {stats.peak_blocks[0]}, bound {bound}, pool {geo.n_blocks}, total "
+          f"{stats.total_blocks[0]}: not recycled within the bound")
+    closed = eng.predicted_pool_bytes()
+    check(stats.pool_bytes == closed == kvpool.device_pool_bytes(geo, cfg, cfg.n_layers, 2),
+          f"pool {stats.pool_bytes} bytes, closed form {closed}")
+    print(f"paged engine ({card}): continuous == static == solo ({solo_ids}) bitwise for every "
+          f"request; peak {stats.peak_blocks[0]} <= bound {bound} <= {geo.n_blocks} blocks < "
+          f"{stats.total_blocks[0]} allocated; pool {stats.pool_bytes} bytes = kv_pool_bytes "
+          f"{geo.pool_bytes(cfg, cfg.n_layers, 2)} + sink "
+          f"{kvpool.sink_bytes(cfg, cfg.n_layers, 2)}; no host sync in the loop "
+          f"(set_sync_debug_mode error)")
+    prof = paged_profile(eng, runner, serve, card)
+    s_cont, s_stat = runs["continuous"][1], runs["static"][1]
+    summary = {"continuous": {"steps": s_cont.steps, "waves": s_cont.waves,
+                              "wall_s": s_cont.wall_s,
+                              "decode_tokens_per_s": sum(r.max_new for r in reqs) / s_cont.wall_s,
+                              "ms_per_step": 1e3 * s_cont.wall_s / s_cont.steps,
+                              "peak_blocks": s_cont.peak_blocks[0],
+                              "total_blocks": s_cont.total_blocks[0]},
+               "static": {"steps": s_stat.steps, "waves": s_stat.waves, "wall_s": s_stat.wall_s,
+                          "decode_tokens_per_s": sum(r.max_new for r in reqs) / s_stat.wall_s,
+                          "ms_per_step": 1e3 * s_stat.wall_s / s_stat.steps},
+               "pool_bytes": stats.pool_bytes, "concurrent_peak": bound,
+               "n_blocks": geo.n_blocks, "prefill_chunks": eng.pre_cell.sched.n, **prof}
+    del eng
+    torch.cuda.empty_cache()
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"paged engine phase took {summary['seconds']:.1f} s")
+    return counts, summary
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3443,6 +4027,18 @@ def main():
         extra_measured.append(measure_bwd_shape(f"model axis {label} last chunk", fa, ref, *args))
         del args
     ma_fwd_err, ma_bwd_rel = model_axis_check_shapes(fa, ref, gen, runner, cfg)
+    # the paged step's shape: 8 rows at their own positions over their
+    # gathered 2112 logical slots (bf16, timed as the serving shapes are),
+    # and the multi-rank serving phase's fp32 shapes (untimed)
+    from repro_torch.runtime import kvpool
+
+    paged_geo = kvpool.PoolGeometry(s_bucket=PAGED["s_bucket"], sp=1, max_new=PAGED["max_new"],
+                                    block_tokens=PAGED["block_tokens"], n_blocks=1056,
+                                    n_slots=PAGED["slots"])
+    paged_rows = measure_shape("paged decode step", fa, ref,
+                               *paged_step_shape(gen, paged_geo, PAGED["slots"]))
+    serve_fp32_err = serve_fp32_shapes(fa, ref, gen, runner,
+                                       dataclasses.replace(cfg, n_layers=SERVE_FP32_LAYERS))
     extra_fwd = [fwd for fwd, _ in extra_measured]
     extra_bwd = [bwd for _, bwd in extra_measured]
     del extra_measured
@@ -3491,6 +4087,8 @@ def main():
     profile = profile_main_path(serve, runner, cfg, 1e3 * pre_s, 1e3 * dec_s / DECODE_STEPS,
                                 card)
     torch.cuda.empty_cache()
+    # ---- this slice's path: the paged continuous-batching engine
+    paged_counts, paged_summary = paged_serve_phase(fa, runner, serve, cfg, card)
 
     t_phase4 = time.perf_counter()
     print(f"phase 3 took {t_phase4 - t_phase3:.1f} s")
@@ -3512,6 +4110,8 @@ def main():
     pipe_counts, pipe_summary = pipeline_phase(fa, mesh, runner, card)
     # ---- this slice's path: the model axis, its ranks sharing the card
     ma_counts, ma_summary = model_axis_phase(fa, mesh, runner, card)
+    # ---- this slice's paths over ranks: sp = 2, pp = 2, the engine at 1 x 2
+    sr_counts, sr_summary = serve_ranks_phase(fa, mesh, runner, serve, card)
 
     tc_rows = [r["tensor_cores"] for r in rows]
     cc_rows = [r["cuda_cores"] for r in rows]
@@ -3528,11 +4128,13 @@ def main():
              **{f"train_{arch}": c for arch, c in config_counts.items()},
              "train_pipeline_pp2": pipe_counts["plain"], "train_pipeline_pp2_msp": pipe_counts["msp"],
              **{f"train_pipeline_{k}": c for k, c in pipe_counts.items() if k.startswith("fp32_")},
-             **{f"train_model_axis_{k}": c for k, c in ma_counts.items()}}
+             **{f"train_model_axis_{k}": c for k, c in ma_counts.items()},
+             **paged_counts, **sr_counts}
     pipe_tc = ("train_pipeline_pp2", "train_pipeline_pp2_msp",
                *(f"train_model_axis_{k}" for k in SP_MODES))
     pipe_cc = (*(f"train_pipeline_{k}" for k in pipe_counts if k.startswith("fp32_")),
-               *(f"train_model_axis_{k}" for k in ma_counts if k.startswith("fp32_")))
+               *(f"train_model_axis_{k}" for k in ma_counts if k.startswith("fp32_")),
+               *sr_counts)
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
@@ -3548,12 +4150,14 @@ def main():
          "replaces": "src/repro/kernels/flash_attention.py:260",
          "launches": serve_counts["fwd_tc"] + train_counts["fwd_tc"]
          + sum(c["fwd_tc"] for c in full.values()) + packed_counts["packed_d"]["fwd_tc"]
-         + sum(paths[p]["fwd_tc"] for p in pipe_tc),
+         + sum(paths[p]["fwd_tc"] for p in pipe_tc)
+         + paged_counts["serve_paged_continuous"]["fwd_tc"],
          "launches_by_path": by_path("fwd_tc"),
          "merged_in_kernel_by_path": by_path("merged_in_kernel"),
          **{key: tc_rows[0][key] for key in common},
          "edge_grid_max_abs_err": grid_err["tensor_cores"],
-         "shapes": tc_rows + [r["tensor_cores"] for r in extra_fwd]},
+         "shapes": (tc_rows + [r["tensor_cores"] for r in extra_fwd]
+                    + [paged_rows["tensor_cores"]])},
         {"name": "flash_attention_partial", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_partial.cu",
          "replaces": "src/repro/kernels/flash_attention.py:260",
@@ -3565,7 +4169,8 @@ def main():
          "fp32_check_shapes_max_abs_err": fp32_fwd_err,
          "fp32_packed_check_shapes_max_abs_err": fp32_packed_err,
          "model_axis_check_shapes_max_abs_err": ma_fwd_err,
-         "shapes": cc_rows + [r["cuda_cores"] for r in extra_fwd]},
+         "serve_fp32_check_shapes_max_abs_err": serve_fp32_err,
+         "shapes": cc_rows + [r["cuda_cores"] for r in extra_fwd] + [paged_rows["cuda_cores"]]},
         # the CUDA-core forward's split-KV merge (decode), launched by the
         # same wrapper call; its output is what the decode shape's check holds
         {"name": "flash_attention_partial_merge", "route": "cuda",
@@ -3610,7 +4215,8 @@ def main():
                **profile, **train_summary, "train_cpu_check_rel_l2": train_rel,
                **packed_summary, "packed_fp32_check": packed_fp32, "train_configs": config_rows,
                "train_chunks": list(train_cell.sched.lengths), "pipeline": pipe_summary,
-               "model_axis": ma_summary,
+               "model_axis": ma_summary, "paged_serve": paged_summary,
+               "serve_ranks": sr_summary,
                "seconds": time.perf_counter() - t_start}
     print("summary:", json.dumps(summary))
     print(card)

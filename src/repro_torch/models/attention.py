@@ -32,6 +32,15 @@ plan's ``attn_mode`` picks the schedule (reference ``attention.py:71-145``):
   one, on every model rank alike);
 - "local": sp = 1 only.  At sp = 1 every mode is one partial and a
   normalize.
+
+Decode (DESIGN.md §16) feeds one token a step, replicated on every model
+rank.  ``gqa_decode_attention`` writes it to the static cache's striped
+slot (token S + i on model rank i % sp at slot S / sp + i // sp; the caller
+passes the slot, or None on the ranks that do not own it) and
+``gqa_paged_decode_attention`` to the paged pool (``runtime/kvpool.py``)
+through the block table; both attend each rank's whole cache with the
+partial kernel and merge the partials over the model group with a max and
+two sums (``_merge_replicated``), since every rank holds every query.
 """
 from __future__ import annotations
 
@@ -107,6 +116,19 @@ def _merge(o, m, l, ctx):
         o_s = o_s.to(torch.bfloat16)
     o = ctx.reduce_scatter_model(o_s, axis=1).float()
     l = ctx.reduce_scatter_model(l * alpha, axis=1)
+    return o / l.clamp_min(1e-30)[..., None]
+
+
+def _merge_replicated(o, m, l, ctx):
+    """The decode merge (reference ``attention.py:226-233``): every model
+    rank holds the same queries, so the rescaled o and l are summed, not
+    reduce-scattered; normalized.  At sp = 1 the normalize alone (the
+    rescale by exp(0) would change no bit)."""
+    if ctx.sp > 1:
+        m = m.detach()
+        alpha = torch.exp(m - ctx.pmax_model(m))
+        o = ctx.psum_model(o * alpha[..., None])
+        l = ctx.psum_model(l * alpha)
     return o / l.clamp_min(1e-30)[..., None]
 
 
@@ -319,9 +341,8 @@ def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
                        kv_view, rope, *, name_tag=None, q_start=None, ctx=SINGLE):
     """x: [B, T, d]; q_pos: [T] global positions of the tokens, whose KV
     lands at slot ``cache_offset``; they attend the first ``kv_view`` slots
-    (a prefill chunk) or, with ``kv_view=None``, the whole buffer, empty
-    slots masked by their PAD position (a decode step, T = 1: at sp = 1 this
-    is the reference's ``gqa_decode_attention``).  ``rope`` is
+    (a prefill or training chunk; decode attends through
+    ``gqa_decode_attention``).  ``rope`` is
     ``layers.rope_tables`` of q_pos.  ``q_start``: the [B, T] document
     window of a packed batch, or None.  A training cache (``chunks`` set)
     attends through ``chunk_attention``.  ``name_tag``, where given, is
@@ -354,3 +375,91 @@ def gqa_self_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int,
     if name_tag is not None:
         out = name_tag(out)
     return out @ p["wo"], cache
+
+
+def gqa_decode_attention(x, p, cfg, cache: KVCache, q_pos, write_slot, rope, *, ctx=SINGLE):
+    """One decode token against the static cache (reference
+    ``gqa_decode_attention``).  x: [B, 1, d], the same on every model rank;
+    q_pos: [1] its global position; ``write_slot``: this rank's cache slot
+    for its K/V, or None where another model rank owns the token (the
+    striped layout: the caller knows the rank and the position on the host,
+    so a rank that does not own it writes nothing, where the reference writes
+    the old value back).  Attends the rank's whole buffer, PAD slots masked,
+    and merges over the model group.  Returns (attn_out [B, 1, d], cache)."""
+    B = x.shape[0]
+    q, k, v = _qkv(x, p, cfg, rope)
+    if write_slot is not None:
+        cache = cache_append(cache, k, v, q_pos, write_slot)
+    o, m, l = kops.attention_partial(q, cache.k, cache.v, q_pos, cache.pos, causal=True)
+    out = _merge_replicated(o, m, l, ctx).to(x.dtype)
+    return out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"], cache
+
+
+class PooledKV(NamedTuple):
+    """Paged KV pool (one layer, one rank; reference ``PooledKV``): the
+    physical slots every request shares through its block table, and the
+    sink (``runtime/kvpool.py``).  No batch dim and no positions: logical
+    slot j has the rank's static position ``pos_map[j]`` for every
+    request."""
+
+    k: torch.Tensor     # [P_loc + SINK_SLOTS, Hkv, hd]
+    v: torch.Tensor     # [P_loc + SINK_SLOTS, Hkv, hd]
+
+
+class PagedMeta(NamedTuple):
+    """One paged decode step's routing (reference ``PagedMeta``), computed
+    once a step for every layer by ``paged_meta``.
+
+    q_pos is per request: row b feeds its token at global position q_pos[b]
+    (0 marks an inactive row: it writes to the sink, and the scheduler
+    drops its output).  ``write`` is each row's physical write slot, the
+    sink where the reference's write drops; ``gather`` each row's physical
+    slot of every logical slot, in logical order (an unallocated block reads
+    block 0, masked because its pos_map position is past the row's horizon).
+    """
+
+    q_pos: torch.Tensor    # [B] int32
+    pos_map: torch.Tensor  # [L_loc] int32 this rank's static positions
+    write: torch.Tensor    # [B] int64
+    gather: torch.Tensor   # [B, L_loc] int64
+
+
+def paged_meta(q_pos, btab, pos_map, *, base: int, s_bucket: int, block_tokens: int,
+               sp: int, rank: int, p_loc: int) -> PagedMeta:
+    """The reference's routing of ``gqa_paged_decode_attention``
+    (``attention.py:293-311``) as tensors on q_pos's device, with no host
+    sync.  q_pos [B] int; btab [B, max_blocks] int (-1 = unallocated);
+    pos_map [L_loc] int.  Decode token d = q_pos - s_bucket (< 0: none) is
+    written on rank d % sp at logical slot base + d // sp through the block
+    table; every other row's write goes to the sink slot ``p_loc``."""
+    bt, l_loc = block_tokens, pos_map.shape[0]
+    q_pos = q_pos.to(torch.int32)
+    btab = btab.long()
+    d = q_pos.long() - s_bucket
+    mine = (d >= 0) & (d % sp == rank)
+    j_w = (base + torch.div(d, sp, rounding_mode="floor")).clamp(0, l_loc - 1)
+    blk = btab.gather(1, (j_w // bt)[:, None])[:, 0]
+    write = torch.where(mine & (blk >= 0), blk * bt + j_w % bt, p_loc)
+    jlog = torch.arange(l_loc, device=btab.device)
+    gather = btab[:, jlog // bt].clamp_min(0) * bt + jlog % bt
+    return PagedMeta(q_pos=q_pos, pos_map=pos_map.to(torch.int32), write=write, gather=gather)
+
+
+def gqa_paged_decode_attention(x, p, cfg, pool: PooledKV, pg: PagedMeta, rope, *, ctx=SINGLE):
+    """One decode token a request against the paged pool (reference
+    ``gqa_paged_decode_attention``).  x: [B, 1, d]; each row at its own
+    position ``pg.q_pos[b]`` (``rope`` its tables, [B, 1]).  Each row's K/V
+    goes to its striped slot through its block table (``pg.write``; the
+    sink where it writes nothing); then each row's logical slots are
+    gathered in logical order, [B, L_loc, Hkv, hd] (the static cache's
+    order: a request decodes as it would alone, whatever blocks it holds),
+    attended with per-row q_pos [B, 1] over the rank's shared pos_map, and
+    merged over the model group.  Returns (attn_out [B, 1, d], pool)."""
+    B = x.shape[0]
+    q, k, v = _qkv(x, p, cfg, rope)
+    pool.k[pg.write] = k[:, 0].to(pool.k.dtype)
+    pool.v[pg.write] = v[:, 0].to(pool.v.dtype)
+    k_g, v_g = pool.k[pg.gather], pool.v[pg.gather]
+    o, m, l = kops.attention_partial(q, k_g, v_g, pg.q_pos[:, None], pg.pos_map, causal=True)
+    out = _merge_replicated(o, m, l, ctx).to(x.dtype)
+    return out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"], pool

@@ -28,6 +28,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.core import tree
@@ -35,6 +36,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.parallel.ctx import SINGLE
+from repro_torch.runtime.kvpool import SINK_SLOTS
 
 
 def trunc_normal(gen, shape, std, dtype, device):
@@ -243,11 +245,21 @@ class ModelDef:
     def globals_spec(self):
         return globals_spec(self.cfg)
 
-    def embed(self, g, ids, ctx=SINGLE):
+    def embed(self, g, ids, ctx=SINGLE, *, decode: bool = False):
         """ids: [B, T] the chunk's token ids (every model rank's); returns
-        this rank's sequence shard [B, T / sp, d] (``layers.embed_tokens``)."""
+        this rank's sequence shard [B, T / sp, d] (``layers.embed_tokens``).
+        With ``decode`` (one token a row, which cannot be sequence-sharded)
+        every model rank returns the whole [B, T, d]: the masked lookup in
+        its vocab shard, summed over the model group (reference
+        ``model_zoo.py:480-490``)."""
         table = g["embed"]["table"]
-        return L.embed_tokens(ids, table, ctx, out_dtype=table.dtype)
+        if not decode:
+            return L.embed_tokens(ids, table, ctx, out_dtype=table.dtype)
+        vloc = table.shape[0]
+        lo = ctx.model_index() * vloc
+        hit = ((ids >= lo) & (ids < lo + vloc))[..., None]
+        rows = F.embedding((ids - lo).clamp(0, vloc - 1), table)
+        return ctx.psum_model(torch.where(hit, rows, 0).to(table.dtype))
 
     def head_loss(self, g, x, labels, mask, ctx=SINGLE):
         """(sum of token losses, sum of weights) of one chunk: the final
@@ -258,10 +270,13 @@ class ModelDef:
         return L.vocab_parallel_xent(x, g["head"]["w"], labels, mask, ctx,
                                      real_vocab=self.cfg.vocab_size)
 
-    def head_logits(self, g, x):
-        """Full-vocab fp32 logits (padding columns sliced off) for sampling."""
+    def head_logits(self, g, x, ctx=SINGLE):
+        """Full-vocab fp32 logits (padding columns sliced off) for sampling:
+        the rank's vocab shard's logits, gathered over the model group
+        (reference ``model_zoo.py:510-517``).  x: [B, T, d], every model
+        rank's alike."""
         x = L.apply_norm(x, g["final_norm"], self.cfg.norm)
-        logits = (x @ g["head"]["w"]).float()
+        logits = ctx.all_gather_model((x @ g["head"]["w"]).float(), axis=x.dim() - 1)
         return logits[..., :self.cfg.vocab_size]
 
     def init_state(self, batch: int, cache_loc: int, dtype, device, *,
@@ -271,6 +286,16 @@ class ModelDef:
         cfg = self.cfg
         return [{"kv": A.init_cache(batch, cache_loc, cfg.n_kv_heads, cfg.hd,
                                     cfg.hd, dtype, device, train=train)}
+                for _ in range(self.n_slots if n_slots is None else n_slots)]
+
+    def init_pool(self, geo, dtype, device, *, n_slots=None):
+        """The paged KV pool of a rank (reference ``make_pool_state``): one
+        ``attention.PooledKV`` a slot, zeros, ``geo.p_loc`` slots and the
+        sink (``runtime/kvpool.py``)."""
+        cfg = self.cfg
+        shape = (geo.p_loc + SINK_SLOTS, cfg.n_kv_heads, cfg.hd)
+        return [{"kv": A.PooledKV(k=torch.zeros(shape, dtype=dtype, device=device),
+                                  v=torch.zeros(shape, dtype=dtype, device=device))}
                 for _ in range(self.n_slots if n_slots is None else n_slots)]
 
     def stage_apply(self, stage_params, state, x, meta, *, remat="none",

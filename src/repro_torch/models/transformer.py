@@ -43,8 +43,11 @@ from repro_torch.parallel.ctx import SINGLE
 
 
 class ChunkMeta(NamedTuple):
-    q_pos: Any           # [T] int32 global positions of the chunk (decode: [1])
-    cache_off: int       # cache slot of the chunk's first token
+    q_pos: Any           # [T] int32 global positions of the chunk (decode: [1];
+                         # paged decode: [B, 1], a position a request)
+    # cache slot of the chunk's first token (decode: the striped write slot,
+    # None on the model ranks that do not own the token)
+    cache_off: Optional[int]
     kv_view: Optional[int]  # visible cache length after the append (decode: None = all)
     rope: Any            # layers.rope_tables(q_pos, ...): shared by every layer
     tag: Any = None      # the tag sites' function (core/offload.py), None: no tags
@@ -55,6 +58,12 @@ class ChunkMeta(NamedTuple):
     # shard markers (model_zoo.slot_spec), for the gathers at sp > 1
     ctx: Any = None
     spec: Any = None
+    # decode (DESIGN.md §16): one token a row, replicated over the model
+    # ranks (``attention.gqa_decode_attention``); with ``paged`` (an
+    # ``attention.PagedMeta``) against the paged pool the slot's state
+    # holds (``attention.gqa_paged_decode_attention``)
+    decode: bool = False
+    paged: Any = None
 
 
 def _res(x, delta, gate):
@@ -79,10 +88,17 @@ def gather_params(p_slot, spec, ctx):
 def dense_slot(cfg, p, s, x, meta: ChunkMeta):
     p = gather_params(p, meta.spec, meta.ctx)
     h = L.apply_norm(x, p["ln1"], cfg.norm)
-    a, kv = A.gqa_self_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
-                                 meta.cache_off, meta.kv_view, meta.rope,
-                                 name_tag=meta.tag, q_start=meta.q_start,
-                                 ctx=meta.ctx or SINGLE)
+    ctx = meta.ctx or SINGLE
+    if meta.paged is not None:
+        a, kv = A.gqa_paged_decode_attention(h, p["attn"], cfg, s["kv"], meta.paged,
+                                             meta.rope, ctx=ctx)
+    elif meta.decode:
+        a, kv = A.gqa_decode_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
+                                       meta.cache_off, meta.rope, ctx=ctx)
+    else:
+        a, kv = A.gqa_self_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
+                                     meta.cache_off, meta.kv_view, meta.rope,
+                                     name_tag=meta.tag, q_start=meta.q_start, ctx=ctx)
     x = _res(x, a, p["gate"])
     h2 = L.apply_norm(x, p["ln2"], cfg.norm)
     m = L.mlp(h2, p["mlp"], cfg.act, name_tag=meta.tag)

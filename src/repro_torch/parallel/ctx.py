@@ -66,8 +66,10 @@ other stages (``bcast_bytes``), and, per model collective (``model_all_gather``,
 ``model_reduce_scatter``, ``model_psum``, ``model_pmax``), its calls, the
 bytes this rank put in (its shard for a gather, the whole tensor for the
 others, what it sent for a permutation) and its seconds, staging
-included; ``model_ppermute`` counts forward and backward alike, and
-``pod_all_gather`` the ZeRO-1 gathers the same way.
+included; ``model_ppermute`` counts forward and backward alike,
+``pod_all_gather`` the ZeRO-1 gathers the same way, and
+``data_all_gather`` serving's gather of the decoded tokens over the data
+axis (``all_gather_data``).
 """
 from __future__ import annotations
 
@@ -231,7 +233,7 @@ class Ctx:
         self._counts.update(handoffs=0, handoff_bytes=0, handoff_s=0.0, staging_s=0.0,
                             reduce_bytes=0, bcast_bytes=0, reduce_s=0.0,
                             model_reduce_bytes=0, model_reduce_s=0.0)
-        for kind in (*MODEL_COLLECTIVES, "pod_all_gather"):
+        for kind in (*MODEL_COLLECTIVES, "pod_all_gather", "data_all_gather"):
             self._counts.update({f"{kind}_calls": 0, f"{kind}_bytes": 0, f"{kind}_s": 0.0})
 
     # ----- reductions ------------------------------------------------------
@@ -371,6 +373,30 @@ class Ctx:
         sampled decode tokens with it)."""
         if self.distributed and self.pp > 1:
             self._all_reduce(list(tensors), self._stage_group)
+
+    def all_gather_data(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's ``x`` at this model index, stacked on a new
+        leading dim in data-index order ([pods x dp x pp, *x.shape]; no gradient):
+        serving's one gather of the decoded tokens at the end of a run
+        (``launch/serve.py``), staged through pinned host memory under gloo
+        with CUDA tensors, counted as ``data_all_gather``."""
+        if not (self.distributed and self.dp * self.pp * self.pods > 1):
+            return x[None]
+        import torch.distributed as dist
+
+        t_start = time.perf_counter()
+        n = self.dp * self.pp * self.pods
+        src, staged = x.contiguous(), self._staged()
+        if staged:
+            src = torch.empty(src.shape, dtype=src.dtype, pin_memory=True).copy_(src)
+        out = torch.empty((n * src.numel(),), dtype=src.dtype, device=src.device,
+                          pin_memory=staged)
+        _collective("all_gather_single", "all_gather_into_tensor")(
+            out, src.reshape(-1), group=self._data_group)
+        self._counts["data_all_gather_calls"] += 1
+        self._counts["data_all_gather_bytes"] += src.numel() * src.element_size()
+        self._counts["data_all_gather_s"] += time.perf_counter() - t_start
+        return out.to(self.device).view(n, *x.shape)
 
     def barrier(self) -> None:
         if self.distributed:

@@ -5,6 +5,8 @@ Builds the step functions of a cell:
   train_step(params, opt_state, tokens, labels) -> (params, opt_state, metrics)
   prefill_step(params, tokens)                  -> (state, last_hidden)
   serve_step(params, state, tokens, pos)        -> (state, next_tokens)
+  pool_step(params, pool, tokens, q_pos, btab, admit, admit_tok)
+                                                -> (pool, next_tokens)
 
 At pp = 1 training and prefill run the reference's pp == 1 pipeline branch:
 the sequence is split into FLOPs-balanced chunks (core/partition.py); each
@@ -42,8 +44,17 @@ backward leaves each rank the gradient of its shard of every "ag" and
 model index.  This is the gradient of the global loss: the reference's
 ``shard_map`` (``check_vma=False``) transposes its psums to psums, giving
 sp x the gradient of every all-gathered leaf, and sums no replicated
-leaf's over the model axis (PERF.md §6).  Prefill and decode at sp
-> 1, and decode at pp > 1, are refused (ROADMAP Queue 1, item 5).
+leaf's over the model axis (PERF.md §6).
+
+Serving (DESIGN.md §16) runs the same chunk loop without a loss to prefill
+a cache (at sp > 1 each rank's chunk-contiguous shard), then decodes one
+token a row a step: at sp > 1 the token is embedded and sampled whole on
+every model rank (a masked lookup and a sum; the vocab shards' logits
+gathered) and its K/V goes to one rank's striped slot; at pp > 1 the batch
+runs as microbatches through the stages (``_decode_ticks``).  The paged
+pool (``make_pool_state``, ``make_pool_ingest``, ``make_pool_serve_step``,
+``runtime/kvpool.py``) serves requests of different lengths side by side
+at pp = 1 (``launch/serve.py::ServeEngine``).
 
 Training runs the plan's remat policy and SPPO's executed activation
 offload (DESIGN.md §5, §10, §12): ``resolve_cell`` sizes each chunk's
@@ -71,6 +82,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelPlan, ShapeConfig
@@ -81,10 +93,11 @@ from repro_torch.core import schedule as sched_mod
 from repro_torch.core import simulate as sim_mod
 from repro_torch.core import tree
 from repro_torch.data.pipeline import shard_batch
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.model_zoo import ModelDef, build_model, marker_dim, param_markers
 from repro_torch.models.transformer import ChunkMeta
-from repro_torch.parallel.ctx import SINGLE, Ctx, _later, make_ctx
+from repro_torch.parallel.ctx import SINGLE, Ctx, make_ctx
 from repro_torch.parallel.plans import resolve_plan
 from repro_torch.parallel.specs import zero1_dims
 
@@ -171,8 +184,6 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     whole chunk, which only a position-tagged cache absorbs, DESIGN.md §2).
     At pp = 1 the boundaries fall on multiples of max(sp, 128), and α sees
     each model rank's share of a chunk's rows (``chunk_act_bytes(sp=)``).
-    Prefill and decode at sp > 1 and decode at pp > 1 are refused, naming
-    the ROADMAP item that brings them (Queue 1, item 5).
 
     ``doc_lens`` makes a packed variable-length cell (DESIGN.md §13), as in
     the reference: the documents are packed into rows of S tokens
@@ -187,8 +198,6 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     plan = resolve_plan(cfg, shape_cfg, data_size=data_size, model_size=model_size,
                         pods=pods, overrides=overrides)
     sp = plan.sp
-    if sp > 1 and shape_cfg.kind != "train":
-        raise _later(f"{shape_cfg.kind} at sp = {sp} (the sequence-sharded serving cache)", 5)
     doc_lens = tuple(int(x) for x in (doc_lens if doc_lens is not None else ()))
     for codec in (plan.offload_dtype, plan.moments_dtype):
         cm.codec_itemsize(codec)            # raises on an unknown codec
@@ -199,8 +208,6 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     if plan.moments_dtype != "none" and not plan.offload_moments:
         raise ValueError(f"moments_dtype {plan.moments_dtype!r} requires offload_moments: "
                          "moments on the device have no host channel to compress")
-    if shape_cfg.kind == "decode" and plan.pp > 1:
-        raise _later(f"decode at pp = {plan.pp} (the microbatched decode pipeline)", 5)
     if shape_cfg.kind == "decode":
         if doc_lens:
             raise ValueError("packed variable-length layouts are train/prefill only")
@@ -535,9 +542,16 @@ def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: b
 
 
 def make_prefill_step(cell: Cell, ctx: Ctx = SINGLE):
+    """The chunk loop without a loss (reference ``make_prefill_step``): the
+    cache its decode cell reads.  At sp > 1 each rank's cache is its shard
+    of every chunk (slots ``[off / sp, (off + T) / sp)``, the
+    chunk-contiguous layout ``kvpool.pos_map`` mirrors), attended under the
+    plan's schedule, the ring's included."""
     def prefill_step(params, tokens):
-        """tokens: [B, S] int; returns (per-slot caches, last chunk's hidden)
-        of this rank's stage."""
+        """tokens: [B, S] int (this rank's dp group's rows, every model
+        rank's alike); returns (per-slot caches, last chunk's hidden) of
+        this rank's stage and model shard."""
+        _check_ctx(cell, ctx)
         out = run_pipeline(cell, params["stages"], params["globals"], tokens, ctx=ctx)
         return out["state"], out["last_x"]
 
@@ -740,40 +754,205 @@ def make_train_step(cell: Cell, *, lr_kwargs=None, ctx: Ctx = SINGLE):
 
 
 def max_decode_steps(cell: Cell) -> int:
-    """Longest decode run the cache can absorb: token S + i lands at slot
-    S + i, and the buffer holds DECODE_BUDGET slots past S."""
+    """Longest decode run the striped cache can absorb: token S + i lands at
+    local slot S / sp + i // sp, and the buffer holds DECODE_BUDGET slots
+    past S / sp, so step DECODE_BUDGET x sp is the first to fall off the
+    end."""
     return DECODE_BUDGET * cell.plan.sp
 
 
-def make_serve_step(cell: Cell, *, decode_steps=None):
-    """Build the static lock-step decode step.  ``decode_steps``, when
-    given, is checked against the cache's decode budget up front."""
+def make_serve_step(cell: Cell, *, decode_steps=None, ctx: Ctx = SINGLE):
+    """Build the static lock-step decode step (reference
+    ``make_serve_step``).  ``decode_steps``, when given, is checked against
+    the cache's decode budget up front.
+
+    Each step embeds the row's token on every model rank (``embed(decode=
+    True)``), writes its K/V at the striped slot of the one model rank that
+    owns position ``pos`` (``gqa_decode_attention``; ``pos`` and the rank
+    are host ints, so the others write nothing), attends every rank's cache
+    shard and merges, and samples greedily from the gathered logits.  At pp
+    > 1 the batch runs as microbatches through the stages
+    (``_decode_ticks``) and every stage returns the last stage's tokens."""
     if decode_steps is not None and decode_steps > max_decode_steps(cell):
         raise ValueError(
             f"decode_steps={decode_steps} exceeds the cache's decode budget "
             f"of {max_decode_steps(cell)} steps (DECODE_BUDGET={DECODE_BUDGET}"
             f" slots x sp={cell.plan.sp})")
-    if cell.plan.pp > 1:
-        raise _later(f"decode at pp = {cell.plan.pp} (the microbatched decode pipeline)", 5)
-    if cell.plan.sp > 1:
-        raise _later(f"decode at sp = {cell.plan.sp} (the sequence-sharded serving cache)", 5)
-    S = cell.shape.seq_len
-    mdef = cell.mdef
+    S, plan, mdef = cell.shape.seq_len, cell.plan, cell.mdef
+    sp = plan.sp
 
     def serve_step(params, state, tokens, pos: int):
-        """tokens: [B, 1] int at global position ``pos``; returns
-        (state, next tokens [B, 1] int32, greedy)."""
-        if not S <= pos < cell.cache_loc:
-            raise ValueError(f"decode position {pos} outside the cache's "
-                             f"decode slots [{S}, {cell.cache_loc})")
+        """tokens: [B, 1] int at global position ``pos`` (this rank's dp
+        group's rows); returns (state, next tokens [B, 1] int32, greedy)."""
+        _check_ctx(cell, ctx)
+        i = pos - S
+        if not 0 <= i < max_decode_steps(cell):
+            raise ValueError(f"decode position {pos} outside the cache's decode "
+                             f"positions [{S}, {S + max_decode_steps(cell)})")
         g = params["globals"]
         q_pos = torch.full((1,), pos, dtype=torch.int32, device=tokens.device)
-        # at sp = 1 token S + i is written at slot S + i: the slot is the position
-        meta = ChunkMeta(q_pos=q_pos, cache_off=pos, kv_view=None,
-                         rope=_rope(cell.cfg, q_pos))
-        x = mdef.embed(g, tokens)
+        mine = i % sp == ctx.model_index()
+        meta = ChunkMeta(q_pos=q_pos, cache_off=S // sp + i // sp if mine else None,
+                         kv_view=None, rope=_rope(cell.cfg, q_pos), decode=True,
+                         ctx=ctx if sp > 1 else None)
+        if plan.pp > 1:
+            return state, _decode_ticks(cell, ctx, params["stages"], g, state, tokens, meta)
+        x = mdef.embed(g, tokens, ctx, decode=True)
         x, state = mdef.stage_apply(params["stages"], state, x, meta)
-        logits = mdef.head_logits(g, x)
-        return state, logits.argmax(dim=-1).to(torch.int32)
+        return state, mdef.head_logits(g, x, ctx).argmax(dim=-1).to(torch.int32)
 
     return serve_step
+
+
+def _decode_ticks(cell: Cell, ctx: Ctx, stage_p, g, state, tokens, meta):
+    """The microbatched decode pipeline of this rank's stage (reference
+    ``runner.py:836-893``).  The B rows split into M =
+    ``plan.decode_microbatch`` microbatches of B / M; over M + pp - 1 ticks,
+    stage s runs microbatch t - s on its slice of the cache's rows (views:
+    the writes land in the stage's cache): stage 0 embeds the microbatch's
+    tokens, the others take the carry stage s - 1 sent at the tick before
+    (``Ctx.exchange``, forward only), and the last stage samples.  Its tokens
+    are then summed over the stages (``Ctx.psum_stages``, the others
+    contributing zeros), so every stage returns them and they thread straight
+    back in as the next step's input.
+
+    Where the port departs from the reference's SPMD scan: a stage computes
+    nothing at its warmup and drain ticks (t - s outside [0, M)) and posts
+    no transfer there, its peer's matching tick being idle too.  The
+    reference's warmup ticks write garbage that the stage's valid tick
+    overwrites, and its drain ticks recompute microbatch M - 1 from the same
+    input, so its caches end as the port's."""
+    mdef, plan = cell.mdef, cell.plan
+    pp, stage, M = plan.pp, ctx.stage_index(), plan.decode_microbatch
+    B = tokens.shape[0]
+    if B % M:
+        raise ValueError(f"{B} rows do not split into {M} decode microbatches")
+    Bm = B // M
+    nxt = torch.zeros((B, 1), dtype=torch.int32, device=tokens.device)
+    carry = None
+    like = ((Bm, 1, cell.cfg.d_model), cell.dtype)
+    for t in range(M + pp - 1):
+        m = t - stage
+        x = None
+        if 0 <= m < M:
+            rows = slice(m * Bm, (m + 1) * Bm)
+            h = mdef.embed(g, tokens[rows], ctx, decode=True) if stage == 0 else carry
+            state_m = [{"kv": s["kv"]._replace(k=s["kv"].k[rows], v=s["kv"].v[rows])}
+                       for s in state]
+            x, _ = mdef.stage_apply(stage_p, state_m, h, meta)
+            if stage == pp - 1:
+                nxt[rows] = mdef.head_logits(g, x, ctx).argmax(dim=-1).to(torch.int32)
+        send = x if stage < pp - 1 else None
+        recv = like if stage > 0 and 0 <= m + 1 < M else None
+        carry = ctx.exchange(send, ctx.rank + ctx.sp if send is not None else None,
+                             recv, ctx.rank - ctx.sp if recv is not None else None, tag=t)
+    ctx.psum_stages([nxt])
+    return nxt
+
+
+# ---------------------------------------------------------------------------
+# Paged-pool continuous-batching decode (DESIGN.md §16)
+# ---------------------------------------------------------------------------
+
+
+def check_pool_cell(cell: Cell, geo) -> None:
+    """The reference's limits of the paged pool (its ``_assert_pool_cell``),
+    raised as ValueError: pp = 1, one pod, dense GQA, the cell's sp and
+    rows the geometry's."""
+    cfg = cell.cfg
+    if cell.plan.pp != 1:
+        raise ValueError(f"the paged decode pool needs pp = 1, got pp = {cell.plan.pp}")
+    if cell.pods != 1:
+        raise ValueError(f"the paged decode pool is single-pod, got pods = {cell.pods}")
+    if cfg.family != "dense" or cfg.cross_attn is not None or cfg.mla is not None:
+        raise ValueError(f"the paged decode pool supports dense GQA families only, got "
+                         f"family={cfg.family!r}")
+    if cell.plan.sp != geo.sp:
+        raise ValueError(f"the cell's sp {cell.plan.sp} is not the pool's {geo.sp}")
+    if cell.b_loc != geo.n_slots:
+        raise ValueError(f"cell batch/shard {cell.b_loc} != pool slots {geo.n_slots}")
+
+
+def make_pool_state(cell: Cell, geo, device="cuda"):
+    """This rank's zero paged KV pool for ``cell`` (reference
+    ``make_pool_state``): a ``[P_loc + SINK_SLOTS, Hkv, hd]`` k and v buffer
+    a layer (``ModelDef.init_pool``), each model rank's its own sequence
+    shard."""
+    check_pool_cell(cell, geo)
+    return cell.mdef.init_pool(geo, cell.dtype, device,
+                               n_slots=cell.mdef.slots_per_stage(cell.plan.pp))
+
+
+def make_pool_ingest(pre_cell: Cell, geo):
+    """Copy an admission wave's prefilled caches into the pool (reference
+    ``make_pool_ingest``).
+
+    Identity slot mapping: the engine prefills each admitted request in the
+    batch row of its target pool slot, so prefill cache row b feeds pool
+    slot b, and the first ``base`` slots of this rank's prefill cache are
+    exactly its share of the right-aligned prompt bucket.  Rows outside
+    ``admit`` (and unallocated blocks) write to the sink, where the
+    reference's scatter drops them."""
+    check_pool_cell(pre_cell, geo)
+    if pre_cell.shape.seq_len != geo.s_bucket:
+        raise ValueError(f"prefill length {pre_cell.shape.seq_len} is not the pool's "
+                         f"bucket {geo.s_bucket}")
+    if pre_cell.cache_loc < geo.base:
+        raise ValueError(f"the prefill cache's {pre_cell.cache_loc} slots hold less than the "
+                         f"bucket's {geo.base}")
+    bt, base = geo.block_tokens, geo.base
+
+    def ingest(state_pre, pool, btab, admit):
+        """state_pre: ``prefill_step``'s caches; pool: this rank's pool;
+        btab: [K, max_blocks] int, admit: [K] bool, on the pool's device.
+        Writes the pool in place and returns it."""
+        jlog = torch.arange(base, device=btab.device)
+        blk = btab[:, jlog // bt].long()
+        phys = torch.where(admit[:, None] & (blk >= 0), blk * bt + jlog % bt, geo.p_loc)
+        for s_pre, s_pool in zip(state_pre, pool):
+            kv, pkv = s_pre["kv"], s_pool["kv"]
+            pkv.k[phys] = kv.k[:, :base].to(pkv.k.dtype)
+            pkv.v[phys] = kv.v[:, :base].to(pkv.v.dtype)
+        return pool
+
+    return ingest
+
+
+def make_pool_serve_step(cell: Cell, geo, pos_map, *, ctx: Ctx = SINGLE, device="cuda"):
+    """One continuous-batching decode step against the paged pool
+    (reference ``make_pool_serve_step``).
+
+    Unlike ``make_serve_step`` there is no global position: every request
+    slot carries its own feed position (``q_pos``; 0 = an inactive slot), its
+    own block-table row and its own sampled-token carry, so requests at
+    different decode depths step together, and nothing in the step reads a
+    device value on the host.  Admission folds in on the device: rows under
+    ``admit`` take ``admit_tok`` (the request's last prompt token) in place
+    of the carried sample.  ``pos_map`` ([sp, L_loc], ``kvpool.pos_map``)
+    goes to ``device`` once, here.
+
+    pool_step(params, pool, tokens [K, 1], q_pos [K], btab [K, max_blocks],
+    admit [K] bool, admit_tok [K, 1]) -> (pool, next tokens [K, 1] int32),
+    the inputs on the pool's device."""
+    check_pool_cell(cell, geo)
+    _check_ctx(cell, ctx)
+    pos_map = np.asarray(pos_map)
+    if pos_map.shape != (geo.sp, geo.l_loc):
+        raise ValueError(f"pos_map {pos_map.shape} is not [{geo.sp}, {geo.l_loc}]")
+    mdef, cfg = cell.mdef, cell.cfg
+    rank_pos = torch.from_numpy(pos_map[ctx.model_index()].astype(np.int32)).to(device)
+
+    def pool_step(params, pool, tokens, q_pos, btab, admit, admit_tok):
+        g = params["globals"]
+        tokens = torch.where(admit[:, None], admit_tok, tokens)
+        paged = A.paged_meta(q_pos, btab, rank_pos, base=geo.base, s_bucket=geo.s_bucket,
+                             block_tokens=geo.block_tokens, sp=geo.sp,
+                             rank=ctx.model_index(), p_loc=geo.p_loc)
+        rows = paged.q_pos[:, None]
+        meta = ChunkMeta(q_pos=rows, cache_off=None, kv_view=None, rope=_rope(cfg, rows),
+                         decode=True, paged=paged, ctx=ctx if geo.sp > 1 else None)
+        x = mdef.embed(g, tokens, ctx, decode=True)
+        x, pool = mdef.stage_apply(params["stages"], pool, x, meta)
+        return pool, mdef.head_logits(g, x, ctx).argmax(dim=-1).to(torch.int32)
+
+    return pool_step

@@ -9,7 +9,9 @@ embedding's deterministic backward; the kernels at a packed chunk (per-row
 document windows, dead padding rows) and at the group sizes of glm4-9b,
 nemotron-4-15b and starcoder2-3b (G = 16, 6, 12), a packed step equal
 to its pad-to-max oracle through the kernels, and the pipeline at pp = 2 as
-two ranks sharing the card over gloo against pp = 1.
+two ranks sharing the card over gloo against pp = 1; the paged serving
+step's kernel call (per-row positions over gathered slots) and its writes
+(the striped slot or the sink, nothing else).
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips without
 one.  The file imports no JAX, since the machine with the card has none, and
@@ -980,3 +982,83 @@ def test_model_axis_sp2_on_one_card_over_gloo_equals_cpu(cuda_device):
             assert not np.any(g), path
             continue
         assert np.linalg.norm(g - want[path]) / norm <= 1e-4, path
+
+
+# ---------------------------------------------------------------------------
+# Paged serving (DESIGN.md §16): the paged step's kernel call, the sink
+# ---------------------------------------------------------------------------
+
+
+def _paged_geometry(sp):
+    from repro_torch.runtime import kvpool
+
+    return kvpool.PoolGeometry(s_bucket=256, sp=sp, max_new=40, block_tokens=16, n_blocks=48,
+                               n_slots=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp,rank", [(1, 0), (2, 1)])
+@pytest.mark.parametrize("dtype,kernels", [("bfloat16", "tensor_cores"),
+                                           ("bfloat16", "cuda_cores"), ("float32", "cuda_cores")])
+def test_kernels_at_the_paged_step(cuda_device, sp, rank, dtype, kernels):
+    """The paged step's call: each row at its own position ([B, 1] q_pos:
+    an inactive row at 0, rows at several decode depths) over its gathered
+    [B, l_loc, Hkv, hd] logical slots and the rank's shared position map,
+    against the plain version."""
+    from repro_torch.runtime import kvpool
+
+    geo = _paged_geometry(sp)
+    sched = dataclasses.make_dataclass("Sched", ["offsets", "lengths"])((0, 128), (128, 128))
+    pos_map = kvpool.pos_map(geo, sched)[rank]
+    B, H, Hkv, hd = geo.n_slots, 28, 4, 128
+    arrays = inputs(B, 1, geo.l_loc, H, Hkv, hd, hd, seed=3)
+    q_pos = np.array([[0], [geo.s_bucket], [geo.s_bucket + 7], [geo.s_bucket + 39]], np.int32)
+    _check_kernel(arrays, dtype, q_pos, pos_map, cuda_device, kernels=kernels)
+
+
+@pytest.mark.cuda
+def test_paged_step_on_the_card_writes_only_its_slots_and_the_sink(cuda_device):
+    """The paged step's routing and write on the card, rank 1 of sp = 2:
+    the row that owns its token writes its striped slot through its block
+    table, a row owned by rank 0 and an inactive row write the sink, no
+    other slot changes (no device-side assert: no index past the buffer),
+    and the written slot and the step's output equal the CPU's on the same
+    inputs within 1e-5."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import kvpool
+
+    cfg = get_config("qwen2-7b").reduced()
+    mdef = build_model(cfg)
+    geo = kvpool.PoolGeometry(s_bucket=8, sp=2, max_new=4, block_tokens=2, n_blocks=9, n_slots=3)
+    gen = torch.Generator().manual_seed(0)
+    params = mdef.init_stage_params(gen, torch.float32, "cpu")[0]["attn"]
+    pool = mdef.init_pool(geo, torch.float32, "cpu", n_slots=1)[0]["kv"]
+    for t in pool:
+        t.copy_(torch.randn(t.shape, generator=gen))
+    x = torch.randn((3, 1, cfg.d_model), generator=gen)
+    btab = torch.tensor([[0, 1, 2], [3, 4, 5], [6, -1, -1]], dtype=torch.int32)
+    sched = dataclasses.make_dataclass("Sched", ["offsets", "lengths"])((0,), (8,))
+    pos_map = torch.from_numpy(kvpool.pos_map(geo, sched)[1])
+    q_pos = torch.tensor([geo.s_bucket + 1, geo.s_bucket + 2, 0], dtype=torch.int32)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        p = {k: t.to(dev) for k, t in params.items()}
+        pl = A.PooledKV(*(t.clone().to(dev) for t in pool))
+        pg = A.paged_meta(q_pos.to(dev), btab.to(dev), pos_map.to(dev), base=geo.base,
+                          s_bucket=geo.s_bucket, block_tokens=geo.block_tokens, sp=2, rank=1,
+                          p_loc=geo.p_loc)
+        rope = runner._rope(cfg, pg.q_pos[:, None])
+        y, pl = A.gqa_paged_decode_attention(x.to(dev), p, cfg, pl, pg, rope)
+        torch.cuda.synchronize()
+        outs[str(dev)] = (y.cpu(), [t.cpu() for t in pl])
+    y_cpu, pool_cpu = outs["cpu"]
+    y_gpu, pool_gpu = outs[str(cuda_device)]
+    for before, after in zip(pool, pool_gpu):
+        changed = (before != after).reshape(before.shape[0], -1).any(1).nonzero()[:, 0].tolist()
+        assert changed == [4, geo.p_loc], changed
+    for a, b in zip(pool_cpu, pool_gpu):
+        # the written slot's K/V come from the card's and the CPU's own
+        # matrix products: equal to fp32 rounding, not bitwise
+        np.testing.assert_allclose(b[4].numpy(), a[4].numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(y_gpu.numpy(), y_cpu.numpy(), rtol=1e-5, atol=1e-5)

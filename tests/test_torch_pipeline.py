@@ -402,14 +402,15 @@ def test_params_from_numpy_splits_stages_as_the_reference_builds_them():
 
 
 def test_what_the_multi_rank_slice_refuses():
-    """What stays refused: prefill and decode at sp > 1 and decode at pp >
-    1 (item 5; ``all_to_all_model``, item 7, in
-    tests/test_torch_model_axis.py); chunks that do not tile S (at sp, their
-    model shards too), MSP chunks that do not split, NCCL without a card
-    per rank, a multi-rank context without a process group, an unknown
-    attention schedule.  A model axis (tests/test_torch_model_axis.py),
-    ring attention, ZeRO-1 over a pod axis (tests/test_torch_ring.py) and
-    packed rows at pp > 1 resolve."""
+    """What stays refused: chunks that do not tile S (at sp, their model
+    shards too), MSP chunks that do not split, NCCL without a card per
+    rank, a multi-rank context without a process group, an unknown
+    attention schedule (``all_to_all_model``, item 7, in
+    tests/test_torch_model_axis.py).  A model axis
+    (tests/test_torch_model_axis.py), ring attention, ZeRO-1 over a pod axis
+    (tests/test_torch_ring.py), packed rows at pp > 1, and, since item 5,
+    prefill and decode at sp > 1 and decode at pp > 1
+    (tests/test_torch_paged.py) resolve."""
     cfg = get_config("qwen2-7b").reduced()
     shape = ShapeConfig("t", 256, 2, "train")
     cell = runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1), model_size=2)
@@ -417,14 +418,14 @@ def test_what_the_multi_rank_slice_refuses():
     zero1 = runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1), pods=2)
     assert zero1.plan.zero1 and zero1.pods == 2 and zero1.b_loc == 1
     for kind in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            runner.resolve_cell(cfg, ShapeConfig("p", 256, 2, kind),
-                                overrides=dict(pp=1, dp=1), model_size=2)
+        served = runner.resolve_cell(cfg, ShapeConfig("p", 256, 2, kind),
+                                     overrides=dict(pp=1, dp=1), model_size=2)
+        assert served.plan.sp == 2 and served.cache_loc == 256 // 2 + runner.DECODE_BUDGET
     assert runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, attn_mode="ring"),
                                model_size=2).plan.attn_mode == "ring"
-    with pytest.raises(NotImplementedError, match="item 5"):
-        runner.resolve_cell(cfg, ShapeConfig("d", 256, 2, "decode"),
-                            overrides=dict(pp=2, dp=1), data_size=2)
+    decode_pp2 = runner.resolve_cell(cfg, ShapeConfig("d", 256, 2, "decode"),
+                                     overrides=dict(pp=2, dp=1), data_size=2)
+    assert decode_pp2.plan.pp == 2 and decode_pp2.sched.n == 1
     packed = runner.resolve_cell(cfg, shape, overrides=dict(pp=2, dp=1, n_chunks=2),
                                  doc_lens=[100, 156, 256], data_size=2)
     assert packed.varlen and packed.sched.lengths == (128, 128)

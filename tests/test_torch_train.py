@@ -42,6 +42,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.optim import adamw
 from repro_torch.parallel import runner
+from repro_torch.parallel.ctx import _later
+from repro_torch.runtime import kvpool
 
 import _torch_cpu  # noqa: F401,E402  (one torch thread a test process)
 
@@ -342,9 +344,12 @@ def test_resolve_cell_refuses_what_later_slices_bring():
     remat "sppo" / "full", the model axis with its attention modes
     (tests/test_torch_model_axis.py), and ring attention (item 4) and
     ZeRO-1 over the pod axis (item 3's last part; tests/test_torch_ring.py).
-    What later slices bring is refused naming its ROADMAP Queue 1 item as
-    ROADMAP.md numbers it: prefill and decode at sp > 1 and decode at pp >
-    1 (item 5, paged serving), the auditor and checkpointing (item 7,
+    Prefill and decode at sp > 1 and decode at pp > 1 (item 5, paged
+    serving) resolve (tests/test_torch_paged.py); the paged engine refuses
+    pp > 1, more than one pod and other families than dense GQA, as the
+    reference does, with a ValueError (no later item lifts them).  What
+    later slices bring is refused naming its ROADMAP Queue 1 item as
+    ROADMAP.md numbers it: the auditor and checkpointing (item 7,
     tooling)."""
     cfg = get_config("qwen2-7b").reduced()
     shape = ShapeConfig("t", 256, 2, "train")
@@ -363,12 +368,26 @@ def test_resolve_cell_refuses_what_later_slices_bring():
     assert runner.resolve_cell(cfg, shape, overrides=dict(pp=1, dp=1, attn_mode="ring"),
                                model_size=2).plan.attn_mode == "ring"
     assert titles[5].startswith("Paged serving")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        runner.resolve_cell(cfg, ShapeConfig("p", 256, 2, "prefill"),
-                            overrides=dict(pp=1, dp=1, attn_mode="ring"), model_size=2)
+    ring_prefill = runner.resolve_cell(cfg, ShapeConfig("p", 256, 2, "prefill"),
+                                       overrides=dict(pp=1, dp=1, attn_mode="ring"),
+                                       model_size=2)
+    assert ring_prefill.plan.attn_mode == "ring" and ring_prefill.plan.sp == 2
+    geo = kvpool.PoolGeometry(s_bucket=256, sp=1, max_new=4, block_tokens=4, n_blocks=8,
+                              n_slots=2)
+    dense = runner.resolve_cell(cfg, ShapeConfig("d", 256, 2, "decode"), overrides=dict(pp=1, dp=1))
+    runner.check_pool_cell(dense, geo)
+    for served, what in (
+            (runner.resolve_cell(cfg, ShapeConfig("d", 256, 2, "decode"),
+                                 overrides=dict(pp=2, dp=1), data_size=2), "pp = 1"),
+            (runner.resolve_cell(cfg, ShapeConfig("d", 256, 4, "decode"),
+                                 overrides=dict(pp=1, dp=1), pods=2), "single-pod"),
+            (dataclasses.replace(dense, mdef=dataclasses.replace(
+                dense.mdef, cfg=dataclasses.replace(cfg, family="moe"))), "dense GQA")):
+        with pytest.raises(ValueError, match=what):
+            runner.check_pool_cell(served, geo)
     assert {dest for dest, (_, item) in train.LATER.items() if item == 7} == {
         "audit", "ckpt_dir", "ckpt_every", "resume"}
-    assert "item 3" in str(runner._later("pp = 2 (pipeline stages)", 3))
+    assert "item 3" in str(_later("pp = 2 (pipeline stages)", 3))
 
 
 def test_cli_trains_on_cpu_and_the_loss_falls():

@@ -177,6 +177,29 @@ each rank's tokens as the CPU's one device's (a token may differ only where
 the CPU's top-2 logit gap is under 1e-4, printed as a tie), each rank's
 model collectives and hand-offs at their closed forms.
 
+The MoE family (``moe_phase``, last): granite-moe-1b-a400m at full width
+and all 24 layers (hd 64, G = 2, 32 experts top-8, a tied table), random
+weights from seed 0.  (a) Static serving through the CLI, B 4, a 2048-token
+prompt in 16 chunks and 32 decode steps, MOE_REPEATS runs: the
+tensor-core forward launched 24 x (16 + 32) times a run, the calls whose
+KV range splits merged in the launch, nothing else, no host copy; the
+2-layer model in fp32 decodes the CPU's tokens.  (b) Training through
+``launch.train.train``, B 1, S 8192 in 4 chunks, fp32 moments on the
+card, MOE_STEPS steps under the default plan and under offload off with
+remat "sppo" (``train_plan``: launches, D2H = H2D at the closed form of
+the tag shapes the MoE layer uses (``moe_offload_elems``: the experts'
+hidden is [E, Ce, ff]), finite losses, MFU with the active N, peak, the
+last step profiled); the two plans' losses bitwise equal at every step.
+(c) The 2-layer fp32 step under the default plan against the CPU within
+1e-4 (loss, layer 0's attention and expert leaves, its router, the tied
+table).  (d) Expert parallelism at sp = 2, two ranks sharing the card
+over gloo, 2 full-width layers, fp32, S 1024: each rank's step against
+the same ranks' step on the CPU (a context of CPU tensors over the same
+process group) within 1e-4, its all-to-alls' calls and bytes, launches
+and row copies at their closed forms.  Phase 2 times the kernels at
+granite's shapes: the train cell's first and last chunk, forward and
+backward, and the decode step.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its check and times: the tensor-core and the CUDA-core
 forward, the latter's merge, and the tensor-core and CUDA-core backward
@@ -345,6 +368,20 @@ SERVE_ENGINE = dict(s_bucket=128, slots=2, max_new=4, block_tokens=16, admit_min
 # a card token may differ from the CPU's only where the CPU's top-2 logit
 # gap at that step is under this (a tie the two devices may break apart)
 TIE_GAP = 1e-4
+# the MoE family (moe_phase): granite-moe-1b-a400m at full width and all 24
+# layers (d 1024, 16 heads over 8 KV heads, hd 64, 32 experts top-8, expert
+# FFN 512, a tied 51200-row table), random weights from seed 0.  Static
+# serving (B 4, prompt 2048 in 16 chunks, 32 decode steps, MOE_REPEATS runs),
+# a 2-layer fp32 serving run against the CPU; training at B 1, S 8192 in 4
+# chunks, fp32 moments on the device, MOE_STEPS steps under the default plan
+# and under offload off with remat "sppo"; a 2-layer fp32 step against the
+# CPU; expert parallelism at sp = 2 as two ranks sharing the card over gloo
+# (2 full-width layers, fp32, S 1024), each rank's step against its own
+# step on the CPU at the same layout (the drop set follows the EP width)
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_REPEATS, MOE_SEQ, MOE_CHUNKS, MOE_STEPS = 2, 8192, 4, 3
+MOE_CHECK_SEQ, MOE_CHECK_STEPS = 256, 8
+MOE_EP_LAYERS, MOE_EP_SEQ, MOE_EP_CHUNKS = 2, 1024, 2
 
 
 def fail(msg: str):
@@ -645,14 +682,14 @@ def measure_merge(name, fa, ref, copies, nsplit, shape):
     return row
 
 
-def serving_shapes(gen):
+def serving_shapes(gen, cfg=None):
     """The kernel's inputs at the serve path's shapes, as the path passes
     them (a position row shared by the batch, no q_start window): the last
     prefill chunk (Tq = 128 over a 2048-slot prefix view of the 2176-slot
     cache buffer) and decode step 1 (Tq = 1 over the whole buffer, a PAD
-    tail)."""
+    tail); qwen2-7b's heads, or ``cfg``'s."""
     dev, bf16 = "cuda", torch.bfloat16
-    H, Hkv, hd = 28, 4, 128
+    H, Hkv, hd = (28, 4, 128) if cfg is None else (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
     cache_loc = PREFILL_LEN + 128
     kbuf = torch.randn(BATCH, cache_loc, Hkv, hd, generator=gen, device=dev).to(bf16)
     vbuf = torch.randn(BATCH, cache_loc, Hkv, hd, generator=gen, device=dev).to(bf16)
@@ -1259,14 +1296,40 @@ def offload_bytes(cell) -> int:
     """D2H bytes of one step by the port's cost model: Σ over chunks of
     split_rows(rows, α_c) x batch x the tagged bytes of a token in every
     layer (bf16), times the codec's wire ratio (its 1-byte payload; the
-    scales stay on the device)."""
+    scales stay on the device).  An MoE model's by the tag shapes its layers
+    use (``moe_offload_elems``)."""
     from repro_torch.core import costmodel as cm
     from repro_torch.core import offload as ofl
 
+    if cell.cfg.moe is not None:
+        return int(moe_offload_elems(cell) * cm.ACT_ITEMSIZE
+                   * cm.offload_wire_ratio(cell.plan.offload_dtype))
     per_row = (cell.shape.global_batch * cm.tagged_bytes_per_token(cell.cfg) * cell.cfg.n_layers
                * cm.offload_wire_ratio(cell.plan.offload_dtype))
     return int(sum(ofl.split_rows(ln, a) * per_row
                    for ln, a in zip(cell.sched.lengths, cell.alphas)))
+
+
+def moe_offload_elems(cell) -> int:
+    """Elements of one rank's off rows a step at pp = 1 by the tag shapes an
+    MoE layer uses: per chunk and layer, the rows of q, k, v and the
+    attention output (split_rows of the rank's ln / sp rows, b_loc of each)
+    and of the experts' hidden [E_loc, Ce, ff] (split_rows of its Ce
+    capacity rows, Ce from the rank's b_loc x ln / sp tokens,
+    ``models/moe.py``): not the cost model's top_k x ff a token."""
+    from repro_torch.core import offload as ofl
+    from repro_torch.models.moe import capacities, moe_dims
+
+    cfg, sp, B = cell.cfg, cell.plan.sp, cell.b_loc
+    _, e_loc = moe_dims(cfg, sp)
+    attn = 2 * cfg.n_heads * cfg.hd + 2 * cfg.n_kv_heads * cfg.hd
+    total = 0
+    for ln, a in zip(cell.sched.lengths, cell.alphas):
+        rows = ln // sp
+        _, ce = capacities(cfg, B * rows, sp)
+        total += (ofl.split_rows(rows, a) * B * attn
+                  + e_loc * ofl.split_rows(ce, a) * cfg.moe.d_ff_expert)
+    return total * cfg.n_layers
 
 
 def param_shapes(cell) -> list:
@@ -3933,6 +3996,302 @@ def paged_serve_phase(fa, runner, serve, cfg, card):
     return counts, summary
 
 
+# ---------------------------------------------------------------------------
+# the MoE family: granite-moe-1b-a400m
+# ---------------------------------------------------------------------------
+
+
+def moe_all_to_all(cell, *, replay: bool) -> tuple:
+    """(calls, bytes this rank put in) of one rank's all-to-alls in one
+    loss-and-gradients call at sp > 1, pp = 1, by the closed form: each MoE
+    block's forward sends its copies' rows (sp x C rows of d), their expert
+    ids (sp x C int32) and the experts' outputs back (sp x C x d); its
+    backward sends the two row cotangents; the sppo / full seam runs the
+    forward again in its replay.  C from the rank's b_loc x ln / sp tokens
+    of each chunk (``models/moe.py::capacities``)."""
+    from repro_torch.models.moe import capacities
+
+    cfg, sp = cell.cfg, cell.plan.sp
+    item = torch.tensor([], dtype=cell.dtype).element_size()
+    n_fwd = 2 if replay else 1
+    calls = nbytes = 0
+    for ln in cell.sched.lengths:
+        c, _ = capacities(cfg, cell.b_loc * (ln // sp), sp)
+        rows = sp * c
+        calls += cfg.n_layers * (3 * n_fwd + 2)
+        nbytes += cfg.n_layers * (n_fwd * (2 * rows * cfg.d_model * item + 4 * rows)
+                                  + 2 * rows * cfg.d_model * item)
+    return calls, nbytes
+
+
+def moe_serve(fa, hostmem, serve, runner, card):
+    """(a) Static serving at all 24 layers, bf16, through the CLI entry
+    point: MOE_REPEATS runs of B 4, prompt 2048 in 16 chunks, 32 decode
+    steps.  The tensor-core forward launched 24 x (16 + 32) times a run
+    (the calls whose KV range its geometry splits merging in the launch),
+    nothing else, no host copy; then the same seed's model cut to 2 layers
+    serves in fp32 on the card and on the CPU: the decoded tokens alike (a
+    tie under TIE_GAP excepted)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.models.model_zoo import ModelDef
+
+    cfg = get_config(MOE_ARCH)
+    fa.reset_counts()
+    hostmem.reset_counts()
+    out = serve.main(["--arch", MOE_ARCH, "--prompt-len", str(PREFILL_LEN),
+                      "--batch", str(BATCH), "--decode-steps", str(DECODE_STEPS),
+                      "--repeats", str(MOE_REPEATS)])
+    counts = fa.counts()
+    check(not any(hostmem.counts().values()),
+          f"[{MOE_ARCH}] serving copied to or from host memory: {hostmem.counts()}")
+    n_chunks = out["n_chunks"]
+    check(n_chunks == 16, f"[{MOE_ARCH}] prefill ran {n_chunks} chunks, expected 16")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    G, Hkv = cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads
+    clen = PREFILL_LEN // n_chunks
+    cache = PREFILL_LEN + runner.DECODE_BUDGET
+    splits = (sum(fa._tc_geometry(BATCH, clen, (c + 1) * clen, G, Hkv, n_sm)[2] > 1
+                  for c in range(n_chunks))
+              + DECODE_STEPS * (fa._tc_geometry(BATCH, 1, cache, G, Hkv, n_sm)[2] > 1))
+    want = {**{k: 0 for k in counts},
+            "fwd_tc": MOE_REPEATS * cfg.n_layers * (n_chunks + DECODE_STEPS),
+            "merged_in_kernel": MOE_REPEATS * cfg.n_layers * splits}
+    check(counts == want, f"[{MOE_ARCH}] serving launched {counts}, expected {want}")
+    toks = out["tokens"]
+    check(toks.shape == (BATCH, DECODE_STEPS)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"[{MOE_ARCH}] decoded tokens {toks.shape} out of range")
+    check(bool(torch.isfinite(out["last_hidden"]).all()), f"[{MOE_ARCH}] hidden not finite")
+    runs = []
+    for run, (p_s, d_s) in enumerate(zip(out["prefill_s_runs"], out["decode_s_runs"])):
+        runs.append({"prefill_s": p_s, "prefill_tokens_per_s": BATCH * PREFILL_LEN / p_s,
+                     "decode_ms_per_step": 1e3 * d_s / DECODE_STEPS,
+                     "decode_tokens_per_s": BATCH * DECODE_STEPS / d_s})
+        print(f"serve [{MOE_ARCH}] run {run} ({card}): {cfg.n_layers} layers, prefill "
+              f"{p_s:.4f} s, {runs[-1]['prefill_tokens_per_s']:.1f} tokens/s; decode "
+              f"{runs[-1]['decode_ms_per_step']:.3f} ms/step, "
+              f"{runs[-1]['decode_tokens_per_s']:.1f} tokens/s")
+    print(f"serve [{MOE_ARCH}] launches {counts} (expected {want}); peak "
+          f"{out['peak_bytes'] / 2**30:.3f} GiB ({card})")
+    # the 2-layer fp32 run, card against CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    S, steps = MOE_CHECK_SEQ, MOE_CHECK_STEPS
+    pre = runner.resolve_cell(cfg2, ShapeConfig("moe_fp32", S, BATCH, "prefill"),
+                              overrides=dict(pp=1, dp=1, n_chunks=S // 64, offload=False,
+                                             remat="none"), dtype=torch.float32)
+    dec = runner.resolve_cell(cfg2, ShapeConfig("moe_fp32", S, BATCH, "decode"),
+                              overrides=dict(pp=1, dp=1), dtype=torch.float32)
+    params = serve.build_params(pre, "cuda", seed=0)
+    prompts = np.random.default_rng(1).integers(2, cfg.vocab_size,
+                                                size=(BATCH, S)).astype(np.int32)
+    got = static_decode(runner, pre, dec, params, prompts, steps, "cuda")
+    params = tree_map(lambda t: t.cpu(), params)
+    torch.cuda.empty_cache()
+    gaps = []
+    with recorded_gaps(ModelDef, gaps):
+        want_toks = static_decode(runner, pre, dec, params, prompts, steps, "cpu")
+    ties = held_against_cpu(got, want_toks, np.stack(gaps, axis=1), f"{MOE_ARCH} fp32 serve")
+    print(f"serve [{MOE_ARCH}] 2 layers fp32 ({card}): {BATCH} rows, prefill {S}, {steps} "
+          f"decode steps: tokens as the CPU's ({len(ties)} ties)")
+    del params
+    return counts, {"runs": runs, "peak_bytes": out["peak_bytes"], "fp32_ties": ties}
+
+
+def moe_train_check(fa, hostmem, serve, runner, cfg, card):
+    """(c) The seed-built model cut to 2 layers: one step's loss and
+    gradients at S = 256 (2 chunks), fp32, under the default plan (chunk 0
+    offloads every tagged row), on the card (kernels, no TF32) and on the
+    CPU: the CUDA-core kernels' launches and the row copies by their closed
+    forms, the loss and the gradients of layer 0's attention and expert
+    leaves, its router and the tied table within GRAD_REL_TOL relative
+    L2."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+
+    S = MOE_CHECK_SEQ
+    cell = runner.resolve_cell(dataclasses.replace(cfg, n_layers=2),
+                               ShapeConfig("moe_train_check", S, 1, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=2), dtype=torch.float32)
+    check(cell.plan.offload and cell.plan.remat == "sppo",
+          f"[{MOE_ARCH}] check plan {cell.plan}, expected the default plan")
+    # chunk 0 offloads every tagged row, whatever α the cost model deploys
+    cell = dataclasses.replace(cell, alphas=(1.0, 0.0))
+    tokens, labels = (torch.from_numpy(a) for a in SyntheticLM(cfg.vocab_size, S, 1)
+                      .sample_step(0))
+    params = serve.build_params(cell, "cuda", seed=0)
+
+    def pick(loss, g):
+        layer = g["stages"][0]
+        return {"loss": loss, **{k: layer["attn"][k] for k in ("wq", "wk", "wv", "wo")},
+                **{k: layer["moe"][k] for k in ("router", "w1", "w3", "w2")},
+                "table": g["globals"]["embed"]["table"]}
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    G, Hkv = cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads
+    splits = sum(fa._geometry(1, ln, off + ln, G, Hkv, n_sm)[2] > 1
+                 for off, ln in zip(cell.sched.offsets, cell.sched.lengths))
+    fa.reset_counts()
+    hostmem.reset_counts()
+    loss, grads = runner.loss_and_grads(cell, params, tokens.cuda(), labels.cuda())
+    on_card = {k: v.cpu() for k, v in pick(loss, grads).items()}
+    launched, copied = fa.counts(), hostmem.counts()
+    want = {**{k: 0 for k in launched}, "fwd": 8, "merge": 4 * splits, "bwd_dq": 4,
+            "bwd_dkv": 4}
+    check(launched == want, f"[{MOE_ARCH}] the fp32 step launched {launched}, expected {want}")
+    n_bytes = 4 * moe_offload_elems(cell)
+    check(copied["d2h_bytes"] == copied["h2d_bytes"] == n_bytes and copied["d2h"] == 10
+          and copied["d2h_pinned"] == 10,
+          f"[{MOE_ARCH}] the fp32 step copied {copied}, expected 10 pinned D2H of {n_bytes} "
+          "bytes (q, k, v, the attention output and the experts' hidden of 2 layers) and "
+          "the same back")
+    del grads
+    params = tree_map(lambda t: t.cpu(), params)
+    torch.cuda.empty_cache()
+    loss, grads = runner.loss_and_grads(cell, params, tokens, labels)
+    on_cpu = pick(loss, grads)
+    rel = {k: ((on_card[k] - on_cpu[k]).norm() / on_cpu[k].norm()).item() for k in on_cpu}
+    print(f"train [{MOE_ARCH}] 2-layer fp32 check ({card}), default plan: loss card "
+          f"{float(on_card['loss']):.6f} vs CPU {float(on_cpu['loss']):.6f}; launches {launched}; "
+          f"copies {copied}; relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
+    check(all(bool(torch.isfinite(v).all()) for v in on_card.values())
+          and all(v <= GRAD_REL_TOL for v in rel.values()),
+          f"[{MOE_ARCH}] card and CPU steps disagree: {rel} (tol {GRAD_REL_TOL})")
+    return rel, launched
+
+
+def moe_ep_rank(rank, device):
+    """(d) One rank of expert parallelism at sp = 2: granite at full width
+    cut to MOE_EP_LAYERS layers, fp32, B 1, S = MOE_EP_SEQ in MOE_EP_CHUNKS
+    chunks, the default plan; the rank's shard of the seed-0 weights (drawn
+    on the card), one loss-and-gradients call on the card (the CUDA-core
+    kernels), then the same call on the CPU at the same layout (a context
+    of CPU tensors over the same process group).  Returns the card's
+    counts beside their closed forms and each leaf's relative L2 against
+    the CPU."""
+    _port_path()
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.parallel import runner
+    from repro_torch.runtime import hostmem
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(4)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_EP_LAYERS)
+    cell = runner.resolve_cell(cfg, ShapeConfig("moe_ep", MOE_EP_SEQ, 1, "train"),
+                               overrides=dict(pp=1, dp=1, sp=2, n_chunks=MOE_EP_CHUNKS),
+                               dtype=torch.float32, model_size=2)
+    ctx = cell.ctx(device=device)
+    m = ctx.model_index()
+    params = serve.build_params(cell, device, seed=0, model_rank=m)
+    tokens, labels = (torch.from_numpy(a) for a in
+                      SyntheticLM(cfg.vocab_size, MOE_EP_SEQ, 1).sample_step(0))
+    fa.reset_counts()
+    hostmem.reset_counts()
+    ctx.reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = runner.loss_and_grads(cell, params, tokens.to(device), labels.to(device),
+                                        ctx=ctx)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launched, copied, counts = fa.counts(), hostmem.counts(), ctx.counts()
+    card = {p: g.cpu() for p, g in tree.items(grads)}
+    card_loss = float(loss)
+    del grads
+    params = tree_map(lambda t: t.cpu(), params)
+    torch.cuda.empty_cache()
+    cpu_ctx = cell.ctx(device="cpu")
+    t0 = time.perf_counter()
+    loss, grads = runner.loss_and_grads(cell, params, tokens, labels, ctx=cpu_ctx)
+    cpu_s = time.perf_counter() - t0
+    rel = {p: ((card[p] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for p, g in tree.items(grads) if not p.endswith("gate")}
+    return {"rank": rank, "model_index": m, "loss": card_loss, "cpu_loss": float(loss),
+            "cpu_all_to_all": (cpu_ctx.counts()["model_all_to_all_calls"],
+                               cpu_ctx.counts()["model_all_to_all_bytes"]),
+            "rel": rel, "launched": launched, "copied": copied,
+            "all_to_all": (counts["model_all_to_all_calls"], counts["model_all_to_all_bytes"]),
+            "all_to_all_s": counts["model_all_to_all_s"],
+            "want_all_to_all": moe_all_to_all(cell, replay=True),
+            "want_launches": {**{k: 0 for k in launched}, **model_axis_launches(
+                fa, cell, list(zip(cell.sched.lengths, cell.sched.offsets)), device)},
+            "want_d2h_bytes": 4 * moe_offload_elems(cell), "card_s": card_s, "cpu_s": cpu_s}
+
+
+def moe_phase(fa, hostmem, mesh, serve, runner, train_mod, card):
+    """The MoE family (ROADMAP Queue 1 item 7): granite-moe-1b-a400m served
+    and trained at full width and all 24 layers on the card, its 2-layer
+    fp32 steps against the CPU, and expert parallelism at sp = 2 over two
+    ranks sharing the card.  Returns (launch counts by path, a summary)."""
+    from repro_torch.configs.base import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    paths, summary = {}, {}
+    # (a) serving
+    t0 = time.perf_counter()
+    paths["serve_moe"], summary["serve"] = moe_serve(fa, hostmem, serve, runner, card)
+    summary["serve_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # (b) training at all 24 layers under the default plan and offload off
+    t0 = time.perf_counter()
+    rows = {}
+    for plan in ("d", "b"):
+        paths[f"train_moe_plan_{plan}"], rows[plan], _ = train_plan(
+            fa, hostmem, serve, runner, train_mod, cfg, card, plan, seq=MOE_SEQ,
+            n_chunks=MOE_CHUNKS, steps=MOE_STEPS, label=MOE_ARCH, grads="none")
+        torch.cuda.empty_cache()
+    check(rows["d"]["losses"] == rows["b"]["losses"],
+          f"[{MOE_ARCH}] plans (d) and (b) losses differ: {rows['d']['losses']} vs "
+          f"{rows['b']['losses']}, expected bitwise equal at every step")
+    print(f"train [{MOE_ARCH}] plans (d) and (b): losses bitwise equal at every step "
+          f"{rows['d']['losses']}")
+    summary["train"] = rows
+    summary["train_s"] = time.perf_counter() - t0
+    # (c) the 2-layer fp32 step against the CPU
+    summary["fp32_check_rel_l2"], paths["train_moe_fp32"] = moe_train_check(
+        fa, hostmem, serve, runner, cfg, card)
+    # (d) expert parallelism, sp = 2, two ranks sharing the card
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(moe_ep_rank, 2, backend="gloo", device="cuda", timeout_s=600.0)
+    for r in ranks:
+        what = f"[{MOE_ARCH}] sp = 2 rank {r['rank']}"
+        rel_loss = abs(r["loss"] - r["cpu_loss"]) / abs(r["cpu_loss"])
+        worst = max(r["rel"].items(), key=lambda kv: kv[1])
+        print(f"train {what} ({card}; {SP_SHARED}): loss {r['loss']!r} vs CPU "
+              f"{r['cpu_loss']!r} (relative {rel_loss:.3e}); worst leaf {worst[0]} "
+              f"{worst[1]:.3e}; all-to-alls {r['all_to_all']} (closed form "
+              f"{r['want_all_to_all']}, {r['all_to_all_s']:.3f} s); launches {r['launched']}; "
+              f"D2H {r['copied']['d2h_bytes']} bytes; card {r['card_s']:.2f} s, CPU "
+              f"{r['cpu_s']:.2f} s")
+        check(rel_loss <= GRAD_REL_TOL and worst[1] <= GRAD_REL_TOL,
+              f"{what}: card and CPU disagree: loss {rel_loss}, worst leaf {worst}")
+        check(tuple(r["all_to_all"]) == tuple(r["want_all_to_all"])
+              == tuple(r["cpu_all_to_all"]),
+              f"{what}: all-to-alls {r['all_to_all']} (CPU {r['cpu_all_to_all']}), closed "
+              f"form {r['want_all_to_all']}")
+        check(r["launched"] == r["want_launches"],
+              f"{what}: launched {r['launched']}, expected {r['want_launches']}")
+        check(r["copied"]["d2h_bytes"] == r["copied"]["h2d_bytes"] == r["want_d2h_bytes"]
+              and r["copied"]["d2h_pinned"] == r["copied"]["d2h"],
+              f"{what}: copied {r['copied']}, expected {r['want_d2h_bytes']} bytes each way")
+    check(abs(ranks[0]["loss"] - ranks[1]["loss"]) == 0.0,
+          f"[{MOE_ARCH}] sp = 2 ranks hold different losses")
+    paths["train_moe_ep_sp2"] = {k: sum(r["launched"][k] for r in ranks)
+                                 for k in ranks[0]["launched"]}
+    summary["ep_sp2"] = [{k: r[k] for k in ("rank", "loss", "cpu_loss", "rel", "all_to_all",
+                                            "all_to_all_s", "card_s", "cpu_s")}
+                         for r in ranks]
+    summary["ep_s"] = time.perf_counter() - t0
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"moe phase took {summary['seconds']:.1f} s (serve {summary['serve_s']:.1f}, train "
+          f"{summary['train_s']:.1f}, sp = 2 {summary['ep_s']:.1f})")
+    return paths, summary
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -4027,6 +4386,17 @@ def main():
         extra_measured.append(measure_bwd_shape(f"model axis {label} last chunk", fa, ref, *args))
         del args
     ma_fwd_err, ma_bwd_rel = model_axis_check_shapes(fa, ref, gen, runner, cfg)
+    # granite-moe-1b-a400m's shapes (hd 64, G = 2): the 24-layer train
+    # cell's first and last chunk, forward and backward, and its decode step
+    moe_cfg = get_config(MOE_ARCH)
+    _, moe_in = train_chunk_shapes(gen, runner, moe_cfg, n_layers=moe_cfg.n_layers,
+                                   seq=MOE_SEQ, n_chunks=MOE_CHUNKS)
+    extra_measured += [measure_bwd_shape(f"{MOE_ARCH} {name}", fa, ref, *args)
+                       for name, args in moe_in.items()]
+    del moe_in
+    _, moe_decode_in = serving_shapes(gen, moe_cfg)
+    moe_decode_rows = measure_shape(f"{MOE_ARCH} decode step", fa, ref, *moe_decode_in)
+    del moe_decode_in
     # the paged step's shape: 8 rows at their own positions over their
     # gathered 2112 logical slots (bf16, timed as the serving shapes are),
     # and the multi-rank serving phase's fp32 shapes (untimed)
@@ -4098,8 +4468,9 @@ def main():
     torch.cuda.empty_cache()
     train_rel, fp32_counts = train_cpu_check(fa, hostmem, serve, runner, cfg, card)
     torch.cuda.empty_cache()
-    # ---- this slice's paths: packed training, its fp32 check, three configs
+    # ---- packed training, its fp32 check, three configs
     t_packed = time.perf_counter()
+    print(f"phase 4 took {t_packed - t_phase4:.1f} s")
     packed_counts, packed_summary = packed_phase(
         fa, hostmem, serve, runner, train_mod, cfg, card,
         train_summary["train_plans"]["d"]["warm_step_ms"])
@@ -4107,11 +4478,20 @@ def main():
     config_counts, config_rows = config_phase(fa, hostmem, serve, runner, train_mod, card)
     print(f"packed and config phases took {time.perf_counter() - t_packed:.1f} s")
     # ---- the multi-rank pipeline, its ranks sharing the card
+    t_ranks = time.perf_counter()
     pipe_counts, pipe_summary = pipeline_phase(fa, mesh, runner, card)
-    # ---- this slice's path: the model axis, its ranks sharing the card
+    print(f"pipeline phase took {time.perf_counter() - t_ranks:.1f} s")
+    # ---- the model axis, its ranks sharing the card
+    t_ranks = time.perf_counter()
     ma_counts, ma_summary = model_axis_phase(fa, mesh, runner, card)
-    # ---- this slice's paths over ranks: sp = 2, pp = 2, the engine at 1 x 2
+    print(f"model-axis phase took {time.perf_counter() - t_ranks:.1f} s")
+    # ---- serving over ranks: sp = 2, pp = 2, the engine at 1 x 2
+    t_ranks = time.perf_counter()
     sr_counts, sr_summary = serve_ranks_phase(fa, mesh, runner, serve, card)
+    print(f"serving-over-ranks phase took {time.perf_counter() - t_ranks:.1f} s")
+    # ---- the MoE family: granite served and trained at 24 layers, EP at sp = 2
+    torch.cuda.empty_cache()
+    moe_counts, moe_summary = moe_phase(fa, hostmem, mesh, serve, runner, train_mod, card)
 
     tc_rows = [r["tensor_cores"] for r in rows]
     cc_rows = [r["cuda_cores"] for r in rows]
@@ -4129,12 +4509,12 @@ def main():
              "train_pipeline_pp2": pipe_counts["plain"], "train_pipeline_pp2_msp": pipe_counts["msp"],
              **{f"train_pipeline_{k}": c for k, c in pipe_counts.items() if k.startswith("fp32_")},
              **{f"train_model_axis_{k}": c for k, c in ma_counts.items()},
-             **paged_counts, **sr_counts}
+             **paged_counts, **sr_counts, **moe_counts}
     pipe_tc = ("train_pipeline_pp2", "train_pipeline_pp2_msp",
-               *(f"train_model_axis_{k}" for k in SP_MODES))
+               *(f"train_model_axis_{k}" for k in SP_MODES), "train_moe_plan_d")
     pipe_cc = (*(f"train_pipeline_{k}" for k in pipe_counts if k.startswith("fp32_")),
                *(f"train_model_axis_{k}" for k in ma_counts if k.startswith("fp32_")),
-               *sr_counts)
+               *sr_counts, "train_moe_fp32", "train_moe_ep_sp2")
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
@@ -4151,13 +4531,13 @@ def main():
          "launches": serve_counts["fwd_tc"] + train_counts["fwd_tc"]
          + sum(c["fwd_tc"] for c in full.values()) + packed_counts["packed_d"]["fwd_tc"]
          + sum(paths[p]["fwd_tc"] for p in pipe_tc)
-         + paged_counts["serve_paged_continuous"]["fwd_tc"],
+         + paged_counts["serve_paged_continuous"]["fwd_tc"] + moe_counts["serve_moe"]["fwd_tc"],
          "launches_by_path": by_path("fwd_tc"),
          "merged_in_kernel_by_path": by_path("merged_in_kernel"),
          **{key: tc_rows[0][key] for key in common},
          "edge_grid_max_abs_err": grid_err["tensor_cores"],
          "shapes": (tc_rows + [r["tensor_cores"] for r in extra_fwd]
-                    + [paged_rows["tensor_cores"]])},
+                    + [paged_rows["tensor_cores"], moe_decode_rows["tensor_cores"]])},
         {"name": "flash_attention_partial", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_partial.cu",
          "replaces": "src/repro/kernels/flash_attention.py:260",
@@ -4170,7 +4550,8 @@ def main():
          "fp32_packed_check_shapes_max_abs_err": fp32_packed_err,
          "model_axis_check_shapes_max_abs_err": ma_fwd_err,
          "serve_fp32_check_shapes_max_abs_err": serve_fp32_err,
-         "shapes": cc_rows + [r["cuda_cores"] for r in extra_fwd] + [paged_rows["cuda_cores"]]},
+         "shapes": cc_rows + [r["cuda_cores"] for r in extra_fwd]
+         + [paged_rows["cuda_cores"], moe_decode_rows["cuda_cores"]]},
         # the CUDA-core forward's split-KV merge (decode), launched by the
         # same wrapper call; its output is what the decode shape's check holds
         {"name": "flash_attention_partial_merge", "route": "cuda",
@@ -4216,7 +4597,7 @@ def main():
                **packed_summary, "packed_fp32_check": packed_fp32, "train_configs": config_rows,
                "train_chunks": list(train_cell.sched.lengths), "pipeline": pipe_summary,
                "model_axis": ma_summary, "paged_serve": paged_summary,
-               "serve_ranks": sr_summary,
+               "serve_ranks": sr_summary, "moe": moe_summary,
                "seconds": time.perf_counter() - t_start}
     print("summary:", json.dumps(summary))
     print(card)

@@ -3,8 +3,9 @@
 A copy of ``repro/configs/base.py`` (the JAX package) so the port never
 imports the reference.  The registry holds the dense architectures the port
 runs: ``qwen2-7b``, the paper's ``sppo-gpt`` family, ``glm4-9b`` (partial
-RoPE), ``nemotron-4-15b`` (squared ReLU, LayerNorm) and ``starcoder2-3b``
-(GeLU with MLP bias).
+RoPE), ``nemotron-4-15b`` (squared ReLU, LayerNorm), ``starcoder2-3b``
+(GeLU with MLP bias) and the MoE ``granite-moe-1b-a400m`` (32 experts,
+top-8, a tied embedding).
 """
 from __future__ import annotations
 
@@ -280,5 +281,6 @@ def get_config(name: str) -> ModelConfig:
 def _load_all() -> None:
     import importlib
 
-    for mod in ("qwen2_7b", "sppo_gpt", "glm4_9b", "nemotron_4_15b", "starcoder2_3b"):
+    for mod in ("qwen2_7b", "sppo_gpt", "glm4_9b", "nemotron_4_15b", "starcoder2_3b",
+                "granite_moe_1b_a400m"):
         importlib.import_module(f"repro_torch.configs.{mod}")

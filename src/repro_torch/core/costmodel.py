@@ -19,8 +19,9 @@
   ``optim/adamw.py`` are held to.  The port's moments are fp32 (its bf16
   moments would be deepseek's, not yet a model of the port), so
   ``opt_dtype`` takes "float32" alone;
-- ``count_active_params``, the N of MFU's 6 N T, over a tree of torch
-  tensors or, before any parameter exists, over a ``ModelDef``'s shapes;
+- ``count_active_params``, the N of MFU's 6 N T (an MoE model's routed
+  experts at top_k / num_experts), over a tree of torch tensors or, before
+  any parameter exists, over a ``ModelDef``'s shapes;
 - the solver's and simulator's inputs (DESIGN.md §3, §15): the attention
   FLOPs and backward bytes, ``effective_bwd_ratio``, the 6 N / 2 N
   convention, ``chunk_time_est``, the KV-cache and ring-hop bytes and
@@ -180,13 +181,20 @@ def full_act_bytes_per_token(cfg) -> float:
 
 
 def tagged_bytes_per_token(cfg) -> float:
-    """Per-layer bytes/token of the *tagged* Type-1 set of the port's dense
-    decoders: q, k, v after RoPE, the attention output before ``@ wo`` and
-    the MLP hidden before ``@ w2`` (the tag sites of models/attention.py and
-    models/layers.py), bf16."""
+    """Per-layer bytes/token of the *tagged* Type-1 set: q, k, v after
+    RoPE, the attention output before ``@ wo`` and the MLP hidden before
+    ``@ w2`` (the tag sites of models/attention.py and models/layers.py), or
+    for an MoE layer the routed experts' hidden, priced as top_k x
+    d_ff_expert a token plus the shared experts' (reference
+    ``costmodel.py:145-148``; the tagged tensor itself is the capacity
+    buffers' [E_loc, Ce, ff], models/moe.py), bf16."""
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     attn = H * hd + 2 * Hkv * hd + H * hd         # q, k, v, out
-    return (attn + cfg.d_ff) * ACT_ITEMSIZE
+    if cfg.moe is not None:
+        mlp = (cfg.moe.top_k + cfg.moe.n_shared_experts) * cfg.moe.d_ff_expert
+    else:
+        mlp = cfg.d_ff
+    return (attn + mlp) * ACT_ITEMSIZE
 
 
 def chunk_act_bytes(cfg, lengths, *, batch: int, pp: int, sp: int,
@@ -259,25 +267,51 @@ def count_params(mdef, pp: int = 1) -> int:
     return n_stage + sum(t.numel() for t in tree.leaves(glob))
 
 
-def count_active_params(params, pp: int = 1) -> int:
-    """The N of MFU = 6·N·T for the port's dense models: every parameter of
-    the stage slots and the globals except the embedding table (the
-    reference's ``count_active_params``; the MFU convention counts
-    non-embedding parameters).
+EXPERT_LEAVES = ("w1", "w2", "w3")   # an MoE slot's routed expert stacks
 
-    ``params`` is a parameter tree (its own slots counted), or a
-    ``ModelDef`` whose shapes are counted before any parameter exists
-    (``resolve_cell`` needs N to size the offload ratios) as the
-    reference's ``parallel/specs.py:133-150`` counts them at ``pp`` stages:
-    ``count_params`` less the embedding."""
+
+def _active(total: int, experts: int, cfg) -> int:
+    """``total`` with its routed expert stacks (``experts`` parameters)
+    counted at top_k / num_experts, as the reference rounds it."""
+    if cfg.moe is None:
+        return total
+    frac = cfg.moe.top_k / cfg.moe.num_experts
+    return total - experts + int(experts * frac)
+
+
+def _expert_params(slots) -> int:
+    return sum(slot["moe"][name].numel() for slot in slots if "moe" in slot
+               for name in EXPERT_LEAVES)
+
+
+def count_active_params(params, pp: int = 1, *, cfg=None) -> int:
+    """The N of MFU = 6·N·T: every parameter of the stage slots and the
+    globals except the embedding table (the MFU convention counts
+    non-embedding parameters; a tied table is the embedding), the routed
+    experts at top_k / num_experts of theirs (the reference's
+    ``parallel/specs.py:133-150``).
+
+    ``params`` is a parameter tree (its own slots counted; an MoE tree
+    needs its ``cfg``), or a ``ModelDef`` whose shapes are counted before
+    any parameter exists (``resolve_cell`` needs N to size the offload
+    ratios) as the reference counts them at ``pp`` stages: ``count_params``
+    less the embedding, the padded stage stack's experts scaled."""
     if not isinstance(params, dict):
         glob = params.init_globals(torch.Generator(), device="meta")
         emb = sum(t.numel() for key in ("embed", "pos") if key in glob
                   for t in tree.leaves(glob[key]))
-        return count_params(params, pp) - emb
+        stage = params.init_stage_params(torch.Generator(), device="meta", stage=0, pp=pp)
+        return _active(count_params(params, pp) - emb, pp * _expert_params(stage),
+                       params.cfg)
     subtrees = [params["stages"]] + [sub for key, sub in params["globals"].items()
                                      if key not in ("embed", "pos")]
-    return sum(leaf.numel() for sub in subtrees for leaf in tree.leaves(sub))
+    total = sum(leaf.numel() for sub in subtrees for leaf in tree.leaves(sub))
+    experts = _expert_params(params["stages"])
+    if not experts:
+        return total
+    if cfg is None:
+        raise ValueError("an MoE tree's active count needs its cfg (top_k / num_experts)")
+    return _active(total, experts, cfg)
 
 
 def chunk_time_est(flops: float, bytes_moved: float, hw: Hardware,

@@ -213,7 +213,8 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
     step_fn = make_train_step(cell, lr_kwargs=dict(peak=lr, warmup=20,
                                                    total=max(steps, 100)), ctx=ctx)
     data = SyntheticLM(cfg.vocab_size, seq, batch)
-    n_active = cm.count_active_params(mdef) if world > 1 else cm.count_active_params(params)
+    n_active = (cm.count_active_params(mdef) if world > 1
+                else cm.count_active_params(params, cfg=cfg))
     meter = Meter(tokens_per_step=batch * seq // world, n_active_params=n_active)
     moment_bytes = sum(t.numel() * t.element_size()
                        for t in tree.leaves([opt_state.m, opt_state.v]))

@@ -17,7 +17,10 @@ say) back to full leaves.
 The caller passes float32 arrays: ``np.asarray`` of a JAX bf16 array is an
 ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` refuses.  The cast to
 the model dtype happens here, on the torch side, and is exact for values
-that came from bf16.  The slot gate stays float32, as in the reference.
+that came from bf16.  The slot gate and an MoE router stay float32, as in
+the reference.  An MoE slot's expert stacks are sharded on their expert
+dim at sp > 1 (their "keep0" markers); a tied embedding's globals have no
+head.
 """
 from __future__ import annotations
 
@@ -30,11 +33,16 @@ from repro_torch.models.model_zoo import (build_model, ghost_slot, marker_dim, p
                                          shard_params)
 
 
+# leaves the reference keeps in fp32 whatever the model dtype: the slot
+# gate and an MoE slot's router (``model_zoo._moe``)
+FP32_LEAVES = ("gate", "router")
+
+
 def _tensor(a, name: str, dtype, device):
     a = np.asarray(a)
     if a.dtype != np.float32:
         raise TypeError(f"{name}: expected a float32 array, got {a.dtype}")
-    dt = torch.float32 if name.endswith("gate") else dtype
+    dt = torch.float32 if name.endswith(FP32_LEAVES) else dtype
     # np.array copies: JAX hands out read-only buffers
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dt)
 

@@ -1,4 +1,5 @@
-"""Parameter init and ModelDef for the dense family (port of ``repro/models/model_zoo.py``).
+"""Parameter init and ModelDef for the dense and MoE families (port of
+``repro/models/model_zoo.py``).
 
 Parameters are plain dicts of tensors in the reference's names and layouts
 (weights ``[in, out]``).  The stage is a list with one dict per slot; the
@@ -15,12 +16,19 @@ Shard-dim markers (the reference's, leaves of a tree mirroring the params):
 - int d: "ag", stored sharded on dim d over the model axis, all-gathered
   at each use (``transformer.gather_params``);
 - ``"keepN"``: stored and used sharded on dim N (the embedding table on
-  the vocab, the head's vocab columns);
+  the vocab, the head's vocab columns, an MoE slot's expert stacks on the
+  expert dim: expert parallelism, never gathered);
 - ``"rep"``: replicated over the model axis; each model rank's gradient is
   its own shard's, summed over the model group by the runner.
 
 The markers describe one slot's (or one global leaf's) layout; a model
 rank holds slice ``rank`` of ``sp`` of every marked dim (``shard_params``).
+
+An MoE slot (granite) is a GQA layer whose MLP is ``models/moe.py``'s
+block: the router fp32 and replicated, the expert stacks [E, d, ff] /
+[E, ff, d], and, for deepseek's shared experts, "ag" leaves like an MLP's.
+A tied embedding (``cfg.tie_embeddings``) has no head leaf: the head is
+the table transposed, at sp > 1 the rank's vocab rows.
 """
 from __future__ import annotations
 
@@ -86,6 +94,21 @@ def _mlp(gen, cfg, dtype, device, out_scale=1.0):
     return p
 
 
+def _moe(gen, cfg, dtype, device, out_scale=1.0):
+    m, d = cfg.moe, cfg.d_model
+    E, ff = m.num_experts, m.d_ff_expert
+    p = {"router": dense_init(gen, d, E, torch.float32, device),
+         "w1": trunc_normal(gen, (E, d, ff), 1 / math.sqrt(d), dtype, device),
+         "w3": trunc_normal(gen, (E, d, ff), 1 / math.sqrt(d), dtype, device),
+         "w2": trunc_normal(gen, (E, ff, d), out_scale / math.sqrt(ff), dtype, device)}
+    if m.n_shared_experts:
+        sf = ff * m.n_shared_experts
+        p["ws1"] = dense_init(gen, d, sf, dtype, device)
+        p["ws3"] = dense_init(gen, d, sf, dtype, device)
+        p["ws2"] = dense_init(gen, sf, d, dtype, device, std=out_scale / math.sqrt(sf))
+    return p
+
+
 def keep(d: int) -> str:
     return f"keep{d}"
 
@@ -112,16 +135,27 @@ def _mlp_spec(cfg):
     return s
 
 
+def _moe_spec(cfg):
+    s = {"router": "rep", "w1": keep(0), "w3": keep(0), "w2": keep(0)}
+    if cfg.moe.n_shared_experts:
+        s.update({"ws1": 1, "ws3": 1, "ws2": 0})
+    return s
+
+
 def slot_spec(cfg: ModelConfig):
-    """The markers of one dense slot (reference ``slot_spec``)."""
+    """The markers of one slot (reference ``slot_spec``)."""
+    ffn = {"moe": _moe_spec(cfg)} if cfg.family == "moe" else {"mlp": _mlp_spec(cfg)}
     return {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg), "attn": _attn_spec(cfg),
-            "mlp": _mlp_spec(cfg), "gate": "rep"}
+            **ffn, "gate": "rep"}
 
 
 def globals_spec(cfg: ModelConfig):
-    """The globals' markers (reference ``globals_spec``, untied head)."""
-    return {"embed": {"table": keep(0)}, "final_norm": _norm_spec(cfg),
-            "head": {"w": keep(1)}}
+    """The globals' markers (reference ``globals_spec``): no head where the
+    embedding is tied."""
+    g = {"embed": {"table": keep(0)}, "final_norm": _norm_spec(cfg)}
+    if not cfg.tie_embeddings:
+        g["head"] = {"w": keep(1)}
+    return g
 
 
 def marker_dim(marker):
@@ -172,12 +206,15 @@ def _out_scale(cfg):
 
 
 def init_slot(cfg: ModelConfig, gen, dtype, device):
-    """One dense slot's params, gate 1 (a real layer; ``ghost_slot`` pads a
-    pipeline stage)."""
+    """One slot's params by family (a dense layer, or an MoE layer: GQA and
+    the expert block), gate 1 (a real layer; ``ghost_slot`` pads a pipeline
+    stage)."""
     os_ = _out_scale(cfg)
+    attn = _attn(gen, cfg, dtype, device, os_)
+    ffn = ({"moe": _moe(gen, cfg, dtype, device, out_scale=os_)} if cfg.family == "moe"
+           else {"mlp": _mlp(gen, cfg, dtype, device, out_scale=os_)})
     return {"ln1": _norm(cfg, dtype, device), "ln2": _norm(cfg, dtype, device),
-            "attn": _attn(gen, cfg, dtype, device, os_),
-            "mlp": _mlp(gen, cfg, dtype, device, out_scale=os_),
+            "attn": attn, **ffn,
             "gate": torch.tensor(1.0, dtype=torch.float32, device=device)}
 
 
@@ -196,12 +233,11 @@ def ghost_slot(cfg: ModelConfig, dtype, device):
 def init_globals(cfg: ModelConfig, gen, dtype, device):
     d = cfg.d_model
     vp = L.pad_vocab(cfg.vocab_size, 2048)
-    return {
-        "embed": {"table": trunc_normal(gen, (vp, d), 0.02, dtype, device)},
-        "final_norm": _norm(cfg, dtype, device),
-        "head": {"w": trunc_normal(gen, (d, vp), 1 / math.sqrt(d), dtype,
-                                   device)},
-    }
+    g = {"embed": {"table": trunc_normal(gen, (vp, d), 0.02, dtype, device)},
+         "final_norm": _norm(cfg, dtype, device)}
+    if not cfg.tie_embeddings:
+        g["head"] = {"w": trunc_normal(gen, (d, vp), 1 / math.sqrt(d), dtype, device)}
+    return g
 
 
 @dataclass(frozen=True)
@@ -261,13 +297,18 @@ class ModelDef:
         rows = F.embedding((ids - lo).clamp(0, vloc - 1), table)
         return ctx.psum_model(torch.where(hit, rows, 0).to(table.dtype))
 
+    def head(self, g):
+        """The head [d, Vp / sp]: its own leaf, or the tied table
+        transposed (at sp > 1 this rank's vocab rows of it)."""
+        return g["embed"]["table"].T if self.cfg.tie_embeddings else g["head"]["w"]
+
     def head_loss(self, g, x, labels, mask, ctx=SINGLE):
         """(sum of token losses, sum of weights) of one chunk: the final
         norm on this rank's sequence shard x, then the fp32 vocab-parallel
         cross entropy over the real vocab, labels and mask the chunk's
         ([B, T]); the same sums on every model rank."""
         x = L.apply_norm(x, g["final_norm"], self.cfg.norm)
-        return L.vocab_parallel_xent(x, g["head"]["w"], labels, mask, ctx,
+        return L.vocab_parallel_xent(x, self.head(g), labels, mask, ctx,
                                      real_vocab=self.cfg.vocab_size)
 
     def head_logits(self, g, x, ctx=SINGLE):
@@ -276,13 +317,14 @@ class ModelDef:
         (reference ``model_zoo.py:510-517``).  x: [B, T, d], every model
         rank's alike."""
         x = L.apply_norm(x, g["final_norm"], self.cfg.norm)
-        logits = ctx.all_gather_model((x @ g["head"]["w"]).float(), axis=x.dim() - 1)
+        logits = ctx.all_gather_model((x @ self.head(g)).float(), axis=x.dim() - 1)
         return logits[..., :self.cfg.vocab_size]
 
     def init_state(self, batch: int, cache_loc: int, dtype, device, *,
                    train: bool = False, n_slots=None):
         """One cache per slot: the model's (``n_slots`` None) or a pipeline
-        stage's ``n_slots``."""
+        stage's ``n_slots``; an MoE slot's is the dense KV cache
+        (reference ``init_slot_state``)."""
         cfg = self.cfg
         return [{"kv": A.init_cache(batch, cache_loc, cfg.n_kv_heads, cfg.hd,
                                     cfg.hd, dtype, device, train=train)}
@@ -300,8 +342,10 @@ class ModelDef:
 
     def stage_apply(self, stage_params, state, x, meta, *, remat="none",
                     offload=None):
-        """The stack on one chunk; at sp > 1 (``meta.ctx``) each slot's "ag"
-        leaves are gathered at use (``transformer.gather_params``)."""
+        """The stack on one chunk: (x, state, aux), aux the slots' summed
+        MoE balance loss (0.0 for a dense stack); at sp > 1 (``meta.ctx``)
+        each slot's "ag" leaves are gathered at use
+        (``transformer.gather_params``)."""
         if meta.ctx is not None and meta.ctx.sp > 1 and meta.spec is None:
             meta = meta._replace(spec=self.stage_spec())
         return T.stage_apply(self.cfg, stage_params, state, x, meta,
@@ -311,9 +355,9 @@ class ModelDef:
 def build_model(name_or_cfg) -> ModelDef:
     cfg = (name_or_cfg if isinstance(name_or_cfg, ModelConfig)
            else get_config(name_or_cfg))
-    if (cfg.family != "dense" or cfg.pos_emb != "rope" or cfg.tie_embeddings
-            or not cfg.rope):
+    if (cfg.family not in ("dense", "moe") or cfg.mla is not None
+            or cfg.pos_emb != "rope" or not cfg.rope):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense decoders with RoPE and an untied "
-            "head; other families come with later slices")
+            f"{cfg.name}: the port runs dense and GQA MoE decoders with RoPE, "
+            "tied or untied; MLA and the other families come with later slices")
     return ModelDef(cfg, cfg.n_layers)

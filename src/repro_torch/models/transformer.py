@@ -1,6 +1,10 @@
-"""Dense slot program and the stage engine (port of ``repro/models/transformer.py``).
+"""Slot programs and the stage engine (port of ``repro/models/transformer.py``).
 
-A model is a sequence of uniform slots (one dense layer each here).  The
+A model is a sequence of uniform slots (one layer each here: a dense
+layer, or an MoE layer whose MLP is ``models/moe.py``'s expert block).
+Each slot returns its MoE balance loss beside its output (0.0 for a dense
+slot, the block's aux times the gate for an MoE slot), and the stack sums
+them (the reference's ``aux`` scan output).  The
 reference scans the slots under SPPO's checkpoint policy
 (``core/offload.py::checkpoint_block``); the port runs them as a loop under
 one of three remat policies (DESIGN.md §10, §12):
@@ -15,7 +19,9 @@ one of three remat policies (DESIGN.md §10, §12):
   and differentiates the replay: q, k and v are not recomputed; the
   attention output and the MLP hidden are, since their producers' backward
   needs the attention's (o, l) and the MLP's gate and up projections, and
-  the saved rows take their place;
+  the saved rows take their place (an MoE slot's tagged hidden is its
+  experts' [E_loc, Ce, ff], split along its capacity rows; the replay
+  routes the same rows again, so it reaches the same experts);
 - "full": the same seam with nothing saved but the chunk's input and K/V:
   the backward recomputes everything.
 
@@ -39,6 +45,7 @@ from repro_torch.core import offload as ofl
 from repro_torch.core import tree
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_block
 from repro_torch.parallel.ctx import SINGLE
 
 
@@ -85,25 +92,57 @@ def gather_params(p_slot, spec, ctx):
                      p_slot, spec)
 
 
-def dense_slot(cfg, p, s, x, meta: ChunkMeta):
-    p = gather_params(p, meta.spec, meta.ctx)
-    h = L.apply_norm(x, p["ln1"], cfg.norm)
+def _attention(cfg, p, s, h, meta: ChunkMeta):
+    """The slot's GQA attention of h (prefill / train chunk, decode or
+    paged decode): (output, the slot's new cache)."""
     ctx = meta.ctx or SINGLE
     if meta.paged is not None:
-        a, kv = A.gqa_paged_decode_attention(h, p["attn"], cfg, s["kv"], meta.paged,
-                                             meta.rope, ctx=ctx)
-    elif meta.decode:
-        a, kv = A.gqa_decode_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
-                                       meta.cache_off, meta.rope, ctx=ctx)
-    else:
-        a, kv = A.gqa_self_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
-                                     meta.cache_off, meta.kv_view, meta.rope,
-                                     name_tag=meta.tag, q_start=meta.q_start, ctx=ctx)
+        return A.gqa_paged_decode_attention(h, p["attn"], cfg, s["kv"], meta.paged,
+                                            meta.rope, ctx=ctx)
+    if meta.decode:
+        return A.gqa_decode_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
+                                      meta.cache_off, meta.rope, ctx=ctx)
+    return A.gqa_self_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
+                                meta.cache_off, meta.kv_view, meta.rope,
+                                name_tag=meta.tag, q_start=meta.q_start, ctx=ctx)
+
+
+def dense_slot(cfg, p, s, x, meta: ChunkMeta):
+    """A dense layer: (x, state, aux = 0.0)."""
+    p = gather_params(p, meta.spec, meta.ctx)
+    h = L.apply_norm(x, p["ln1"], cfg.norm)
+    a, kv = _attention(cfg, p, s, h, meta)
     x = _res(x, a, p["gate"])
     h2 = L.apply_norm(x, p["ln2"], cfg.norm)
     m = L.mlp(h2, p["mlp"], cfg.act, name_tag=meta.tag)
     x = _res(x, m, p["gate"])
-    return x, {"kv": kv}
+    return x, {"kv": kv}, 0.0
+
+
+def moe_slot(cfg, p, s, x, meta: ChunkMeta):
+    """An MoE layer (reference ``transformer.py:88-108``, GQA): attention,
+    then the expert block on the rank's rows; (x, state, aux x gate)."""
+    p = gather_params(p, meta.spec, meta.ctx)
+    h = L.apply_norm(x, p["ln1"], cfg.norm)
+    a, kv = _attention(cfg, p, s, h, meta)
+    x = _res(x, a, p["gate"])
+    h2 = L.apply_norm(x, p["ln2"], cfg.norm)
+    m, aux = moe_block(h2, p["moe"], cfg, meta.ctx or SINGLE, name_tag=meta.tag)
+    x = _res(x, m, p["gate"])
+    return x, {"kv": kv}, aux * p["gate"]
+
+
+SLOT_FNS = {"dense": dense_slot, "moe": moe_slot}
+
+
+def _slots(cfg, stage_params, state, x, meta: ChunkMeta):
+    """Every slot of the stack in turn, the caches updated in place;
+    returns (x, the slots' summed aux)."""
+    slot, aux = SLOT_FNS[cfg.family], 0.0
+    for i, (p, s) in enumerate(zip(stage_params, state)):
+        x, state[i], a = slot(cfg, p, s, x, meta)
+        aux = aux + a
+    return x, aux
 
 
 REMATS = ("none", "sppo", "full")
@@ -113,7 +152,8 @@ def stage_apply(cfg, stage_params, state, x, meta: ChunkMeta, *,
                 remat: str = "none", offload: Optional[ofl.ChunkOffload] = None):
     """Run a stack of slots on one chunk.  ``stage_params`` and ``state`` are
     lists with one entry per slot; the caches are updated in place.
-    Returns (x, state).
+    Returns (x, state, aux): aux the slots' summed MoE balance loss, 0.0
+    for a dense stack.
 
     Under remat "sppo" or "full", where a gradient is wanted, the stack runs
     through the chunk seam (``_StageSeam``); ``offload`` says how the sppo
@@ -126,9 +166,8 @@ def stage_apply(cfg, stage_params, state, x, meta: ChunkMeta, *,
         raise ValueError(f"offload needs remat 'sppo' (got {remat!r}): it moves the "
                          "tagged rows that policy saves")
     if remat == "none" or not torch.is_grad_enabled():
-        for i, (p, s) in enumerate(zip(stage_params, state)):
-            x, state[i] = dense_slot(cfg, p, s, x, meta)
-        return x, state
+        x, aux = _slots(cfg, stage_params, state, x, meta)
+        return x, state, aux
     if any(s["kv"].chunks is None for s in state):
         raise ValueError("the chunk seam needs training caches (init_state(train=True))")
     # the seam's inputs are the chunks before this one (a re-run chunk
@@ -140,12 +179,14 @@ def stage_apply(cfg, stage_params, state, x, meta: ChunkMeta, *,
     run = _SeamRun(cfg, stage_params, state, meta, remat, offload)
     params = tree.leaves(stage_params)
     prev = [t for s in state for kv in s["kv"].chunks for t in kv]
-    y, *kvs = _StageSeam.apply(run, x, *params, *prev)
+    y, *outs = _StageSeam.apply(run, x, *params, *prev)
+    # an MoE stack's aux is the seam's last output
+    aux = outs.pop() if cfg.family == "moe" else 0.0
     # the chunk's own K/V, as the seam's outputs: later chunks' attention
     # sends their gradients back through them
-    for s, k, v in zip(state, kvs[0::2], kvs[1::2]):
+    for s, k, v in zip(state, outs[0::2], outs[1::2]):
         s["kv"].chunks[-1] = (k, v)
-    return y, state
+    return y, state, aux
 
 
 def stage_apply_capture(cfg, stage_params, state, x, meta: ChunkMeta,
@@ -153,29 +194,28 @@ def stage_apply_capture(cfg, stage_params, state, x, meta: ChunkMeta,
     """The sppo seam's forward (no graph): the stack with the capture tag.
     After each slot, its off rows go to ``send`` (a D2H each) and its keep
     rows are kept, copied down to their own elements.  Returns (x, keep
-    rows in traversal order)."""
-    keep = []
+    rows in traversal order, aux)."""
+    keep, aux, slot = [], 0.0, SLOT_FNS[cfg.family]
     for i, (p, s) in enumerate(zip(stage_params, state)):
         collector = []
         meta_c = meta._replace(tag=ofl.CaptureTag(alpha, collector))
-        x, state[i] = dense_slot(cfg, p, s, x, meta_c)
+        x, state[i], a = slot(cfg, p, s, x, meta_c)
+        aux = aux + a
         for kind, t in collector:
             if kind == "off":
                 send(t)
             else:
                 keep.append(ofl.compact(t))
-    return x, keep
+    return x, keep, aux
 
 
 def stage_apply_inject(cfg, stage_params, state, x, meta: ChunkMeta,
                        alpha: float, off_acts, keep_acts):
     """The sppo seam's backward replay: the stack with the inject tag, which
     hands out the reloaded off rows and the kept rows in traversal order in
-    place of the tagged tensors.  Returns x."""
+    place of the tagged tensors.  Returns (x, aux)."""
     meta_i = meta._replace(tag=ofl.InjectTag(alpha, off_acts, keep_acts))
-    for i, (p, s) in enumerate(zip(stage_params, state)):
-        x, state[i] = dense_slot(cfg, p, s, x, meta_i)
-    return x
+    return _slots(cfg, stage_params, state, x, meta_i)
 
 
 class _SeamRun(NamedTuple):
@@ -194,8 +234,9 @@ class _StageSeam(torch.autograd.Function):
 
     ``apply(run, x, *params, *prev)``: ``params`` are the stage's parameter
     leaves, ``prev`` the K/V of every earlier chunk, layer by layer (the
-    seam outputs of those chunks).  Returns (y, k_0, v_0, ..., k_L, v_L):
-    the chunk's output and its own K/V of every layer.
+    seam outputs of those chunks).  Returns (y, k_0, v_0, ..., k_L, v_L),
+    and for an MoE stack its summed aux last: the chunk's output and its
+    own K/V of every layer.
 
     Forward: the stack without a graph, writing the chunk's K/V into the
     caches.  Under "sppo" the capture tag keeps each tagged tensor's keep
@@ -221,16 +262,15 @@ class _StageSeam(torch.autograd.Function):
         if run.remat == "sppo":
             if off.link is None and ofl.split_rows(x.shape[1], off.alpha) > 0:
                 raise ValueError("a chunk that offloads rows needs a link to send them")
-            y, keep = stage_apply_capture(
+            y, keep, aux = stage_apply_capture(
                 run.cfg, stage_p, run.state, x, run.meta, off.alpha, off.send)
         else:
-            y, keep = x, []
-            for i, (p, s) in enumerate(zip(stage_p, run.state)):
-                y, run.state[i] = dense_slot(run.cfg, p, s, y, run.meta)
+            keep = []
+            y, aux = _slots(run.cfg, stage_p, run.state, x, run.meta)
         ctx.save_for_backward(x, *inputs)
         ctx.run, ctx.keep, ctx.n_params = run, keep, n_params
         kvs = [t.clone() for s in run.state for t in s["kv"].chunks[-1]]
-        return (y, *kvs)
+        return (y, *kvs, aux) if run.cfg.family == "moe" else (y, *kvs)
 
     @staticmethod
     def backward(ctx, dy, *dkvs):
@@ -255,14 +295,14 @@ class _StageSeam(torch.autograd.Function):
             for s in run.state:
                 s["kv"].chunks[:] = [(next(prev), next(prev)) for _ in range(n_prev)]
             if run.remat == "sppo":
-                y = stage_apply_inject(run.cfg, stage_p, run.state, xl, run.meta,
-                                       off.alpha, staged, keep)
+                y, aux = stage_apply_inject(run.cfg, stage_p, run.state, xl, run.meta,
+                                            off.alpha, staged, keep)
             else:
-                y = xl
-                for i, (p, s) in enumerate(zip(stage_p, run.state)):
-                    y, run.state[i] = dense_slot(run.cfg, p, s, y, run.meta)
+                y, aux = _slots(run.cfg, stage_p, run.state, xl, run.meta)
             del staged, keep
             kvs = [t for s in run.state for t in s["kv"].chunks[-1]]
+            if run.cfg.family == "moe":
+                kvs.append(aux)
             outs = [(o, g) for o, g in zip((y, *kvs), (dy, *dkvs)) if g is not None]
             wrt = [t for t in leaves if t.requires_grad]
             grads = iter(torch.autograd.grad([o for o, _ in outs], wrt,

@@ -46,8 +46,10 @@ reduce-scatters in bf16 (the reference's ``_ag_bf16_grad``).
 sends each rank's tensors along a permutation of the model group, one
 ``batch_isend_irecv``; its backward sends the cotangents along the inverse
 permutation (no sp factor: the loss every rank holds is the global one).
-``all_to_all_model`` (expert parallelism, ROADMAP Queue 1 item 7) is
-refused.  The pod axis carries ZeRO-1's gather of the updated parameter
+``all_to_all_model`` (expert parallelism, ``models/moe.py``) cuts a
+tensor into sp parts, sends part j to rank j and concatenates what comes
+in; its backward sends the cotangent's parts back the same way.  The pod
+axis carries ZeRO-1's gather of the updated parameter
 slices (``all_gather_pod``).  ``SINGLE`` is the one-device context: every
 reduction is the identity.
 
@@ -63,10 +65,11 @@ the seconds of the hand-offs' staging copies among them, its all-reduces'
 bytes (``reduce_*`` over the data axis, ``model_reduce_*`` the replicated
 leaves' gradients over the model group), the globals' bytes it sent to
 other stages (``bcast_bytes``), and, per model collective (``model_all_gather``,
-``model_reduce_scatter``, ``model_psum``, ``model_pmax``), its calls, the
-bytes this rank put in (its shard for a gather, the whole tensor for the
-others, what it sent for a permutation) and its seconds, staging
-included; ``model_ppermute`` counts forward and backward alike,
+``model_reduce_scatter``, ``model_psum``, ``model_pmax``,
+``model_all_to_all``), its calls, the bytes this rank put in (its shard
+for a gather, the whole tensor for the others, what it sent for a
+permutation) and its seconds, staging included; ``model_ppermute`` and
+``model_all_to_all`` count forward and backward alike,
 ``pod_all_gather`` the ZeRO-1 gathers the same way, and
 ``data_all_gather`` serving's gather of the decoded tokens over the data
 axis (``all_gather_data``).
@@ -81,7 +84,7 @@ import torch
 
 BACKENDS = ("gloo", "nccl")
 MODEL_COLLECTIVES = ("model_all_gather", "model_reduce_scatter", "model_psum", "model_pmax",
-                     "model_ppermute")
+                     "model_ppermute", "model_all_to_all")
 # the plan's attention schedules at sp > 1 (models/attention.py)
 ATTN_MODES = ("gather_q", "gather_kv", "auto", "ring", "local")
 
@@ -367,6 +370,16 @@ class Ctx:
             self._all_reduce([x], self._data_group)
         return x
 
+    def psum_all(self, x: torch.Tensor) -> torch.Tensor:
+        """A scalar summed over every rank: the data axis, the pods and the
+        model axis (a new tensor, no gradient), for a value each rank
+        computed over its own rows alone (the MoE balance loss, the
+        reference's ``psum_loss_all`` of it)."""
+        x = x.detach().clone()
+        if self.distributed:
+            self._all_reduce([x], None)
+        return x
+
     def psum_stages(self, tensors) -> None:
         """In place: a sum over the pipeline stages of this rank's dp group
         at its model index (the reference replicates the last stage's
@@ -582,10 +595,43 @@ class Ctx:
             self._counts["pod_all_gather_bytes"] += flat.numel() * flat.element_size()
         self._counts["pod_all_gather_s"] += time.perf_counter() - t_start
 
-    def all_to_all_model(self, x, split_axis: int, concat_axis: int):
+    def all_to_all_model(self, x: torch.Tensor, split_axis: int, concat_axis: int):
+        """The tiled all-to-all of expert parallelism (the reference's
+        ``jax.lax.all_to_all(..., tiled=True)``): ``x`` is cut into sp
+        equal parts along ``split_axis``, part j goes to model rank j, and
+        the parts received are concatenated along ``concat_axis`` in source
+        order.  Differentiable in a floating ``x`` (``_AllToAll``: the
+        backward is the all-to-all with the axes swapped); an integer ``x``
+        (the expert ids) passes without a gradient.  Staged through pinned
+        host memory under gloo with CUDA tensors, counted as
+        ``model_all_to_all`` (calls, the bytes this rank put in, seconds)."""
         if self.sp == 1:
             return x
-        raise _later("all_to_all_model (expert parallelism)", 7)
+        if not x.is_floating_point():
+            return self._all_to_all(x, split_axis, concat_axis)
+        return _AllToAll.apply(self, split_axis, concat_axis, x)
+
+    def _all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int):
+        import torch.distributed as dist
+
+        sp = self.sp
+        if x.shape[split_axis] % sp:
+            raise ValueError(f"all-to-all of {x.shape[split_axis]} rows over {sp} ranks")
+        t_start = time.perf_counter()
+        parts = x.movedim(split_axis, 0)
+        inp = parts.reshape(sp, parts.shape[0] // sp, *parts.shape[1:]).contiguous()
+        staged = self._staged()
+        if staged:
+            inp = torch.empty(inp.shape, dtype=inp.dtype, pin_memory=True).copy_(inp)
+        out = torch.empty_like(inp)
+        dist.all_to_all_single(out, inp, group=self._model_group)
+        if staged:
+            out = out.to(self.device)
+        self._counts["model_all_to_all_calls"] += 1
+        self._counts["model_all_to_all_bytes"] += inp.numel() * inp.element_size()
+        self._counts["model_all_to_all_s"] += time.perf_counter() - t_start
+        return torch.cat([piece.movedim(0, split_axis) for piece in out.unbind(0)],
+                         dim=concat_axis)
 
     # ----- point to point ---------------------------------------------------
     def _p2p(self, sends, to, recv_likes, frm, *, tag: int = 0, pending=None):
@@ -736,6 +782,23 @@ class _Permute(torch.autograd.Function):
         for i, g in zip(flo, back):
             grads[i] = g
         return (None, None, None, *grads)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``apply(ctx, split_axis, concat_axis, x)``: the tiled all-to-all
+    over the model group; backward, the all-to-all of the cotangent with
+    the axes swapped (its transpose: the parts go back to where they came
+    from)."""
+
+    @staticmethod
+    def forward(fctx, ctx: Ctx, split_axis: int, concat_axis: int, x):
+        fctx.ctx, fctx.axes = ctx, (split_axis, concat_axis)
+        return ctx._all_to_all(x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(fctx, g):
+        split_axis, concat_axis = fctx.axes
+        return None, None, None, fctx.ctx._all_to_all(g, concat_axis, split_axis)
 
 
 class _PsumReplicated(torch.autograd.Function):

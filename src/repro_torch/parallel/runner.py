@@ -405,7 +405,8 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
     sentinel: a negative label carries zero weight), and the caches keep
     every chunk's K/V for the backward; where a gradient is wanted, each
     chunk's stack runs through its seam under the plan's remat policy and
-    offload.  Returns dict(loss, denom, state, last_x, link, seed);
+    offload.  Returns dict(loss, denom, aux, state, last_x, link, seed);
+    aux is the chunks' summed MoE balance loss (0.0 for a dense model);
     loss and denom are None without ``with_loss``, link (the step's host
     rows, ``core/offload.py::Link``) None where nothing offloads; ``seed``
     (the first hand-off token) None at pp = 1 (``_run_ticks``)."""
@@ -420,6 +421,7 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
     ahead = use_ahead_prefetch(plan, train=train)
     link = ofl.Link(ahead=ahead) if train and plan.offload else None
     loss = denom = x = None
+    aux = 0.0
     for c, (off, ln) in enumerate(zip(cell.sched.offsets, cell.sched.lengths)):
         x = mdef.embed(g, tokens[:, off:off + ln], ctx)
         meta = _chunk_meta(cell, ctx, off, ln, doc_start, dev, cache_off=off // plan.sp,
@@ -428,10 +430,11 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
             # the chunk's seam (the reference's prefetch_chunk): its backward
             # takes the chunk's reloaded rows from the link and, under
             # "ahead", first issues the reload of the chunk before it
-            x, state = mdef.stage_apply(stage_p, state, x, meta, remat=plan.remat,
-                                        offload=chunk_tag(cell, c, link))
+            x, state, a = mdef.stage_apply(stage_p, state, x, meta, remat=plan.remat,
+                                           offload=chunk_tag(cell, c, link))
         else:
-            x, state = mdef.stage_apply(stage_p, state, x, meta)
+            x, state, a = mdef.stage_apply(stage_p, state, x, meta)
+        aux = aux + a
         if with_loss:
             lab = labels[:, off:off + ln]
             ls, cnt = mdef.head_loss(g, x, lab, (lab >= 0).float(), ctx)
@@ -439,7 +442,7 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
             denom = cnt if denom is None else denom + cnt
     if ahead:
         loss = link_drain(loss, link, cell.sched.n - 1)
-    return dict(loss=loss, denom=denom, state=state, last_x=x, link=link, seed=None)
+    return dict(loss=loss, denom=denom, aux=aux, state=state, last_x=x, link=link, seed=None)
 
 
 def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: bool,
@@ -470,7 +473,9 @@ def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: b
     drain-tick fix) done by not running, and posts no transfer there either,
     since its peer's matching tick is idle too; the reference's ``kv_view``
     is the fed chunk's end on every stage (PAD slots hide the rest), the
-    port's the stage's own chunk end.  Each rank runs its own backward:
+    port's the stage's own chunk end.  An MoE stack's aux is scaled by
+    1 / n_sub on each sub-event, so that each chunk counts once
+    (reference ``runner.py:578-580``).  Each rank runs its own backward:
     every hand-off takes the previous one's token, and the loss takes the
     last (``attach_token``), so each rank's backward meets every hand-off
     its peers post, in tick order.  ``seed``, the first token, is a leaf
@@ -496,6 +501,7 @@ def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: b
     token, carry, x_last = seed, None, None
     emb = emb_chunk = None
     loss = denom = None
+    aux = 0.0
     carry_like = ((B, lloc, cfg.d_model), cell.dtype)
     pos_in = torch.arange(clen, device=dev)
     for t in range(E + pp - 1):
@@ -511,11 +517,12 @@ def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: b
                                kv_view=(c + 1) * lloc)
             if train:
                 fed = events[min(t, E - 1)][0]
-                x, state = mdef.stage_apply(
+                x, state, a = mdef.stage_apply(
                     stage_p, state, h, meta, remat=plan.remat,
                     offload=chunk_tag(cell, c, link, alpha=cell.alphas[fed], event=e))
             else:
-                x, state = mdef.stage_apply(stage_p, state, h, meta)
+                x, state, a = mdef.stage_apply(stage_p, state, h, meta)
+            aux = aux + a * (1.0 / n_sub)
             x_last = x
             if with_loss and stage == pp - 1:
                 lab = labels[:, off:off + clen]
@@ -537,7 +544,7 @@ def _run_ticks(cell: Cell, ctx: Ctx, stage_p, g, tokens, labels, *, with_loss: b
             loss = attach_token(loss, token)
             if ahead:
                 loss = link_drain(loss, link, E - 1)
-    return dict(loss=loss, denom=denom, state=state, last_x=x_last, link=link,
+    return dict(loss=loss, denom=denom, aux=aux, state=state, last_x=x_last, link=link,
                 seed=seed if train else None)
 
 
@@ -594,6 +601,11 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
     loss (the module docstring says where this departs from the
     reference).
 
+    An MoE model adds ``0.01 · aux / (data_size · pods · sp · n_chunks ·
+    n_slots)`` (reference ``runner.py:676-681``), aux each rank's chunks'
+    balance loss over its own rows, summed over every rank
+    (``Ctx.psum_all``) for the value; each rank differentiates its own.
+
     With ``plan.grad_accum = A > 1`` the batch is cut into A microbatches of
     B / A rows, each run forward and backward on its own; the loss and the
     gradients are the means over them, the gradients summed in fp32, as in
@@ -618,6 +630,12 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
                 loss = out["loss"] / den
             else:
                 loss = value = out["loss"] / out["denom"].clamp_min(1.0)
+            if cell.cfg.moe is not None:
+                scale = 0.01 / (cell.data_size * cell.pods * cell.plan.sp * cell.sched.n
+                                * max(1, cell.mdef.n_slots))
+                aux = torch.as_tensor(out["aux"], dtype=torch.float32, device=tok.device)
+                loss = loss + scale * aux
+                value = value + scale * ctx.psum_all(aux)
             # the first hand-off token is differentiated too: no hand-off is
             # pruned from this rank's backward (``_run_ticks``)
             extra = [] if out["seed"] is None else [out["seed"]]
@@ -798,7 +816,7 @@ def make_serve_step(cell: Cell, *, decode_steps=None, ctx: Ctx = SINGLE):
         if plan.pp > 1:
             return state, _decode_ticks(cell, ctx, params["stages"], g, state, tokens, meta)
         x = mdef.embed(g, tokens, ctx, decode=True)
-        x, state = mdef.stage_apply(params["stages"], state, x, meta)
+        x, state, _ = mdef.stage_apply(params["stages"], state, x, meta)
         return state, mdef.head_logits(g, x, ctx).argmax(dim=-1).to(torch.int32)
 
     return serve_step
@@ -839,7 +857,7 @@ def _decode_ticks(cell: Cell, ctx: Ctx, stage_p, g, state, tokens, meta):
             h = mdef.embed(g, tokens[rows], ctx, decode=True) if stage == 0 else carry
             state_m = [{"kv": s["kv"]._replace(k=s["kv"].k[rows], v=s["kv"].v[rows])}
                        for s in state]
-            x, _ = mdef.stage_apply(stage_p, state_m, h, meta)
+            x, _, _ = mdef.stage_apply(stage_p, state_m, h, meta)
             if stage == pp - 1:
                 nxt[rows] = mdef.head_logits(g, x, ctx).argmax(dim=-1).to(torch.int32)
         send = x if stage < pp - 1 else None
@@ -952,7 +970,7 @@ def make_pool_serve_step(cell: Cell, geo, pos_map, *, ctx: Ctx = SINGLE, device=
         meta = ChunkMeta(q_pos=rows, cache_off=None, kv_view=None, rope=_rope(cfg, rows),
                          decode=True, paged=paged, ctx=ctx if geo.sp > 1 else None)
         x = mdef.embed(g, tokens, ctx, decode=True)
-        x, pool = mdef.stage_apply(params["stages"], pool, x, meta)
+        x, pool, _ = mdef.stage_apply(params["stages"], pool, x, meta)
         return pool, mdef.head_logits(g, x, ctx).argmax(dim=-1).to(torch.int32)
 
     return pool_step

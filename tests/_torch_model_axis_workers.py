@@ -60,11 +60,18 @@ def collectives_rank(rank, device, data):
     comp.all_gather_param(shard, 1).backward(g)
     out["all_gather_param_bf16_grad"] = _np(shard.grad)
     out["ppermute"] = _np(ctx.ppermute_model(x * (m + 1), [(0, 1), (1, 0)]))
-    try:
-        ctx.all_to_all_model(x, 0, 1)
-        out["all_to_all"] = "ran"
-    except NotImplementedError as err:
-        out["all_to_all"] = str(err)
+    # the all-to-all of expert parallelism: rank r's rows 2j:2j+2 go to
+    # rank j, concatenated there along the columns; an integer tensor (the
+    # expert ids) passes without a gradient
+    sent = (x * (m + 1)).requires_grad_()
+    y = ctx.all_to_all_model(sent, 0, 1)
+    y.backward(g.reshape(y.shape))
+    out["all_to_all"], out["all_to_all_grad"] = _np(y), _np(sent.grad)
+    ids = torch.arange(8, dtype=torch.int32, device=device).reshape(4, 2) + 100 * m
+    got = ctx.all_to_all_model(ids, 0, 0)
+    out["all_to_all_ids"], out["all_to_all_ids_dtype"] = got.cpu().numpy(), str(got.dtype)
+    out["all_to_all_counts"] = {k: v for k, v in ctx.counts().items()
+                                if k.startswith("model_all_to_all")}
     # the attention schedules: this rank's rows of q, k, v of a chunk, the
     # cache shard holding this rank's positions
     a = data["attn"]

@@ -11,7 +11,9 @@ nemotron-4-15b and starcoder2-3b (G = 16, 6, 12), a packed step equal
 to its pad-to-max oracle through the kernels, and the pipeline at pp = 2 as
 two ranks sharing the card over gloo against pp = 1; the paged serving
 step's kernel call (per-row positions over gathered slots) and its writes
-(the striped slot or the sink, nothing else).
+(the striped slot or the sink, nothing else); the kernels at
+granite-moe-1b-a400m's heads (hd 64, G = 2, its decode step) and its
+expert block on the card against the CPU.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips without
 one.  The file imports no JAX, since the machine with the card has none, and
@@ -1062,3 +1064,74 @@ def test_paged_step_on_the_card_writes_only_its_slots_and_the_sink(cuda_device):
         # matrix products: equal to fp32 rounding, not bitwise
         np.testing.assert_allclose(b[4].numpy(), a[4].numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(y_gpu.numpy(), y_cpu.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# granite-moe-1b-a400m: hd 64, G = 2 (16 heads over 8 KV heads), its expert
+# block on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernels", [(d, k) for d in ("float32", "bfloat16")
+                                           for k in _kernels(d)])
+def test_kernels_at_granite_head_dim_and_group(cuda_device, dtype, kernels):
+    """hd 64 with G = 2 (granite's heads) over ragged Tq and S, PAD slots:
+    the forward and the backward pair against their plain versions, and
+    granite's decode step (4 rows, Tq 1 over the serve path's 2176-slot
+    buffer, a PAD tail) whose KV range splits, merged in the launch or by
+    the merge kernel."""
+    Tq, S, Hkv = 203, 461, 8
+    arrays = inputs(2, Tq, S, 2 * Hkv, Hkv, 64, 64, seed=64)
+    q_pos = np.arange(Tq, dtype=np.int32) + S - Tq - 5
+    kv_pos = np.arange(S, dtype=np.int32)
+    kv_pos[-5:] = 2**30
+    _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels)
+    _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels)
+    B, S = 4, 2176
+    arrays = inputs(B, 1, S, 2 * Hkv, Hkv, 64, 64, seed=65)
+    kv_pos = np.where(np.arange(S) <= 2048, np.arange(S), 2**30).astype(np.int32)
+    before = fa.counts()
+    _check_kernel(arrays, dtype, np.full((1,), 2048, np.int32), kv_pos, cuda_device,
+                  kernels=kernels)
+    assert _launched(before)[FWD_COUNTERS[kernels][1]] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_block_on_the_card_equals_the_cpu(cuda_device, cf):
+    """granite's expert block at full width (fp32, 512 tokens, at its
+    capacity factor and with copies dropped at 0.5) on the card against
+    its CPU run: the expert ids exact, the output, the balance loss and
+    every gradient within 1e-5 x max; two card runs bitwise alike."""
+    from repro_torch.models import moe as M
+
+    cfg = get_config("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    d, E, ff = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff_expert
+    gen = torch.Generator().manual_seed(0)
+    p = {"router": torch.randn(d, E, generator=gen) / 32,
+         "w1": torch.randn(E, d, ff, generator=gen) / 32,
+         "w3": torch.randn(E, d, ff, generator=gen) / 32,
+         "w2": torch.randn(E, ff, d, generator=gen) / 22}
+    x = torch.randn(2, 256, d, generator=gen)
+    dy = torch.randn(2, 256, d, generator=gen)
+
+    def run(device):
+        pt = {k: v.detach().to(device).requires_grad_() for k, v in p.items()}
+        xt = x.detach().to(device).requires_grad_()
+        _, top_e, _ = M.route(xt.detach().reshape(-1, d), pt["router"].detach(), cfg)
+        y, aux = M.moe_block(xt, pt, cfg)
+        torch.autograd.backward([y, aux], [dy.to(device), torch.ones((), device=device)])
+        return {"top_e": top_e, "y": y.detach(), "aux": aux.detach(), "dx": xt.grad,
+                **{f"d{k}": v.grad for k, v in pt.items()}}
+
+    cpu, card, again = run("cpu"), run(cuda_device), run(cuda_device)
+    assert torch.equal(card["top_e"].cpu(), cpu["top_e"])
+    for k, want in cpu.items():
+        if k == "top_e":
+            continue
+        got = card[k].cpu()
+        assert torch.equal(card[k], again[k]), k
+        err = (got - want).abs().max().item()
+        assert err <= TOL * max(1.0, want.abs().max().item()), f"{k}: {err}"

@@ -299,8 +299,9 @@ def test_collectives_and_their_backward_against_dense_sums():
     """all-gather <-> reduce-scatter, the psum of a replicated value (its
     cotangent passes through), the gradient-frozen max, the bf16
     reduce-scatter of grad_compress, the permutation (its backward in
-    tests/test_torch_ring.py), and what stays refused (the all-to-all of
-    expert parallelism, item 7)."""
+    tests/test_torch_ring.py), and the all-to-all of expert parallelism
+    (its backward the all-to-all with the axes swapped; an integer tensor
+    passes without a gradient; counted as ``model_all_to_all``)."""
     data, ranks = _collectives()
     x, g = data["x"], data["g"]
     gsum = g[0] + g[1]
@@ -320,7 +321,19 @@ def test_collectives_and_their_backward_against_dense_sums():
         assert np.abs(got - gsum[:, 3 * m:3 * m + 3]).max() <= 1e-2 * np.abs(gsum).max()
         assert np.array_equal(got, torch.from_numpy(got).bfloat16().float().numpy())
         np.testing.assert_array_equal(r["ppermute"], x * (2 - m))
-        assert "item 7" in r["all_to_all"]
+        want = np.concatenate([x[2 * m:2 * m + 2] * (j + 1) for j in range(2)], axis=1)
+        np.testing.assert_array_equal(r["all_to_all"], want)
+        cot = [g[j].reshape(2, 12) for j in range(2)]
+        np.testing.assert_array_equal(r["all_to_all_grad"], np.concatenate(
+            [cot[j][:, 6 * m:6 * m + 6] for j in range(2)], axis=0))
+        ids = [np.arange(8).reshape(4, 2) + 100 * j for j in range(2)]
+        np.testing.assert_array_equal(r["all_to_all_ids"], np.concatenate(
+            [ids[j][2 * m:2 * m + 2] for j in range(2)], axis=0))
+        assert r["all_to_all_ids_dtype"] == "torch.int32"
+        c = r["all_to_all_counts"]
+        # forward, backward and the ids: the bytes this rank put in
+        assert c["model_all_to_all_calls"] == 3
+        assert c["model_all_to_all_bytes"] == 2 * x.size * 4 + 8 * 4
 
 
 @pytest.mark.parametrize("mode", ["gather_q", "gather_kv"])

@@ -45,6 +45,7 @@ from repro_torch.parallel import ctx as ctx_mod
 from repro_torch.parallel import runner
 
 import _torch_cpu  # noqa: F401,E402  (one torch thread a test process)
+import _torch_moe_workers as MW  # noqa: E402
 import _torch_pipeline_workers as W  # noqa: E402
 
 S, B, N = 512, 2, 4
@@ -158,14 +159,56 @@ def test_loss_and_every_grad_match_jax_single_device(name):
     assert n_leaves == lay["dp"] * (2 * per_slot + lay["pp"] * n_glob)
 
 
-@pytest.mark.parametrize("name", list(LAYOUTS))
+# granite's tied embedding at pp = 2 (tests/_torch_moe_workers.py): the
+# table is used on stage 0 (embedding) and the last (head)
+TIED = {"tied_pp2": dict(pp=2, n_chunks=2, S=256, B=B)}
+
+
+@functools.lru_cache(maxsize=None)
+def _tied_ranks(name):
+    cfg = jget_config(MW.ARCH).reduced()
+    mdef = jbuild_model(cfg)
+    key = jax.random.PRNGKey(0)
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), {
+        "stages": mdef.init_stage_params(key, 0, 1, jnp.float32),
+        "globals": mdef.init_globals(key, jnp.float32)})
+    lay = TIED[name]
+    tokens, labels = (a[:, :lay["S"]] for a in _batch(cfg.vocab_size))
+    ranks = mesh.spawn(MW.moe_rank, lay.get("dp", 1) * lay["pp"], backend="gloo",
+                       device="cpu", args=({name: lay}, params, tokens, labels),
+                       timeout_s=DEADLINE_S)
+    return params, [r[name] for r in ranks]
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS) + list(TIED))
 def test_globals_go_from_the_stage_that_uses_them(name):
     """The globals' gradients are summed only where they are used and sent
     from there: each of the pp - 1 other stages of a dp group receives
-    every global leaf once (the embedding from stage 0, the final norm and
-    the head from the last), and no global leaf is all-reduced (what is
-    all-reduced is the loss's two scalars, the stage-usage mask, and at dp
-    > 1 the stage's and its owned globals' gradients over the dp group)."""
+    every global leaf that one stage alone uses once (the embedding from
+    stage 0, the final norm and the head from the last), and no such leaf
+    is all-reduced (what is all-reduced is the loss's two scalars, the
+    stage-usage mask, and at dp > 1 the stage's and its owned globals'
+    gradients over the dp group).  A tied table (granite, ``tied_*``) is
+    used by stage 0 and the last stage: it is the one global leaf
+    all-reduced over the data axis, and nothing sends it; the MoE balance
+    loss adds one all-reduced scalar."""
+    if name in TIED:
+        params, ranks = _tied_ranks(name)
+        lay = TIED[name]
+        dp, pp = lay.get("dp", 1), lay["pp"]
+        table = params["globals"]["embed"]["table"].nbytes
+        norm = params["globals"]["final_norm"]["scale"].nbytes
+        assert sum(r["ctx_counts"]["bcast_bytes"] for r in ranks) == dp * (pp - 1) * norm
+        for r in ranks:
+            want = 2 * 4 + 4 + pp * 2 * 4 + table
+            if dp > 1:
+                want += sum(a.nbytes for a in tree.leaves(r["grads"]["stages"]))
+                want += norm if r["stage"] == pp - 1 else 0
+            assert r["ctx_counts"]["reduce_bytes"] == want, (name, r["stage"])
+        # the summed table is the same on both stages
+        np.testing.assert_array_equal(ranks[0]["grads"]["globals"]["embed"]["table"],
+                                      ranks[1]["grads"]["globals"]["embed"]["table"])
+        return
     ref = _jax_ref()
     lay = LAYOUTS[name]
     ranks = _ranks(name)
@@ -405,9 +448,9 @@ def test_what_the_multi_rank_slice_refuses():
     """What stays refused: chunks that do not tile S (at sp, their model
     shards too), MSP chunks that do not split, NCCL without a card per
     rank, a multi-rank context without a process group, an unknown
-    attention schedule (``all_to_all_model``, item 7, in
-    tests/test_torch_model_axis.py).  A model axis
-    (tests/test_torch_model_axis.py), ring attention, ZeRO-1 over a pod axis
+    attention schedule.  A model axis (tests/test_torch_model_axis.py) with
+    the all-to-all of expert parallelism (since item 7's MoE part,
+    tests/test_torch_moe.py), ring attention, ZeRO-1 over a pod axis
     (tests/test_torch_ring.py), packed rows at pp > 1, and, since item 5,
     prefill and decode at sp > 1 and decode at pp > 1
     (tests/test_torch_paged.py) resolve."""

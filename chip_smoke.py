@@ -97,9 +97,8 @@ Four phases, each of which exits non-zero on failure:
    3 steps each, held as the plans are (224 / 112 / 112 launches a step)
    with the moment copies by the closed form, the step's device peak under
    80 GB, and the update's moment copies and their exposed ms from the
-   profiler.  Then the long cell, S = 32768 in 8 chunks: plans (d), (b) and
-   (e) for LONG_STEPS steps each, held alike, plan (a) only if PERF.md's
-   prediction of its peak is under 75 GiB.  Last, the same seed-built
+   profiler.  Then the long cell, LONG_LAYERS layers at S = 32768 in 8
+   chunks: plans (d), (b) and (e) for LONG_STEPS steps each, held alike.  Last, the same seed-built
    model cut to 2
    layers takes one step's loss and gradients at S = 256 (2 chunks, chunk 0
    offloading every tagged row) in fp32 under the default plan on the card
@@ -129,10 +128,10 @@ Four phases, each of which exits non-zero on failure:
    each of the three configs.  Then the multi-rank phases, their ranks
    processes sharing the one card over gloo (``launch.mesh.spawn``;
    every transfer staged through pinned host memory): the data axis
-   (``pipeline_phase``: pp = 2 plain and MSP at full width, 4 layers,
-   against pp = 1, and reduced fp32 layouts against the CPU) and the
-   model axis (``model_axis_phase``): qwen2-7b at full width cut to 2
-   layers, B = 1, S = 8192 in 4 chunks, the default plan, sp = 2 as two
+   (``pipeline_phase``: pp = 2 plain and MSP at full width, PIPE_LAYERS
+   layers, against pp = 1, and reduced fp32 layouts against the CPU) and
+   the model axis (``model_axis_phase``): qwen2-7b at full width cut to
+   SP_LAYERS layers, B = 1, S = 8192 in 4 chunks, the default plan, sp = 2 as two
    ranks, SP_STEPS steps under gather_q and as many under gather_kv with
    grad_compress; each mode's step-0 loss within 2e-3 of sp = 1's on the
    card with the same weights, gather_q's gradients (one untimed call),
@@ -235,10 +234,12 @@ HBM_BYTES_PER_S = BF16_FLOPS = None
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores (data sheet), printed only
 PREFILL_LEN, BATCH, DECODE_STEPS, REPEATS = 2048, 4, 32, 3
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_CHUNKS, TRAIN_STEPS = 4, 8192, 4, 4
-LONG_SEQ, LONG_CHUNKS, LONG_STEPS = 32768, 8, 2
-# plan (a)'s peak at S = 32768 as predicted in PERF.md before the first run
-# (the weights and moments plus four times the S = 8192 run's activations):
-# plan (a) runs on the long cell only if this is under 75 GiB
+# the long cell runs 2 layers (4 until PR 24: cut for the script's time, PERF.md §4)
+LONG_LAYERS, LONG_SEQ, LONG_CHUNKS, LONG_STEPS = 2, 32768, 8, 2
+# plan (a)'s peak at S = 32768 and 4 layers as predicted in PERF.md before
+# the first run (the weights and moments plus four times the S = 8192 run's
+# activations): plan (a) ran on the long cell only if this was under 75 GiB;
+# at LONG_LAYERS it stays out, for the script's time
 LONG_PLAN_A_PREDICTED_GIB = 92
 KERNEL_TOL = 1e-5  # kernel vs plain version: both fp32 inside, inputs alike
 GRAD_REL_TOL = 1e-4  # 2-layer fp32 train step, card vs CPU: relative L2
@@ -294,7 +295,8 @@ CONFIG_LAYERS, CONFIG_SEQ, CONFIG_CHUNKS, CONFIG_STEPS = 2, 4096, 4, 2
 # (msp_split 2), 3 steps each, against pp = 1 on the same card with the
 # same weights; then the reduced model in fp32 (the CUDA-core kernels) at
 # S = 256 in three layouts against the CPU's pp = 1 step
-PIPE_LAYERS, PIPE_SEQ, PIPE_CHUNKS, PIPE_STEPS, PIPE_PP, PIPE_SPLIT = 4, 8192, 4, 3, 2, 2
+# 2 layers, one a stage (4 until PR 24: cut for the script's time, PERF.md §4)
+PIPE_LAYERS, PIPE_SEQ, PIPE_CHUNKS, PIPE_STEPS, PIPE_PP, PIPE_SPLIT = 2, 8192, 4, 3, 2, 2
 PIPE_BACKEND = "gloo"
 PIPE_DEADLINE_S = 600.0
 PIPE_FP32_SEQ, PIPE_FP32_BATCH = 256, 2
@@ -303,7 +305,7 @@ PIPE_FP32_LAYOUTS = {"pp4_msp": dict(dp=1, pp=4, n_chunks=4, msp=True),
                      "dp2": dict(dp=2, pp=1, n_chunks=2)}
 SHARED_CARD = "two ranks share one card: not a pipeline speed"
 # the model axis (model_axis_phase, DESIGN.md §4): qwen2-7b at full width cut
-# to 2 layers, B = 1, S = 8192 in 4 chunks, the default plan, sp = 2 as two
+# to SP_LAYERS layers, B = 1, S = 8192 in 4 chunks, the default plan, sp = 2 as two
 # ranks sharing the one card over gloo (every collective staged through
 # pinned host memory); SP_STEPS steps under gather_q, then as many under
 # gather_kv with grad_compress and under the ring (DESIGN.md §15), each
@@ -311,7 +313,8 @@ SHARED_CARD = "two ranks share one card: not a pipeline speed"
 # untimed call each, gathered to full), against sp = 1 on the card with the
 # same weights; then the reduced model in fp32 at S = 256 in the
 # SP_FP32_LAYOUTS against the CPU's sp = 1 step under the same plan
-SP, SP_LAYERS, SP_SEQ, SP_CHUNKS, SP_STEPS = 2, 2, 8192, 4, 2
+# 1 layer (2 until PR 24: cut for the script's time, PERF.md §4)
+SP, SP_LAYERS, SP_SEQ, SP_CHUNKS, SP_STEPS = 2, 1, 8192, 4, 2
 SP_LOSS_TOL = 2e-3       # step-0 loss against sp = 1's, relative
 SP_MODES = {"gather_q": dict(attn_mode="gather_q"),
             "gather_kv": dict(attn_mode="gather_kv", grad_compress=True),
@@ -382,6 +385,22 @@ MOE_ARCH = "granite-moe-1b-a400m"
 MOE_REPEATS, MOE_SEQ, MOE_CHUNKS, MOE_STEPS = 2, 8192, 4, 3
 MOE_CHECK_SEQ, MOE_CHECK_STEPS = 256, 8
 MOE_EP_LAYERS, MOE_EP_SEQ, MOE_EP_CHUNKS = 2, 1024, 2
+# deepseek-v3-671b (MLA) at full width: served at MLA_SERVE_LAYERS of its 61
+# layers (2 x 23.0 GB of bf16 weights beside the 3.7 GB embedding and head;
+# a third layer does not fit beside the transients), its loss and gradients
+# at MLA_TRAIN_LAYERS (26.7 GB of weights and as much of gradients) at S
+# 8192 in 4 chunks under plans (d) and (b), MLA_GRAD_CALLS calls each; the
+# reduced model in fp32 against the CPU (a 2-layer step with AdamW's bf16
+# moments, a prefill and MLA_CHECK_DECODE decode steps)
+MLA_ARCH = "deepseek-v3-671b"
+MLA_SERVE_LAYERS, MLA_REPEATS = 2, 2
+MLA_TRAIN_LAYERS, MLA_SEQ, MLA_CHUNKS, MLA_GRAD_CALLS = 1, 8192, 4, 2
+MLA_CHECK_SEQ, MLA_CHECK_DECODE = 256, 4
+# the loss-and-gradients call's peak over its weights as predicted in
+# PERF.md before the run that measured it: the gradients (24.9 GiB, summed
+# in place by the seams' sink), one op's fresh expert gradient (7 GiB) and
+# the activations (4-8 GiB)
+MLA_GRAD_PEAK_PREDICTED_GIB = 38
 
 
 def fail(msg: str):
@@ -489,31 +508,38 @@ def fwd_kind(kernels, dtype):
     return kernels or ("tensor_cores" if dtype == torch.bfloat16 else "cuda_cores")
 
 
-def fwd_nsplit(fa, kind, q, k):
-    """KV splits of a forward call (the kernel's own geometry)."""
-    B, Tq, H, _ = q.shape
+def fwd_nsplit(fa, kind, q, k, v=None):
+    """KV splits of a forward call (the kernel's own geometry; the wide
+    tensor-core kernel's where a head dim passes 128)."""
+    B, Tq, H, hdk = q.shape
     S, Hkv = k.shape[1], k.shape[2]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    hdv = hdk if v is None else v.shape[-1]
+    if kind == "tensor_cores" and max(hdk, hdv) > fa.MAX_HD:
+        return fa._tc_wide_geometry(B, Tq, S, H // Hkv, Hkv, n_sm)[0]
     geometry = fa._tc_geometry if kind == "tensor_cores" else fa._geometry
-    return geometry(B, Tq, S, H // Hkv, Hkv, torch.cuda.get_device_properties(0).multi_processor_count)[2]
+    return geometry(B, Tq, S, H // Hkv, Hkv, n_sm)[2]
 
 
-def kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, causal=True, kernels=None):
+def kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, causal=True, kernels=None,
+                    scale=None):
     """Run a forward kernel (``kernels``: the wrapper's choice, None = by
     dtype) and the plain version on the same inputs and fail unless that
     kernel launched once (and merged its KV splits once, in the launch or by
     the merge kernel, where it split) and they agree; returns (max
-    |normalized diff|, kernel outputs)."""
+    |normalized diff|, kernel outputs).  ``scale``: the scores' (None: 1 /
+    sqrt(hd_k))."""
     kind = fwd_kind(kernels, q.dtype)
     before = fa.counts()
     o1, m1, l1 = fa.flash_attention_partial(q, k, v, q_pos, kv_pos, causal=causal,
-                                            q_start=q_start, kernels=kernels)
+                                            q_start=q_start, kernels=kernels, scale=scale)
     moved = {key: n - before[key] for key, n in fa.counts().items() if n != before[key]}
     launch, merge = FWD_KERNELS[kind]
-    want = {launch: 1, **({merge: 1} if fwd_nsplit(fa, kind, q, k) > 1 else {})}
+    want = {launch: 1, **({merge: 1} if fwd_nsplit(fa, kind, q, k, v) > 1 else {})}
     check(moved == want, f"the forward launched {moved}, expected {want} ({q.dtype}, "
           f"kernels={kernels}) at q {tuple(q.shape)} k {tuple(k.shape)}")
     o2, m2, l2 = ref.attention_partial_ref(q, k, v, q_pos, kv_pos,
-                                           causal=causal, q_start=q_start)
+                                           causal=causal, q_start=q_start, scale=scale)
     torch.cuda.synchronize()
     err = (ref.normalize(o1, l1) - ref.normalize(o2, l2)).abs().max().item()
     live = m2 > -1e29
@@ -764,12 +790,13 @@ def device_time(prof, top: int = 6):
             continue
         kernels.append((key[:60], ms))
         name = key.lower()
-        # the kernels' own names first: their sources' names hold "flash_partial"
-        if "flash_fwd_tc_kernel" in name:
+        # the kernels' own names first: their sources' names hold "flash_partial";
+        # the wide (MLA) kernels are the same three kernels' wide-head blocks
+        if "flash_fwd_tc_kernel" in name or "flash_fwd_wide_kernel" in name:
             groups["attention fwd tc kernel"] += ms
-        elif "flash_bwd_dq_tc_kernel" in name:
+        elif "flash_bwd_dq_tc_kernel" in name or "flash_bwd_dq_wide_kernel" in name:
             groups["attention dq tc kernel"] += ms
-        elif "flash_bwd_dkv_tc_kernel" in name:
+        elif "flash_bwd_dkv_tc_kernel" in name or "flash_bwd_dkv_wide_kernel" in name:
             groups["attention dk/dv tc kernel"] += ms
         elif "flash_bwd_dq_kernel" in name:
             groups["attention dq kernel"] += ms
@@ -856,24 +883,25 @@ def profile_main_path(serve, runner, cfg, warm_prefill_ms, warm_decode_ms, card)
 
 
 def bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, do, dl, causal=True,
-                 kernels=None):
+                 kernels=None, scale=None):
     """A pair of backward kernels (``kernels``: the wrapper's choice, None =
     by dtype) and the plain backward on the same inputs (m from the plain
     forward); fails unless that pair launched once each and each gradient is
     within 1e-5 x max |plain gradient| and finite.  Returns ({name: max
     |diff|}, {name: max |diff| / max |plain|}, kernel gradients)."""
     _, m, _ = ref.attention_partial_ref(q, k, v, q_pos, kv_pos, causal=causal,
-                                        q_start=q_start)
+                                        q_start=q_start, scale=scale)
     before = fa.counts()
     got = fa.flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl,
-                                         causal=causal, q_start=q_start, kernels=kernels)
+                                         causal=causal, q_start=q_start, kernels=kernels,
+                                         scale=scale)
     moved = {key: n - before[key] for key, n in fa.counts().items() if n != before[key]}
     tc = kernels == "tensor_cores" or (kernels is None and q.dtype == torch.bfloat16)
     want_moved = {"bwd_dq_tc": 1, "bwd_dkv_tc": 1} if tc else {"bwd_dq": 1, "bwd_dkv": 1}
     check(moved == want_moved, f"the backward launched {moved}, expected {want_moved} "
           f"({q.dtype}, kernels={kernels})")
     want = ref.attention_partial_bwd_ref(q, k, v, q_pos, kv_pos, q_start, do, m, dl,
-                                         causal=causal)
+                                         causal=causal, scale=scale)
     torch.cuda.synchronize()
     err, rel = {}, {}
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -1313,16 +1341,23 @@ def offload_bytes(cell) -> int:
 def moe_offload_elems(cell) -> int:
     """Elements of one rank's off rows a step at pp = 1 by the tag shapes an
     MoE layer uses: per chunk and layer, the rows of q, k, v and the
-    attention output (split_rows of the rank's ln / sp rows, b_loc of each)
-    and of the experts' hidden [E_loc, Ce, ff] (split_rows of its Ce
-    capacity rows, Ce from the rank's b_loc x ln / sp tokens,
-    ``models/moe.py``): not the cost model's top_k x ff a token."""
+    attention output (MLA: of q_eff [H, dc + dr], k_eff [dc + dr] and o_v
+    [H, dv]) and of the shared experts' hidden (split_rows of the rank's ln
+    / sp rows, b_loc of each) and of the routed experts' hidden [E_loc, Ce,
+    ff] (split_rows of its Ce capacity rows, Ce from the rank's b_loc x ln /
+    sp tokens, ``models/moe.py``): not the cost model's top_k x ff a
+    token."""
     from repro_torch.core import offload as ofl
     from repro_torch.models.moe import capacities, moe_dims
 
     cfg, sp, B = cell.cfg, cell.plan.sp, cell.b_loc
     _, e_loc = moe_dims(cfg, sp)
-    attn = 2 * cfg.n_heads * cfg.hd + 2 * cfg.n_kv_heads * cfg.hd
+    if cfg.mla is not None:
+        eff = cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim
+        attn = cfg.n_heads * eff + eff + cfg.n_heads * cfg.mla.v_head_dim
+    else:
+        attn = 2 * cfg.n_heads * cfg.hd + 2 * cfg.n_kv_heads * cfg.hd
+    attn += cfg.moe.n_shared_experts * cfg.moe.d_ff_expert
     total = 0
     for ln, a in zip(cell.sched.lengths, cell.alphas):
         rows = ln // sp
@@ -1855,11 +1890,11 @@ def train_phase(fa, hostmem, serve, runner, train_mod, cfg, card):
     rates = link_rate(hostmem, card)
     embed = embed_check(card)
 
-    def run_cell(plans, seq, n_chunks, label):
+    def run_cell(plans, seq, n_chunks, label, cfg_n=cfg4):
         rows, totals, ref = {}, {}, None
         for plan in plans:
             totals[plan], rows[plan], grads = train_plan(
-                fa, hostmem, serve, runner, train_mod, cfg4, card, plan, seq=seq,
+                fa, hostmem, serve, runner, train_mod, cfg_n, card, plan, seq=seq,
                 n_chunks=n_chunks, steps=TRAIN_STEPS if seq == TRAIN_SEQ else LONG_STEPS,
                 label=label)
             torch.cuda.empty_cache()
@@ -1893,14 +1928,16 @@ def train_phase(fa, hostmem, serve, runner, train_mod, cfg, card):
     full_counts, full_rows = full_depth_phase(fa, hostmem, serve, runner, train_mod, cfg, card)
     seconds["full_depth"] = time.perf_counter() - t0
     totals.update({f"full_depth_{md}": c for md, c in full_counts.items()})
-    long_plans = ("d", "b", "e") + (("a",) if LONG_PLAN_A_PREDICTED_GIB < 75 else ())
+    long_plans = ("d", "b", "e") + (("a",) if LONG_LAYERS == TRAIN_LAYERS
+                                     and LONG_PLAN_A_PREDICTED_GIB < 75 else ())
     t0 = time.perf_counter()
-    long_rows, long_totals, _ = run_cell(long_plans, LONG_SEQ, LONG_CHUNKS, f"S={LONG_SEQ}")
+    long_rows, long_totals, _ = run_cell(long_plans, LONG_SEQ, LONG_CHUNKS, f"S={LONG_SEQ}",
+                                         dataclasses.replace(cfg, n_layers=LONG_LAYERS))
     seconds["plans_s32768"] = time.perf_counter() - t0
     print(f"train phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     if "a" not in long_plans:
-        print(f"train [S={LONG_SEQ}] plan (a) not run: predicted peak "
-              f"{LONG_PLAN_A_PREDICTED_GIB} GiB (PERF.md), not under 75 GiB")
+        print(f"train [S={LONG_SEQ}] plan (a) not run ({LONG_LAYERS} layers; at 4 its "
+              f"predicted peak was {LONG_PLAN_A_PREDICTED_GIB} GiB, PERF.md)")
     totals.update({f"long_{p}": c for p, c in long_totals.items()})
     return totals, {"link_rate_bytes_per_s": rates, **embed, "train_phase_seconds": seconds,
                     "train_plans": rows,
@@ -4292,6 +4329,492 @@ def moe_phase(fa, hostmem, mesh, serve, runner, train_mod, card):
     return paths, summary
 
 
+# ---------------------------------------------------------------------------
+# MLA: deepseek-v3-671b (hd_k 576, hd_v 512, G = 128, v a view of the latent)
+# ---------------------------------------------------------------------------
+
+
+def mla_edge_grid(fa, ref, gen, scale):
+    """MLA's widths on the wide tensor-core kernels: forward within 1e-5,
+    backward within 1e-5 x max |plain|.  v the latent's first 512 columns (a
+    view of k) or a tensor of its own, G = 128 and 16, ragged Tq and S, PAD
+    slots, Tq = 1 over a KV range split and merged in the launch, a q_start
+    window with dead rows (exactly o = l = 0, m = -1e30; NaN cotangents
+    there, their dq exactly 0) and a split decode with a dead batch row.
+    Returns (worst forward error, worst backward relative error, cases)."""
+    dev, bf16 = "cuda", torch.bfloat16
+
+    def rand(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    fwd, bwd, n = 0.0, 0.0, 0
+    for B, Tq, S, H, Hkv, view in ((2, 5, 77, 128, 1, True), (1, 37, 150, 128, 1, True),
+                                   (2, 9, 100, 32, 2, False), (1, 1, 300, 128, 1, True)):
+        q, k = rand(B, Tq, H, 576), rand(B, S, Hkv, 576)
+        v = k[..., :512] if view else rand(B, S, Hkv, 512)
+        q_pos = (torch.arange(Tq, dtype=torch.int32, device=dev) + S - Tq)[None].repeat(B, 1)
+        kv_pos = torch.arange(S, dtype=torch.int32, device=dev)
+        kv_pos[S - S // 10:] = PAD
+        err, _ = kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None, scale=scale)
+        _, rel, _ = bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None, rand(B, Tq, H, 512,
+                                 dtype=torch.float32), rand(B, Tq, H, dtype=torch.float32),
+                                 scale=scale)
+        fwd, bwd, n = max(fwd, err), max(bwd, *rel.values()), n + 1
+    # a q_start window with dead rows, NaN cotangents on them
+    B, Tq, S, H = 2, 8, 200, 128
+    q, k = rand(B, Tq, H, 576), rand(B, S, 1, 576)
+    q_pos = torch.tensor([[16 + i for i in range(Tq)], [1] + [9 + i for i in range(Tq - 1)]],
+                         dtype=torch.int32, device=dev)
+    q_start = torch.tensor([[0, 0, 4, 4, 4, 20, 20, PAD], [0, 3, 3, 3, 9, 9, PAD, PAD]],
+                           dtype=torch.int32, device=dev)
+    kv_pos = torch.arange(S, dtype=torch.int32, device=dev) + 2
+    kv_pos[-3:] = PAD
+    err, (o, m, l) = kernel_vs_plain(fa, ref, q, k, k[..., :512], q_pos, kv_pos, q_start,
+                                     scale=scale)
+    dead = ~visible_mask(B, q_pos, kv_pos, q_start).any(dim=-1)
+    check_dead_rows(o, m, l, dead, 4, "MLA window case")
+    do, dl = rand(B, Tq, H, 512, dtype=torch.float32), rand(B, Tq, H, dtype=torch.float32)
+    do[dead], dl[dead] = float("nan"), float("nan")
+    _, rel, (dq, _, _) = bwd_vs_plain(fa, ref, q, k, k[..., :512], q_pos, kv_pos, q_start, do, dl,
+                                      scale=scale)
+    check(bool((dq[dead] == 0).all()), "MLA window case: fully masked rows' dq is not exactly 0")
+    fwd, bwd, n = max(fwd, err), max(bwd, *rel.values()), n + 1
+    # a split decode over the serving cache with batch row 1 fully masked
+    B, S = BATCH, PREFILL_LEN + 128
+    q, k = rand(B, 1, 128, 576), rand(B, S, 1, 576)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    kv_pos = torch.where(pos <= PREFILL_LEN, pos, PAD).to(torch.int32)
+    q_pos = torch.full((B, 1), PREFILL_LEN, dtype=torch.int32, device=dev)
+    q_start = torch.zeros(B, 1, dtype=torch.int32, device=dev)
+    q_start[1] = PAD
+    check(fwd_nsplit(fa, "tensor_cores", q, k, k[..., :512]) > 1,
+          "the MLA decode edge case does not split")
+    err, (o, m, l) = kernel_vs_plain(fa, ref, q, k, k[..., :512], q_pos, kv_pos, q_start,
+                                     scale=scale)
+    dead = ~visible_mask(B, q_pos, kv_pos, q_start).any(dim=-1)
+    check_dead_rows(o, m, l, dead[..., None].expand(B, 1, 128), 128, "MLA split decode")
+    return max(fwd, err), bwd, n + 1
+
+
+def measure_mla_shape(name, fa, ref, q, k, q_pos, kv_pos, scale, do=None, dl=None):
+    """One MLA main-path shape on the wide tensor-core kernels, v the
+    latent's first hd_v columns (a view of k, as the model passes it): the
+    forward (and with ``do``, ``dl`` the backward pair) held against the
+    plain version on the same inputs, then timed with cold L2 in two turns,
+    beside the plain version and SDPA at the same mask (its backend named:
+    none but the math one takes hd 576) and the bound: the q.k and p.v
+    products (the backward's three and four) of each visible (query, slot)
+    pair and head at the bf16 peak, or the bytes of the query rows that see
+    some slot, the latent rows some query sees (once: v is its view) and
+    the outputs, the larger.  Returns {"fwd": row[, "dq": row, "dkv": row]}."""
+    hdv = 512
+    v = k[..., :hdv]
+    B, Tq, H, hdk = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    fwd_err, _ = kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None, scale=scale)
+    vis = visible_mask(B, q_pos, kv_pos, None)
+    n_vis = int(vis.sum())
+    live_rows, kv_rows = int(vis.any(dim=2).sum()), int(vis.any(dim=1).sum())
+    esz, pos_bytes = q.element_size(), 4 * (q_pos.numel() + S)
+
+    def bound(ops, n_bytes):
+        t_b, t_o = n_bytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
+        return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    ops = 2 * (hdk + hdv) * H * n_vis
+    n_bytes = (esz * (live_rows * H * hdk + kv_rows * Hkv * hdk) + pos_bytes
+               + 4 * B * Tq * H * (hdv + 2))
+    copies = cold_copies((q, k, q_pos, kv_pos), sum(t.numel() * t.element_size() for t in (q, k)))
+    turns = [time_ms(lambda q_, k_, qp, kp: fa.flash_attention_partial(
+        q_, k_, k_[..., :hdv], qp, kp, scale=scale), copies, label=f"the MLA forward [{name}]")
+        for _ in range(2)]
+    plain_ms = time_ms(lambda q_, k_, qp, kp: ref.attention_partial_ref(
+        q_, k_, k_[..., :hdv], qp, kp, scale=scale), copies, reps=len(copies),
+        label=f"the plain MLA forward [{name}]")
+    mask = vis[:, None]
+    backend = sdpa_backend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask)
+
+    def sdpa(q_, k_, *_):
+        return F.scaled_dot_product_attention(q_.transpose(1, 2), k_.transpose(1, 2),
+                                              k_[..., :hdv].transpose(1, 2), attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+
+    try:
+        lib_ms = time_ms(sdpa, copies, label=f"sdpa [{name}]")
+    except RuntimeError as err:
+        print(f"  note: sdpa takes no MLA shape [{name}]: {str(err)[:200]}")
+        lib_ms, backend = None, "none"
+    b_ms, b_by = bound(ops, n_bytes)
+    rows = {"fwd": {"shape": f"MLA {name}", "q": list(q.shape), "kv": list(k.shape),
+                    "v": "k[..., :512]", "dtype": str(q.dtype), "kernels": "tensor_cores (wide)",
+                    "nsplit": fwd_nsplit(fa, "tensor_cores", q, k, v), "max_abs_err": fwd_err,
+                    "ms": sum(turns) / len(turns), "ms_turns": turns, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                    "library": f"sdpa ({backend})", "ops": ops, "bytes": n_bytes}}
+    f = rows["fwd"]
+    print(f"MLA fwd [{name}] q {tuple(q.shape)} kv {tuple(k.shape)} v k[..., :512]: tensor cores "
+          f"{f['ms']:.4f} ms (turns {', '.join(f'{t:.4f}' for t in turns)}; err {fwd_err:.3e}; "
+          f"{f['nsplit']} KV splits), plain {plain_ms:.4f} ms, sdpa ({backend}) "
+          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by}, "
+          f"{ops:.3e} ops, {n_bytes:.3e} bytes)")
+    if do is None:
+        return rows
+    err, rel, _ = bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, None, do, dl, scale=scale)
+    _, m, _ = ref.attention_partial_ref(q, k, v, q_pos, kv_pos, scale=scale)
+    copies = cold_copies((q, k, q_pos, kv_pos, do, m, dl),
+                         sum(t.numel() * t.element_size() for t in (q, k, do)))
+
+    def call(q_, k_, qp, kp, do_, m_, dl_):
+        return fa.flash_attention_partial_bwd(q_, k_, k_[..., :hdv], qp, kp, do_, m_, dl_,
+                                              scale=scale)
+
+    for args in copies:
+        call(*args)
+    torch.cuda.synchronize()
+    parts = {"dq": BWD_GROUPS["dq_tc"], "dkv": BWD_GROUPS["dkv_tc"]}
+    bturns = {part: [] for part in parts}
+    for _ in range(2):
+        _, by_group = profiled_ms(call, copies, reps=3, want=list(parts.values()))
+        for part, group in parts.items():
+            bturns[part].append(by_group[group])
+    check(all(t > 0 for ts in bturns.values() for t in ts),
+          f"the profiler missed an MLA backward kernel at [{name}]: {bturns}")
+    plain_bwd = time_ms(lambda q_, k_, qp, kp, do_, m_, dl_: ref.attention_partial_bwd_ref(
+        q_, k_, k_[..., :hdv], qp, kp, None, do_, m_, dl_, scale=scale), copies,
+        reps=len(copies), label=f"the plain MLA backward [{name}]")
+    graphs = []
+    for cq, ck, *_rest in copies:
+        lq, lk = cq.detach().requires_grad_(), ck.detach().requires_grad_()
+        out = sdpa(lq, lk)
+        graphs.append((out, [lq, lk], torch.randn_like(out)))
+    lib_bwd = time_ms(lambda out, leaves, g: torch.autograd.grad(out, leaves, g, retain_graph=True),
+                      graphs, reps=3, label=f"the sdpa MLA backward [{name}]")
+    del graphs
+    rows_in = live_rows * H * (esz * hdk + 4 * (hdv + 2)) + kv_rows * Hkv * esz * hdk + pos_bytes
+    for part, n_ops, out_bytes in (
+            ("dq", 2 * H * n_vis * (hdk + hdv + hdk), 4 * B * Tq * H * hdk),
+            ("dkv", 2 * H * n_vis * (hdk + hdv + hdk + hdv), 4 * B * S * Hkv * (hdk + hdv))):
+        b_ms, b_by = bound(n_ops, rows_in + out_bytes)
+        rows[part] = {"shape": f"MLA {name}", "q": list(q.shape), "kv": list(k.shape),
+                      "dtype": str(q.dtype), "kernels": "tensor_cores (wide)",
+                      "ms": sum(bturns[part]) / len(bturns[part]), "ms_turns": bturns[part],
+                      "plain_ms": plain_bwd, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_bwd, "library": f"sdpa backward ({backend})",
+                      "ops": n_ops,
+                      "max_abs_err": err["dq"] if part == "dq" else max(err["dk"], err["dv"]),
+                      "rel_err": rel["dq"] if part == "dq" else max(rel["dk"], rel["dv"])}
+    a, b = rows["dq"], rows["dkv"]
+    print(f"MLA bwd [{name}]: dq {a['ms']:.3f} ms (turns "
+          f"{', '.join(f'{t:.3f}' for t in a['ms_turns'])}; rel err {a['rel_err']:.2e}), dk/dv "
+          f"{b['ms']:.3f} ms (turns {', '.join(f'{t:.3f}' for t in b['ms_turns'])}; rel err "
+          f"{b['rel_err']:.2e}); plain {plain_bwd:.3f} ms, sdpa backward ({backend}) "
+          f"{lib_bwd:.3f} ms; bounds {a['bound_ms']:.4f} / {b['bound_ms']:.4f} ms "
+          f"({a['bound_by']}, {b['bound_by']})")
+    return rows
+
+
+def mla_kernel_shapes(fa, ref, gen, runner, cfg, scale):
+    """(a) The wide kernels at deepseek-v3's main-path shapes: a serving
+    prefill chunk (Tq 128 over a 2048-slot prefix view of the latent cache,
+    B 4), a decode step (Tq 1 over the whole cache buffer, its PAD tail),
+    and the train cell's first and last chunks (S 8192 in 4 FLOPs-balanced
+    chunks, B 1), forward and backward.  Returns the rows by shape."""
+    from repro_torch.configs.base import ShapeConfig
+
+    dev, bf16, H, w = "cuda", torch.bfloat16, cfg.n_heads, cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim
+    pre = runner.resolve_cell(dataclasses.replace(cfg, n_layers=MLA_SERVE_LAYERS),
+                              ShapeConfig("mla_prefill", PREFILL_LEN, BATCH, "prefill"),
+                              overrides=dict(pp=1, dp=1, n_chunks=PREFILL_LEN // 64,
+                                             offload=False, remat="none"))
+    cache = pre.cache_loc
+    kbuf = torch.randn(BATCH, cache, 1, w, generator=gen, device=dev).to(bf16)
+    pos = torch.arange(cache, dtype=torch.int32, device=dev)
+    rows = {}
+    q = torch.randn(BATCH, 128, H, w, generator=gen, device=dev).to(bf16)
+    rows["prefill chunk"] = measure_mla_shape(
+        "prefill chunk", fa, ref, q, kbuf[:, :PREFILL_LEN],
+        PREFILL_LEN - 128 + torch.arange(128, dtype=torch.int32, device=dev), pos[:PREFILL_LEN],
+        scale)
+    q = torch.randn(BATCH, 1, H, w, generator=gen, device=dev).to(bf16)
+    rows["decode step"] = measure_mla_shape(
+        "decode step", fa, ref, q, kbuf, torch.full((1,), PREFILL_LEN, dtype=torch.int32, device=dev),
+        torch.where(pos <= PREFILL_LEN, pos, PAD).to(torch.int32), scale)
+    del kbuf
+    cell = runner.resolve_cell(dataclasses.replace(cfg, n_layers=MLA_TRAIN_LAYERS),
+                               ShapeConfig("mla_train", MLA_SEQ, 1, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=MLA_CHUNKS, offload=False,
+                                              remat="none"), dtype=bf16)
+    kbuf = torch.randn(1, MLA_SEQ, 1, w, generator=gen, device=dev).to(bf16)
+    pos = torch.arange(MLA_SEQ, dtype=torch.int32, device=dev)
+    for name, c in (("train first chunk", 0), ("train last chunk", cell.sched.n - 1)):
+        off, ln = cell.sched.offsets[c], cell.sched.lengths[c]
+        q = torch.randn(1, ln, H, w, generator=gen, device=dev).to(bf16)
+        do = torch.randn(1, ln, H, 512, generator=gen, device=dev)
+        dl = torch.randn(1, ln, H, generator=gen, device=dev)
+        rows[name] = measure_mla_shape(name, fa, ref, q, kbuf[:, :off + ln], pos[off:off + ln],
+                                       pos[:off + ln], scale, do, dl)
+        del q, do, dl
+        torch.cuda.empty_cache()
+    return rows, list(cell.sched.lengths)
+
+
+def mla_serve(fa, hostmem, serve, cfg, card):
+    """(b) deepseek-v3-671b served at full width, MLA_SERVE_LAYERS layers,
+    bf16, through the serve CLI's entry point: random weights from seed 0,
+    B 4, a 2048-token prompt in 16 chunks of 128, 32 decode steps, twice.
+    The tensor-core forward launches layers x (16 + 32) times a run (the
+    decode calls splitting their KV range and merging it in the launch),
+    nothing else, no host copy."""
+    fa.reset_counts()
+    hostmem.reset_counts()
+    out = serve.main(["--arch", MLA_ARCH, "--layers", str(MLA_SERVE_LAYERS),
+                      "--prompt-len", str(PREFILL_LEN), "--batch", str(BATCH),
+                      "--decode-steps", str(DECODE_STEPS), "--repeats", str(MLA_REPEATS)])
+    counts = fa.counts()
+    check(not any(hostmem.counts().values()),
+          f"[{MLA_ARCH}] serving copied to or from host memory: {hostmem.counts()}")
+    n_chunks = out["n_chunks"]
+    check(n_chunks == 16, f"[{MLA_ARCH}] prefill ran {n_chunks} chunks, expected 16")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    clen, cache = PREFILL_LEN // n_chunks, PREFILL_LEN + 128
+    splits = (sum(fa._tc_wide_geometry(BATCH, clen, (c + 1) * clen, cfg.n_heads, 1, n_sm)[0] > 1
+                  for c in range(n_chunks))
+              + DECODE_STEPS * (fa._tc_wide_geometry(BATCH, 1, cache, cfg.n_heads, 1, n_sm)[0] > 1))
+    want = {**{k: 0 for k in counts},
+            "fwd_tc": MLA_REPEATS * MLA_SERVE_LAYERS * (n_chunks + DECODE_STEPS),
+            "merged_in_kernel": MLA_REPEATS * MLA_SERVE_LAYERS * splits}
+    check(counts == want, f"[{MLA_ARCH}] serving launched {counts}, expected {want}")
+    toks = out["tokens"]
+    check(toks.shape == (BATCH, DECODE_STEPS)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"[{MLA_ARCH}] decoded tokens {toks.shape} out of range")
+    check(bool(torch.isfinite(out["last_hidden"]).all()), f"[{MLA_ARCH}] hidden not finite")
+    runs = []
+    for run, (p_s, d_s) in enumerate(zip(out["prefill_s_runs"], out["decode_s_runs"])):
+        runs.append({"prefill_s": p_s, "prefill_tokens_per_s": BATCH * PREFILL_LEN / p_s,
+                     "decode_ms_per_step": 1e3 * d_s / DECODE_STEPS,
+                     "decode_tokens_per_s": BATCH * DECODE_STEPS / d_s})
+        print(f"serve [{MLA_ARCH}] run {run} ({card}): {MLA_SERVE_LAYERS} of {cfg.n_layers} "
+              f"layers at full width, bf16: prefill {p_s:.4f} s, "
+              f"{runs[-1]['prefill_tokens_per_s']:.1f} tokens/s; decode "
+              f"{runs[-1]['decode_ms_per_step']:.3f} ms/step, "
+              f"{runs[-1]['decode_tokens_per_s']:.1f} tokens/s")
+    print(f"serve [{MLA_ARCH}] launches {counts} (expected {want}); peak "
+          f"{out['peak_bytes'] / 2**30:.3f} GiB ({card})")
+    return counts, {"runs": runs, "peak_bytes": out["peak_bytes"]}
+
+
+def _bits_sum(t) -> int:
+    """A checksum of a tensor's bits, summed a slice at a time (a 7.5 GB
+    expert gradient is never widened whole)."""
+    bits = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return int(sum(int(part.sum(dtype=torch.int64)) for part in bits.split(1 << 26)))
+
+
+def mla_grads(fa, hostmem, serve, runner, cfg, card):
+    """(c) deepseek-v3-671b's loss and gradients at full width,
+    MLA_TRAIN_LAYERS layer, S 8192 in 4 chunks, bf16, under plans (d) (the
+    default: offload on, remat "sppo", prefetch "ahead") and (b) (offload
+    off, remat "sppo"), MLA_GRAD_CALLS calls each on the same seed-0
+    weights and step-0 tokens: the losses bitwise equal across plans and
+    calls, the tensor-core forward launched 8 times a call (each chunk and
+    its replay), dq and dk/dv 4 times each, nothing else, D2H = H2D at the
+    closed form of MLA's and the MoE block's tag shapes under (d) and no
+    copy under (b); each call's peak over its weights beside
+    MLA_GRAD_PEAK_PREDICTED_GIB."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+
+    cfg1 = dataclasses.replace(cfg, n_layers=MLA_TRAIN_LAYERS)
+    shape = ShapeConfig("mla_train", MLA_SEQ, 1, "train")
+    cells = {"d": runner.resolve_cell(cfg1, shape, overrides=dict(pp=1, dp=1, n_chunks=MLA_CHUNKS),
+                                      dtype=torch.bfloat16),
+             "b": runner.resolve_cell(cfg1, shape, overrides=dict(
+                 pp=1, dp=1, n_chunks=MLA_CHUNKS, **PLANS["b"][1]), dtype=torch.bfloat16)}
+    for plan, cell in cells.items():
+        check((cell.plan.offload, cell.plan.remat, cell.plan.prefetch if cell.plan.offload
+               else None) == PLAN_FORM[plan], f"[{MLA_ARCH}] plan ({plan}) resolved to {cell.plan}")
+    t0 = time.perf_counter()
+    params = serve.build_params(cells["d"], "cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tokens, labels = (torch.from_numpy(a).cuda()
+                      for a in SyntheticLM(cfg.vocab_size, MLA_SEQ, 1).sample_step(0))
+    weights = torch.cuda.memory_allocated()
+    paths, calls = {}, []
+    for plan in ("d", "b") * MLA_GRAD_CALLS:
+        cell = cells[plan]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fa.reset_counts()
+        hostmem.reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = runner.loss_and_grads(cell, params, tokens, labels)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, copied = fa.counts(), hostmem.counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        leaves = tree.leaves(grads)
+        finite = all(bool(torch.isfinite(g).all()) for g in leaves if g.numel() < 2**28)
+        sums = [_bits_sum(g) for g in leaves]
+        calls.append({"plan": plan, "loss": float(loss), "seconds": secs, "peak_bytes": peak,
+                      "grad_bits": sums})
+        del grads, leaves
+        want = {**{k: 0 for k in counts}, "fwd_tc": 2 * MLA_CHUNKS * MLA_TRAIN_LAYERS,
+                "bwd_dq_tc": MLA_CHUNKS * MLA_TRAIN_LAYERS, "bwd_dkv_tc": MLA_CHUNKS * MLA_TRAIN_LAYERS}
+        check(counts == want, f"[{MLA_ARCH}] plan ({plan}) launched {counts}, expected {want}")
+        n_bytes = offload_bytes(cell) if cell.plan.offload else 0
+        check(copied["d2h_bytes"] == copied["h2d_bytes"] == n_bytes
+              and copied["d2h_pinned"] == copied["d2h"],
+              f"[{MLA_ARCH}] plan ({plan}) copied {copied}, expected {n_bytes} pinned bytes each way")
+        check(finite and math.isfinite(calls[-1]["loss"]),
+              f"[{MLA_ARCH}] plan ({plan}): loss {calls[-1]['loss']} or gradients not finite")
+        print(f"train [{MLA_ARCH}] plan ({plan}) loss and gradients ({card}): {MLA_TRAIN_LAYERS} "
+              f"layer at full width, S {MLA_SEQ} in chunks {cell.sched.lengths}, alpha "
+              f"{[round(a, 4) for a in cell.alphas]}: loss {float(loss)!r}, {secs:.3f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; D2H {copied['d2h_bytes']} = H2D "
+              f"{copied['h2d_bytes']} bytes (closed form {n_bytes}); peak over the weights "
+              f"{peak / 2**30:.3f} GiB (predicted {MLA_GRAD_PEAK_PREDICTED_GIB} GiB; weights "
+              f"{weights / 2**30:.3f} GiB)")
+        paths[f"train_mla_plan_{plan}"] = counts
+    losses = [c["loss"] for c in calls]
+    check(len(set(losses)) == 1, f"[{MLA_ARCH}] losses differ across plans and calls: {losses}")
+    same_grads = all(c["grad_bits"] == calls[0]["grad_bits"] for c in calls)
+    print(f"train [{MLA_ARCH}] plans (d) and (b), {MLA_GRAD_CALLS} calls each: losses bitwise "
+          f"equal ({losses[0]!r}); gradient bit sums {'equal' if same_grads else 'differ'} "
+          f"across the calls; weights built in {build_s:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return paths, {"calls": [{k: v for k, v in c.items() if k != "grad_bits"} for c in calls],
+                   "grad_bits_equal": same_grads, "weights_bytes": weights,
+                   "chunks": list(cells["d"].sched.lengths), "alphas": list(cells["d"].alphas)}
+
+
+def mla_cpu_check(fa, hostmem, serve, runner, cfg, card):
+    """(d) The reduced deepseek-v3 (hd_k 24, hd_v 16, G 4: the CUDA-core
+    kernels) in fp32 on the card and on the CPU from the same weights: one
+    2-layer train step at S = 256 in 2 chunks under the default plan (chunk
+    0 offloads every tagged row) with AdamW's bf16 moments in host memory:
+    the loss, the gradient norm and every parameter's update within
+    GRAD_REL_TOL (relative); the launches by their closed forms; then a
+    prefill and MLA_CHECK_DECODE decode steps: the card's tokens the CPU's
+    (a tie under TIE_GAP excepted)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model_zoo import ModelDef
+
+    rcfg = cfg.reduced()
+    S = MLA_CHECK_SEQ
+    cell = runner.resolve_cell(rcfg, ShapeConfig("mla_check", S, 1, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=2), dtype=torch.float32)
+    check(cell.plan.opt_dtype == "bfloat16" and cell.plan.offload_moments,
+          f"[{MLA_ARCH}] reduced plan {cell.plan}: expected bf16 moments in host memory")
+    cell = dataclasses.replace(cell, alphas=(1.0, 0.0))
+    tokens, labels = (torch.from_numpy(a) for a in SyntheticLM(rcfg.vocab_size, S, 1).sample_step(0))
+    start = serve.build_params(cell, "cpu", seed=0)
+    step = runner.make_train_step(cell, lr_kwargs=dict(peak=1e-3, warmup=1, total=10))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.clone().to(dev), start)
+        opt = runner.init_opt_state(cell, params)
+        fa.reset_counts()
+        hostmem.reset_counts()
+        params, opt, met = step(params, opt, tokens.to(dev), labels.to(dev))
+        out[dev] = {"loss": float(met["loss"]), "gnorm": float(met["grad_norm"]),
+                    "params": {p: t.cpu() for p, t in tree.items(params)},
+                    "m": [t.float().cpu() for t in tree.leaves(opt.m)],
+                    "counts": fa.counts(), "copied": hostmem.counts()}
+        del params, opt
+    card_o, cpu_o = out["cuda"], out["cpu"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    G = rcfg.n_heads
+    splits = sum(fa._geometry(1, ln, off + ln, G, 1, n_sm)[2] > 1
+                 for off, ln in zip(cell.sched.offsets, cell.sched.lengths))
+    want = {**{k: 0 for k in card_o["counts"]}, "fwd": 4 * rcfg.n_layers, "merge": 2 * rcfg.n_layers * splits,
+            "bwd_dq": 2 * rcfg.n_layers, "bwd_dkv": 2 * rcfg.n_layers}
+    check(card_o["counts"] == want,
+          f"[{MLA_ARCH}] the reduced fp32 step launched {card_o['counts']}, expected {want}")
+    check(card_o["copied"]["d2h_pinned"] == card_o["copied"]["d2h"] > 0
+          and card_o["copied"]["moment_d2h_pinned"] == card_o["copied"]["moment_d2h"] > 0,
+          f"[{MLA_ARCH}] the reduced step's copies {card_o['copied']}: expected pinned row and "
+          "moment copies")
+    rel = {"loss": abs(card_o["loss"] - cpu_o["loss"]) / abs(cpu_o["loss"]),
+           "grad_norm": abs(card_o["gnorm"] - cpu_o["gnorm"]) / abs(cpu_o["gnorm"])}
+    worst_upd, start = 0.0, dict(tree.items(start))
+    for p, t in card_o["params"].items():
+        d_card, d_cpu = t - start[p], cpu_o["params"][p] - start[p]
+        if d_cpu.norm() > 0:
+            worst_upd = max(worst_upd, ((d_card - d_cpu).norm() / d_cpu.norm()).item())
+    rel["update"] = worst_upd
+    m_rel = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+                for a, b in zip(card_o["m"], cpu_o["m"]))
+    print(f"train [{MLA_ARCH}] reduced 2-layer fp32 step ({card}), default plan, bf16 moments in "
+          f"host memory: loss card {card_o['loss']:.6f} vs CPU {cpu_o['loss']:.6f}; relative "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + f" (worst parameter's update); first moments (bf16) relative L2 {m_rel:.3e}; "
+          f"launches {card_o['counts']}")
+    check(all(v <= GRAD_REL_TOL for v in rel.values()),
+          f"[{MLA_ARCH}] the reduced step disagrees card vs CPU: {rel} (tol {GRAD_REL_TOL})")
+    # serving: a prefill and decode steps, card against CPU
+    pre = runner.resolve_cell(rcfg, ShapeConfig("mla_fp32", S, BATCH, "prefill"),
+                              overrides=dict(pp=1, dp=1, n_chunks=S // 64, offload=False,
+                                             remat="none"), dtype=torch.float32)
+    dec = runner.resolve_cell(rcfg, ShapeConfig("mla_fp32", S, BATCH, "decode"),
+                              overrides=dict(pp=1, dp=1), dtype=torch.float32)
+    params = serve.build_params(pre, "cpu", seed=0)
+    prompts = np.random.default_rng(1).integers(2, rcfg.vocab_size, size=(BATCH, S)).astype(np.int32)
+    got = static_decode(runner, pre, dec, tree_map(lambda t: t.cuda(), params), prompts,
+                        MLA_CHECK_DECODE, "cuda")
+    gaps = []
+    with recorded_gaps(ModelDef, gaps):
+        want_toks = static_decode(runner, pre, dec, params, prompts, MLA_CHECK_DECODE, "cpu")
+    ties = held_against_cpu(got, want_toks, np.stack(gaps, axis=1), f"{MLA_ARCH} reduced fp32 serve")
+    print(f"serve [{MLA_ARCH}] reduced fp32 ({card}): {BATCH} rows, prefill {S}, "
+          f"{MLA_CHECK_DECODE} decode steps: tokens as the CPU's ({len(ties)} ties)")
+    return rel, card_o["counts"], {"step_rel": rel, "moment_rel_l2": m_rel, "serve_ties": ties}
+
+
+def mla_phase(fa, hostmem, serve, runner, ref, card):
+    """MLA, deepseek-v3-671b: (a) the three wide tensor-core kernels at its
+    shapes, its edge grid; (b) serving at full width, 2 layers; (c) loss and
+    gradients at full width, 1 layer, plans (d) and (b); (d) the reduced
+    model in fp32 against the CPU.  Returns (launch counts by path, rows for
+    the kernels line, summary)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.attention import mla_scale
+
+    t0 = time.perf_counter()
+    cfg = get_config(MLA_ARCH)
+    scale = mla_scale(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    fwd_err, bwd_rel, n_cases = mla_edge_grid(fa, ref, gen, scale)
+    print(f"MLA edge grid: {n_cases} cases (bf16, the wide tensor-core kernels) forward within "
+          f"{KERNEL_TOL} (worst {fwd_err:.3e}), backward within {KERNEL_TOL} x max |plain| (worst "
+          f"relative {bwd_rel:.3e}), dead rows exact")
+    rows, chunks = mla_kernel_shapes(fa, ref, gen, runner, cfg, scale)
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    serve_counts, serve_summary = mla_serve(fa, hostmem, serve, cfg, card)
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    grad_counts, grad_summary = mla_grads(fa, hostmem, serve, runner, cfg, card)
+    t_c = time.perf_counter()
+    check_rel, check_counts, check_summary = mla_cpu_check(fa, hostmem, serve, runner, cfg, card)
+    t_d = time.perf_counter()
+    seconds = {"kernels": t_a - t0, "serve": t_b - t_a, "grads": t_c - t_b, "cpu_check": t_d - t_c,
+               "total": t_d - t0}
+    print(f"MLA phase took {t_d - t0:.1f} s ({json.dumps({k: round(v, 1) for k, v in seconds.items()})})")
+    counts = {"serve_mla": serve_counts, **grad_counts, "train_mla_fp32": check_counts}
+    summary = {"edge_grid": {"fwd_max_abs_err": fwd_err, "bwd_max_rel_err": bwd_rel,
+                             "cases": n_cases},
+               "train_chunks": chunks, "serve": serve_summary, "grads": grad_summary,
+               "cpu_check": check_summary, "seconds": seconds}
+    return counts, rows, summary
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -4492,6 +5015,9 @@ def main():
     # ---- the MoE family: granite served and trained at 24 layers, EP at sp = 2
     torch.cuda.empty_cache()
     moe_counts, moe_summary = moe_phase(fa, hostmem, mesh, serve, runner, train_mod, card)
+    # ---- MLA: deepseek-v3-671b's kernels, serving and gradients at full width
+    torch.cuda.empty_cache()
+    mla_counts, mla_rows, mla_summary = mla_phase(fa, hostmem, serve, runner, ref, card)
 
     tc_rows = [r["tensor_cores"] for r in rows]
     cc_rows = [r["cuda_cores"] for r in rows]
@@ -4509,12 +5035,13 @@ def main():
              "train_pipeline_pp2": pipe_counts["plain"], "train_pipeline_pp2_msp": pipe_counts["msp"],
              **{f"train_pipeline_{k}": c for k, c in pipe_counts.items() if k.startswith("fp32_")},
              **{f"train_model_axis_{k}": c for k, c in ma_counts.items()},
-             **paged_counts, **sr_counts, **moe_counts}
+             **paged_counts, **sr_counts, **moe_counts, **mla_counts}
     pipe_tc = ("train_pipeline_pp2", "train_pipeline_pp2_msp",
-               *(f"train_model_axis_{k}" for k in SP_MODES), "train_moe_plan_d")
+               *(f"train_model_axis_{k}" for k in SP_MODES), "train_moe_plan_d",
+               "train_mla_plan_d")
     pipe_cc = (*(f"train_pipeline_{k}" for k in pipe_counts if k.startswith("fp32_")),
                *(f"train_model_axis_{k}" for k in ma_counts if k.startswith("fp32_")),
-               *sr_counts, "train_moe_fp32", "train_moe_ep_sp2")
+               *sr_counts, "train_moe_fp32", "train_moe_ep_sp2", "train_mla_fp32")
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
@@ -4531,13 +5058,16 @@ def main():
          "launches": serve_counts["fwd_tc"] + train_counts["fwd_tc"]
          + sum(c["fwd_tc"] for c in full.values()) + packed_counts["packed_d"]["fwd_tc"]
          + sum(paths[p]["fwd_tc"] for p in pipe_tc)
-         + paged_counts["serve_paged_continuous"]["fwd_tc"] + moe_counts["serve_moe"]["fwd_tc"],
+         + paged_counts["serve_paged_continuous"]["fwd_tc"] + moe_counts["serve_moe"]["fwd_tc"]
+         + mla_counts["serve_mla"]["fwd_tc"],
          "launches_by_path": by_path("fwd_tc"),
          "merged_in_kernel_by_path": by_path("merged_in_kernel"),
          **{key: tc_rows[0][key] for key in common},
          "edge_grid_max_abs_err": grid_err["tensor_cores"],
          "shapes": (tc_rows + [r["tensor_cores"] for r in extra_fwd]
-                    + [paged_rows["tensor_cores"], moe_decode_rows["tensor_cores"]])},
+                    + [paged_rows["tensor_cores"], moe_decode_rows["tensor_cores"]]),
+         "mla_edge_grid_max_abs_err": mla_summary["edge_grid"]["fwd_max_abs_err"],
+         "mla_shapes": [r["fwd"] for r in mla_rows.values()]},
         {"name": "flash_attention_partial", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_partial.cu",
          "replaces": "src/repro/kernels/flash_attention.py:260",
@@ -4587,7 +5117,10 @@ def main():
                                                 "fp32_packed_check_shapes_max_rel_err":
                                                     fp32_packed_rel}),
             "model_axis_check_shapes_max_rel_err": ma_bwd_rel,
-            "shapes": [r[part] for r in bwd_rows + extra_bwd]})
+            "shapes": [r[part] for r in bwd_rows + extra_bwd],
+            **({"mla_edge_grid_max_rel_err": mla_summary["edge_grid"]["bwd_max_rel_err"],
+                "mla_shapes": [r[part[:-3]] for r in mla_rows.values() if part[:-3] in r]}
+               if part.endswith("_tc") else {})})
     summary = {"prefill_s_runs": pre_runs, "decode_s_runs": dec_runs,
                "prefill_s": pre_s, "prefill_tokens_per_s": BATCH * PREFILL_LEN / pre_s,
                "decode_ms_per_step": 1e3 * dec_s / DECODE_STEPS,
@@ -4597,7 +5130,7 @@ def main():
                **packed_summary, "packed_fp32_check": packed_fp32, "train_configs": config_rows,
                "train_chunks": list(train_cell.sched.lengths), "pipeline": pipe_summary,
                "model_axis": ma_summary, "paged_serve": paged_summary,
-               "serve_ranks": sr_summary, "moe": moe_summary,
+               "serve_ranks": sr_summary, "moe": moe_summary, "mla": mla_summary,
                "seconds": time.perf_counter() - t_start}
     print("summary:", json.dumps(summary))
     print(card)

@@ -282,5 +282,5 @@ def _load_all() -> None:
     import importlib
 
     for mod in ("qwen2_7b", "sppo_gpt", "glm4_9b", "nemotron_4_15b", "starcoder2_3b",
-                "granite_moe_1b_a400m"):
+                "granite_moe_1b_a400m", "deepseek_v3_671b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

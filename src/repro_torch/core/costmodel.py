@@ -16,9 +16,8 @@
 - the optimizer-moment channel (DESIGN.md §11, §14): ``moment_bytes_per_param``,
   ``opt_state_bytes``, ``moment_bytes_from_shapes`` and
   ``moment_wire_bytes_per_param``, the closed forms the moment copies of
-  ``optim/adamw.py`` are held to.  The port's moments are fp32 (its bf16
-  moments would be deepseek's, not yet a model of the port), so
-  ``opt_dtype`` takes "float32" alone;
+  ``optim/adamw.py`` are held to, for fp32 moments or deepseek's bf16 ones
+  (``opt_dtype``);
 - ``count_active_params``, the N of MFU's 6 N T (an MoE model's routed
   experts at top_k / num_experts), over a tree of torch tensors or, before
   any parameter exists, over a ``ModelDef``'s shapes;
@@ -135,8 +134,12 @@ def tagged_scale_elems_per_token(cfg) -> float:
     """Per-layer *scale elements* per token of the compressed channel
     (DESIGN.md §14): one fp32 scale per trailing-axis row of each tag site,
     q [B,T,H,hd] -> H, k / v [B,T,Hkv,hd] -> Hkv each, the attention output
-    [B,T,H*hd] -> 1 and the MLP hidden [B,T,d_ff] -> 1."""
-    return float(cfg.n_heads + 2 * cfg.n_kv_heads + 1 + 1)
+    [B,T,H*hd] -> 1 and the MLP hidden [B,T,d_ff] -> 1; MLA's q_eff
+    [B,T,H,dc+dr] -> H, k_eff [B,T,1,dc+dr] -> 1 and o_v [B,T,H,dv] -> H
+    (reference ``costmodel.py:169-170``)."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    attn = H + 1 + H if cfg.mla is not None else H + 2 * Hkv + 1
+    return float(attn + 1)
 
 
 SCALE_ITEMSIZE = 4  # per-row scales are fp32
@@ -187,9 +190,15 @@ def tagged_bytes_per_token(cfg) -> float:
     for an MoE layer the routed experts' hidden, priced as top_k x
     d_ff_expert a token plus the shared experts' (reference
     ``costmodel.py:145-148``; the tagged tensor itself is the capacity
-    buffers' [E_loc, Ce, ff], models/moe.py), bf16."""
+    buffers' [E_loc, Ce, ff], models/moe.py), bf16.  An MLA layer tags
+    q_eff [H, dc + dr], k_eff [dc + dr] and o_v [H, dv] a token instead of
+    q, k, v and the output (reference ``costmodel.py:139-143``)."""
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    attn = H * hd + 2 * Hkv * hd + H * hd         # q, k, v, out
+    if cfg.mla is not None:
+        eff = cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim
+        attn = H * eff + eff + H * cfg.mla.v_head_dim     # q_eff, k_eff, o_v
+    else:
+        attn = H * hd + 2 * Hkv * hd + H * hd         # q, k, v, out
     if cfg.moe is not None:
         mlp = (cfg.moe.top_k + cfg.moe.n_shared_experts) * cfg.moe.d_ff_expert
     else:
@@ -212,7 +221,7 @@ def chunk_act_bytes(cfg, lengths, *, batch: int, pp: int, sp: int,
 # Optimizer-state (AdamW moment) bytes
 # ---------------------------------------------------------------------------
 
-_OPT_ITEMSIZE = {"float32": 4}
+_OPT_ITEMSIZE = {"float32": 4, "bfloat16": 2}
 
 
 def moment_bytes_per_param(opt_dtype="float32") -> float:

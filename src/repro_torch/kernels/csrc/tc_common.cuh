@@ -5,6 +5,15 @@
 // kTerms bf16 terms, and the up-front decision of which KV tiles some query
 // row of a block sees.  Each kernel source is its own shared library, so the
 // helpers live in an anonymous namespace here.
+//
+// Two families of kernels use them.  The narrow ones take head dims up to
+// kMaxHd = 128 and hold a warp's whole row of o (or dq, dk, dv) in
+// registers.  The wide ones take MLA's absorbed heads, hd_k up to
+// kWideHdK = 576 and hd_v up to kWideHdV = 512 (deepseek-v3: q_eff and the
+// latent [c_kv | k_rope] against v = the latent's first 512 columns): there
+// a row of fp32 o alone is 256 registers a thread, so the eight warps of a
+// block split the output columns in four quarters and share p (or dS)
+// through shared memory (flash_partial_tc.cu, flash_partial_bwd_tc.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,7 +25,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxHd = 128;          // largest hd_k and hd_v
+constexpr int kMaxHd = 128;          // largest hd_k and hd_v of the narrow kernels
 constexpr int kSteps = kMaxHd / 16;  // 16-column steps of a full head dim
 constexpr int kLd = kMaxHd + 8;      // bf16 row stride of every shared tile (272 bytes: ldmatrix is conflict-free)
 constexpr int kBlockK = 64;          // KV slots per tile
@@ -24,6 +33,19 @@ constexpr int kTerms = 3;            // bf16 terms of a split fp32 operand
 constexpr int kWindow = 1024;        // tiles whose visibility one pass decides (a bit mask)
 constexpr float kNegInf = -1e30f;
 constexpr int kPadPos = 1 << 30;
+
+// the wide kernels (MLA)
+constexpr int kWideHdK = 576;             // largest hd_k
+constexpr int kWideHdV = 512;             // largest hd_v
+constexpr int kWideLd = kWideHdK + 8;     // bf16 row stride of a q / k tile (1168 bytes: 73 16-byte units, odd)
+constexpr int kWideLdV = kWideHdV + 8;    // of a v / dO tile (1040 bytes: 65 units)
+constexpr int kWideRows = 32;             // query rows of a tile: two row groups of 16
+constexpr int kWideBlockK = 32;           // KV slots of a tile: two slot groups of 16, four n-tiles of 8
+constexpr int kWideLdP = kWideBlockK + 8; // of a p / dS term tile (80 bytes: 5 units)
+constexpr int kWideWarps = 8;             // warp w: group w / 4 of rows (or slots), quarter w % 4 of columns
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideColsK = kWideHdK / 4;  // a quarter of hd_k: 144 columns, 9 steps of 16
+constexpr int kWideColsV = kWideHdV / 4;  // a quarter of hd_v: 128 columns, 8 steps of 16
 
 // ---- PTX: cp.async, ldmatrix, mma.sync
 
@@ -53,6 +75,14 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// The B fragment of one n-tile (registers {0, 1} of ldsm_x4) from an [N][K]
+// tile, at the same lane addresses (lanes 16-31 give none).
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p)));
 }
 
@@ -126,18 +156,24 @@ __device__ __forceinline__ void add_to(float (&acc)[4], const float (&t)[4]) {
 
 // ---- tiles and masks
 
-// cp.async of a [kRows][hd] bf16 tile into shared memory ([kRows][kLd]): row r
-// from row_ptr(r) (nullptr: absent), 16-byte chunks over hd padded to a
-// multiple of 16 columns; absent rows and the padding are zero-filled.
-template <int kRows, int kThreads, typename RowPtr>
-__device__ __forceinline__ void load_tile_async(bf16* dst, int hd, const bf16* any, RowPtr row_ptr, int tid) {
+// cp.async of a [kRows][hd] bf16 tile into shared memory ([kRows][kStride]):
+// row r from row_ptr(r) (nullptr: absent), 16-byte chunks over hd padded to
+// a multiple of 16 columns; absent rows and the padding are zero-filled.
+template <int kRows, int kThreads, int kStride, typename RowPtr>
+__device__ __forceinline__ void load_rows_async(bf16* dst, int hd, const bf16* any, RowPtr row_ptr, int tid) {
   const int chunks = 2 * ((hd + 15) / 16), valid = hd / 8;
   for (int e = tid; e < kRows * chunks; e += kThreads) {
     const int r = e / chunks, c = e % chunks;
     const bf16* src = row_ptr(r);
     const bool ok = src != nullptr && c < valid;
-    cp_async16(dst + r * kLd + c * 8, ok ? src + c * 8 : any, ok);
+    cp_async16(dst + r * kStride + c * 8, ok ? src + c * 8 : any, ok);
   }
+}
+
+// The same into a narrow tile ([kRows][kLd]).
+template <int kRows, int kThreads, typename RowPtr>
+__device__ __forceinline__ void load_tile_async(bf16* dst, int hd, const bf16* any, RowPtr row_ptr, int tid) {
+  load_rows_async<kRows, kThreads, kLd>(dst, hd, any, row_ptr, tid);
 }
 
 __device__ __forceinline__ bool visible(int kp, int qp, int qs, int causal) {
@@ -177,6 +213,54 @@ __device__ __forceinline__ bool slot_seen(const int* qs_sorted, const int* qp_ma
     if (qs_sorted[n + step - 1] <= kp) n += step;
   n += qs_sorted[n] <= kp;
   return n > 0 && (!causal || qp_max[n - 1] >= kp);
+}
+
+// The 16 x 8 accumulator tile of A . B^T over `steps` 16-column k-steps,
+// A's 16 rows from shared memory at `a` (this lane's ldsm_x4 address) and
+// B's 8 rows at `b` (this lane's ldsm_x2 address), each step 16 columns
+// on, as four independent chains summed at the end: a wide head's 36 steps
+// would otherwise be one dependent chain.
+__device__ __forceinline__ void dot_tile(float (&out)[4], const bf16* a, const bf16* b, int steps) {
+  float c[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[u][j] = 0.f;
+  int ks = 0;
+  for (; ks + 4 <= steps; ks += 4) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      uint32_t af[4], bf[2];
+      ldsm_x4(af, a + (ks + u) * 16);
+      ldsm_x2(bf, b + (ks + u) * 16);
+      mma(c[u], af, bf[0], bf[1]);
+    }
+  }
+  for (; ks < steps; ++ks) {
+    uint32_t af[4], bf[2];
+    ldsm_x4(af, a + ks * 16);
+    ldsm_x2(bf, b + ks * 16);
+    mma(c[0], af, bf[0], bf[1]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = (c[0][j] + c[1][j]) + (c[2][j] + c[3][j]);
+}
+
+// Whether v is the view of k's first hd_v columns (MLA's latent: the same
+// base and strides), so a wide kernel reads V from K's tile.
+template <typename P>
+__device__ __forceinline__ bool v_views_k(const P& p) {
+  return p.v == p.k && p.v_sb == p.k_sb && p.v_ss == p.k_ss && p.v_sh == p.k_sh;
+}
+
+// Writes the fp32 pair (x0, x1) as its kTerms bf16x2 words into kTerms tiles
+// of bf16 laid out [term][rows][ld] at element offset `at` of term 0.
+template <int kTermStride>
+__device__ __forceinline__ void store_split(bf16* base, long long at, float x0, float x1) {
+  uint32_t t[kTerms];
+  split_pair(x0, x1, t);
+#pragma unroll
+  for (int i = 0; i < kTerms; ++i) *reinterpret_cast<uint32_t*>(base + i * kTermStride + at) = t[i];
 }
 
 }  // namespace

@@ -16,8 +16,14 @@ Four CUDA sources replace the three Pallas TPU kernels of
 - ``csrc/flash_partial_bwd.cu``: the same two kernels in fp32 on the CUDA
   cores, for fp32 inputs.
 
-``csrc/tc_common.cuh`` holds what the tensor-core sources share (fragment
-layout, the split, the visible-tile decision).  Both forwards are held to
+Each tensor-core source has a narrow kernel (head dims up to 128) and a wide
+one for MLA's heads (hd_k up to 576, hd_v up to 512, G up to 128:
+deepseek-v3's q_eff against its latent, v the latent's first 512 columns),
+entry points ``*_tc`` and ``*_tc_wide``; the wrappers pick by head dim and
+count both as the same kernel.  The CUDA-core pair takes head dims up to 128
+and G up to 64 and raises above.  ``csrc/tc_common.cuh`` holds what the
+tensor-core sources share (fragment layout, the split, the visible-tile
+decision).  Both forwards are held to
 their plain version at 1e-5; both backward pairs have the plain version
 ``kernels/ref.py::attention_partial_bwd_ref`` and are held to it at 1e-5 x
 max |plain gradient|.  ``flash_attention_partial`` and
@@ -136,15 +142,20 @@ def build(names=tuple(SOURCES)) -> dict:
 
 def _bind(name: str, path) -> ctypes.CDLL:
     """Load the shared library built from source ``name`` at ``path`` and
-    declare its entry point's C signature."""
+    declare its entry points' C signatures (the tensor-core sources have a
+    narrow and a wide one)."""
     lib = ctypes.CDLL(str(path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    head, n_ptr, n_int = {"fwd": ([i32], 12, 13), "fwd_tc": ([], 13, 13),
-                          "bwd": ([i32, i32], 12, 11), "bwd_tc": ([i32], 15, 10)}[name]
-    fn = getattr(lib, {"fwd": "flash_partial_fwd", "fwd_tc": "flash_partial_fwd_tc",
-                       "bwd": "flash_partial_bwd", "bwd_tc": "flash_partial_bwd_tc"}[name])
-    fn.argtypes = head + [ptr] * n_ptr + [i32] * n_int + [i64] * 9 + [ctypes.c_float, i32, ptr]
-    fn.restype = i32
+    entries = {"fwd": {"flash_partial_fwd": ([i32], 12, 13)},
+               "fwd_tc": {"flash_partial_fwd_tc": ([], 13, 13),
+                          "flash_partial_fwd_tc_wide": ([], 13, 11)},
+               "bwd": {"flash_partial_bwd": ([i32, i32], 12, 11)},
+               "bwd_tc": {"flash_partial_bwd_tc": ([i32], 15, 10),
+                          "flash_partial_bwd_tc_wide": ([i32], 15, 9)}}[name]
+    for entry, (head, n_ptr, n_int) in entries.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = head + [ptr] * n_ptr + [i32] * n_int + [i64] * 9 + [ctypes.c_float, i32, ptr]
+        fn.restype = i32
     return lib
 
 
@@ -155,8 +166,13 @@ def _load(name: str):
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HD = 128        # largest hd_k / hd_v the kernel takes (csrc kMaxHd)
+MAX_HD = 128        # largest hd_k / hd_v of the CUDA-core and narrow tensor-core kernels (csrc kMaxHd)
+WIDE_HD_K = 576     # largest hd_k of the wide tensor-core kernels (csrc kWideHdK): MLA's q_eff
+WIDE_HD_V = 512     # largest hd_v of the wide ones (csrc kWideHdV): MLA's latent values
+MAX_G_TC = 128      # most grouped heads a tensor-core call takes (one token's a 128-row block)
 MAX_ROWS = 64       # query rows per CUDA-core forward block: G heads x bq tokens (16 x 4 row groups)
+WIDE_ROWS = 32      # fold rows (token x grouped head) of a wide block (csrc kWideRows)
+WIDE_BLOCK_K = 32   # KV slots per wide tile (csrc kWideBlockK)
 MAX_SPLITS = 32     # KV splits the merges take (csrc kMaxSplits)
 BLOCK_K = 64        # KV slots per tile (csrc kBlockK)
 TC_DQ_ROWS = 128    # query rows of a tensor-core dq block (csrc kDqRows)
@@ -219,6 +235,35 @@ def _tc_geometry(B: int, Tq: int, S: int, G: int, Hkv: int, n_sm: int):
     if 2 * blocks <= n_sm:
         return (warps, bq, *_splits(blocks, n_tiles, n_sm))
     return warps, bq, 1, n_tiles
+
+
+def _tc_wide_geometry(B: int, Tq: int, S: int, G: int, Hkv: int, n_sm: int):
+    """Wide tensor-core forward launch geometry: (nsplit, tiles_per_split).
+
+    A block holds 32 fold rows (token t, grouped head g as row t x G + g) of
+    a KV head, so there are ceil(G x Tq / 32) x Hkv x B blocks; two fit an
+    SM, so the 32-slot KV range is split (merged in the launch) where they
+    would leave SMs without a block (decode at G = 128: 4 blocks a batch
+    row), to about two blocks an SM."""
+    blocks = -(-G * Tq // WIDE_ROWS) * Hkv * B
+    n_tiles = max(1, -(-S // WIDE_BLOCK_K))
+    if blocks < n_sm:
+        return _splits(blocks, n_tiles, n_sm)
+    return 1, n_tiles
+
+
+def _tc_wide(kernels: str, G: int, hdk: int, hdv: int) -> bool:
+    """Whether a call runs the wide tensor-core kernels (a head dim above
+    MAX_HD); raises on what no kernel of ``kernels`` takes."""
+    if kernels == "cuda_cores":
+        if G > MAX_ROWS or hdk > MAX_HD or hdv > MAX_HD:
+            raise ValueError(f"the CUDA-core kernels take G <= {MAX_ROWS} and head dims <= "
+                             f"{MAX_HD}; got G={G}, hd_k={hdk}, hd_v={hdv}")
+        return False
+    if G > MAX_G_TC or hdk > WIDE_HD_K or hdv > WIDE_HD_V:
+        raise ValueError(f"the tensor-core kernels take G <= {MAX_G_TC}, hd_k <= {WIDE_HD_K} "
+                         f"and hd_v <= {WIDE_HD_V}; got G={G}, hd_k={hdk}, hd_v={hdv}")
+    return hdk > MAX_HD or hdv > MAX_HD
 
 
 def _ticket_groups(B: int, Tq: int, Hkv: int, bq: int) -> int:
@@ -300,10 +345,6 @@ def _check_inputs(q, k, v, q_pos, kv_pos, q_start, fn: str):
                          f"H={H}, Hkv={Hkv})")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the last dim of q, k and v must be contiguous")
-    G = H // Hkv
-    if G > MAX_ROWS or hdk > MAX_HD or hdv > MAX_HD:
-        raise ValueError(f"kernel takes G <= {MAX_ROWS} and head dims <= "
-                         f"{MAX_HD}; got G={G}, hd_k={hdk}, hd_v={hdv}")
     _check_vec("k", k, hdk)
     _check_vec("v", v, hdv)
     if kv_pos.device != dev or kv_pos.dim() != 1 or kv_pos.shape[0] != S:
@@ -336,14 +377,19 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
     B, Tq, S, H, Hkv, hdk, hdv = dims
     dev, G = q.device, H // Hkv
     kernels = _pick_kernels(kernels, q.dtype, "forward")
+    wide = _tc_wide(kernels, G, hdk, hdv)
     if kernels == "tensor_cores":
         _check_vec("q", q, hdk)
     if scale is None:
         scale = 1.0 / (hdk ** 0.5)
 
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    geometry = (_tc_geometry if kernels == "tensor_cores" else _geometry)(B, Tq, S, G, Hkv, n_sm)
-    nsplit = geometry[2]
+    if wide:
+        geometry = _tc_wide_geometry(B, Tq, S, G, Hkv, n_sm)
+        nsplit = geometry[0]
+    else:
+        geometry = (_tc_geometry if kernels == "tensor_cores" else _geometry)(B, Tq, S, G, Hkv, n_sm)
+        nsplit = geometry[2]
 
     def out(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -361,10 +407,12 @@ def flash_attention_partial(q, k, v, q_pos, kv_pos, *, causal=True,
             float(scale), int(bool(causal)), torch.cuda.current_stream(dev).cuda_stream)
     if kernels == "tensor_cores":
         lib = _load("fwd_tc")
-        tickets = (_ticket_buffer(dev, _ticket_groups(B, Tq, Hkv, geometry[1])).data_ptr()
-                   if nsplit > 1 else None)
+        groups = (-(-G * Tq // WIDE_ROWS) * Hkv * B if wide
+                  else _ticket_groups(B, Tq, Hkv, geometry[1]))
+        tickets = _ticket_buffer(dev, groups).data_ptr() if nsplit > 1 else None
+        entry = lib.flash_partial_fwd_tc_wide if wide else lib.flash_partial_fwd_tc
         with torch.cuda.device(dev):
-            rc = lib.flash_partial_fwd_tc(*head, tickets, *tail)
+            rc = entry(*head, tickets, *tail)
         if rc != 0:
             raise RuntimeError(f"flash_partial_fwd_tc launch failed: CUDA error {rc}")
         fwd_tc_launches += 1
@@ -405,6 +453,7 @@ def flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl, *,
     B, Tq, S, H, Hkv, hdk, hdv = dims
     dev, G = q.device, H // Hkv
     kernels = _pick_kernels(kernels, q.dtype, "backward")
+    wide = _tc_wide(kernels, G, hdk, hdv)
     if S == 0:
         raise ValueError("the backward needs S >= 1 KV slots")
     _check_vec("q", q, hdk)
@@ -437,14 +486,19 @@ def flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, m, dl, *,
         split = torch.empty((SPLIT_TERMS, *fold, hdv), dtype=torch.bfloat16, device=dev)
         q_fold = torch.empty((*fold, hdk), dtype=torch.bfloat16, device=dev)
         rows = torch.empty((*fold, 4), dtype=torch.int32, device=dev)
+        # the wide pair's blocks are fixed (32 fold rows, 32 slots); the
+        # narrow dq kernel's take bq tokens of G rows
+        shape = ((B, Tq, S, H, Hkv, hdk, hdv) if wide
+                 else (B, Tq, S, H, Hkv, hdk, hdv, min(Tq, TC_DQ_ROWS // G)))
+        entry = lib.flash_partial_bwd_tc_wide if wide else lib.flash_partial_bwd_tc
         for which in (0, 1):
             with torch.cuda.device(dev):
-                rc = lib.flash_partial_bwd_tc(
+                rc = entry(
                     which, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     m.data_ptr(), dl.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
                     q_start_ptr, split.data_ptr(), q_fold.data_ptr(), rows.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, S, H, Hkv, hdk,
-                    hdv, min(Tq, TC_DQ_ROWS // G), qpos_sb, qstart_sb, *strides, *tail)
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *shape, qpos_sb, qstart_sb,
+                    *strides, *tail)
             if rc != 0:
                 raise RuntimeError(f"flash_partial_bwd_tc ({('dq', 'dkv')[which]}) launch "
                                    f"failed: CUDA error {rc}")

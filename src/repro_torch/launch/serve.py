@@ -7,6 +7,9 @@ the continuous-batching engine, on one device or a mesh of ranks.
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --prompt-len 128 --batch 4 --decode-steps 8 --continuous
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+      --layers 2 --prompt-len 2048 --batch 4 --decode-steps 32
+
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
       --reduced --device cpu --mesh 1x2 --prompt-len 128 --batch 2 --decode-steps 4
 
@@ -41,6 +44,7 @@ the process group runs NCCL on the card (a card per rank) and gloo with
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import time
@@ -348,6 +352,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the model's first N layers: a full-width model cut in depth "
+                         "to fit the card (deepseek-v3-671b: 2 of its 61)")
     ap.add_argument("--mesh", default="1x1",
                     help="DATAxMODEL ranks, the torchrun world DATA x MODEL, e.g. 1x2")
     ap.add_argument("--pp", type=int, default=1,
@@ -415,6 +422,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.n_layers:
+            ap.error(f"--layers {args.layers}: {cfg.name} has {cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     mdef = build_model(cfg)
     rng = np.random.default_rng(0)
     prompts = rng.integers(2, cfg.vocab_size, size=(B, S)).astype(np.int32)

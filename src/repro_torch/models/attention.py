@@ -1,4 +1,4 @@
-"""GQA attention blocks over the position-tagged KV cache (port of
+"""GQA and MLA attention blocks over the position-tagged KV cache (port of
 ``repro/models/attention.py``).
 
 The cache is position-tagged: every slot carries its global token position
@@ -41,6 +41,16 @@ passes the slot, or None on the ranks that do not own it) and
 through the block table; both attend each rank's whole cache with the
 partial kernel and merge the partials over the model group with a max and
 two sums (``_merge_replicated``), since every rank holds every query.
+
+MLA (deepseek-v3, reference ``attention.py:332-408``) runs in the absorbed
+form: the LoRA queries' nope part times ``w_uk`` and the roped part make
+q_eff [B, T, H, dc + dr], the latent [c_kv | k_rope] is k_eff [B, T, 1, dc
++ dr], the one KV "head" every query head attends, and v is the view
+``k_eff[..., :dc]`` of the same tensor (of the same cache buffer), never a
+copy, so the kernels read the latent once for both; the scale is 1 / sqrt(dn
++ dr), and the values are up-projected per head by ``w_uv`` after the
+attention.  The tag sites are q_eff, k_eff and o_v.  MLA runs at sp = 1
+(``parallel/runner.py::resolve_cell`` refuses more).
 """
 from __future__ import annotations
 
@@ -76,6 +86,18 @@ def init_cache(batch: int, s_local: int, h_kv: int, hd_k: int, hd_v: int,
         pos=torch.full((s_local,), PAD, dtype=torch.int32, device=device),
         chunks=[] if train else None,
     )
+
+
+def init_latent_cache(batch: int, s_local: int, dc: int, dr: int, dtype, device, *,
+                      train: bool = False) -> KVCache:
+    """MLA's cache (reference ``init_slot_state``'s MLA branch): the latent
+    [c_kv | k_rope] of each slot, [B, S_loc, 1, dc + dr], as k, and v the
+    view of its first dc columns (the reference keeps a [B, 1, 1, 1]
+    placeholder and attends ``kv[..., :dc]``)."""
+    k = torch.zeros((batch, s_local, 1, dc + dr), dtype=dtype, device=device)
+    return KVCache(k=k, v=k[..., :dc],
+                   pos=torch.full((s_local,), PAD, dtype=torch.int32, device=device),
+                   chunks=[] if train else None)
 
 
 def cache_append(cache: KVCache, k_new, v_new, pos_new, offset: int) -> KVCache:
@@ -175,12 +197,15 @@ class _ChunkAttention(torch.autograd.Function):
     """One chunk's queries against the cache prefix that holds every chunk
     so far, differentiable in q and in each chunk's (k, v).
 
-    ``apply(q, q_pos, q_start, kv_pos, cache, kv_view, causal, gather, k_0,
-    ..., k_c, v_0, ..., v_c)`` writes chunk c's k, v and their positions
+    ``apply(q, q_pos, q_start, kv_pos, cache, kv_view, causal, gather, scale,
+    k_0, ..., k_c, v_0, ..., v_c)`` writes chunk c's k, v and their positions
     ``kv_pos`` into the buffer (the other chunks are there already), runs
     the partial attention of the queries at ``q_pos`` on the prefix view
     ``[:kv_view]`` under the document window ``q_start`` ([B, Tq] int32, or
-    None) and returns (o, m, l).  With ``gather`` (a model-axis context,
+    None), at ``scale`` (None: 1 / sqrt(hd_k)), and returns (o, m, l).  An
+    MLA cache's v is a view of its k, and each chunk's v a view of its k:
+    the v write then rewrites the same elements, and autograd adds each
+    chunk's dv into its k's gradient through the view.  With ``gather`` (a model-axis context,
     the gather_kv schedule) the view is first all-gathered over the model
     group, with its positions, and the backward reduce-scatters its dk, dv
     back to this rank's slots.  The backward splits the view's dk, dv by
@@ -190,7 +215,7 @@ class _ChunkAttention(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, q, q_pos, q_start, kv_pos, cache, kv_view, causal, gather, *kvs):
+    def forward(ctx, q, q_pos, q_start, kv_pos, cache, kv_view, causal, gather, scale, *kvs):
         n = len(kvs) // 2
         k_c, v_c = kvs[n - 1], kvs[-1]
         lengths = [k.shape[1] for k in kvs[:n]]
@@ -201,7 +226,8 @@ class _ChunkAttention(torch.autograd.Function):
         cache.k[:, off:kv_view] = k_c
         cache.v[:, off:kv_view] = v_c
         cache.pos[off:kv_view] = kv_pos
-        scale = 1.0 / (q.shape[-1] ** 0.5)
+        if scale is None:
+            scale = 1.0 / (q.shape[-1] ** 0.5)
         k, v, pos = cache.k[:, :kv_view], cache.v[:, :kv_view], cache.pos[:kv_view]
         ctx.gathered = None
         if gather is not None:
@@ -230,7 +256,7 @@ class _ChunkAttention(torch.autograd.Function):
             dk, dv = ctx.gather.scatter_sum(dk, 1), ctx.gather.scatter_sum(dv, 1)
         dks = [d.to(c.k.dtype) for d in dk.split(ctx.lengths, dim=1)]
         dvs = [d.to(c.v.dtype) for d in dv.split(ctx.lengths, dim=1)]
-        return (dq.to(q.dtype), None, None, None, None, None, None, None, *dks, *dvs)
+        return (dq.to(q.dtype), None, None, None, None, None, None, None, None, *dks, *dvs)
 
 
 def truncate_chunks(cache: KVCache, offset: int) -> None:
@@ -252,7 +278,7 @@ def truncate_chunks(cache: KVCache, offset: int) -> None:
 
 
 def chunk_attention(q, k, v, q_pos, cache: KVCache, cache_offset: int,
-                    kv_view: int, *, causal=True, q_start=None, ctx=SINGLE):
+                    kv_view: int, *, causal=True, q_start=None, ctx=SINGLE, scale=None):
     """Training counterpart of ``cache_append`` + ``dist_attention``: puts
     the chunk's (k, v) in the cache's chunk list, after the chunks that end
     at ``cache_offset`` (``truncate_chunks``: a re-run chunk replaces its
@@ -262,7 +288,8 @@ def chunk_attention(q, k, v, q_pos, cache: KVCache, cache_offset: int,
     ``cache_offset = kv_view - T``.  At sp > 1 the cache is this rank's
     shard and the schedule ``ctx``'s (module docstring); the ring rotates
     the view's K/V, the chunks concatenated (differentiable in each), with
-    the positions written to the buffer's slots."""
+    the positions written to the buffer's slots.  ``scale``: the scores'
+    (None: 1 / sqrt(hd_k))."""
     if cache_offset != kv_view - k.shape[1]:
         raise ValueError(f"a training chunk of {k.shape[1]} tokens at slot "
                          f"{cache_offset} must end the view of {kv_view} slots")
@@ -276,14 +303,14 @@ def chunk_attention(q, k, v, q_pos, cache: KVCache, cache_offset: int,
         cache.pos[cache_offset:kv_view] = q_pos
         k_view, v_view = (torch.cat(ts, dim=1) if len(ts) > 1 else ts[0] for ts in (ks, vs))
         return ring.ring_attention(q, k_view, v_view, q_pos, cache.pos[:kv_view].clone(), ctx,
-                                   causal=causal, q_start=qs)
+                                   causal=causal, scale=scale, q_start=qs)
     if mode == "gather_q":
         q_full, qp, qs_full = _gather_queries(q, q_pos, qs, ctx)
         o, m, l = _ChunkAttention.apply(q_full, qp, qs_full, q_pos, cache, kv_view, causal,
-                                        None, *ks, *vs)
+                                        None, scale, *ks, *vs)
         return _merge(o, m, l, ctx).to(q.dtype)
     o, _, l = _ChunkAttention.apply(q, q_pos, qs, q_pos, cache, kv_view, causal,
-                                    ctx if mode == "gather_kv" else None, *ks, *vs)
+                                    ctx if mode == "gather_kv" else None, scale, *ks, *vs)
     return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
@@ -463,3 +490,98 @@ def gqa_paged_decode_attention(x, p, cfg, pool: PooledKV, pg: PagedMeta, rope, *
     o, m, l = kops.attention_partial(q, k_g, v_g, pg.q_pos[:, None], pg.pos_map, causal=True)
     out = _merge_replicated(o, m, l, ctx).to(x.dtype)
     return out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"], pool
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention), absorbed form
+# ---------------------------------------------------------------------------
+
+
+def mla_scale(cfg) -> float:
+    """The scores' scale: 1 / sqrt(nope + rope head dims), not of q_eff's."""
+    return 1.0 / ((cfg.mla.nope_head_dim + cfg.mla.rope_head_dim) ** 0.5)
+
+
+def _mla_qk(x, p, cfg, rope):
+    """q_eff [B, T, H, dc + dr] and k_eff [B, T, 1, dc + dr] of x [B, T, d]
+    (reference ``attention.py:345-362``): the LoRA queries split into nope
+    and rope parts, the latent's RMSNormed c_kv and its k_rope, RoPE (tables
+    ``rope`` of the rope head dim) on both rope parts, q's nope part
+    absorbed through ``w_uk``."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    dn, dc = m.nope_head_dim, m.kv_lora_rank
+    cq = L.rms_norm(x @ p["wq_a"], p["q_norm"])
+    q = (cq @ p["wq_b"]).view(B, T, H, -1)
+    ckv = x @ p["wkv_a"]
+    c_kv = L.rms_norm(ckv[..., :dc], p["kv_norm"])
+    q_rope = L.rotate(q[..., dn:], *rope)
+    k_rope = L.rotate(ckv[..., None, dc:], *rope)
+    q_abs = torch.einsum("bthn,hnc->bthc", q[..., :dn], p["w_uk"])
+    return torch.cat([q_abs, q_rope], dim=-1), torch.cat([c_kv[:, :, None, :], k_rope], dim=-1)
+
+
+def _mla_out(out, p, cfg, name_tag):
+    """The attention output [B, T, H, dc] up-projected per head by
+    ``w_uv`` (o_v, a tag site), then ``wo``: [B, T, d]."""
+    B, T, H, _ = out.shape
+    o_v = torch.einsum("bthc,hcv->bthv", out, p["w_uv"])
+    if name_tag is not None:
+        o_v = name_tag(o_v)
+    return o_v.reshape(B, T, H * cfg.mla.v_head_dim) @ p["wo"]
+
+
+def _check_mla_ctx(ctx):
+    if ctx.sp > 1:
+        raise NotImplementedError("MLA at sp > 1 (the latent's model-axis shards, ring and "
+                                  "gather modes) comes with ROADMAP Queue 1 item 7")
+
+
+def _latent_append(cache: KVCache, k_new, pos_new, offset: int) -> KVCache:
+    """Write a chunk's latent at slot ``offset`` (v is its view)."""
+    t = k_new.shape[1]
+    cache.k[:, offset:offset + t] = k_new.to(cache.k.dtype)
+    cache.pos[offset:offset + t] = pos_new.to(torch.int32)
+    return cache
+
+
+def mla_attention(x, p, cfg, cache: KVCache, q_pos, cache_offset: int, kv_view, rope, *,
+                  name_tag=None, q_start=None, ctx=SINGLE):
+    """A prefill or training chunk of MLA (reference ``mla_attention``,
+    decode=False), as ``gqa_self_attention`` takes a GQA one: x [B, T, d]
+    at positions q_pos whose latent lands at slot ``cache_offset``,
+    attending the first ``kv_view`` slots with v the latent's first dc
+    columns (a view); a training cache attends through
+    ``chunk_attention``.  ``rope``: ``layers.rope_tables`` of q_pos at the
+    rope head dim.  ``name_tag`` tags q_eff, k_eff and o_v.  Returns
+    (attn_out [B, T, d], cache)."""
+    _check_mla_ctx(ctx)
+    dc = cfg.mla.kv_lora_rank
+    q_eff, k_eff = _mla_qk(x, p, cfg, rope)
+    if name_tag is not None:
+        q_eff, k_eff = name_tag(q_eff), name_tag(k_eff)
+    scale = mla_scale(cfg)
+    if cache.chunks is not None:
+        out = chunk_attention(q_eff, k_eff, k_eff[..., :dc], q_pos, cache, cache_offset,
+                              kv_view, q_start=q_start, ctx=ctx, scale=scale)
+    else:
+        cache = _latent_append(cache, k_eff, q_pos, cache_offset)
+        out = dist_attention(q_eff, cache.k, cache.v, q_pos, cache.pos, ctx, causal=True,
+                             scale=scale, kv_view=kv_view, q_start=q_start)
+    return _mla_out(out, p, cfg, name_tag), cache
+
+
+def mla_decode_attention(x, p, cfg, cache: KVCache, q_pos, write_slot, rope, *, ctx=SINGLE):
+    """One MLA decode token (reference ``mla_attention``, decode=True): its
+    latent written at ``write_slot`` (None: nothing written), the whole
+    latent cache attended, PAD slots masked.  Returns (attn_out [B, 1, d],
+    cache)."""
+    _check_mla_ctx(ctx)
+    q_eff, k_eff = _mla_qk(x, p, cfg, rope)
+    if write_slot is not None:
+        cache = _latent_append(cache, k_eff, q_pos, write_slot)
+    o, m, l = kops.attention_partial(q_eff, cache.k, cache.v, q_pos, cache.pos, causal=True,
+                                     scale=mla_scale(cfg))
+    out = _merge_replicated(o, m, l, ctx).to(x.dtype)
+    return _mla_out(out, p, cfg, None), cache

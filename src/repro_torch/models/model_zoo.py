@@ -24,9 +24,12 @@ Shard-dim markers (the reference's, leaves of a tree mirroring the params):
 The markers describe one slot's (or one global leaf's) layout; a model
 rank holds slice ``rank`` of ``sp`` of every marked dim (``shard_params``).
 
-An MoE slot (granite) is a GQA layer whose MLP is ``models/moe.py``'s
-block: the router fp32 and replicated, the expert stacks [E, d, ff] /
-[E, ff, d], and, for deepseek's shared experts, "ag" leaves like an MLP's.
+An MoE slot is a GQA layer (granite) or an MLA layer (deepseek-v3,
+``_mla``: the LoRA queries, the latent kv and the absorbed up-projections)
+whose MLP is ``models/moe.py``'s block: the router fp32 and replicated, the
+expert stacks [E, d, ff] / [E, ff, d], and, for deepseek's shared experts,
+"ag" leaves like an MLP's.  An MLA slot's cache is the latent
+[B, L, 1, dc + dr] alone, its v the view of the first dc columns.
 A tied embedding (``cfg.tie_embeddings``) has no head leaf: the head is
 the table transposed, at sp > 1 the rank's vocab rows.
 """
@@ -47,7 +50,18 @@ from repro_torch.parallel.ctx import SINGLE
 from repro_torch.runtime.kvpool import SINK_SLOTS
 
 
+# a leaf of more elements than this is drawn a slice of its leading dim at a
+# time: deepseek-v3's [256, 7168, 2048] expert stacks would otherwise take
+# two fp32 copies (30 GB) on the way to their 7.5 GB of bf16
+CHUNKED_DRAW = 2**31
+
+
 def trunc_normal(gen, shape, std, dtype, device):
+    if math.prod(shape) > CHUNKED_DRAW:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = trunc_normal(gen, shape[1:], std, dtype, device)
+        return out
     x = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (x * std).to(dtype)
@@ -79,6 +93,27 @@ def _attn(gen, cfg, dtype, device, out_scale=1.0):
         for name, width in (("bq", H * hd), ("bk", Hkv * hd), ("bv", Hkv * hd)):
             p[name] = torch.zeros((width,), dtype=dtype, device=device)
     return p
+
+
+def _mla(gen, cfg, dtype, device, out_scale=1.0):
+    """MLA's leaves (reference ``model_zoo.py:86-98``): the query LoRA
+    (``wq_a``, its RMSNorm ``q_norm``, ``wq_b`` to H x (nope + rope)), the
+    latent down-projection ``wkv_a`` to dc + dr with its RMSNorm ``kv_norm``
+    on the dc part, the per-head absorbed ``w_uk`` [H, dn, dc] and ``w_uv``
+    [H, dc, dv], and ``wo``."""
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    dn, dr, dv, dc, qr = (m.nope_head_dim, m.rope_head_dim, m.v_head_dim,
+                          m.kv_lora_rank, m.q_lora_rank)
+    return {
+        "wq_a": dense_init(gen, d, qr, dtype, device),
+        "q_norm": torch.zeros((qr,), dtype=dtype, device=device),
+        "wq_b": dense_init(gen, qr, H * (dn + dr), dtype, device),
+        "wkv_a": dense_init(gen, d, dc + dr, dtype, device),
+        "kv_norm": torch.zeros((dc,), dtype=dtype, device=device),
+        "w_uk": trunc_normal(gen, (H, dn, dc), 1 / math.sqrt(dn), dtype, device),
+        "w_uv": trunc_normal(gen, (H, dc, dv), 1 / math.sqrt(dc), dtype, device),
+        "wo": dense_init(gen, H * dv, d, dtype, device, std=out_scale / math.sqrt(H * dv)),
+    }
 
 
 def _mlp(gen, cfg, dtype, device, out_scale=1.0):
@@ -126,6 +161,14 @@ def _attn_spec(cfg):
     return s
 
 
+def _mla_spec(cfg):
+    """The reference's ``_mla_spec``: the query projections and the per-head
+    leaves sharded, the latent's replicated (the model-axis MLA is a later
+    slice, ``runner.resolve_cell``)."""
+    return {"wq_a": 1, "q_norm": "rep", "wq_b": 1, "wkv_a": "rep",
+            "kv_norm": "rep", "w_uk": 0, "w_uv": 0, "wo": 0}
+
+
 def _mlp_spec(cfg):
     s = {"w1": 1, "w2": 0}
     if cfg.act in ("swiglu", "geglu"):
@@ -145,7 +188,8 @@ def _moe_spec(cfg):
 def slot_spec(cfg: ModelConfig):
     """The markers of one slot (reference ``slot_spec``)."""
     ffn = {"moe": _moe_spec(cfg)} if cfg.family == "moe" else {"mlp": _mlp_spec(cfg)}
-    return {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg), "attn": _attn_spec(cfg),
+    attn = _mla_spec(cfg) if cfg.mla is not None else _attn_spec(cfg)
+    return {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg), "attn": attn,
             **ffn, "gate": "rep"}
 
 
@@ -206,11 +250,11 @@ def _out_scale(cfg):
 
 
 def init_slot(cfg: ModelConfig, gen, dtype, device):
-    """One slot's params by family (a dense layer, or an MoE layer: GQA and
-    the expert block), gate 1 (a real layer; ``ghost_slot`` pads a pipeline
-    stage)."""
+    """One slot's params by family (a dense layer, or an MoE layer: GQA or
+    MLA and the expert block), gate 1 (a real layer; ``ghost_slot`` pads a
+    pipeline stage)."""
     os_ = _out_scale(cfg)
-    attn = _attn(gen, cfg, dtype, device, os_)
+    attn = (_mla if cfg.mla is not None else _attn)(gen, cfg, dtype, device, os_)
     ffn = ({"moe": _moe(gen, cfg, dtype, device, out_scale=os_)} if cfg.family == "moe"
            else {"mlp": _mlp(gen, cfg, dtype, device, out_scale=os_)})
     return {"ln1": _norm(cfg, dtype, device), "ln2": _norm(cfg, dtype, device),
@@ -323,12 +367,19 @@ class ModelDef:
     def init_state(self, batch: int, cache_loc: int, dtype, device, *,
                    train: bool = False, n_slots=None):
         """One cache per slot: the model's (``n_slots`` None) or a pipeline
-        stage's ``n_slots``; an MoE slot's is the dense KV cache
-        (reference ``init_slot_state``)."""
+        stage's ``n_slots``; a GQA MoE slot's is the dense KV cache, an MLA
+        slot's the latent (``attention.init_latent_cache``; reference
+        ``init_slot_state``)."""
         cfg = self.cfg
+        n = self.n_slots if n_slots is None else n_slots
+        if cfg.mla is not None:
+            m = cfg.mla
+            return [{"kv": A.init_latent_cache(batch, cache_loc, m.kv_lora_rank,
+                                               m.rope_head_dim, dtype, device, train=train)}
+                    for _ in range(n)]
         return [{"kv": A.init_cache(batch, cache_loc, cfg.n_kv_heads, cfg.hd,
                                     cfg.hd, dtype, device, train=train)}
-                for _ in range(self.n_slots if n_slots is None else n_slots)]
+                for _ in range(n)]
 
     def init_pool(self, geo, dtype, device, *, n_slots=None):
         """The paged KV pool of a rank (reference ``make_pool_state``): one
@@ -355,9 +406,9 @@ class ModelDef:
 def build_model(name_or_cfg) -> ModelDef:
     cfg = (name_or_cfg if isinstance(name_or_cfg, ModelConfig)
            else get_config(name_or_cfg))
-    if (cfg.family not in ("dense", "moe") or cfg.mla is not None
+    if (cfg.family not in ("dense", "moe") or (cfg.mla is not None and cfg.family != "moe")
             or cfg.pos_emb != "rope" or not cfg.rope):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense and GQA MoE decoders with RoPE, "
-            "tied or untied; MLA and the other families come with later slices")
+            f"{cfg.name}: the port runs dense and MoE decoders (GQA or MLA) with RoPE, "
+            "tied or untied; the other families come with later slices")
     return ModelDef(cfg, cfg.n_layers)

@@ -161,6 +161,7 @@ def moe_block(x, p, cfg, ctx=SINGLE, *, name_tag=None):
     if moe.n_shared_experts:
         hs = F.silu(xt @ p["ws1"]) * (xt @ p["ws3"])
         if name_tag is not None:
-            hs = name_tag(hs)
+            # tagged as [B, T_loc, sf]: the offload splits its token axis
+            hs = name_tag(hs.view(B, Tl, -1)).reshape(n, -1)
         y = y + hs @ p["ws2"]
     return y.reshape(B, Tl, d), aux

@@ -37,6 +37,7 @@ tagged rows and the cache are the rank's sequence shard.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -93,9 +94,18 @@ def gather_params(p_slot, spec, ctx):
 
 
 def _attention(cfg, p, s, h, meta: ChunkMeta):
-    """The slot's GQA attention of h (prefill / train chunk, decode or
-    paged decode): (output, the slot's new cache)."""
+    """The slot's GQA or MLA attention of h (prefill / train chunk, decode
+    or paged decode): (output, the slot's new cache)."""
     ctx = meta.ctx or SINGLE
+    if cfg.mla is not None:
+        if meta.paged is not None:
+            raise ValueError("the paged pool holds no MLA latent (runner.check_pool_cell)")
+        if meta.decode:
+            return A.mla_decode_attention(h, p["attn"], cfg, s["kv"], meta.q_pos,
+                                          meta.cache_off, meta.rope, ctx=ctx)
+        return A.mla_attention(h, p["attn"], cfg, s["kv"], meta.q_pos, meta.cache_off,
+                               meta.kv_view, meta.rope, name_tag=meta.tag,
+                               q_start=meta.q_start, ctx=ctx)
     if meta.paged is not None:
         return A.gqa_paged_decode_attention(h, p["attn"], cfg, s["kv"], meta.paged,
                                             meta.rope, ctx=ctx)
@@ -120,8 +130,9 @@ def dense_slot(cfg, p, s, x, meta: ChunkMeta):
 
 
 def moe_slot(cfg, p, s, x, meta: ChunkMeta):
-    """An MoE layer (reference ``transformer.py:88-108``, GQA): attention,
-    then the expert block on the rank's rows; (x, state, aux x gate)."""
+    """An MoE layer (reference ``transformer.py:88-108``, GQA or MLA):
+    attention, then the expert block on the rank's rows; (x, state, aux x
+    gate)."""
     p = gather_params(p, meta.spec, meta.ctx)
     h = L.apply_norm(x, p["ln1"], cfg.norm)
     a, kv = _attention(cfg, p, s, h, meta)
@@ -146,6 +157,42 @@ def _slots(cfg, stage_params, state, x, meta: ChunkMeta):
 
 
 REMATS = ("none", "sppo", "full")
+
+
+class GradSink:
+    """Where the chunk seams put the stage parameters' gradients of one
+    differentiated call (``runner.loss_and_grads``, ``collect_param_grads``).
+
+    Without a sink a seam's backward hands autograd the whole stage's
+    parameter gradients at once, and autograd adds them to the sums of the
+    chunks before: a layer's gradients held twice beside its weights
+    (deepseek-v3's expert stacks are 22.5 GB a layer, so a 1-layer step
+    would need 67.5 GB for them alone).  With one, the replay's gradients
+    are added op by op, in place, into one buffer a parameter (autograd's
+    in-place accumulation), in the order autograd would add them, and the
+    seam returns none for the parameters."""
+
+    def __init__(self):
+        self.grads = {}   # id(parameter tensor) -> its gradient summed so far
+
+    def take(self, param):
+        """``param``'s summed gradient (None if no seam reached it)."""
+        return self.grads.get(id(param))
+
+
+_SINK: Optional[GradSink] = None
+
+
+@contextlib.contextmanager
+def collect_param_grads(sink: GradSink):
+    """Seams built inside the block (their forwards) put their parameters'
+    gradients into ``sink`` when their backwards run."""
+    global _SINK
+    prev, _SINK = _SINK, sink
+    try:
+        yield sink
+    finally:
+        _SINK = prev
 
 
 def stage_apply(cfg, stage_params, state, x, meta: ChunkMeta, *,
@@ -176,7 +223,7 @@ def stage_apply(cfg, stage_params, state, x, meta: ChunkMeta, *,
         A.truncate_chunks(s["kv"], meta.cache_off)
     if offload is None:
         offload = ofl.ChunkOffload(chunk=len(state[0]["kv"].chunks), alpha=0.0)
-    run = _SeamRun(cfg, stage_params, state, meta, remat, offload)
+    run = _SeamRun(cfg, stage_params, state, meta, remat, offload, _SINK)
     params = tree.leaves(stage_params)
     prev = [t for s in state for kv in s["kv"].chunks for t in kv]
     y, *outs = _StageSeam.apply(run, x, *params, *prev)
@@ -227,6 +274,7 @@ class _SeamRun(NamedTuple):
     meta: ChunkMeta
     remat: str
     offload: ofl.ChunkOffload
+    sink: Optional[GradSink] = None   # where the parameters' gradients go (None: returned)
 
 
 class _StageSeam(torch.autograd.Function):
@@ -305,9 +353,23 @@ class _StageSeam(torch.autograd.Function):
                 kvs.append(aux)
             outs = [(o, g) for o, g in zip((y, *kvs), (dy, *dkvs)) if g is not None]
             wrt = [t for t in leaves if t.requires_grad]
-            grads = iter(torch.autograd.grad([o for o, _ in outs], wrt,
-                                             [g for _, g in outs], allow_unused=True))
-        return (None, *(next(grads) if t.requires_grad else None for t in leaves))
+            if run.sink is None:
+                grads = iter(torch.autograd.grad([o for o, _ in outs], wrt,
+                                                 [g for _, g in outs], allow_unused=True))
+                return (None, *(next(grads) if t.requires_grad else None for t in leaves))
+        # into the sink: each parameter leaf starts from its sum so far, and
+        # autograd (outside grad mode) adds each op's gradient to it in place
+        n = ctx.n_params
+        params, p_leaves = tree.leaves(run.structure), leaves[1:1 + n]
+        for p, leaf in zip(params, p_leaves):
+            if leaf.requires_grad:
+                leaf.grad = run.sink.take(p)
+        torch.autograd.backward([o for o, _ in outs], [g for _, g in outs], inputs=wrt)
+        for p, leaf in zip(params, p_leaves):
+            if leaf.grad is not None:
+                run.sink.grads[id(p)] = leaf.grad
+        return (None, *(t.grad if t.requires_grad and not 1 <= i <= n else None
+                        for i, t in enumerate(leaves)))
 
 
 def _rebuild(structure, leaves):

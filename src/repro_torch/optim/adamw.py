@@ -6,9 +6,11 @@ The update is the reference's, written out by hand: gradients clipped by
 their global norm, bias-corrected moments, ``eps`` outside the square root,
 decoupled weight decay on matrices only (``ndim >= 2``).
 ``torch.optim.AdamW`` puts ``eps`` and the decay elsewhere and computes a
-different update.  The moments and the arithmetic are fp32 whatever the
-parameter dtype (the reference's bf16 moments are deepseek's, not yet a
-model of the port).  Parameters and moments are updated in place (the
+different update.  The arithmetic is fp32 whatever the parameter dtype; the
+moments are kept in ``opt_dtype``: fp32, or bf16 (deepseek's, as the
+reference's ``init_state(opt_dtype=jnp.bfloat16)``: each moment is read as
+fp32, updated, and rounded back to bf16 to nearest even, as JAX's
+``astype`` rounds).  Parameters and moments are updated in place (the
 reference returns new arrays): the moments are the largest state of
 training, and no second copy of them is made.
 
@@ -81,7 +83,7 @@ def _slices(pod_slices, flat):
 
 class AdamWState(NamedTuple):
     step: torch.Tensor   # int32 [] on the parameters' device
-    m: object            # tree like params: fp32 tensors, or (payload, scale) pairs
+    m: object            # tree like params: opt_dtype tensors, or (payload, scale) pairs
     v: object            # tree like params
     host: object = None  # the hostmem.HostBuffer the offloaded moments are views of
 
@@ -103,31 +105,39 @@ def _scale_shape(shape):
     return tuple(shape[:-1]) + (1,) if len(shape) >= 1 else ()
 
 
-def _zeros32(p):
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+OPT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def init_state(params, *, offload_moments=False, moments_dtype="none",
+def _opt_dtype(opt_dtype):
+    """The moments' torch dtype from its name (the plan's ``opt_dtype``)."""
+    if opt_dtype not in OPT_DTYPES:
+        raise ValueError(f"opt_dtype {opt_dtype!r}: the moments are one of {sorted(OPT_DTYPES)}")
+    return OPT_DTYPES[opt_dtype]
+
+
+def init_state(params, *, opt_dtype="float32", offload_moments=False, moments_dtype="none",
                moments_mode="explicit", pod_slices: PodSlices = None) -> AdamWState:
-    """Zero fp32 moments beside each parameter, or, with
-    ``offload_moments``, born in host memory (pinned where the parameters
-    are on a CUDA device): fp32, or under ``moments_dtype`` a (payload,
-    scale) pair per leaf, zeros (a zero payload dequantizes to zero).
-    Under ZeRO-1 (``pod_slices``) each leaf's moments have its pod slice's
-    shape."""
+    """Zero moments of ``opt_dtype`` ("float32" or "bfloat16") beside each
+    parameter, or, with ``offload_moments``, born in host memory (pinned
+    where the parameters are on a CUDA device): ``opt_dtype``, or under
+    ``moments_dtype`` a (payload, scale) pair per leaf, zeros (a zero
+    payload dequantizes to zero).  Under ZeRO-1 (``pod_slices``) each leaf's
+    moments have its pod slice's shape."""
     _check_moments(offload_moments, moments_mode, moments_dtype)
+    dtype = _opt_dtype(opt_dtype)
     flat = _slices(pod_slices, tree.leaves(params))
     dev = flat[0].device
     step = torch.zeros((), dtype=torch.int32, device=dev)
     if not offload_moments:
         def zeros():
             it = iter(flat)
-            return tree.map_(lambda _: _zeros32(next(it)), params)
+            return tree.map_(lambda _: torch.zeros(next(it).shape, dtype=dtype, device=dev),
+                             params)
 
         return AdamWState(step=step, m=zeros(), v=zeros())
     wire = hostmem.codec_wire_dtype(moments_dtype)
     if wire is None:
-        specs = [(tuple(p.shape), torch.float32) for p in flat] * 2
+        specs = [(tuple(p.shape), dtype) for p in flat] * 2
     else:
         specs = [spec for p in flat for spec in ((tuple(p.shape), wire),
                                                  (_scale_shape(p.shape), torch.float32))] * 2
@@ -202,7 +212,9 @@ class _MomentStream:
     def put(self, i, m32, v32):
         events = []
         for new, pair in zip((m32, v32), self._pairs(i)):
-            parts = (new,) if self.codec is None else hostmem.quantize(new, self.codec)
+            # raw: rounded to the host buffer's dtype (bf16 moments) on the device
+            parts = ((new.to(pair[0].dtype),) if self.codec is None
+                     else hostmem.quantize(new, self.codec))
             events += [hostmem.store(t, h) for t, h in zip(parts, pair)]
         self.stored[i] = [e for e in events if e is not None]
 
@@ -257,9 +269,10 @@ def apply_update(params, grads, state: AdamWState, *, lr, b1=0.9, b2=0.95,
         # u = (m32 / bc1) / (sqrt(v32 / bc2) + eps), with each op that the
         # out-of-place form gives a temporary done in place (it rounds the
         # same): at most four fp32 copies of a leaf live at once, not five
-        m32 = b1 * m
+        # (bf16 moments are read as fp32 first)
+        m32 = b1 * m.float()
         m32.add_((1 - b1) * g32)
-        v32 = b2 * v
+        v32 = b2 * v.float()
         v32.add_(((1 - b2) * g32).mul_(g32))
         del g32
         u = m32 / bc1

@@ -95,6 +95,7 @@ from repro_torch.core import tree
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.model_zoo import ModelDef, build_model, marker_dim, param_markers
 from repro_torch.models.transformer import ChunkMeta
 from repro_torch.parallel.ctx import SINGLE, Ctx, make_ctx
@@ -184,6 +185,8 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     whole chunk, which only a position-tagged cache absorbs, DESIGN.md §2).
     At pp = 1 the boundaries fall on multiples of max(sp, 128), and α sees
     each model rank's share of a chunk's rows (``chunk_act_bytes(sp=)``).
+    An MLA model (deepseek-v3) runs at sp = pp = 1 only: more raises
+    NotImplementedError naming the ROADMAP item that brings it.
 
     ``doc_lens`` makes a packed variable-length cell (DESIGN.md §13), as in
     the reference: the documents are packed into rows of S tokens
@@ -198,6 +201,11 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     plan = resolve_plan(cfg, shape_cfg, data_size=data_size, model_size=model_size,
                         pods=pods, overrides=overrides)
     sp = plan.sp
+    if cfg.mla is not None and (sp > 1 or plan.pp > 1):
+        raise NotImplementedError(
+            f"{cfg.name} at sp = {sp}, pp = {plan.pp}: MLA runs at sp = pp = 1 in the port; "
+            "its model-axis shards and pipeline stages come with a later slice (ROADMAP "
+            "Queue 1, item 7)")
     doc_lens = tuple(int(x) for x in (doc_lens if doc_lens is not None else ()))
     for codec in (plan.offload_dtype, plan.moments_dtype):
         cm.codec_itemsize(codec)            # raises on an unknown codec
@@ -291,6 +299,10 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
 
 
 def _rope(cfg, q_pos):
+    """The chunk's RoPE tables: of the head dim, or MLA's rope head dim (the
+    reference's ``apply_rope`` of q_rope and k_rope)."""
+    if cfg.mla is not None:
+        return L.rope_tables(q_pos, cfg.mla.rope_head_dim, cfg.rope_theta)
     return L.rope_tables(q_pos, cfg.hd, cfg.rope_theta, cfg.rope_fraction)
 
 
@@ -621,7 +633,10 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
         # detached aliases: the caller's tensors are not touched
         alias = tree.map_(lambda t: t.detach(), params)
         leaves = [t.requires_grad_() for p, t in tree.items(alias) if trainable(p)]
-        with torch.enable_grad():
+        # the chunk seams sum the stage parameters' gradients in place
+        # (``transformer.GradSink``); autograd returns the rest
+        sink = T.GradSink()
+        with torch.enable_grad(), T.collect_param_grads(sink):
             out = run_pipeline(cell, alias["stages"], alias["globals"], tok, lab,
                                with_loss=True, doc_start=ds, ctx=ctx)
             if ctx.distributed:
@@ -641,8 +656,11 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
             extra = [] if out["seed"] is None else [out["seed"]]
             # a rank's stage uses only some of the globals (the embedding
             # on stage 0, the head on the last): the others get zeros
-            grads = iter(torch.autograd.grad(loss, leaves + extra,
-                                             allow_unused=ctx.distributed)[:len(leaves)])
+            got = torch.autograd.grad(loss, leaves + extra, allow_unused=True)[:len(leaves)]
+        got = [_with_sink(g, sink.take(t)) for g, t in zip(got, leaves)]
+        if not ctx.distributed and any(g is None for g in got):
+            raise RuntimeError("a trainable parameter got no gradient on one device")
+        grads = iter(got)
         flat = [next(grads) if trainable(p) else None for p, t in tree.items(params)]
         used = [g is not None for g in flat]
         flat = [torch.zeros_like(t) if g is None else g
@@ -684,6 +702,14 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
     ctx.psum_grads(tree.leaves(grads["stages"]))
     ctx.psum_globals(tree.leaves(grads["globals"]), tree.leaves(used["globals"]))
     return loss, grads
+
+
+def _with_sink(g, s):
+    """A parameter's gradient from autograd (``g``) and from the seams'
+    sink (``s``), either possibly None."""
+    if s is None:
+        return g
+    return s if g is None else g + s
 
 
 def global_grad_norm(grads, ctx: Ctx = SINGLE, mdef: ModelDef = None) -> torch.Tensor:
@@ -729,12 +755,13 @@ def pod_slices(cell: Cell, params, ctx: Ctx):
 
 def init_opt_state(cell: Cell, params, ctx: Ctx = SINGLE):
     """AdamW's state for this rank's ``params`` where the plan keeps it
-    (``offload_moments``, ``moments_dtype``), of the pod slices under
-    ZeRO-1."""
+    (``offload_moments``, ``moments_dtype``), in the plan's ``opt_dtype``
+    (bf16 for deepseek), of the pod slices under ZeRO-1."""
     from repro_torch.optim import adamw
 
     plan = cell.plan
-    return adamw.init_state(params, offload_moments=plan.offload_moments,
+    return adamw.init_state(params, opt_dtype=plan.opt_dtype,
+                            offload_moments=plan.offload_moments,
                             moments_dtype=plan.moments_dtype, moments_mode=plan.moments_mode,
                             pod_slices=pod_slices(cell, params, ctx))
 

@@ -13,7 +13,9 @@ two ranks sharing the card over gloo against pp = 1; the paged serving
 step's kernel call (per-row positions over gathered slots) and its writes
 (the striped slot or the sink, nothing else); the kernels at
 granite-moe-1b-a400m's heads (hd 64, G = 2, its decode step) and its
-expert block on the card against the CPU.
+expert block on the card against the CPU; the wide tensor-core kernels at
+deepseek-v3's MLA widths (hd_k 576, hd_v 512, G = 128, v a view of the
+latent k) and the CUDA-core pair's refusal of them.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips without
 one.  The file imports no JAX, since the machine with the card has none, and
@@ -243,9 +245,12 @@ def test_tensor_core_fwd_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):   # q's base off by one element
         x = torch.zeros(1 + 4 * 2 * 32, device=cuda_device, dtype=torch.bfloat16)[1:].view(1, 4, 2, 32)
         fa.flash_attention_partial(x, b, b, pos, pos)
-    with pytest.raises(ValueError, match="G <="):      # 72 heads on one KV head
-        w = torch.zeros(1, 4, 72, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="G <="):      # 136 heads on one KV head
+        w = torch.zeros(1, 4, 136, 32, device=cuda_device, dtype=torch.bfloat16)
         fa.flash_attention_partial(w, b[:, :, :1], b[:, :, :1], pos, pos)
+    with pytest.raises(ValueError, match="hd_k <= 576"):   # past the wide kernels' head dim
+        w = torch.zeros(1, 4, 2, 640, device=cuda_device, dtype=torch.bfloat16)
+        fa.flash_attention_partial(w, w, w, pos, pos)
     assert fa.counts() == before
 
 
@@ -436,8 +441,8 @@ def test_bwd_kernels_reject_what_they_do_not_take(cuda_device):
 @pytest.mark.cuda
 def test_tensor_core_bwd_refuses_what_it_does_not_take(cuda_device):
     """The tensor-core pair takes bf16 only: fp32 asked of it raises (fp32
-    runs on the CUDA cores), as do head dims over 128, misaligned views and
-    an unknown pair; nothing is launched."""
+    runs on the CUDA cores), as do head dims over the wide kernels' 576 /
+    512, misaligned views and an unknown pair; nothing is launched."""
     pos = torch.arange(4, dtype=torch.int32, device=cuda_device)
     m, dl = torch.zeros(1, 4, 2, device=cuda_device), torch.zeros(1, 4, 2, device=cuda_device)
     q = torch.zeros(1, 4, 2, 32, device=cuda_device)
@@ -447,8 +452,8 @@ def test_tensor_core_bwd_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="kernels must be"):
         fa.flash_attention_partial_bwd(q.bfloat16(), q.bfloat16(), q.bfloat16(), pos, pos, q,
                                        m, dl, kernels="wgmma")
-    with pytest.raises(ValueError, match="head dims"):
-        w = torch.zeros(1, 4, 2, 256, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="hd_k <= 576"):
+        w = torch.zeros(1, 4, 2, 640, device=cuda_device, dtype=torch.bfloat16)
         fa.flash_attention_partial_bwd(w, w, w, pos, pos, w.float(), m, dl)
     with pytest.raises(ValueError, match="16-byte"):   # q's base off by one element
         x = torch.zeros(1 + 4 * 2 * 32, device=cuda_device, dtype=torch.bfloat16)[1:].view(1, 4, 2, 32)
@@ -1135,3 +1140,98 @@ def test_moe_block_on_the_card_equals_the_cpu(cuda_device, cf):
         assert torch.equal(card[k], again[k]), k
         err = (got - want).abs().max().item()
         assert err <= TOL * max(1.0, want.abs().max().item()), f"{k}: {err}"
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3-671b): the wide tensor-core kernels
+# ---------------------------------------------------------------------------
+
+MLA_SCALE = 1 / 192 ** 0.5   # 1 / sqrt(nope + rope head dims)
+
+
+def _mla_inputs(device, B, Tq, S, H, Hkv, view, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(B, Tq, H, 576, generator=g, device=device).bfloat16()
+    k = torch.randn(B, S, Hkv, 576, generator=g, device=device).bfloat16()
+    v = k[..., :512] if view else torch.randn(B, S, Hkv, 512, generator=g,
+                                              device=device).bfloat16()
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,S,H,Hkv,view", [
+    (4, 1, 2176, 128, 1, True),     # a decode step over the serving cache: split, merged
+    (4, 128, 2048, 128, 1, True),   # a serving prefill chunk
+    (1, 96, 640, 128, 1, True),     # a train chunk, ragged
+    (2, 9, 100, 32, 2, False),      # v a tensor of its own, G = 16
+])
+def test_mla_kernels_match_plain(cuda_device, B, Tq, S, H, Hkv, view):
+    """The wide forward and backward pair at MLA's widths against the plain
+    versions: forward within 1e-5, each gradient within 1e-5 x max |plain|,
+    one launch each (a split decode merges in its launch)."""
+    q, k, v = _mla_inputs(cuda_device, B, Tq, S, H, Hkv, view, seed=Tq + S)
+    q_pos = torch.arange(S - Tq, S, dtype=torch.int32, device=cuda_device)
+    kv_pos = torch.arange(S, dtype=torch.int32, device=cuda_device)
+    kv_pos[S - S // 16:] = ref.PAD_POS               # empty slots past the filled ones
+    before = fa.counts()
+    o, m, l = fa.flash_attention_partial(q, k, v, q_pos, kv_pos, scale=MLA_SCALE)
+    moved = _launched(before)
+    assert moved.pop("fwd_tc") == 1 and set(moved) <= {"merged_in_kernel"}, moved
+    wo, wm, wl = ref.attention_partial_ref(q, k, v, q_pos, kv_pos, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert (ref.normalize(o, l) - ref.normalize(wo, wl)).abs().max().item() <= TOL
+    assert (m - wm).abs().max().item() <= TOL
+    if Tq == 1:
+        return
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    do = torch.randn(B, Tq, H, 512, generator=gen, device=cuda_device)
+    dl = torch.randn(B, Tq, H, generator=gen, device=cuda_device)
+    before = fa.counts()
+    got = fa.flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, wm, dl, scale=MLA_SCALE)
+    assert _launched(before) == {"bwd_dq_tc": 1, "bwd_dkv_tc": 1}
+    want = ref.attention_partial_bwd_ref(q, k, v, q_pos, kv_pos, None, do, wm, dl,
+                                         scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        err = (a - b).abs().max().item()
+        assert err <= TOL * max(1.0, b.abs().max().item()), f"{name}: err {err}"
+
+
+@pytest.mark.cuda
+def test_mla_window_dead_rows_exact_and_nan_cotangents(cuda_device):
+    """A packed window at MLA's widths: fully masked rows come back exactly
+    o = l = 0, m = -1e30, and their NaN cotangents reach nothing (dq 0)."""
+    q, k, v = _mla_inputs(cuda_device, 2, 8, 200, 128, 1, True, seed=3)
+    q_pos = torch.tensor([[16 + i for i in range(8)], [1] + [9 + i for i in range(7)]],
+                         dtype=torch.int32, device=cuda_device)
+    q_start = torch.tensor([[0, 0, 4, 4, 4, 20, 20, ref.PAD_POS],
+                            [0, 3, 3, 3, 9, 9, ref.PAD_POS, ref.PAD_POS]],
+                           dtype=torch.int32, device=cuda_device)
+    kv_pos = torch.arange(200, dtype=torch.int32, device=cuda_device) + 2
+    o, m, l = fa.flash_attention_partial(q, k, v, q_pos, kv_pos, q_start=q_start, scale=MLA_SCALE)
+    wo, wm, wl = ref.attention_partial_ref(q, k, v, q_pos, kv_pos, q_start=q_start,
+                                           scale=MLA_SCALE)
+    dead = wm[..., 0] < -1e29
+    assert int(dead.sum()) == 4
+    assert (o[dead] == 0).all() and (l[dead] == 0).all() and (m[dead] == -1e30).all()
+    do = torch.randn(2, 8, 128, 512, device=cuda_device)
+    dl = torch.randn(2, 8, 128, device=cuda_device)
+    do[dead], dl[dead] = float("nan"), float("nan")
+    dq, dk, dv = fa.flash_attention_partial_bwd(q, k, v, q_pos, kv_pos, do, wm, dl,
+                                                q_start=q_start, scale=MLA_SCALE)
+    assert (dq[dead] == 0).all() and torch.isfinite(dk).all() and torch.isfinite(dv).all()
+
+
+@pytest.mark.cuda
+def test_mla_widths_refused_by_the_cuda_core_kernels(cuda_device):
+    """The CUDA-core pair keeps its limit of 128: fp32 (and bf16 asked of
+    it) at MLA's widths raises, launching nothing."""
+    q, k, v = _mla_inputs(cuda_device, 1, 2, 16, 128, 1, True, seed=0)
+    pos = torch.arange(16, dtype=torch.int32, device=cuda_device)
+    before = fa.counts()
+    with pytest.raises(ValueError, match="CUDA-core kernels take"):
+        fa.flash_attention_partial(q.float(), k.float(), k.float()[..., :512], pos[-2:], pos)
+    with pytest.raises(ValueError, match="CUDA-core kernels take"):
+        fa.flash_attention_partial(q, k, v, pos[-2:], pos, kernels="cuda_cores")
+    assert fa.counts() == before

@@ -56,7 +56,7 @@ from repro.models.model_zoo import build_model as jbuild_model
 from repro.parallel import runner as jrunner
 from repro.parallel.ctx import SINGLE as JSINGLE
 from repro.parallel.ctx import Ctx as JCtx
-from repro_torch.configs.base import MoEConfig, ShapeConfig, get_config
+from repro_torch.configs.base import MLAConfig, MoEConfig, ShapeConfig, get_config
 from repro_torch.core import costmodel as cm
 from repro_torch.core import tree
 from repro_torch.data.pipeline import shard_batch
@@ -236,8 +236,7 @@ BLOCK_ARCHS = ("granite-moe-1b-a400m", "deepseek-v3-671b")
 def _block_cfgs(arch, cf):
     jcfg = jget_config(arch).reduced()
     jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, capacity_factor=cf))
-    # the port has no deepseek config yet (MLA, ROADMAP Queue 2): its MoE
-    # block takes the reference's reduced MoEConfig on granite's widths
+    # the block alone: the reference's reduced MoEConfig on granite's widths
     tcfg = dataclasses.replace(get_config(ARCH).reduced(),
                                moe=MoEConfig(**dataclasses.asdict(jcfg.moe)))
     assert (tcfg.d_model, tcfg.moe) == (jcfg.d_model, MoEConfig(**dataclasses.asdict(jcfg.moe)))
@@ -487,12 +486,19 @@ def test_static_serving_matches_the_reference():
 
 
 def test_build_model_takes_gqa_moe_and_refuses_mla():
+    """granite's GQA MoE and deepseek-v3's MLA MoE build; MLA is refused at
+    sp > 1 (its model-axis shards are a later slice) when the cell
+    resolves, naming the ROADMAP item."""
     mdef = build_model(ARCH)
     assert mdef.cfg.tie_embeddings and "head" not in mdef.globals_spec()
     assert mdef.stage_spec()["moe"] == {"router": "rep", "w1": "keep0", "w3": "keep0",
                                         "w2": "keep0"}
-    for arch in ("deepseek-v3-671b",):
-        jcfg = jget_config(arch)
-        cfg = dataclasses.replace(get_config(ARCH), mla=jcfg.mla)
-        with pytest.raises(NotImplementedError, match="MLA"):
-            build_model(cfg)
+    arch = "deepseek-v3-671b"
+    ds = build_model(arch)
+    assert ds.cfg.mla == MLAConfig(**dataclasses.asdict(jget_config(arch).mla))
+    assert ds.stage_spec()["attn"] == jbuild_model(jget_config(arch)).stage_spec()["attn"]
+    assert "head" in ds.globals_spec() and ds.stage_spec()["moe"]["ws1"] == 1
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+        runner.resolve_cell(get_config(arch).reduced(), ShapeConfig("t", S, B, "train"),
+                            model_size=2, overrides=dict(sp=2, n_chunks=N),
+                            dtype=torch.float32)

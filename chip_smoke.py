@@ -94,7 +94,7 @@ Four phases, each of which exits non-zero on failure:
    parameters after two updates within CODEC_PARAM_TOL.  Then qwen2-7b at
    all 28 layers (``full_depth_phase``), S = 8192, the default plan with
    fp32 and with fp8 moments in pinned host memory (61.1 GB and 15.3 GB),
-   3 steps each, held as the plans are (224 / 112 / 112 launches a step)
+   FULL_STEPS steps each, held as the plans are (224 / 112 / 112 launches a step)
    with the moment copies by the closed form, the step's device peak under
    80 GB, and the update's moment copies and their exposed ms from the
    profiler.  Then the long cell, LONG_LAYERS layers at S = 32768 in 8
@@ -113,7 +113,8 @@ Four phases, each of which exits non-zero on failure:
    tokens) packed into 3 rows (``train(packed=)``, grad_accum 3: one row a
    microbatch) under plans (d) and (b), and the pad-to-max baseline (one
    document a row at its packed offsets, grad_accum 32) under (d),
-   PACKED_STEPS steps each, held as the plans are; (d)'s losses bitwise
+   PACKED_STEPS steps each (pad-to-max PAD_STEPS, not profiled), held as
+   the plans are; (d)'s losses bitwise
    (b)'s at every step, and packed real tokens/s at least VARLEN_FACTOR
    times pad-to-max's; beside them the solver's predicted step.  Then a
    2-layer fp32 packed step (``packed_cpu_check``, tests/test_varlen.py's
@@ -199,6 +200,21 @@ and row copies at their closed forms.  Phase 2 times the kernels at
 granite's shapes: the train cell's first and last chunk, forward and
 backward, and the decode step.
 
+Then MLA (``mla_phase``, deepseek-v3-671b's wide kernels, serving at 2
+layers and loss and gradients at 1 layer at full width) and the SSM family
+(``ssm_phase``): rwkv6-3b and zamba2-7b served at full width and depth
+(B 4, a 2048-token prompt in 16 chunks, 32 decode steps, SSM_REPEATS
+runs, the decode loop under sync-debug "error"; rwkv6 launches no kernel,
+zamba2 the tensor-core forward 14 x (16 + 32) times a run), trained at
+full width cut in depth (4 RWKV6 layers, 2 zamba2 groups; S 8192 in 4
+chunks, plans (d) and (b), SSM_STEPS steps: launches, D2H = H2D at the
+closed form of the SSM tag shapes (``ssm_offload_elems``), the losses
+bitwise equal at every step, (d)'s last step profiled), and their reduced
+configs in fp32 against the CPU (a train step, prefill and decode).
+Phase 2 holds and times the three kernels at zamba2's shapes (hd 112, G
+1): its serving prefill chunk and decode step, its train cell's first and
+last chunk.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its check and times: the tensor-core and the CUDA-core
 forward, the latter's merge, and the tensor-core and CUDA-core backward
@@ -257,7 +273,7 @@ CODEC_PARAM_TOL = {"fp8": 1e-2, "int8": 3e-2}  # parameters after two updates
 # PERF.md §4): the fp32 moments' 61.1 GB fit, so the phase runs fp32 and
 # fp8 moments (int8 moments run on the 4-layer cell).  A pinned allocation
 # that fails raises.
-FULL_STEPS = 3
+FULL_STEPS = 2   # 2, not 3: cut for the script's time (PERF.md §4)
 FULL_DEPTH_MOMENTS = ("none", "fp8")
 CARD_BYTES = 80e9
 # the share of an update's moment copies that the profiler may fail to
@@ -279,6 +295,10 @@ PROFILE_PAD_S = (0.5, 2.0)
 # document a row at its packed offsets, 32 microbatches)
 PACKED_CORPUS = dict(n_docs=32, seed=0, dist="zipf", mean_len=768, max_len=8192)
 PACKED_SEQ, PACKED_CHUNKS, PACKED_STEPS = 8192, 4, 3
+# pad-to-max: 2 steps and no profiled step, for the script's time; its one
+# check of its own is the varlen gate on the warm (unprofiled) step, the
+# profiler's checks are the packed cell's (PERF.md §4)
+PAD_STEPS = 2
 # the reference's varlen gate: packed real tokens/s over pad-to-max's
 # (benchmarks/bench_varlen.py, DEFAULT_FACTOR)
 VARLEN_FACTOR = 1.5
@@ -314,7 +334,9 @@ SHARED_CARD = "two ranks share one card: not a pipeline speed"
 # same weights; then the reduced model in fp32 at S = 256 in the
 # SP_FP32_LAYOUTS against the CPU's sp = 1 step under the same plan
 # 1 layer (2 until PR 24: cut for the script's time, PERF.md §4)
-SP, SP_LAYERS, SP_SEQ, SP_CHUNKS, SP_STEPS = 2, 1, 8192, 4, 2
+# one step a mode, for the script's time: step 0 holds every closed form
+# (PERF.md §4)
+SP, SP_LAYERS, SP_SEQ, SP_CHUNKS, SP_STEPS = 2, 1, 8192, 4, 1
 SP_LOSS_TOL = 2e-3       # step-0 loss against sp = 1's, relative
 SP_MODES = {"gather_q": dict(attn_mode="gather_q"),
             "gather_kv": dict(attn_mode="gather_kv", grad_compress=True),
@@ -401,6 +423,22 @@ MLA_CHECK_SEQ, MLA_CHECK_DECODE = 256, 4
 # in place by the seams' sink), one op's fresh expert gradient (7 GiB) and
 # the activations (4-8 GiB)
 MLA_GRAD_PEAK_PREDICTED_GIB = 38
+# the SSM family (ssm_phase): rwkv6-3b (32 RWKV6 layers, d 2560, 40 heads
+# of 64, FFN 8960, no attention) and zamba2-7b (81 Mamba2 mixers, d 3584,
+# d_inner 7168 in 112 heads of 64, d_state 64, in 14 groups of 6, each
+# group followed by the weight-shared attention block: 32 heads of hd 112,
+# G 1, FFN 14336; the last group's 3 mixers past the 81st at gate 0), random
+# weights from seed 0.  Served at full width and depth (B 4, prompt 2048
+# in 16 chunks, 32 decode steps, SSM_REPEATS runs, the decode loop under
+# sync-debug "error"); trained at full width cut in depth (SSM_TRAIN_LAYERS:
+# 4 RWKV6 layers, 12 mixers = 2 zamba groups) at S 8192 in 4 chunks under
+# plans (d) and (b), SSM_STEPS steps each; the reduced configs in fp32 (2
+# RWKV6 layers, 2 zamba groups) on the card and the CPU
+SSM_ARCHS = ("rwkv6-3b", "zamba2-7b")
+SSM_REPEATS, SSM_SEQ, SSM_CHUNKS, SSM_STEPS = 2, 8192, 4, 3
+SSM_TRAIN_LAYERS = {"rwkv6-3b": 4, "zamba2-7b": 12}
+SSM_CHECK_LAYERS = {"rwkv6-3b": 2, "zamba2-7b": 4}
+SSM_CHECK_SEQ, SSM_CHECK_DECODE = 256, 4
 
 
 def fail(msg: str):
@@ -1324,14 +1362,15 @@ def offload_bytes(cell) -> int:
     """D2H bytes of one step by the port's cost model: Σ over chunks of
     split_rows(rows, α_c) x batch x the tagged bytes of a token in every
     layer (bf16), times the codec's wire ratio (its 1-byte payload; the
-    scales stay on the device).  An MoE model's by the tag shapes its layers
-    use (``moe_offload_elems``)."""
+    scales stay on the device).  An MoE model's and an SSM model's by the
+    tag shapes their layers use (``moe_offload_elems``,
+    ``ssm_offload_elems``)."""
     from repro_torch.core import costmodel as cm
     from repro_torch.core import offload as ofl
 
-    if cell.cfg.moe is not None:
-        return int(moe_offload_elems(cell) * cm.ACT_ITEMSIZE
-                   * cm.offload_wire_ratio(cell.plan.offload_dtype))
+    if cell.cfg.moe is not None or cell.cfg.sub_quadratic:
+        elems = moe_offload_elems(cell) if cell.cfg.moe is not None else ssm_offload_elems(cell)
+        return int(elems * cm.ACT_ITEMSIZE * cm.offload_wire_ratio(cell.plan.offload_dtype))
     per_row = (cell.shape.global_batch * cm.tagged_bytes_per_token(cell.cfg) * cell.cfg.n_layers
                * cm.offload_wire_ratio(cell.plan.offload_dtype))
     return int(sum(ofl.split_rows(ln, a) * per_row
@@ -1365,6 +1404,37 @@ def moe_offload_elems(cell) -> int:
         total += (ofl.split_rows(rows, a) * B * attn
                   + e_loc * ofl.split_rows(ce, a) * cfg.moe.d_ff_expert)
     return total * cfg.n_layers
+
+
+def ssm_offload_elems(cell) -> int:
+    """Elements of a step's off rows at pp = 1 by the tag shapes of an SSM
+    model: per chunk, split_rows of the chunk's rows, B of each, of every
+    RWKV6 layer's time-mix output [d] and channel-mix hidden [d_ff]; of
+    every zamba2 group's mixers' two sites [d_inner] each (the ghost mixers
+    run too) and its shared block's q, k, v, attention output and MLP
+    hidden.  Not the cost model's 2 x expand x d a layer (PERF.md §7)."""
+    from repro_torch.core import offload as ofl
+
+    cfg, B = cell.cfg, cell.b_loc
+    if cfg.family == "ssm":
+        per_row, n = cfg.d_model + cfg.d_ff, cfg.n_layers
+    else:
+        d_in = cfg.ssm.expand * cfg.d_model
+        per_row = (cfg.shared_attn_every * 2 * d_in + 2 * cfg.n_heads * cfg.hd
+                   + 2 * cfg.n_kv_heads * cfg.hd + cfg.d_ff)
+        n = cell.mdef.n_slots
+    return n * sum(ofl.split_rows(ln, a) * B * per_row
+                   for ln, a in zip(cell.sched.lengths, cell.alphas))
+
+
+def attention_layers(cfg) -> int:
+    """The attention blocks a pass runs: every layer of a dense or MoE
+    model, none of rwkv6's, the shared block once a zamba2 group."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return -(-cfg.n_layers // cfg.shared_attn_every)
+    return cfg.n_layers
 
 
 def param_shapes(cell) -> list:
@@ -1442,7 +1512,7 @@ def compare_grads(grads, ref, plan, ref_plan, label, *, bitwise):
 
 
 def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n_chunks,
-               steps, label, extra=None, grads="keep", packed=None):
+               steps, label, extra=None, grads="keep", packed=None, profiled=True):
     """One training plan through ``launch.train.train``, as the CLI runs it,
     counted and timed: each step's kernel launches and host copies, the last
     step under torch.profiler (device busy and idle, kernel groups, copy
@@ -1459,7 +1529,9 @@ def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n
     its gradients, "peak" read its peak only, "none" skip it).  ``packed``:
     a ``PackedBatch`` trained on at every step (``train(packed=)``), its rows
     the batch; each step then launches each kernel once a microbatch more
-    (``grad_accum``), and the untimed call is skipped.  Returns the launch
+    (``grad_accum``), and the untimed call is skipped.  ``profiled`` False:
+    no step runs under the profiler (a cell whose profile another cell's
+    holds; its row then has no device-time fields).  Returns the launch
     counts, a summary and that call's gradients."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1476,7 +1548,7 @@ def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n
         after.append({**fa.counts(), **{"copy_" + k: v for k, v in hostmem.counts().items()}})
 
     def step_context(step):
-        if step != steps - 1:
+        if not profiled or step != steps - 1:
             return contextlib.nullcontext()
         prof["p"] = profile(activities=[ProfilerActivity.CUDA])
         return padded(prof["p"])
@@ -1498,7 +1570,7 @@ def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n
           and all(getattr(cell.plan, k) == v for k, v in (extra or {}).items()),
           f"plan ({plan}) resolved to {cell.plan}")
     per_step = [{k: a[k] - b.get(k, 0) for k in a} for a, b in zip(after, [{}] + after[:-1])]
-    n_calls = cfg.n_layers * cell.sched.n * cell.plan.grad_accum
+    n_calls = attention_layers(cfg) * cell.sched.n * cell.plan.grad_accum
     fwd_want = n_calls * (1 if cell.plan.remat == "none" else 2)
     bytes_want = offload_bytes(cell)
     mom_bytes, mom_copies = moment_copies(cell)
@@ -1520,16 +1592,26 @@ def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n
     losses = [r["loss"] for r in hist]
     check(len(hist) == steps and all(np.isfinite(losses)), f"[{label}] losses {losses}")
     t0 = time.perf_counter()
-    timeline = copy_timeline(prof["p"], (mom_copies, mom_copies))
-    if bytes_want:
-        check(timeline["d2h_ms"] > 0 and timeline["h2d_ms"] > 0,
-              f"[{label}] the profiler saw no offload copy: {timeline}")
-    busy_k, groups, _ = device_time(prof["p"])
-    seconds["profile_reading"] = time.perf_counter() - t0
     prof_wall = 1e3 * hist[-1]["dt"]
-    warm = [1e3 * r["dt"] for r in hist[1:-1]] or [prof_wall]
+    profile_row = {}
+    if profiled:
+        timeline = copy_timeline(prof["p"], (mom_copies, mom_copies))
+        if bytes_want:
+            check(timeline["d2h_ms"] > 0 and timeline["h2d_ms"] > 0,
+                  f"[{label}] the profiler saw no offload copy: {timeline}")
+        busy_k, groups, _ = device_time(prof["p"])
+        busy = timeline["device_busy_ms"]
+        profile_row = {"profiled_wall_ms": prof_wall, "device_busy_ms": busy,
+                       "device_kernel_ms_by_group": groups, "kernel_ms_sum": busy_k,
+                       "idle_share": 1 - busy / prof_wall,
+                       **{k: v for k, v in timeline.items() if k != "device_busy_ms"}}
+    seconds["profile_reading"] = time.perf_counter() - t0
+    # the warm steps: past step 0, and past the profiled last step where it
+    # is not the only one
+    warm = [1e3 * r["dt"] for r in hist[1:(-1 if profiled else None)]] or [prof_wall]
     warm_ms = sum(warm) / len(warm)
-    busy = timeline["device_busy_ms"]
+    if profiled:
+        profile_row["idle_share_vs_unprofiled_wall"] = 1 - busy / warm_ms
     acts = cm.chunk_act_bytes(cell.cfg, cell.sched.lengths, batch=batch, pp=1, sp=1,
                               grad_accum=cell.plan.grad_accum)
     quantized = [ofl.quantized_alpha(ln, a) for ln, a in zip(cell.sched.lengths, cell.alphas)]
@@ -1553,11 +1635,7 @@ def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n
            "h2d_bytes_per_step": per_step[-1]["copy_h2d_bytes"],
            "moment_bytes_each_way_per_step": per_step[-1]["copy_moment_d2h_bytes"],
            "launches_per_step": {k: v for k, v in per_step[-1].items() if not k.startswith("copy_")},
-           "profiled_wall_ms": prof_wall, "device_busy_ms": busy,
-           "device_kernel_ms_by_group": groups, "kernel_ms_sum": busy_k,
-           "idle_share": 1 - busy / prof_wall, "idle_share_vs_unprofiled_wall": 1 - busy / warm_ms,
-           **{k: v for k, v in timeline.items() if k != "device_busy_ms"},
-           "smoke_seconds": seconds}
+           "profiled": profiled, **profile_row, "smoke_seconds": seconds}
     print_plan(row, hist, cell, card, label, steps)
     return totals, row, grad_tree
 
@@ -1569,9 +1647,11 @@ def print_plan(row, hist, cell, card, label, steps):
           f"quantized [{', '.join(f'{a:.4f}' for a in row['quantized_alphas'])}]")
     for r in hist:
         print(f"  step {r['step']}: loss {r['loss']!r}, {r['dt']:.4f} s, {r['tgs']:.1f} tokens/s, "
-              f"MFU {r['mfu']:.4f}" + (" [profiled]" if r["step"] == steps - 1 else ""))
+              f"MFU {r['mfu']:.4f}"
+              + (" [profiled]" if row["profiled"] and r["step"] == steps - 1 else ""))
     lg = row["grads_peak_over_weights_bytes"]
-    print(f"  warm step {row['warm_step_ms']:.1f} ms (unprofiled mean of steps 1..{steps - 2}); "
+    last = steps - 2 if row["profiled"] else steps - 1
+    print(f"  warm step {row['warm_step_ms']:.1f} ms (unprofiled mean of steps 1..{last}); "
           f"peak {row['peak_bytes'] / gib:.3f} GiB over the {steps} steps (weights and moments "
           f"on the device {row['base_bytes'] / gib:.3f} GiB, moments in host memory "
           f"{row['host_moment_bytes'] / gib:.3f} GiB); one untimed loss-and-gradients call peaks "
@@ -1579,6 +1659,10 @@ def print_plan(row, hist, cell, card, label, steps):
           + f"; the cost model's tagged-activation peak (peak_memory of chunk_act_bytes at the "
           f"quantized alphas) {row['tagged_peak_model_bytes'] / gib:.3f} GiB")
     print(f"  smoke seconds {json.dumps({k: round(v, 2) for k, v in row['smoke_seconds'].items()})}")
+    if not row["profiled"]:
+        print(f"  copies a step: D2H {row['d2h_bytes_per_step']} bytes, H2D "
+              f"{row['h2d_bytes_per_step']} bytes; not profiled")
+        return
     print(f"  device busy {row['device_busy_ms']:.1f} ms of {row['profiled_wall_ms']:.1f} ms "
           f"profiled wall (idle {row['idle_share']:.3f}; {row['idle_share_vs_unprofiled_wall']:.3f} "
           f"against the unprofiled warm wall); kernels by group "
@@ -1996,10 +2080,12 @@ def packed_phase(fa, hostmem, serve, runner, train_mod, cfg, card, uniform_warm_
     rows, totals = {}, {}
     for key, plan, pb in (("packed_d", "d", packed), ("packed_b", "b", packed),
                           ("pad_d", "d", pad)):
+        pad_cell = key == "pad_d"
         totals[key], rows[key], _ = train_plan(
             fa, hostmem, serve, runner, train_mod, cfg4, card, plan, seq=PACKED_SEQ,
-            n_chunks=PACKED_CHUNKS, steps=PACKED_STEPS, label=key,
-            extra=dict(grad_accum=len(pb.tokens)), grads="none", packed=pb)
+            n_chunks=PACKED_CHUNKS, steps=PAD_STEPS if pad_cell else PACKED_STEPS, label=key,
+            extra=dict(grad_accum=len(pb.tokens)), grads="none", packed=pb,
+            profiled=not pad_cell)
         r = rows[key]
         warm_s = r["warm_step_ms"] / 1e3
         r.update(real_tokens=real, real_tokens_per_s=real / warm_s,
@@ -2009,7 +2095,8 @@ def packed_phase(fa, hostmem, serve, runner, train_mod, cfg, card, uniform_warm_
               f"{r['real_tokens_per_s']:.1f} real tokens/s, MFU over real tokens "
               f"{r['mfu_real']:.4f}; peak {r['peak_bytes'] / 2**30:.3f} GiB; rows' copies "
               f"{r['d2h_bytes_per_step']} bytes each way a step (the closed form); launches a "
-              f"step {r['launches_per_step']}; idle share {r['idle_share']:.3f}")
+              f"step {r['launches_per_step']}; idle share "
+              + (f"{r['idle_share']:.3f}" if r["profiled"] else "not profiled"))
         torch.cuda.empty_cache()
     check(rows["packed_d"]["losses"] == rows["packed_b"]["losses"],
           f"packed plans (d) and (b) differ: {rows['packed_d']['losses']} vs "
@@ -4815,6 +4902,233 @@ def mla_phase(fa, hostmem, serve, runner, ref, card):
     return counts, rows, summary
 
 
+# ---------------------------------------------------------------------------
+# The SSM family: rwkv6-3b (RWKV6, no attention) and zamba2-7b (Mamba2
+# mixers and the weight-shared attention block at hd 112, G 1)
+# ---------------------------------------------------------------------------
+
+
+def ssm_kernel_shapes(fa, ref, gen, runner, cfg):
+    """zamba2-7b's attention at its main-path shapes (32 heads of hd 112, G
+    1): the serving prefill chunk (B 4, Tq 128 over a 2048-slot prefix) and
+    decode step (Tq 1 over the whole 2176-slot buffer), both forwards held
+    and timed (``measure_shape``); the train cell's first and last chunk (B
+    1, S 8192 in 4 chunks), forwards and backward pairs (``measure_bwd_shape``).
+    Returns (forward rows, backward rows)."""
+    prefill_in, decode_in = serving_shapes(gen, cfg)
+    fwd = [measure_shape(f"{cfg.name} prefill chunk", fa, ref, *prefill_in),
+           measure_shape(f"{cfg.name} decode step", fa, ref, *decode_in)]
+    del prefill_in, decode_in
+    _, train_in = train_chunk_shapes(gen, runner, cfg, n_layers=SSM_TRAIN_LAYERS[cfg.name],
+                                     seq=SSM_SEQ, n_chunks=SSM_CHUNKS)
+    bwd = []
+    for name, args in train_in.items():
+        f, b = measure_bwd_shape(f"{cfg.name} {name}", fa, ref, *args)
+        fwd.append(f)
+        bwd.append(b)
+    del train_in
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def ssm_serve(fa, hostmem, serve, arch, card):
+    """(a) ``arch`` served at full width and full depth through the serve
+    CLI's entry point, bf16, SSM_REPEATS runs of B 4, a 2048-token prompt in
+    16 chunks and 32 decode steps, the decode loop under sync-debug "error"
+    (a call that makes the host wait raises).  rwkv6-3b launches no kernel;
+    zamba2-7b the tensor-core forward 14 x (16 + 32) times a run, the calls
+    whose KV range the geometry splits merging in the launch; no host copy."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config(arch)
+    n_attn = attention_layers(cfg)
+    fa.reset_counts()
+    hostmem.reset_counts()
+    out = serve.main(["--arch", arch, "--prompt-len", str(PREFILL_LEN), "--batch", str(BATCH),
+                      "--decode-steps", str(DECODE_STEPS), "--repeats", str(SSM_REPEATS),
+                      "--sync-debug", "error"])
+    counts = fa.counts()
+    check(not any(hostmem.counts().values()),
+          f"[{arch}] serving copied to or from host memory: {hostmem.counts()}")
+    n_chunks = out["n_chunks"]
+    check(n_chunks == 16, f"[{arch}] prefill ran {n_chunks} chunks, expected 16")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    G, Hkv = cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads
+    clen, cache = PREFILL_LEN // n_chunks, PREFILL_LEN + 128
+    splits = (sum(fa._tc_geometry(BATCH, clen, (c + 1) * clen, G, Hkv, n_sm)[2] > 1
+                  for c in range(n_chunks))
+              + DECODE_STEPS * (fa._tc_geometry(BATCH, 1, cache, G, Hkv, n_sm)[2] > 1))
+    want = {**{k: 0 for k in counts},
+            "fwd_tc": SSM_REPEATS * n_attn * (n_chunks + DECODE_STEPS),
+            "merged_in_kernel": SSM_REPEATS * n_attn * splits}
+    check(counts == want, f"[{arch}] serving launched {counts}, expected {want}")
+    check(build_model(cfg).n_slots == {"rwkv6-3b": 32, "zamba2-7b": 14}[arch],
+          f"[{arch}] built {build_model(cfg).n_slots} slots")
+    toks = out["tokens"]
+    check(toks.shape == (BATCH, DECODE_STEPS)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"[{arch}] decoded tokens {toks.shape} out of range")
+    check(bool(torch.isfinite(out["last_hidden"]).all()), f"[{arch}] hidden not finite")
+    runs = []
+    for run, (p_s, d_s) in enumerate(zip(out["prefill_s_runs"], out["decode_s_runs"])):
+        runs.append({"prefill_s": p_s, "prefill_tokens_per_s": BATCH * PREFILL_LEN / p_s,
+                     "decode_ms_per_step": 1e3 * d_s / DECODE_STEPS,
+                     "decode_tokens_per_s": BATCH * DECODE_STEPS / d_s})
+        print(f"serve [{arch}] run {run} ({card}): {cfg.n_layers} layers at full width, bf16: "
+              f"prefill {p_s:.4f} s, {runs[-1]['prefill_tokens_per_s']:.1f} tokens/s; decode "
+              f"{runs[-1]['decode_ms_per_step']:.3f} ms/step, "
+              f"{runs[-1]['decode_tokens_per_s']:.1f} tokens/s")
+    print(f"serve [{arch}] launches {counts} (expected {want}), no host sync in the decode "
+          f"loop; peak {out['peak_bytes'] / 2**30:.3f} GiB ({card})")
+    return counts, {"runs": runs, "peak_bytes": out["peak_bytes"]}
+
+
+def ssm_cpu_check(fa, hostmem, serve, runner, arch, card):
+    """(c) The reduced config in fp32 (2 RWKV6 layers, or 2 zamba2 groups:
+    hd 16, G 2, the CUDA-core kernels), the same weights on the card and on
+    the CPU: one train step at S 256 in 2 chunks under the default plan
+    (chunk 0 offloads every tagged row): the loss, the gradient norm, every
+    gradient leaf (``loss_and_grads``, relative L2) and every parameter's
+    update within GRAD_REL_TOL (relative), the launches by their closed
+    forms, pinned copies; then a prefill and SSM_CHECK_DECODE decode steps:
+    the card's tokens the CPU's (a tie under TIE_GAP excepted).  AdamW's
+    first update is g / (|g| + eps) an element, the sign of g wherever |g|
+    >> eps, so the update is held over the elements whose CPU gradient is
+    over 1e-3 x its leaf's max |g| (ten times GRAD_REL_TOL); below that the
+    sign is set by rounding, and the update over every element is printed
+    beside it."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model_zoo import ModelDef
+
+    rcfg = get_config(arch).reduced(n_layers=SSM_CHECK_LAYERS[arch])
+    S = SSM_CHECK_SEQ
+    cell = runner.resolve_cell(rcfg, ShapeConfig("ssm_check", S, 1, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=2), dtype=torch.float32)
+    check(cell.plan.offload and cell.plan.remat == "sppo",
+          f"[{arch}] reduced plan {cell.plan}: expected the default plan")
+    cell = dataclasses.replace(cell, alphas=(1.0, 0.0))
+    tokens, labels = (torch.from_numpy(a) for a in SyntheticLM(rcfg.vocab_size, S, 1).sample_step(0))
+    start = serve.build_params(cell, "cpu", seed=0)
+    step = runner.make_train_step(cell, lr_kwargs=dict(peak=1e-3, warmup=1, total=10))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.clone().to(dev), start)
+        _, grads = runner.loss_and_grads(cell, params, tokens.to(dev), labels.to(dev))
+        grads = {p: g.cpu() for p, g in tree.items(grads)}
+        opt = runner.init_opt_state(cell, params)
+        fa.reset_counts()
+        hostmem.reset_counts()
+        params, opt, met = step(params, opt, tokens.to(dev), labels.to(dev))
+        out[dev] = {"loss": float(met["loss"]), "gnorm": float(met["grad_norm"]),
+                    "params": {p: t.cpu() for p, t in tree.items(params)}, "grads": grads,
+                    "counts": fa.counts(), "copied": hostmem.counts()}
+        del params, opt
+    card_o, cpu_o = out["cuda"], out["cpu"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_attn = attention_layers(rcfg)
+    G, Hkv = rcfg.n_heads // rcfg.n_kv_heads, rcfg.n_kv_heads
+    splits = sum(fa._geometry(1, ln, off + ln, G, Hkv, n_sm)[2] > 1
+                 for off, ln in zip(cell.sched.offsets, cell.sched.lengths))
+    want = {**{k: 0 for k in card_o["counts"]}, "fwd": 4 * n_attn, "merge": 2 * n_attn * splits,
+            "bwd_dq": 2 * n_attn, "bwd_dkv": 2 * n_attn}
+    check(card_o["counts"] == want,
+          f"[{arch}] the reduced fp32 step launched {card_o['counts']}, expected {want}")
+    n_bytes = 4 * ssm_offload_elems(cell)
+    check(card_o["copied"]["d2h_bytes"] == card_o["copied"]["h2d_bytes"] == n_bytes
+          and card_o["copied"]["d2h_pinned"] == card_o["copied"]["d2h"] > 0,
+          f"[{arch}] the reduced step copied {card_o['copied']}, expected {n_bytes} pinned "
+          "bytes each way")
+    rel = {"loss": abs(card_o["loss"] - cpu_o["loss"]) / abs(cpu_o["loss"]),
+           "grad_norm": abs(card_o["gnorm"] - cpu_o["gnorm"]) / abs(cpu_o["gnorm"])}
+    worst = {"grad": (0.0, None), "update": (0.0, None), "update_all": (0.0, None)}
+    start = dict(tree.items(start))
+    for p, t in card_o["params"].items():
+        g_card, g_cpu = card_o["grads"][p], cpu_o["grads"][p]
+        d_card, d_cpu = t - start[p], cpu_o["params"][p] - start[p]
+        sure = g_cpu.abs() > 1e-3 * g_cpu.abs().max()
+        for key, a, b in (("grad", g_card, g_cpu), ("update", d_card[sure], d_cpu[sure]),
+                          ("update_all", d_card, d_cpu)):
+            if b.norm() > 0:
+                worst[key] = max(worst[key], (((a - b).norm() / b.norm()).item(), p),
+                                 key=lambda v: v[0])
+    rel.update({k: v[0] for k, v in worst.items() if k != "update_all"})
+    print(f"train [{arch}] reduced fp32 step ({card}), {rcfg.n_layers} layers, default plan: "
+          f"loss card {card_o['loss']:.6f} vs CPU {cpu_o['loss']:.6f}; relative "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + f" (worst leaves: gradient {worst['grad'][1]}, update {worst['update'][1]}); the "
+          f"update over every element {worst['update_all'][0]:.3e} ({worst['update_all'][1]}); "
+          f"launches {card_o['counts']}; D2H {n_bytes} bytes")
+    check(all(v <= GRAD_REL_TOL for v in rel.values()),
+          f"[{arch}] the reduced step disagrees card vs CPU: {rel} (tol {GRAD_REL_TOL})")
+    pre = runner.resolve_cell(rcfg, ShapeConfig("ssm_fp32", S, BATCH, "prefill"),
+                              overrides=dict(pp=1, dp=1, n_chunks=S // 64, offload=False,
+                                             remat="none"), dtype=torch.float32)
+    dec = runner.resolve_cell(rcfg, ShapeConfig("ssm_fp32", S, BATCH, "decode"),
+                              overrides=dict(pp=1, dp=1), dtype=torch.float32)
+    params = serve.build_params(pre, "cpu", seed=0)
+    prompts = np.random.default_rng(1).integers(2, rcfg.vocab_size, size=(BATCH, S)).astype(np.int32)
+    fa.reset_counts()
+    got = static_decode(runner, pre, dec, tree_map(lambda t: t.cuda(), params), prompts,
+                        SSM_CHECK_DECODE, "cuda")
+    serve_counts = fa.counts()
+    gaps = []
+    with recorded_gaps(ModelDef, gaps):
+        want_toks = static_decode(runner, pre, dec, params, prompts, SSM_CHECK_DECODE, "cpu")
+    ties = held_against_cpu(got, want_toks, np.stack(gaps, axis=1), f"{arch} reduced fp32 serve")
+    print(f"serve [{arch}] reduced fp32 ({card}): {BATCH} rows, prefill {S}, "
+          f"{SSM_CHECK_DECODE} decode steps: tokens as the CPU's ({len(ties)} ties); launches "
+          f"{serve_counts}")
+    return card_o["counts"], {"step_rel": rel, "update_all_rel": worst["update_all"][0],
+                              "serve_ties": ties}
+
+
+def ssm_phase(fa, hostmem, serve, runner, train_mod, card):
+    """The SSM family (ROADMAP Queue 1 item 7(e)): (a) rwkv6-3b and
+    zamba2-7b served at full width and depth; (b) trained at full width cut
+    in depth, plans (d) and (b), the losses bitwise equal at every step and
+    D2H = H2D at the closed form of the SSM tag shapes (``train_plan``:
+    launches, copies; the idle share from (d)'s profiled last step); (c) the reduced
+    configs in fp32 against the CPU.  Returns (launch counts by path, a
+    summary)."""
+    from repro_torch.configs.base import get_config
+
+    t_phase = time.perf_counter()
+    paths, summary = {}, {"seconds": {}}
+    for arch in SSM_ARCHS:
+        key = arch.split("-")[0]
+        t0 = time.perf_counter()
+        paths[f"serve_{key}"], serve_sum = ssm_serve(fa, hostmem, serve, arch, card)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=SSM_TRAIN_LAYERS[arch])
+        rows = {}
+        for plan in ("d", "b"):
+            paths[f"train_{key}_plan_{plan}"], rows[plan], _ = train_plan(
+                fa, hostmem, serve, runner, train_mod, cfg, card, plan, seq=SSM_SEQ,
+                n_chunks=SSM_CHUNKS, steps=SSM_STEPS, label=f"{arch} {cfg.n_layers} layers",
+                grads="none", profiled=plan == "d")
+            torch.cuda.empty_cache()
+        check(rows["d"]["losses"] == rows["b"]["losses"],
+              f"[{arch}] plans (d) and (b) losses differ: {rows['d']['losses']} vs "
+              f"{rows['b']['losses']}, expected bitwise equal at every step")
+        print(f"train [{arch}] plans (d) and (b): losses bitwise equal at every step "
+              f"{rows['d']['losses']}")
+        t2 = time.perf_counter()
+        paths[f"train_{key}_fp32"], check_sum = ssm_cpu_check(fa, hostmem, serve, runner, arch,
+                                                              card)
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        summary[arch] = {"serve": serve_sum, "train": rows, "fp32_check": check_sum}
+        summary["seconds"][arch] = {"serve": t1 - t0, "train": t2 - t1, "fp32_check": t3 - t2}
+    summary["seconds"]["total"] = time.perf_counter() - t_phase
+    print(f"SSM phase took {summary['seconds']['total']:.1f} s "
+          f"({json.dumps({a: {k: round(v, 1) for k, v in d.items()} for a, d in summary['seconds'].items() if a != 'total'})})")
+    return paths, summary
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -4920,6 +5234,9 @@ def main():
     _, moe_decode_in = serving_shapes(gen, moe_cfg)
     moe_decode_rows = measure_shape(f"{MOE_ARCH} decode step", fa, ref, *moe_decode_in)
     del moe_decode_in
+    # zamba2-7b's shared attention block (hd 112, G 1, 32 heads): its serving
+    # prefill chunk and decode step, its train cell's first and last chunk
+    ssm_fwd_rows, ssm_bwd_rows = ssm_kernel_shapes(fa, ref, gen, runner, get_config("zamba2-7b"))
     # the paged step's shape: 8 rows at their own positions over their
     # gathered 2112 logical slots (bf16, timed as the serving shapes are),
     # and the multi-rank serving phase's fp32 shapes (untimed)
@@ -5018,6 +5335,10 @@ def main():
     # ---- MLA: deepseek-v3-671b's kernels, serving and gradients at full width
     torch.cuda.empty_cache()
     mla_counts, mla_rows, mla_summary = mla_phase(fa, hostmem, serve, runner, ref, card)
+    # ---- the SSM family: rwkv6-3b and zamba2-7b served at full width and
+    # depth, trained at full width
+    torch.cuda.empty_cache()
+    ssm_counts, ssm_summary = ssm_phase(fa, hostmem, serve, runner, train_mod, card)
 
     tc_rows = [r["tensor_cores"] for r in rows]
     cc_rows = [r["cuda_cores"] for r in rows]
@@ -5035,13 +5356,14 @@ def main():
              "train_pipeline_pp2": pipe_counts["plain"], "train_pipeline_pp2_msp": pipe_counts["msp"],
              **{f"train_pipeline_{k}": c for k, c in pipe_counts.items() if k.startswith("fp32_")},
              **{f"train_model_axis_{k}": c for k, c in ma_counts.items()},
-             **paged_counts, **sr_counts, **moe_counts, **mla_counts}
+             **paged_counts, **sr_counts, **moe_counts, **mla_counts, **ssm_counts}
     pipe_tc = ("train_pipeline_pp2", "train_pipeline_pp2_msp",
                *(f"train_model_axis_{k}" for k in SP_MODES), "train_moe_plan_d",
-               "train_mla_plan_d")
+               "train_mla_plan_d", "train_zamba2_plan_d")
     pipe_cc = (*(f"train_pipeline_{k}" for k in pipe_counts if k.startswith("fp32_")),
                *(f"train_model_axis_{k}" for k in ma_counts if k.startswith("fp32_")),
-               *sr_counts, "train_moe_fp32", "train_moe_ep_sp2", "train_mla_fp32")
+               *sr_counts, "train_moe_fp32", "train_moe_ep_sp2", "train_mla_fp32",
+               "train_zamba2_fp32")
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
@@ -5059,13 +5381,14 @@ def main():
          + sum(c["fwd_tc"] for c in full.values()) + packed_counts["packed_d"]["fwd_tc"]
          + sum(paths[p]["fwd_tc"] for p in pipe_tc)
          + paged_counts["serve_paged_continuous"]["fwd_tc"] + moe_counts["serve_moe"]["fwd_tc"]
-         + mla_counts["serve_mla"]["fwd_tc"],
+         + mla_counts["serve_mla"]["fwd_tc"] + ssm_counts["serve_zamba2"]["fwd_tc"],
          "launches_by_path": by_path("fwd_tc"),
          "merged_in_kernel_by_path": by_path("merged_in_kernel"),
          **{key: tc_rows[0][key] for key in common},
          "edge_grid_max_abs_err": grid_err["tensor_cores"],
          "shapes": (tc_rows + [r["tensor_cores"] for r in extra_fwd]
                     + [paged_rows["tensor_cores"], moe_decode_rows["tensor_cores"]]),
+         "zamba2_shapes": [r["tensor_cores"] for r in ssm_fwd_rows],
          "mla_edge_grid_max_abs_err": mla_summary["edge_grid"]["fwd_max_abs_err"],
          "mla_shapes": [r["fwd"] for r in mla_rows.values()]},
         {"name": "flash_attention_partial", "route": "cuda",
@@ -5081,7 +5404,8 @@ def main():
          "model_axis_check_shapes_max_abs_err": ma_fwd_err,
          "serve_fp32_check_shapes_max_abs_err": serve_fp32_err,
          "shapes": cc_rows + [r["cuda_cores"] for r in extra_fwd]
-         + [paged_rows["cuda_cores"], moe_decode_rows["cuda_cores"]]},
+         + [paged_rows["cuda_cores"], moe_decode_rows["cuda_cores"]],
+         "zamba2_shapes": [r["cuda_cores"] for r in ssm_fwd_rows]},
         # the CUDA-core forward's split-KV merge (decode), launched by the
         # same wrapper call; its output is what the decode shape's check holds
         {"name": "flash_attention_partial_merge", "route": "cuda",
@@ -5118,6 +5442,7 @@ def main():
                                                     fp32_packed_rel}),
             "model_axis_check_shapes_max_rel_err": ma_bwd_rel,
             "shapes": [r[part] for r in bwd_rows + extra_bwd],
+            "zamba2_shapes": [r[part] for r in ssm_bwd_rows],
             **({"mla_edge_grid_max_rel_err": mla_summary["edge_grid"]["bwd_max_rel_err"],
                 "mla_shapes": [r[part[:-3]] for r in mla_rows.values() if part[:-3] in r]}
                if part.endswith("_tc") else {})})
@@ -5131,6 +5456,7 @@ def main():
                "train_chunks": list(train_cell.sched.lengths), "pipeline": pipe_summary,
                "model_axis": ma_summary, "paged_serve": paged_summary,
                "serve_ranks": sr_summary, "moe": moe_summary, "mla": mla_summary,
+               "ssm": ssm_summary,
                "seconds": time.perf_counter() - t_start}
     print("summary:", json.dumps(summary))
     print(card)

@@ -4,8 +4,10 @@ A copy of ``repro/configs/base.py`` (the JAX package) so the port never
 imports the reference.  The registry holds the dense architectures the port
 runs: ``qwen2-7b``, the paper's ``sppo-gpt`` family, ``glm4-9b`` (partial
 RoPE), ``nemotron-4-15b`` (squared ReLU, LayerNorm), ``starcoder2-3b``
-(GeLU with MLP bias) and the MoE ``granite-moe-1b-a400m`` (32 experts,
-top-8, a tied embedding).
+(GeLU with MLP bias), the MoE ``granite-moe-1b-a400m`` (32 experts,
+top-8, a tied embedding) and ``deepseek-v3-671b`` (MLA), and the SSM
+family: ``rwkv6-3b`` (attention-free RWKV6) and ``zamba2-7b`` (Mamba2
+mixers with a weight-shared attention block).
 """
 from __future__ import annotations
 
@@ -213,7 +215,7 @@ class ParallelPlan:
     #              ppermute, fold per-hop partials in canonical source order
     #              — DESIGN.md §15; KV working set stays at two blocks, so
     #              chunks whose visible KV exceeds one stage's HBM admit;
-    #              the port refuses it until ROADMAP Queue 1 item 4)
+    #              parallel/ring.py)
     #            | "local" (no attention collectives at all — executed only
     #              at sp == 1; in the cost model it prices full visible-KV
     #              residency per device, the mode the §15 memory model
@@ -282,5 +284,5 @@ def _load_all() -> None:
     import importlib
 
     for mod in ("qwen2_7b", "sppo_gpt", "glm4_9b", "nemotron_4_15b", "starcoder2_3b",
-                "granite_moe_1b_a400m", "deepseek_v3_671b"):
+                "granite_moe_1b_a400m", "deepseek_v3_671b", "rwkv6_3b", "zamba2_7b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -136,10 +136,19 @@ def tagged_scale_elems_per_token(cfg) -> float:
     q [B,T,H,hd] -> H, k / v [B,T,Hkv,hd] -> Hkv each, the attention output
     [B,T,H*hd] -> 1 and the MLP hidden [B,T,d_ff] -> 1; MLA's q_eff
     [B,T,H,dc+dr] -> H, k_eff [B,T,1,dc+dr] -> 1 and o_v [B,T,H,dv] -> H
-    (reference ``costmodel.py:169-170``)."""
+    (reference ``costmodel.py:169-170``); an SSM or hybrid layer, two
+    sites of one row a token.  The reference's pricing is kept as it is,
+    though the tag sites differ from it (PERF.md §7): RWKV6 tags the
+    time-mix output [d] and the channel-mix hidden [d_ff], zamba2 its six
+    mixers' two sites and the shared block's q, k, v, output and hidden."""
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     attn = H + 1 + H if cfg.mla is not None else H + 2 * Hkv + 1
-    return float(attn + 1)
+    mlp = 1.0
+    if cfg.family in ("ssm", "hybrid"):
+        # the reference prices the mixer's two sites, [B, T, expand d] each
+        # (``costmodel.py:174-175``)
+        attn, mlp = 1.0, 1.0
+    return float(attn + mlp)
 
 
 SCALE_ITEMSIZE = 4  # per-row scales are fp32
@@ -192,7 +201,9 @@ def tagged_bytes_per_token(cfg) -> float:
     ``costmodel.py:145-148``; the tagged tensor itself is the capacity
     buffers' [E_loc, Ce, ff], models/moe.py), bf16.  An MLA layer tags
     q_eff [H, dc + dr], k_eff [dc + dr] and o_v [H, dv] a token instead of
-    q, k, v and the output (reference ``costmodel.py:139-143``)."""
+    q, k, v and the output (reference ``costmodel.py:139-143``).  An SSM or
+    hybrid layer is priced as the reference prices it, 2 x expand x d a
+    token, which is not what its tag sites hold (PERF.md §7)."""
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     if cfg.mla is not None:
         eff = cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim
@@ -203,6 +214,11 @@ def tagged_bytes_per_token(cfg) -> float:
         mlp = (cfg.moe.top_k + cfg.moe.n_shared_experts) * cfg.moe.d_ff_expert
     else:
         mlp = cfg.d_ff
+    if cfg.family in ("ssm", "hybrid"):
+        # the reference's mixer pricing (``costmodel.py:150-153``): the
+        # expanded mixer input and output, expand x d each
+        expand = cfg.ssm.expand if cfg.ssm is not None else 2
+        attn, mlp = expand * cfg.d_model, expand * cfg.d_model
     return (attn + mlp) * ACT_ITEMSIZE
 
 

@@ -10,6 +10,9 @@ the continuous-batching engine, on one device or a mesh of ranks.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
       --layers 2 --prompt-len 2048 --batch 4 --decode-steps 32
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+      --prompt-len 2048 --batch 4 --decode-steps 32 --sync-debug error
+
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
       --reduced --device cpu --mesh 1x2 --prompt-len 128 --batch 2 --decode-steps 4
 
@@ -368,6 +371,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--repeats", type=int, default=1,
                     help="serve the batch this many times, timing each run")
+    ap.add_argument("--sync-debug", default=None, choices=["warn", "error"],
+                    help="on the card, run the static decode loop under "
+                         "torch.cuda.set_sync_debug_mode: report (or refuse) every call "
+                         "that makes the host wait for the card")
     return ap
 
 
@@ -487,9 +494,15 @@ def main(argv=None):
         # in the loop (at pp > 1 every stage holds the last stage's tokens)
         cur, handles = last, []
         t0 = time.perf_counter()
-        for step in range(args.decode_steps):
-            state, cur = serve(params, state, cur, S + step)
-            handles.append(cur)
+        if args.sync_debug and dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode(args.sync_debug)
+        try:
+            for step in range(args.decode_steps):
+                state, cur = serve(params, state, cur, S + step)
+                handles.append(cur)
+        finally:
+            if args.sync_debug and dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
         sync()
         decode_s.append(time.perf_counter() - t0)
         if args.decode_steps:

@@ -3,6 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \
       --reduced --steps 12 --seq 256 --batch 8 --device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
+      --reduced --steps 4 --seq 512 --n-chunks 4 --batch 2 --device cpu
+
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --reduced --device cpu --mesh 2x1 --pp 2 --msp --seq 512 --n-chunks 4
 

@@ -17,10 +17,12 @@ say) back to full leaves.
 The caller passes float32 arrays: ``np.asarray`` of a JAX bf16 array is an
 ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` refuses.  The cast to
 the model dtype happens here, on the torch side, and is exact for values
-that came from bf16.  The slot gate and an MoE router stay float32, as in
-the reference.  An MoE slot's expert stacks are sharded on their expert
-dim at sp > 1 (their "keep0" markers); a tied embedding's globals have no
-head.
+that came from bf16.  The gates, an MoE router and the SSM mixers' fp32
+leaves stay float32, as in the reference (``FP32_LEAVES``).  An MoE slot's
+expert stacks are sharded on their expert dim at sp > 1 (their "keep0"
+markers); a tied embedding's globals have no head.  A hybrid slot's
+Mamba2 leaves keep the reference's [6, ...] mixer stack, and the globals
+its ``shared`` block.
 """
 from __future__ import annotations
 
@@ -33,16 +35,21 @@ from repro_torch.models.model_zoo import (build_model, ghost_slot, marker_dim, p
                                          shard_params)
 
 
-# leaves the reference keeps in fp32 whatever the model dtype: the slot
-# gate and an MoE slot's router (``model_zoo._moe``)
-FP32_LEAVES = ("gate", "router")
+# leaves the reference keeps in fp32 whatever the model dtype, by their
+# last path component: the gates (a slot's, a hybrid mixer's, the shared
+# block's), an MoE slot's router (``model_zoo._moe``), a Mamba2 mixer's
+# A_log and D (``_mamba``), an RWKV6 layer's lerp, LoRA, decay, bonus and
+# group-norm leaves (``_rwkv_tmix``, ``_rwkv_cmix``)
+FP32_LEAVES = frozenset((
+    "gate", "gate_shared", "router", "A_log", "D", "mu_x", "ddl_a", "ddl_b", "mu_rkvwg",
+    "dec_a", "dec_b", "w0", "u", "ln_x_scale", "ln_x_bias", "mu_k", "mu_r"))
 
 
 def _tensor(a, name: str, dtype, device):
     a = np.asarray(a)
     if a.dtype != np.float32:
         raise TypeError(f"{name}: expected a float32 array, got {a.dtype}")
-    dt = torch.float32 if name.endswith(FP32_LEAVES) else dtype
+    dt = torch.float32 if name.rsplit("/", 1)[-1] in FP32_LEAVES else dtype
     # np.array copies: JAX hands out read-only buffers
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dt)
 

@@ -1,5 +1,5 @@
-"""Parameter init and ModelDef for the dense and MoE families (port of
-``repro/models/model_zoo.py``).
+"""Parameter init and ModelDef for the dense, MoE, SSM and hybrid families
+(port of ``repro/models/model_zoo.py``).
 
 Parameters are plain dicts of tensors in the reference's names and layouts
 (weights ``[in, out]``).  The stage is a list with one dict per slot; the
@@ -32,12 +32,26 @@ expert stacks [E, d, ff] / [E, ff, d], and, for deepseek's shared experts,
 [B, L, 1, dc + dr] alone, its v the view of the first dc columns.
 A tied embedding (``cfg.tie_embeddings``) has no head leaf: the head is
 the table transposed, at sp > 1 the rank's vocab rows.
+
+An SSM slot (rwkv6-3b) is an RWKV6 layer: a time-mix (``_rwkv_tmix``,
+whose LoRA, decay, bonus and group-norm leaves are fp32 whatever the model
+dtype) and a channel-mix (``_rwkv_cmix``), LayerNorm before each.  A
+hybrid slot (zamba2-7b) is a group of ``shared_attn_every`` Mamba2 mixers,
+their leaves stacked on a leading [6, ...] dim as the reference stacks
+them (``A_log`` and ``D`` fp32), each with its norm and gate, then the
+weight-shared attention block, the globals' ``shared`` leaf (its own norms,
+GQA and MLP), applied under the slot's ``gate_shared``.  ⌈n_layers / 6⌉
+slots hold the mixers; the last slot's mixers past ``n_layers`` carry gate
+0 (zamba2's 81 mixers: 14 slots, 3 ghost mixers).  The slots' state is the
+mixers' fp32 recurrent state (``models/ssm.py``) and, in a hybrid slot,
+the shared block's KV cache under "kv" (the reference's ``shared_kv``).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -45,6 +59,7 @@ from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.core import tree
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.parallel.ctx import SINGLE
 from repro_torch.runtime.kvpool import SINK_SLOTS
@@ -144,6 +159,67 @@ def _moe(gen, cfg, dtype, device, out_scale=1.0):
     return p
 
 
+def _mamba(gen, cfg, dtype, device):
+    """One Mamba2 mixer's leaves (reference ``model_zoo.py:158-177``)."""
+    ssm, d = cfg.ssm, cfg.d_model
+    d_in = ssm.expand * d
+    H = d_in // ssm.head_dim
+    ds, W = ssm.d_state, ssm.conv_width
+
+    def const(a, dt):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device=device, dtype=dt)
+
+    return {
+        "in_x": dense_init(gen, d, d_in, dtype, device),
+        "in_bc": dense_init(gen, d, 2 * ds, dtype, device),
+        "in_dt": dense_init(gen, d, H, dtype, device),
+        "in_z": dense_init(gen, d, d_in, dtype, device),
+        "dt_bias": const(np.log(np.expm1(np.linspace(1e-3, 1e-1, H))), dtype),
+        "conv_x": trunc_normal(gen, (W, d_in), 1 / math.sqrt(W), dtype, device),
+        "conv_bc": trunc_normal(gen, (W, 2 * ds), 1 / math.sqrt(W), dtype, device),
+        "A_log": const(np.log(np.linspace(1.0, 16.0, H)), torch.float32),
+        "D": torch.ones((H,), dtype=torch.float32, device=device),
+        "norm_scale": torch.zeros((d_in,), dtype=dtype, device=device),
+        "out": dense_init(gen, d_in, d, dtype, device),
+    }
+
+
+def _rwkv_tmix(gen, cfg, dtype, device):
+    """An RWKV6 time-mix's leaves (reference ``model_zoo.py:187-206``): the
+    lerp and decay LoRAs, w0, the bonus u and the group norm in fp32."""
+    d, R, f32 = cfg.d_model, 64, torch.float32
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=f32, device=device)
+
+    return {
+        "mu_x": zeros(d),
+        "ddl_a": dense_init(gen, d, 5 * 32, f32, device),
+        "ddl_b": trunc_normal(gen, (5 * 32, 5 * d), 0.01, f32, device),
+        "mu_rkvwg": zeros(5, d),
+        "wr": dense_init(gen, d, d, dtype, device),
+        "wk": dense_init(gen, d, d, dtype, device),
+        "wv": dense_init(gen, d, d, dtype, device),
+        "wg": dense_init(gen, d, d, dtype, device),
+        "dec_a": dense_init(gen, d, R, f32, device),
+        "dec_b": trunc_normal(gen, (R, d), 0.01, f32, device),
+        "w0": torch.linspace(-6.0, -1.0, d, dtype=f32, device=device),
+        "u": trunc_normal(gen, (d,), 0.3, f32, device),
+        "ln_x_scale": torch.ones((d,), dtype=f32, device=device),
+        "ln_x_bias": zeros(d),
+        "wo": dense_init(gen, d, d, dtype, device),
+    }
+
+
+def _rwkv_cmix(gen, cfg, dtype, device):
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"mu_k": torch.zeros((d,), dtype=torch.float32, device=device),
+            "mu_r": torch.zeros((d,), dtype=torch.float32, device=device),
+            "wk_c": dense_init(gen, d, ff, dtype, device),
+            "wv_c": dense_init(gen, ff, d, dtype, device),
+            "wr_c": dense_init(gen, d, d, dtype, device)}
+
+
 def keep(d: int) -> str:
     return f"keep{d}"
 
@@ -185,8 +261,49 @@ def _moe_spec(cfg):
     return s
 
 
+def _mamba_spec():
+    return {"in_x": keep(1), "in_bc": "rep", "in_dt": keep(1),
+            "in_z": keep(1), "dt_bias": keep(0), "conv_x": keep(1),
+            "conv_bc": "rep", "A_log": keep(0), "D": keep(0),
+            "norm_scale": keep(0), "out": keep(0)}
+
+
+def _rwkv_tmix_spec():
+    return {"mu_x": "rep", "ddl_a": "rep", "ddl_b": 1, "mu_rkvwg": "rep",
+            "wr": 1, "wk": 1, "wv": 1, "wg": 1, "dec_a": "rep", "dec_b": 1,
+            "w0": "rep", "u": "rep", "ln_x_scale": "rep", "ln_x_bias": "rep",
+            "wo": 0}
+
+
+def _rwkv_cmix_spec():
+    return {"mu_k": "rep", "mu_r": "rep", "wk_c": 1, "wv_c": 0, "wr_c": 1}
+
+
+def _shift_spec(spec):
+    """The markers of a leaf stacked on an extra leading dim: the sharded
+    dim shifts by one (reference ``_shift_spec``)."""
+    def f(m):
+        if isinstance(m, int):
+            return m + 1
+        if isinstance(m, str) and m.startswith("keep"):
+            return keep(int(m[4:]) + 1)
+        return m
+    return tree.map_(f, spec)
+
+
+def _shared_spec(cfg):
+    return {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg), "attn": _attn_spec(cfg),
+            "mlp": _mlp_spec(cfg)}
+
+
 def slot_spec(cfg: ModelConfig):
     """The markers of one slot (reference ``slot_spec``)."""
+    if cfg.family == "hybrid":
+        mamba = _shift_spec({"ln": _norm_spec(cfg), "mix": _mamba_spec(), "gate": "rep"})
+        return {"mamba": mamba, "gate_shared": "rep", "gate": "rep"}
+    if cfg.family == "ssm":
+        return {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg), "tmix": _rwkv_tmix_spec(),
+                "cmix": _rwkv_cmix_spec(), "gate": "rep"}
     ffn = {"moe": _moe_spec(cfg)} if cfg.family == "moe" else {"mlp": _mlp_spec(cfg)}
     attn = _mla_spec(cfg) if cfg.mla is not None else _attn_spec(cfg)
     return {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg), "attn": attn,
@@ -199,6 +316,8 @@ def globals_spec(cfg: ModelConfig):
     g = {"embed": {"table": keep(0)}, "final_norm": _norm_spec(cfg)}
     if not cfg.tie_embeddings:
         g["head"] = {"w": keep(1)}
+    if cfg.shared_attn_every:
+        g["shared"] = _shared_spec(cfg)
     return g
 
 
@@ -249,10 +368,24 @@ def _out_scale(cfg):
     return 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
 
 
-def init_slot(cfg: ModelConfig, gen, dtype, device):
-    """One slot's params by family (a dense layer, or an MoE layer: GQA or
-    MLA and the expert block), gate 1 (a real layer; ``ghost_slot`` pads a
-    pipeline stage)."""
+def init_slot(cfg: ModelConfig, gen, dtype, device, index: int = 0):
+    """Slot ``index``'s params by family (a dense layer, an MoE layer: GQA
+    or MLA and the expert block, an RWKV6 layer, or a hybrid group of
+    Mamba2 mixers, those past ``cfg.n_layers`` at gate 0), gate 1 (a real
+    slot; ``ghost_slot`` pads a pipeline stage)."""
+    one = torch.tensor(1.0, dtype=torch.float32, device=device)
+    if cfg.family == "hybrid":
+        n_m = cfg.shared_attn_every
+        mixers = [{"ln": _norm(cfg, dtype, device), "mix": _mamba(gen, cfg, dtype, device),
+                   "gate": torch.tensor(float(index * n_m + i < cfg.n_layers),
+                                        dtype=torch.float32, device=device)}
+                  for i in range(n_m)]
+        return {"mamba": tree.map_(lambda *a: torch.stack(a), *mixers),
+                "gate_shared": one.clone(), "gate": one}
+    if cfg.family == "ssm":
+        return {"ln1": _norm(cfg, dtype, device), "ln2": _norm(cfg, dtype, device),
+                "tmix": _rwkv_tmix(gen, cfg, dtype, device),
+                "cmix": _rwkv_cmix(gen, cfg, dtype, device), "gate": one}
     os_ = _out_scale(cfg)
     attn = (_mla if cfg.mla is not None else _attn)(gen, cfg, dtype, device, os_)
     ffn = ({"moe": _moe(gen, cfg, dtype, device, out_scale=os_)} if cfg.family == "moe"
@@ -281,6 +414,11 @@ def init_globals(cfg: ModelConfig, gen, dtype, device):
          "final_norm": _norm(cfg, dtype, device)}
     if not cfg.tie_embeddings:
         g["head"] = {"w": trunc_normal(gen, (d, vp), 1 / math.sqrt(d), dtype, device)}
+    if cfg.shared_attn_every:
+        os_ = _out_scale(cfg)
+        g["shared"] = {"ln1": _norm(cfg, dtype, device), "ln2": _norm(cfg, dtype, device),
+                       "attn": _attn(gen, cfg, dtype, device, os_),
+                       "mlp": _mlp(gen, cfg, dtype, device, out_scale=os_)}
     return g
 
 
@@ -310,7 +448,7 @@ class ModelDef:
         lo = stage * spp
         slots = []
         for i in range(self.n_slots):
-            slot = init_slot(self.cfg, gen, dtype, device)
+            slot = init_slot(self.cfg, gen, dtype, device, i)
             if lo <= i < lo + spp:
                 slots.append(slot)
         return slots + [ghost_slot(self.cfg, dtype, device)
@@ -366,12 +504,22 @@ class ModelDef:
 
     def init_state(self, batch: int, cache_loc: int, dtype, device, *,
                    train: bool = False, n_slots=None):
-        """One cache per slot: the model's (``n_slots`` None) or a pipeline
-        stage's ``n_slots``; a GQA MoE slot's is the dense KV cache, an MLA
-        slot's the latent (``attention.init_latent_cache``; reference
+        """One state per slot: the model's (``n_slots`` None) or a pipeline
+        stage's ``n_slots``; a GQA slot's is the dense KV cache, an MLA
+        slot's the latent (``attention.init_latent_cache``), an RWKV6
+        slot's its zero recurrent state, a hybrid slot's its mixers' zero
+        states and the shared block's KV cache (reference
         ``init_slot_state``)."""
         cfg = self.cfg
         n = self.n_slots if n_slots is None else n_slots
+        if cfg.family == "ssm":
+            return [{"rwkv": S.rwkv6_init_state(cfg, batch, device)} for _ in range(n)]
+        if cfg.family == "hybrid":
+            return [{"kv": A.init_cache(batch, cache_loc, cfg.n_kv_heads, cfg.hd, cfg.hd,
+                                        dtype, device, train=train),
+                     "mamba": [S.mamba2_init_state(cfg, batch, device)
+                               for _ in range(cfg.shared_attn_every)]}
+                    for _ in range(n)]
         if cfg.mla is not None:
             m = cfg.mla
             return [{"kv": A.init_latent_cache(batch, cache_loc, m.kv_lora_rank,
@@ -392,23 +540,35 @@ class ModelDef:
                 for _ in range(self.n_slots if n_slots is None else n_slots)]
 
     def stage_apply(self, stage_params, state, x, meta, *, remat="none",
-                    offload=None):
+                    offload=None, g=None):
         """The stack on one chunk: (x, state, aux), aux the slots' summed
         MoE balance loss (0.0 for a dense stack); at sp > 1 (``meta.ctx``)
         each slot's "ag" leaves are gathered at use
-        (``transformer.gather_params``)."""
+        (``transformer.gather_params``).  ``g``: the globals, whose shared
+        block a hybrid stack hands every slot (reference ``_extras``)."""
         if meta.ctx is not None and meta.ctx.sp > 1 and meta.spec is None:
             meta = meta._replace(spec=self.stage_spec())
+        extras = {}
+        if self.cfg.shared_attn_every:
+            if g is None:
+                raise ValueError(f"{self.cfg.name}: the hybrid stack needs the globals (g=)")
+            extras = {"shared": g["shared"]}
         return T.stage_apply(self.cfg, stage_params, state, x, meta,
-                             remat=remat, offload=offload)
+                             remat=remat, offload=offload, extras=extras)
 
 
 def build_model(name_or_cfg) -> ModelDef:
     cfg = (name_or_cfg if isinstance(name_or_cfg, ModelConfig)
            else get_config(name_or_cfg))
-    if (cfg.family not in ("dense", "moe") or (cfg.mla is not None and cfg.family != "moe")
-            or cfg.pos_emb != "rope" or not cfg.rope):
+    fam = cfg.family
+    rope_ok = (cfg.pos_emb == "rope" and cfg.rope) or (
+        fam == "ssm" and cfg.pos_emb == "none" and not cfg.rope)
+    if (fam not in ("dense", "moe", "ssm", "hybrid")
+            or (cfg.mla is not None and fam != "moe") or not rope_ok):
         raise NotImplementedError(
             f"{cfg.name}: the port runs dense and MoE decoders (GQA or MLA) with RoPE, "
-            "tied or untied; the other families come with later slices")
+            "RWKV6 without positions and the Mamba2 hybrid; the VLM and audio families "
+            "come with a later slice (ROADMAP Queue 1, item 7)")
+    if fam == "hybrid":
+        return ModelDef(cfg, -(-cfg.n_layers // cfg.shared_attn_every))
     return ModelDef(cfg, cfg.n_layers)

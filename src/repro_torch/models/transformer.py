@@ -1,10 +1,13 @@
 """Slot programs and the stage engine (port of ``repro/models/transformer.py``).
 
-A model is a sequence of uniform slots (one layer each here: a dense
-layer, or an MoE layer whose MLP is ``models/moe.py``'s expert block).
-Each slot returns its MoE balance loss beside its output (0.0 for a dense
-slot, the block's aux times the gate for an MoE slot), and the stack sums
-them (the reference's ``aux`` scan output).  The
+A model is a sequence of uniform slots: a dense layer, an MoE layer whose
+MLP is ``models/moe.py``'s expert block, an RWKV6 layer (``rwkv_slot``) or
+a zamba2 group of Mamba2 mixers and the weight-shared attention block
+(``zamba_group_slot``), the block's parameters handed to every slot as
+``extras``.  Each slot returns its MoE balance loss beside its output (0.0
+but for an MoE slot, the block's aux times the gate), and the stack sums
+them (the reference's ``aux`` scan output).  A slot's state is its KV
+cache ("kv"), its mixers' recurrent state, or both.  The
 reference scans the slots under SPPO's checkpoint policy
 (``core/offload.py::checkpoint_block``); the port runs them as a loop under
 one of three remat policies (DESIGN.md §10, §12):
@@ -26,7 +29,13 @@ one of three remat policies (DESIGN.md §10, §12):
   the backward recomputes everything.
 
 The seam is one ``torch.autograd.Function`` a chunk, the counterpart of the
-reference's ``jax.checkpoint`` / ``prefetch_chunk`` ``custom_vjp``.
+reference's ``jax.checkpoint`` / ``prefetch_chunk`` ``custom_vjp``.  It
+takes the earlier chunks' K/V and the recurrent state as the chunk found
+it as inputs, and returns the chunk's K/V and the state it leaves as
+outputs, so that later chunks send their gradients back through both; its
+replay starts from that incoming state.  The shared block's leaves are
+inputs too, and their gradients, like the stage parameters', sum over the
+groups and the chunks in the ``GradSink``.
 
 At sp > 1 (``ChunkMeta.ctx``) a stage's parameters are this model rank's
 shards: each slot's "ag" leaves are all-gathered at use
@@ -46,6 +55,7 @@ from repro_torch.core import offload as ofl
 from repro_torch.core import tree
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.moe import moe_block
 from repro_torch.parallel.ctx import SINGLE
 
@@ -117,7 +127,7 @@ def _attention(cfg, p, s, h, meta: ChunkMeta):
                                 name_tag=meta.tag, q_start=meta.q_start, ctx=ctx)
 
 
-def dense_slot(cfg, p, s, x, meta: ChunkMeta):
+def dense_slot(cfg, p, s, x, meta: ChunkMeta, extras=None):
     """A dense layer: (x, state, aux = 0.0)."""
     p = gather_params(p, meta.spec, meta.ctx)
     h = L.apply_norm(x, p["ln1"], cfg.norm)
@@ -129,7 +139,7 @@ def dense_slot(cfg, p, s, x, meta: ChunkMeta):
     return x, {"kv": kv}, 0.0
 
 
-def moe_slot(cfg, p, s, x, meta: ChunkMeta):
+def moe_slot(cfg, p, s, x, meta: ChunkMeta, extras=None):
     """An MoE layer (reference ``transformer.py:88-108``, GQA or MLA):
     attention, then the expert block on the rank's rows; (x, state, aux x
     gate)."""
@@ -143,17 +153,84 @@ def moe_slot(cfg, p, s, x, meta: ChunkMeta):
     return x, {"kv": kv}, aux * p["gate"]
 
 
-SLOT_FNS = {"dense": dense_slot, "moe": moe_slot}
+def zamba_group_slot(cfg, p, s, x, meta: ChunkMeta, extras=None):
+    """A zamba2 group (reference ``transformer.py:153-181``): the slot's
+    ``shared_attn_every`` Mamba2 mixers, each under its own gate, then the
+    shared attention block (``extras["shared"]``) under ``gate_shared``,
+    attending the slot's own cache."""
+    mctx = meta.ctx or SINGLE
+    states = []
+    for i, st in enumerate(s["mamba"]):
+        pi = tree.map_(lambda a: a[i], p["mamba"])
+        h = L.apply_norm(x, pi["ln"], cfg.norm)
+        y, st = S.mamba2_mixer(h, pi["mix"], cfg, st, name_tag=meta.tag,
+                               pre_gathered=meta.decode, ctx=mctx)
+        x = _res(x, y, pi["gate"])
+        states.append(st)
+    shared = extras["shared"]
+    h = L.apply_norm(x, shared["ln1"], cfg.norm)
+    a, kv = _attention(cfg, shared, s, h, meta)
+    x = _res(x, a, p["gate_shared"])
+    h2 = L.apply_norm(x, shared["ln2"], cfg.norm)
+    m = L.mlp(h2, shared["mlp"], cfg.act, name_tag=meta.tag)
+    x = _res(x, m, p["gate_shared"])
+    return x, {"kv": kv, "mamba": states}, 0.0
 
 
-def _slots(cfg, stage_params, state, x, meta: ChunkMeta):
-    """Every slot of the stack in turn, the caches updated in place;
-    returns (x, the slots' summed aux)."""
+def rwkv_slot(cfg, p, s, x, meta: ChunkMeta, extras=None):
+    """An RWKV6 layer (reference ``transformer.py:189-199``): the time-mix
+    and the channel-mix, each after its LayerNorm, threading one state."""
+    mctx = meta.ctx or SINGLE
+    h = L.apply_norm(x, p["ln1"], cfg.norm)
+    y, st = S.rwkv6_time_mix(h, p["tmix"], cfg, s["rwkv"], name_tag=meta.tag,
+                             pre_gathered=meta.decode, ctx=mctx)
+    x = _res(x, y, p["gate"])
+    h2 = L.apply_norm(x, p["ln2"], cfg.norm)
+    y2, st = S.rwkv6_channel_mix(h2, p["cmix"], cfg, st, name_tag=meta.tag,
+                                 pre_gathered=meta.decode, ctx=mctx)
+    x = _res(x, y2, p["gate"])
+    return x, {"rwkv": st}, 0.0
+
+
+SLOT_FNS = {"dense": dense_slot, "moe": moe_slot, "hybrid": zamba_group_slot,
+            "ssm": rwkv_slot}
+
+
+def _slots(cfg, stage_params, state, x, meta: ChunkMeta, extras=None):
+    """Every slot of the stack in turn, the caches updated in place and
+    each slot's recurrent state replaced by the one it leaves; returns (x,
+    the slots' summed aux)."""
     slot, aux = SLOT_FNS[cfg.family], 0.0
     for i, (p, s) in enumerate(zip(stage_params, state)):
-        x, state[i], a = slot(cfg, p, s, x, meta)
+        x, state[i], a = slot(cfg, p, s, x, meta, extras)
         aux = aux + a
     return x, aux
+
+
+def _recurrent(s) -> list:
+    """A slot state's recurrent tensors, in a fixed order (none for a
+    KV-only slot)."""
+    return [t for k, v in s.items() if k != "kv" for t in tree.leaves(v)]
+
+
+def _refill(like, it):
+    """``like`` (a slot state's recurrent part: dicts, lists, NamedTuples)
+    with its tensors taken from ``it`` in ``_recurrent``'s order."""
+    if isinstance(like, dict):
+        return {k: _refill(v, it) for k, v in like.items()}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_refill(v, it) for v in like))
+    if isinstance(like, (list, tuple)):
+        return type(like)(_refill(v, it) for v in like)
+    return next(it)
+
+
+def _set_recurrent(state, tensors) -> None:
+    """Put ``tensors`` (``_recurrent``'s of every slot, in slot order) in
+    place of the slots' recurrent state."""
+    it = iter(tensors)
+    for i, s in enumerate(state):
+        state[i] = {k: (v if k == "kv" else _refill(v, it)) for k, v in s.items()}
 
 
 REMATS = ("none", "sppo", "full")
@@ -196,11 +273,14 @@ def collect_param_grads(sink: GradSink):
 
 
 def stage_apply(cfg, stage_params, state, x, meta: ChunkMeta, *,
-                remat: str = "none", offload: Optional[ofl.ChunkOffload] = None):
+                remat: str = "none", offload: Optional[ofl.ChunkOffload] = None,
+                extras=None):
     """Run a stack of slots on one chunk.  ``stage_params`` and ``state`` are
-    lists with one entry per slot; the caches are updated in place.
-    Returns (x, state, aux): aux the slots' summed MoE balance loss, 0.0
-    for a dense stack.
+    lists with one entry per slot; the caches are updated in place and the
+    recurrent states replaced.  ``extras``: what every slot reads beside
+    its own parameters (the hybrid family's shared block).  Returns (x,
+    state, aux): aux the slots' summed MoE balance loss, 0.0 but for an MoE
+    stack.
 
     Under remat "sppo" or "full", where a gradient is wanted, the stack runs
     through the chunk seam (``_StageSeam``); ``offload`` says how the sppo
@@ -213,31 +293,36 @@ def stage_apply(cfg, stage_params, state, x, meta: ChunkMeta, *,
         raise ValueError(f"offload needs remat 'sppo' (got {remat!r}): it moves the "
                          "tagged rows that policy saves")
     if remat == "none" or not torch.is_grad_enabled():
-        x, aux = _slots(cfg, stage_params, state, x, meta)
+        x, aux = _slots(cfg, stage_params, state, x, meta, extras)
         return x, state, aux
-    if any(s["kv"].chunks is None for s in state):
+    extras = {} if extras is None else extras
+    caches = [s["kv"] for s in state if "kv" in s]
+    if any(c.chunks is None for c in caches):
         raise ValueError("the chunk seam needs training caches (init_state(train=True))")
     # the seam's inputs are the chunks before this one (a re-run chunk
     # replaces its own entry)
-    for s in state:
-        A.truncate_chunks(s["kv"], meta.cache_off)
+    for c in caches:
+        A.truncate_chunks(c, meta.cache_off)
     if offload is None:
-        offload = ofl.ChunkOffload(chunk=len(state[0]["kv"].chunks), alpha=0.0)
-    run = _SeamRun(cfg, stage_params, state, meta, remat, offload, _SINK)
-    params = tree.leaves(stage_params)
-    prev = [t for s in state for kv in s["kv"].chunks for t in kv]
-    y, *outs = _StageSeam.apply(run, x, *params, *prev)
+        offload = ofl.ChunkOffload(chunk=len(caches[0].chunks) if caches else 0, alpha=0.0)
+    run = _SeamRun(cfg, stage_params, state, meta, remat, offload, _SINK, extras)
+    params = tree.leaves(stage_params) + tree.leaves(extras)
+    prev = [t for c in caches for kv in c.chunks for t in kv]
+    rec = [t for s in state for t in _recurrent(s)]
+    y, *outs = _StageSeam.apply(run, x, *params, *prev, *rec)
     # an MoE stack's aux is the seam's last output
     aux = outs.pop() if cfg.family == "moe" else 0.0
-    # the chunk's own K/V, as the seam's outputs: later chunks' attention
-    # sends their gradients back through them
-    for s, k, v in zip(state, outs[0::2], outs[1::2]):
-        s["kv"].chunks[-1] = (k, v)
+    # the chunk's own K/V and the state it leaves, as the seam's outputs:
+    # later chunks send their gradients back through them
+    kvs, rec_out = outs[:2 * len(caches)], outs[2 * len(caches):]
+    for c, k, v in zip(caches, kvs[0::2], kvs[1::2]):
+        c.chunks[-1] = (k, v)
+    _set_recurrent(state, rec_out)
     return y, state, aux
 
 
 def stage_apply_capture(cfg, stage_params, state, x, meta: ChunkMeta,
-                        alpha: float, send):
+                        alpha: float, send, extras=None):
     """The sppo seam's forward (no graph): the stack with the capture tag.
     After each slot, its off rows go to ``send`` (a D2H each) and its keep
     rows are kept, copied down to their own elements.  Returns (x, keep
@@ -246,7 +331,7 @@ def stage_apply_capture(cfg, stage_params, state, x, meta: ChunkMeta,
     for i, (p, s) in enumerate(zip(stage_params, state)):
         collector = []
         meta_c = meta._replace(tag=ofl.CaptureTag(alpha, collector))
-        x, state[i], a = slot(cfg, p, s, x, meta_c)
+        x, state[i], a = slot(cfg, p, s, x, meta_c, extras)
         aux = aux + a
         for kind, t in collector:
             if kind == "off":
@@ -257,12 +342,12 @@ def stage_apply_capture(cfg, stage_params, state, x, meta: ChunkMeta,
 
 
 def stage_apply_inject(cfg, stage_params, state, x, meta: ChunkMeta,
-                       alpha: float, off_acts, keep_acts):
+                       alpha: float, off_acts, keep_acts, extras=None):
     """The sppo seam's backward replay: the stack with the inject tag, which
     hands out the reloaded off rows and the kept rows in traversal order in
     place of the tagged tensors.  Returns (x, aux)."""
     meta_i = meta._replace(tag=ofl.InjectTag(alpha, off_acts, keep_acts))
-    return _slots(cfg, stage_params, state, x, meta_i)
+    return _slots(cfg, stage_params, state, x, meta_i, extras)
 
 
 class _SeamRun(NamedTuple):
@@ -275,16 +360,20 @@ class _SeamRun(NamedTuple):
     remat: str
     offload: ofl.ChunkOffload
     sink: Optional[GradSink] = None   # where the parameters' gradients go (None: returned)
+    extras: Any = None    # the shared block's tree (its shape; leaves unused), or {}
 
 
 class _StageSeam(torch.autograd.Function):
     """One chunk's pass through the stack, checkpointed at the chunk.
 
-    ``apply(run, x, *params, *prev)``: ``params`` are the stage's parameter
-    leaves, ``prev`` the K/V of every earlier chunk, layer by layer (the
-    seam outputs of those chunks).  Returns (y, k_0, v_0, ..., k_L, v_L),
-    and for an MoE stack its summed aux last: the chunk's output and its
-    own K/V of every layer.
+    ``apply(run, x, *params, *prev, *rec)``: ``params`` are the stage's
+    parameter leaves and the shared block's (``run.extras``), ``prev`` the
+    K/V of every earlier chunk, layer by layer (the seam outputs of those
+    chunks), ``rec`` the slots' recurrent state as the chunk finds it (the
+    previous seam's outputs; zeros at the first chunk).  Returns (y, k_0,
+    v_0, ..., k_L, v_L, *rec'), and for an MoE stack its summed aux last:
+    the chunk's output, its own K/V of every layer that attends, and the
+    recurrent state it leaves.
 
     Forward: the stack without a graph, writing the chunk's K/V into the
     caches.  Under "sppo" the capture tag keeps each tagged tensor's keep
@@ -297,28 +386,35 @@ class _StageSeam(torch.autograd.Function):
     the stack replayed with gradients on the staged rows (under "sppo" the
     replay writes the chunk's cache slots again with the staged K/V,
     bitwise the same, and no slot past ``kv_view``), and differentiated with respect to x, the
-    parameters and the earlier chunks' K/V.  The replay re-runs the
-    attention forward, whose (m, l) are not saved, as the reference's does.
+    parameters, the earlier chunks' K/V and the incoming recurrent state:
+    the replay starts from the saved incoming state, not from the state the
+    forward left.  The replay re-runs the attention forward, whose (m, l)
+    are not saved, as the reference's does.
     """
 
     @staticmethod
     def forward(ctx, run: _SeamRun, x, *inputs):
         ctx.set_materialize_grads(False)
-        n_params = len(inputs) - sum(2 * len(s["kv"].chunks) for s in run.state)
-        stage_p = _rebuild(run.structure, inputs[:n_params])
+        n_rec = sum(len(_recurrent(s)) for s in run.state)
+        n_prev = sum(2 * len(s["kv"].chunks) for s in run.state if "kv" in s)
+        n_params = len(inputs) - n_prev - n_rec
+        stage_p, extras = _rebuild_params(run, inputs[:n_params])
         off = run.offload
         if run.remat == "sppo":
             if off.link is None and ofl.split_rows(x.shape[1], off.alpha) > 0:
                 raise ValueError("a chunk that offloads rows needs a link to send them")
             y, keep, aux = stage_apply_capture(
-                run.cfg, stage_p, run.state, x, run.meta, off.alpha, off.send)
+                run.cfg, stage_p, run.state, x, run.meta, off.alpha, off.send, extras)
         else:
             keep = []
-            y, aux = _slots(run.cfg, stage_p, run.state, x, run.meta)
+            y, aux = _slots(run.cfg, stage_p, run.state, x, run.meta, extras)
         ctx.save_for_backward(x, *inputs)
-        ctx.run, ctx.keep, ctx.n_params = run, keep, n_params
-        kvs = [t.clone() for s in run.state for t in s["kv"].chunks[-1]]
-        return (y, *kvs, aux) if run.cfg.family == "moe" else (y, *kvs)
+        ctx.run, ctx.keep, ctx.n_params, ctx.n_rec = run, keep, n_params, n_rec
+        kvs = [t.clone() for s in run.state if "kv" in s for t in s["kv"].chunks[-1]]
+        ins = {id(t) for t in inputs}
+        rec = [t.clone() if id(t) in ins else t for s in run.state for t in _recurrent(s)]
+        outs = (y, *kvs, *rec)
+        return (*outs, aux) if run.cfg.family == "moe" else outs
 
     @staticmethod
     def backward(ctx, dy, *dkvs):
@@ -335,23 +431,29 @@ class _StageSeam(torch.autograd.Function):
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(t.requires_grad) for t in (x, *inputs)]
             xl, ins = leaves[0], leaves[1:]
-            stage_p = _rebuild(run.structure, ins[:ctx.n_params])
-            # each layer's chunk list: the earlier chunks' K/V as leaves (the
-            # replay appends this chunk's)
-            prev = iter(ins[ctx.n_params:])
-            n_prev = (len(ins) - ctx.n_params) // (2 * len(run.state))
-            for s in run.state:
-                s["kv"].chunks[:] = [(next(prev), next(prev)) for _ in range(n_prev)]
+            stage_p, extras = _rebuild_params(run, ins[:ctx.n_params])
+            # each attending layer's chunk list: the earlier chunks' K/V as
+            # leaves (the replay appends this chunk's); the recurrent state
+            # as the chunk found it
+            n_rec = ctx.n_rec
+            prev = iter(ins[ctx.n_params:len(ins) - n_rec])
+            caches = [s["kv"] for s in run.state if "kv" in s]
+            n_prev = (len(ins) - ctx.n_params - n_rec) // max(1, 2 * len(caches))
+            for c in caches:
+                c.chunks[:] = [(next(prev), next(prev)) for _ in range(n_prev)]
+            _set_recurrent(run.state, ins[len(ins) - n_rec:])
             if run.remat == "sppo":
                 y, aux = stage_apply_inject(run.cfg, stage_p, run.state, xl, run.meta,
-                                            off.alpha, staged, keep)
+                                            off.alpha, staged, keep, extras)
             else:
-                y, aux = _slots(run.cfg, stage_p, run.state, xl, run.meta)
+                y, aux = _slots(run.cfg, stage_p, run.state, xl, run.meta, extras)
             del staged, keep
-            kvs = [t for s in run.state for t in s["kv"].chunks[-1]]
+            kvs = [t for c in caches for t in c.chunks[-1]]
+            kvs += [t for s in run.state for t in _recurrent(s)]
             if run.cfg.family == "moe":
                 kvs.append(aux)
-            outs = [(o, g) for o, g in zip((y, *kvs), (dy, *dkvs)) if g is not None]
+            outs = [(o, g) for o, g in zip((y, *kvs), (dy, *dkvs))
+                    if g is not None and o.requires_grad]
             wrt = [t for t in leaves if t.requires_grad]
             if run.sink is None:
                 grads = iter(torch.autograd.grad([o for o, _ in outs], wrt,
@@ -360,7 +462,8 @@ class _StageSeam(torch.autograd.Function):
         # into the sink: each parameter leaf starts from its sum so far, and
         # autograd (outside grad mode) adds each op's gradient to it in place
         n = ctx.n_params
-        params, p_leaves = tree.leaves(run.structure), leaves[1:1 + n]
+        params = tree.leaves(run.structure) + tree.leaves(run.extras)
+        p_leaves = leaves[1:1 + n]
         for p, leaf in zip(params, p_leaves):
             if leaf.requires_grad:
                 leaf.grad = run.sink.take(p)
@@ -375,3 +478,9 @@ class _StageSeam(torch.autograd.Function):
 def _rebuild(structure, leaves):
     it = iter(leaves)
     return tree.map_(lambda _: next(it), structure)
+
+
+def _rebuild_params(run: _SeamRun, leaves):
+    """(stage parameters, extras) from the seam's parameter inputs."""
+    n = len(tree.leaves(run.structure))
+    return _rebuild(run.structure, leaves[:n]), _rebuild(run.extras, leaves[n:])

@@ -68,6 +68,12 @@ kept on the device (DESIGN.md §14).  The update keeps AdamW's moments on
 the device or, under ``offload_moments``, in pinned host memory, raw or
 under ``moments_dtype`` (``optim/adamw.py``, DESIGN.md §11).
 
+The recurrent families (rwkv6-3b, zamba2-7b; ``models/ssm.py``) keep each
+slot's fp32 state in the same per-slot state list as the caches: the
+chunk loop hands it from chunk to chunk (through the chunk seams, whose
+replays start from the state each chunk found), prefill returns it and
+each decode step advances it; they run at sp = pp = 1.
+
 The pod axis is pure data parallelism around the rest: the batch splits
 over pods x dp groups (``data/pipeline.py::shard_batch``), the gradients
 and the loss are also summed over the pods, and under ZeRO-1 (the plan's
@@ -185,8 +191,10 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     whole chunk, which only a position-tagged cache absorbs, DESIGN.md §2).
     At pp = 1 the boundaries fall on multiples of max(sp, 128), and α sees
     each model rank's share of a chunk's rows (``chunk_act_bytes(sp=)``).
-    An MLA model (deepseek-v3) runs at sp = pp = 1 only: more raises
-    NotImplementedError naming the ROADMAP item that brings it.
+    An MLA model (deepseek-v3) and the recurrent families (rwkv6, zamba2)
+    run at sp = pp = 1 only: more raises NotImplementedError naming the
+    ROADMAP item that brings it (MSP, which a recurrent state cannot take,
+    a ValueError).
 
     ``doc_lens`` makes a packed variable-length cell (DESIGN.md §13), as in
     the reference: the documents are packed into rows of S tokens
@@ -206,6 +214,15 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
             f"{cfg.name} at sp = {sp}, pp = {plan.pp}: MLA runs at sp = pp = 1 in the port; "
             "its model-axis shards and pipeline stages come with a later slice (ROADMAP "
             "Queue 1, item 7)")
+    if cfg.sub_quadratic and (sp > 1 or plan.pp > 1):
+        if plan.msp and plan.pp > 1:
+            raise ValueError(f"msp unsupported for family {cfg.family!r}: recurrent "
+                             "state updates are not idempotent under full-chunk "
+                             "recompute (DESIGN.md §2)")
+        raise NotImplementedError(
+            f"{cfg.name} at sp = {sp}, pp = {plan.pp}: the {cfg.family} family runs at "
+            "sp = pp = 1 in the port; head-parallel Mamba2, the sequence-sharded RWKV6 "
+            "and their pipeline stages come with a later slice (ROADMAP Queue 1, item 7)")
     doc_lens = tuple(int(x) for x in (doc_lens if doc_lens is not None else ()))
     for codec in (plan.offload_dtype, plan.moments_dtype):
         cm.codec_itemsize(codec)            # raises on an unknown codec
@@ -300,7 +317,10 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
 
 def _rope(cfg, q_pos):
     """The chunk's RoPE tables: of the head dim, or MLA's rope head dim (the
-    reference's ``apply_rope`` of q_rope and k_rope)."""
+    reference's ``apply_rope`` of q_rope and k_rope); None for a model
+    without RoPE (rwkv6)."""
+    if not cfg.rope or cfg.pos_emb != "rope":
+        return None
     if cfg.mla is not None:
         return L.rope_tables(q_pos, cfg.mla.rope_head_dim, cfg.rope_theta)
     return L.rope_tables(q_pos, cfg.hd, cfg.rope_theta, cfg.rope_fraction)
@@ -443,9 +463,9 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
             # takes the chunk's reloaded rows from the link and, under
             # "ahead", first issues the reload of the chunk before it
             x, state, a = mdef.stage_apply(stage_p, state, x, meta, remat=plan.remat,
-                                           offload=chunk_tag(cell, c, link))
+                                           offload=chunk_tag(cell, c, link), g=g)
         else:
-            x, state, a = mdef.stage_apply(stage_p, state, x, meta)
+            x, state, a = mdef.stage_apply(stage_p, state, x, meta, g=g)
         aux = aux + a
         if with_loss:
             lab = labels[:, off:off + ln]
@@ -578,9 +598,10 @@ def make_prefill_step(cell: Cell, ctx: Ctx = SINGLE):
 
 
 def trainable(path: str) -> bool:
-    """Every parameter is trained except the slot gate, a structural
-    constant (the reference stops its gradient)."""
-    return not path.endswith("gate")
+    """Every parameter is trained except the gates (a slot's, a hybrid
+    mixer's and its shared block's), structural constants (the reference
+    stops their gradients)."""
+    return not path.endswith(("gate", "gate_shared"))
 
 
 def _check_ctx(cell: Cell, ctx: Ctx) -> None:
@@ -843,7 +864,7 @@ def make_serve_step(cell: Cell, *, decode_steps=None, ctx: Ctx = SINGLE):
         if plan.pp > 1:
             return state, _decode_ticks(cell, ctx, params["stages"], g, state, tokens, meta)
         x = mdef.embed(g, tokens, ctx, decode=True)
-        x, state, _ = mdef.stage_apply(params["stages"], state, x, meta)
+        x, state, _ = mdef.stage_apply(params["stages"], state, x, meta, g=g)
         return state, mdef.head_logits(g, x, ctx).argmax(dim=-1).to(torch.int32)
 
     return serve_step

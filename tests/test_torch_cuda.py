@@ -15,7 +15,9 @@ step's kernel call (per-row positions over gathered slots) and its writes
 granite-moe-1b-a400m's heads (hd 64, G = 2, its decode step) and its
 expert block on the card against the CPU; the wide tensor-core kernels at
 deepseek-v3's MLA widths (hd_k 576, hd_v 512, G = 128, v a view of the
-latent k) and the CUDA-core pair's refusal of them.
+latent k) and the CUDA-core pair's refusal of them; the narrow kernels at
+zamba2-7b's shared attention block (hd 112, G = 1) and the reduced rwkv6-3b and
+zamba2-7b steps on the card against the CPU.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips without
 one.  The file imports no JAX, since the machine with the card has none, and
@@ -1235,3 +1237,72 @@ def test_mla_widths_refused_by_the_cuda_core_kernels(cuda_device):
     with pytest.raises(ValueError, match="CUDA-core kernels take"):
         fa.flash_attention_partial(q, k, v, pos[-2:], pos, kernels="cuda_cores")
     assert fa.counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the SSM family: zamba2-7b's shared attention block (hd 112, G = 1), and the
+# reduced rwkv6-3b and zamba2-7b steps on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kernels", [(d, k) for d in ("float32", "bfloat16")
+                                           for k in _kernels(d)])
+def test_kernels_at_zamba2_head_dim_and_group(cuda_device, dtype, kernels):
+    """hd 112 with G = 1 (zamba2's 32 heads, one a KV head) over ragged Tq
+    and S, PAD slots: the forward and the backward pair against their plain
+    versions, and the decode step (4 rows, Tq 1 over the serve path's
+    2176-slot buffer, a PAD tail) whose KV range splits, merged in the
+    launch or by the merge kernel."""
+    Tq, S, H = 203, 461, 32
+    arrays = inputs(2, Tq, S, H, H, 112, 112, seed=112)
+    q_pos = np.arange(Tq, dtype=np.int32) + S - Tq - 5
+    kv_pos = np.arange(S, dtype=np.int32)
+    kv_pos[-5:] = 2**30
+    _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels)
+    _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device, kernels=kernels)
+    B, S = 4, 2176
+    arrays = inputs(B, 1, S, H, H, 112, 112, seed=113)
+    kv_pos = np.where(np.arange(S) <= 2048, np.arange(S), 2**30).astype(np.int32)
+    before = fa.counts()
+    _check_kernel(arrays, dtype, np.full((1,), 2048, np.int32), kv_pos, cuda_device,
+                  kernels=kernels)
+    assert _launched(before)[FWD_COUNTERS[kernels][0]] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers", [("rwkv6-3b", 2), ("zamba2-7b", 4)])
+def test_ssm_reduced_step_on_the_card_equals_the_cpu(cuda_device, arch, layers):
+    """The reduced config in fp32 (2 RWKV6 layers; 2 zamba2 groups), the same
+    weights, one loss-and-gradients call at S 256 in 2 chunks under the
+    default plan with chunk 0 offloading every tagged row: the loss within
+    1e-5 and every gradient leaf within 1e-4 relative L2 of the CPU's; the
+    attention launches of zamba2's shared block (two a group and chunk, the
+    chunk and its replay), none of rwkv6's; the rows through pinned host
+    memory."""
+    cfg = get_config(arch).reduced(n_layers=layers)
+    cell = runner.resolve_cell(cfg, ShapeConfig("ssm", 256, 2, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=2), dtype=torch.float32)
+    cell = dataclasses.replace(cell, alphas=(1.0, 0.0))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int64))
+    labels = tokens.roll(-1, 1)
+    params = build_params(cell, "cpu", seed=0)
+    want_loss, want = runner.loss_and_grads(cell, params, tokens, labels)
+    on_card = tree.map_(lambda t: t.to(cuda_device), params)
+    before = fa.counts()
+    hostmem.reset_counts()
+    loss, got = runner.loss_and_grads(cell, on_card, tokens.to(cuda_device),
+                                      labels.to(cuda_device))
+    launched = _launched(before)
+    groups = cell.mdef.n_slots if cfg.family == "hybrid" else 0
+    assert launched.get("fwd", 0) == 4 * groups and launched.get("bwd_dq", 0) == 2 * groups
+    assert launched.get("fwd_tc", 0) == 0
+    copied = hostmem.counts()
+    assert copied["d2h_bytes"] == copied["h2d_bytes"] > 0 and copied["d2h_pinned"] == copied["d2h"]
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for (path, g), w in zip(tree.items(got), tree.leaves(want)):
+        g = g.cpu()
+        assert torch.isfinite(g).all(), path
+        if w.norm() > 0:
+            assert ((g - w).norm() / w.norm()).item() <= 1e-4, path

@@ -215,6 +215,24 @@ Phase 2 holds and times the three kernels at zamba2's shapes (hd 112, G
 1): its serving prefill chunk and decode step, its train cell's first and
 last chunk.
 
+Then the VLM and audio families (``xattn_phase``): llama-3.2-vision-11b
+(40 self layers in 8 groups, each followed by a gated cross-attention
+layer over 1600 stub patches; its cross gates set to 0.5 and -0.3, 0 at
+init) and whisper-tiny (4 encoder and 4 decoder layers over 1500 stub
+frames) served at full width and depth (B 4, a 2048-token prompt in 16
+chunks, 32 decode steps, XATTN_REPEATS runs, sync-debug "error"; the
+tensor-core forward 2304 and 388 times a run, the encoder's calls once),
+trained at full width (the VLM at one group, B 1; whisper at full depth, B
+4; S 8192 in 4 chunks, plans (d) and (b), XATTN_STEPS steps: launches with
+the encoder's once a step, D2H = H2D at the closed form of the real tag
+shapes (``xattn_offload_elems``), the losses bitwise equal, an MFU that
+counts the encoder and the cross K/V where they run), and their reduced
+configs in fp32 against the CPU.  Phase 2 holds and times the three
+kernels non-causal at their shapes: the VLM's cross layer at the serving
+prefill chunk, the decode step and the train cell's first chunk, whisper's
+encoder (1500 x 1500) and cross layer, and untimed PAD context tails and
+dead rows (``xattn_edge_checks``).
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 each kernel with its check and times: the tensor-core and the CUDA-core
 forward, the latter's merge, and the tensor-core and CUDA-core backward
@@ -407,17 +425,20 @@ MOE_ARCH = "granite-moe-1b-a400m"
 MOE_REPEATS, MOE_SEQ, MOE_CHUNKS, MOE_STEPS = 2, 8192, 4, 3
 MOE_CHECK_SEQ, MOE_CHECK_STEPS = 256, 8
 MOE_EP_LAYERS, MOE_EP_SEQ, MOE_EP_CHUNKS = 2, 1024, 2
+# the reduced fp32 checks of MLA, the SSM family and the cross-attention
+# families: a train step at CHECK_SEQ, a prefill of CHECK_SEQ and
+# CHECK_DECODE decode steps on the card against the CPU
+CHECK_SEQ, CHECK_DECODE = 256, 4
 # deepseek-v3-671b (MLA) at full width: served at MLA_SERVE_LAYERS of its 61
 # layers (2 x 23.0 GB of bf16 weights beside the 3.7 GB embedding and head;
 # a third layer does not fit beside the transients), its loss and gradients
 # at MLA_TRAIN_LAYERS (26.7 GB of weights and as much of gradients) at S
 # 8192 in 4 chunks under plans (d) and (b), MLA_GRAD_CALLS calls each; the
 # reduced model in fp32 against the CPU (a 2-layer step with AdamW's bf16
-# moments, a prefill and MLA_CHECK_DECODE decode steps)
+# moments, a prefill and CHECK_DECODE decode steps)
 MLA_ARCH = "deepseek-v3-671b"
 MLA_SERVE_LAYERS, MLA_REPEATS = 2, 2
 MLA_TRAIN_LAYERS, MLA_SEQ, MLA_CHUNKS, MLA_GRAD_CALLS = 1, 8192, 4, 2
-MLA_CHECK_SEQ, MLA_CHECK_DECODE = 256, 4
 # the loss-and-gradients call's peak over its weights as predicted in
 # PERF.md before the run that measured it: the gradients (24.9 GiB, summed
 # in place by the seams' sink), one op's fresh expert gradient (7 GiB) and
@@ -438,7 +459,23 @@ SSM_ARCHS = ("rwkv6-3b", "zamba2-7b")
 SSM_REPEATS, SSM_SEQ, SSM_CHUNKS, SSM_STEPS = 2, 8192, 4, 3
 SSM_TRAIN_LAYERS = {"rwkv6-3b": 4, "zamba2-7b": 12}
 SSM_CHECK_LAYERS = {"rwkv6-3b": 2, "zamba2-7b": 4}
-SSM_CHECK_SEQ, SSM_CHECK_DECODE = 256, 4
+# the cross-attention families (xattn_phase): llama-3.2-vision-11b (40 self
+# layers, d 4096, 32 heads over 8, hd 128, FFN 14336, a gated cross layer
+# and its MLP after every 5: 8 groups; 1600 stub patches) and whisper-tiny
+# (4 encoder and 4 decoder layers, d 384, 6 heads of 64, G 1, 1500 stub
+# frames, learned positions), random weights from seed 0, the VLM's cross
+# gates set to XATTN_GATES (0 at init: the cross layers would add nothing).
+# Served at full width and depth (B 4, prompt 2048 in 16 chunks, 32 decode
+# steps, XATTN_REPEATS runs, the decode loop under sync-debug "error");
+# trained at full width, the VLM cut to one group (5 self layers and the
+# cross layer, B 1), whisper at full depth (B 4), S 8192 in 4 chunks under
+# plans (d) and (b), XATTN_STEPS steps each; the reduced configs in fp32 (one
+# VLM group, 2 whisper layers) on the card and the CPU
+XATTN_ARCHS = ("llama-3.2-vision-11b", "whisper-tiny")
+XATTN_GATES = {"xgate_attn": 0.5, "xgate_mlp": -0.3}
+XATTN_REPEATS, XATTN_SEQ, XATTN_CHUNKS, XATTN_STEPS = 2, 8192, 4, 3
+XATTN_TRAIN_LAYERS = {"llama-3.2-vision-11b": 5, "whisper-tiny": 4}
+XATTN_TRAIN_BATCH = {"llama-3.2-vision-11b": 1, "whisper-tiny": 4}
 
 
 def fail(msg: str):
@@ -666,7 +703,7 @@ def edge_grid(fa, ref, gen):
     return worst, n
 
 
-def measure_shape(name, fa, ref, q, k, v, q_pos, kv_pos, q_start):
+def measure_shape(name, fa, ref, q, k, v, q_pos, kv_pos, q_start, causal=True):
     """Check both forward kernels at one main-path shape on the same bf16
     inputs (each held to 1e-5) and time them in turns (CUDA cores, tensor
     cores, tensor cores, CUDA cores), each call whole (a split's merge
@@ -674,12 +711,14 @@ def measure_shape(name, fa, ref, q, k, v, q_pos, kv_pos, q_start):
     this data needs: q.k and p.v for each visible (query, slot) pair and
     head; bytes of the query rows that see some slot, the K/V rows some
     query of their batch row sees, every position read and every output
-    written.  Returns {kernels: row}."""
-    errs = {kind: kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, kernels=kind)[0]
+    written.  ``causal`` False: a cross-attention or encoder shape.
+    Returns {kernels: row}."""
+    errs = {kind: kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, causal=causal,
+                                  kernels=kind)[0]
             for kind in FWD_KERNELS}
     B, Tq, H, hdk = q.shape
     S, Hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
-    vis = visible_mask(B, q_pos, kv_pos, q_start)
+    vis = visible_mask(B, q_pos, kv_pos, q_start, causal)
     n_vis = int(vis.sum())                     # (b, t, s) pairs this data needs
     ops = 2 * (hdk + hdv) * H * n_vis          # q.k and p.v per visible pair and head
     live_rows = int(vis.any(dim=2).sum())      # (b, t) rows that see some slot
@@ -693,17 +732,18 @@ def measure_shape(name, fa, ref, q, k, v, q_pos, kv_pos, q_start):
     turns = {kind: [] for kind in FWD_KERNELS}
     for kind in ("cuda_cores", "tensor_cores", "tensor_cores", "cuda_cores"):
         turns[kind].append(time_ms(
-            lambda *a, kind=kind: fa.flash_attention_partial(*a[:5], q_start=a[5], kernels=kind),
+            lambda *a, kind=kind: fa.flash_attention_partial(*a[:5], q_start=a[5], kernels=kind,
+                                                             causal=causal),
             copies, label=f"the {kind} forward [{name}]"))
-    plain_ms = time_ms(lambda *a: ref.attention_partial_ref(*a[:5], q_start=a[5]), copies,
-                       reps=len(copies), label=f"the plain forward [{name}]")
+    plain_ms = time_ms(lambda *a: ref.attention_partial_ref(*a[:5], q_start=a[5], causal=causal),
+                       copies, reps=len(copies), label=f"the plain forward [{name}]")
     mask = vis[:, None]                        # [B, 1, Tq, S]
     lib_ms = time_ms(lambda *a: F.scaled_dot_product_attention(
         a[0].transpose(1, 2), a[1].transpose(1, 2), a[2].transpose(1, 2), attn_mask=mask,
         enable_gqa=True), copies)
     bound_ms = 1e3 * max(t_bytes, t_ops)
     rows = {kind: {"shape": name, "q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype),
-                   "kernels": kind, "nsplit": fwd_nsplit(fa, kind, q, k),
+                   "causal": causal, "kernels": kind, "nsplit": fwd_nsplit(fa, kind, q, k),
                    "max_abs_err": errs[kind], "ms": sum(turns[kind]) / len(turns[kind]),
                    "ms_turns": turns[kind], "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -719,17 +759,19 @@ def measure_shape(name, fa, ref, q, k, v, q_pos, kv_pos, q_start):
           f"{ops:.3e} ops, {n_bytes:.3e} bytes); fp32 outside the tensor cores at the data "
           f"sheet's {FP32_FLOPS / 1e12:.0f} TFLOP/s would take {1e3 * ops / FP32_FLOPS:.4f} ms")
     if cc["nsplit"] > 1:
-        cc["merge"] = measure_merge(name, fa, ref, copies, cc["nsplit"], (B, Tq, H, hdv))
+        cc["merge"] = measure_merge(name, fa, ref, copies, cc["nsplit"], (B, Tq, H, hdv),
+                                    causal=causal)
     return rows
 
 
-def measure_merge(name, fa, ref, copies, nsplit, shape):
+def measure_merge(name, fa, ref, copies, nsplit, shape, causal=True):
     """The CUDA-core forward's split-KV merge kernel at one shape: its own
     device time under torch.profiler (the forward call launches it), the
     plain merge (``merge_partials`` over as many partials) and its bound,
     the bytes of the partials read and of (o, m, l) written."""
     _, by_group = profiled_ms(
-        lambda *a: fa.flash_attention_partial(*a[:5], q_start=a[5], kernels="cuda_cores"),
+        lambda *a: fa.flash_attention_partial(*a[:5], q_start=a[5], kernels="cuda_cores",
+                                              causal=causal),
         copies, reps=24, want=("attention merge kernel",))
     ms = by_group["attention merge kernel"]
     check(ms > 0, f"the profiler saw no merge kernel at [{name}]: {by_group}")
@@ -1023,18 +1065,18 @@ def sdpa_backend(q, k, v, mask) -> str:
 
 
 def train_chunk_shapes(gen, runner, cfg, n_layers=TRAIN_LAYERS, seq=TRAIN_SEQ,
-                       n_chunks=TRAIN_CHUNKS, dtype=torch.bfloat16, packed=None):
+                       n_chunks=TRAIN_CHUNKS, dtype=torch.bfloat16, packed=None, batch=1):
     """The attention kernels' inputs at a training cell's first and last
     chunks, as the path passes them: q a head slice of the fused q|k
     projection output, K and V prefix views of the seq-slot cache buffer,
     one position row shared by the batch, fp32 do and dl, and the q_start
     window (None); the chunk plan is the cell's own.  The default is the
-    bf16 training cell of phase 4.  ``packed`` (a ``PackedBatch``): its rows
-    are the batch, the cell is resolved with its documents' lengths and
+    bf16 training cell of phase 4, at ``batch`` rows.  ``packed`` (a
+    ``PackedBatch``): its rows are the batch, the cell is resolved with its documents' lengths and
     each chunk's window is its slice of the packed ``doc_start``."""
     from repro_torch.configs.base import ShapeConfig
 
-    B = 1 if packed is None else packed.tokens.shape[0]
+    B = batch if packed is None else packed.tokens.shape[0]
     doc_lens = None if packed is None else doc_lengths(packed)
     cell = runner.resolve_cell(dataclasses.replace(cfg, n_layers=n_layers),
                                ShapeConfig("train", seq, B, "train"),
@@ -1057,6 +1099,30 @@ def train_chunk_shapes(gen, runner, cfg, n_layers=TRAIN_LAYERS, seq=TRAIN_SEQ,
                         pos[off:off + ln], pos[:off + ln], do, dl,
                         None if doc_start is None else doc_start[:, off:off + ln])
     return cell, shapes
+
+
+def self_attn_kernel_shapes(fa, ref, gen, runner, cfg, *, n_layers, seq, n_chunks, batch=1):
+    """``cfg``'s causal self-attention at its main-path shapes: the serving
+    prefill chunk (B 4, Tq 128 over a 2048-slot prefix) and decode step (Tq
+    1 over the whole 2176-slot buffer), both forwards held and timed
+    (``measure_shape``); the train cell's first and last chunk (``batch``
+    rows, ``n_layers`` layers, ``seq`` in ``n_chunks`` chunks), forwards and
+    backward pairs (``measure_bwd_shape``).  Returns (forward rows,
+    backward rows)."""
+    prefill_in, decode_in = serving_shapes(gen, cfg)
+    fwd = [measure_shape(f"{cfg.name} prefill chunk", fa, ref, *prefill_in),
+           measure_shape(f"{cfg.name} decode step", fa, ref, *decode_in)]
+    del prefill_in, decode_in
+    _, train_in = train_chunk_shapes(gen, runner, cfg, n_layers=n_layers, seq=seq,
+                                     n_chunks=n_chunks, batch=batch)
+    bwd = []
+    for name, args in train_in.items():
+        f, b = measure_bwd_shape(f"{cfg.name} {name}", fa, ref, *args)
+        fwd.append(f)
+        bwd.append(b)
+    del train_in
+    torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 # the two backward pairs: the kernels' keys in counts() and in the kernels
@@ -1129,7 +1195,7 @@ def tc_issued_ops(fa, vis, G, Hkv, hdk, hdv):
     return {"dq_tc": 4096 * dq_mma * Hkv, "dkv_tc": 4096 * dkv_mma * Hkv}
 
 
-def measure_bwd_shape(name, fa, ref, q, k, v, q_pos, kv_pos, do, dl, q_start=None):
+def measure_bwd_shape(name, fa, ref, q, k, v, q_pos, kv_pos, do, dl, q_start=None, causal=True):
     """Check both forward kernels (``measure_shape``: held to 1e-5, timed in
     turns, bounded) and both backward pairs at one training shape on the same bf16
     inputs, and time each backward kernel (its own device time under
@@ -1145,13 +1211,15 @@ def measure_bwd_shape(name, fa, ref, q, k, v, q_pos, kv_pos, do, dl, q_start=Non
     operations, the printed line gives the operations the tensor-core
     kernels issue as modelled from their tiling (``tc_issued_ops``).  ``q_start``:
     a packed batch's [B, Tq] document window, which the bounds' visible
-    pairs and rows follow."""
-    fwd_rows = measure_shape(f"train {name}", fa, ref, q, k, v, q_pos, kv_pos, q_start)
+    pairs and rows follow.  ``causal`` False: a cross-attention or encoder
+    shape."""
+    fwd_rows = measure_shape(f"train {name}", fa, ref, q, k, v, q_pos, kv_pos, q_start,
+                             causal=causal)
     errs = {kernels: bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, do, dl,
-                                  kernels=kernels)[:2] for kernels in BWD_PAIRS}
+                                  causal=causal, kernels=kernels)[:2] for kernels in BWD_PAIRS}
     B, Tq, H, hdk = q.shape
     S, Hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
-    vis = visible_mask(B, q_pos, kv_pos, q_start)
+    vis = visible_mask(B, q_pos, kv_pos, q_start, causal)
     n_vis = int(vis.sum())
     live_rows, kv_rows = int(vis.any(dim=2).sum()), int(vis.any(dim=1).sum())
     esz = q.element_size()
@@ -1161,13 +1229,14 @@ def measure_bwd_shape(name, fa, ref, q, k, v, q_pos, kv_pos, do, dl, q_start=Non
            "dkv": 2 * H * n_vis * (hdk + hdv + hdk + hdv)}
     out_bytes = {"dq": 4 * B * Tq * H * hdk, "dkv": 4 * B * S * Hkv * (hdk + hdv)}
     issued = tc_issued_ops(fa, vis, H // Hkv, Hkv, hdk, hdv)
-    _, m, _ = ref.attention_partial_ref(q, k, v, q_pos, kv_pos, q_start=q_start)
+    _, m, _ = ref.attention_partial_ref(q, k, v, q_pos, kv_pos, q_start=q_start, causal=causal)
     footprint = sum(t.numel() * t.element_size() for t in (q, k, v, do))
     copies = cold_copies((q, k, v, q_pos, kv_pos, do, m, dl, q_start), footprint)
     turns = {part: [] for part in BWD_GROUPS}
     for kernels in ("cuda_cores", "tensor_cores", "tensor_cores", "cuda_cores"):
         def call(*a, kernels=kernels):
-            return fa.flash_attention_partial_bwd(*a[:8], q_start=a[8], kernels=kernels)
+            return fa.flash_attention_partial_bwd(*a[:8], q_start=a[8], kernels=kernels,
+                                                  causal=causal)
 
         for args in copies:
             call(*args)
@@ -1185,13 +1254,15 @@ def measure_bwd_shape(name, fa, ref, q, k, v, q_pos, kv_pos, do, dl, q_start=Non
             t_bytes = (rows_in + pos_bytes + out_bytes[base]) / HBM_BYTES_PER_S
             t_ops = ops[base] / BF16_FLOPS
             rows[part] = {"shape": name, "q": list(q.shape), "kv": list(k.shape),
-                          "dtype": str(q.dtype), "ms": sum(turns[part]) / len(turns[part]),
+                          "dtype": str(q.dtype), "causal": causal,
+                          "ms": sum(turns[part]) / len(turns[part]),
                           "ms_turns": turns[part], "bound_ms": 1e3 * max(t_bytes, t_ops),
                           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                           "ops": ops[base],
                           "max_abs_err": err["dq"] if base == "dq" else max(err["dk"], err["dv"]),
                           "rel_err": rel["dq"] if base == "dq" else max(rel["dk"], rel["dv"])}
-    plain_ms = time_ms(lambda *a: ref.attention_partial_bwd_ref(*a[:5], a[8], *a[5:8]),
+    plain_ms = time_ms(lambda *a: ref.attention_partial_bwd_ref(*a[:5], a[8], *a[5:8],
+                                                                causal=causal),
                        copies, reps=len(copies), label=f"the plain backward [{name}]")
     # SDPA's backward with the same mask: a graph per input copy, then the
     # timed calls run only the backward
@@ -1362,14 +1433,16 @@ def offload_bytes(cell) -> int:
     """D2H bytes of one step by the port's cost model: Σ over chunks of
     split_rows(rows, α_c) x batch x the tagged bytes of a token in every
     layer (bf16), times the codec's wire ratio (its 1-byte payload; the
-    scales stay on the device).  An MoE model's and an SSM model's by the
-    tag shapes their layers use (``moe_offload_elems``,
-    ``ssm_offload_elems``)."""
+    scales stay on the device).  An MoE model's, an SSM model's and a
+    cross-attention model's by the tag shapes their layers use
+    (``moe_offload_elems``, ``ssm_offload_elems``, ``xattn_offload_elems``)."""
     from repro_torch.core import costmodel as cm
     from repro_torch.core import offload as ofl
 
-    if cell.cfg.moe is not None or cell.cfg.sub_quadratic:
-        elems = moe_offload_elems(cell) if cell.cfg.moe is not None else ssm_offload_elems(cell)
+    cfg = cell.cfg
+    if cfg.moe is not None or cfg.sub_quadratic or cfg.cross_attn is not None:
+        elems = (moe_offload_elems(cell) if cfg.moe is not None
+                 else ssm_offload_elems(cell) if cfg.sub_quadratic else xattn_offload_elems(cell))
         return int(elems * cm.ACT_ITEMSIZE * cm.offload_wire_ratio(cell.plan.offload_dtype))
     per_row = (cell.shape.global_batch * cm.tagged_bytes_per_token(cell.cfg) * cell.cfg.n_layers
                * cm.offload_wire_ratio(cell.plan.offload_dtype))
@@ -1427,13 +1500,38 @@ def ssm_offload_elems(cell) -> int:
                    for ln, a in zip(cell.sched.lengths, cell.alphas))
 
 
+def xattn_offload_elems(cell) -> int:
+    """Elements of a step's off rows at pp = 1 by the tag shapes of a
+    cross-attention model: per chunk and slot, split_rows of the chunk's
+    rows (B of each) of every self layer's q, k, v, attention output and
+    MLP hidden, and of the cross layer's q and output (the VLM's also its
+    cross MLP's hidden).  Not the cost model's dense pricing, which leaves
+    the cross layers out (PERF.md §7)."""
+    from repro_torch.core import offload as ofl
+
+    cfg = cell.cfg
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    layer = 2 * H * hd + 2 * Hkv * hd + cfg.d_ff
+    per_row = (cfg.cross_attn.every * layer + 2 * H * hd + cfg.d_ff if cfg.family == "vlm"
+               else layer + 2 * H * hd)
+    return cell.mdef.n_slots * sum(ofl.split_rows(ln, a) * cell.b_loc * per_row
+                                   for ln, a in zip(cell.sched.lengths, cell.alphas))
+
+
 def attention_layers(cfg) -> int:
-    """The attention blocks a pass runs: every layer of a dense or MoE
-    model, none of rwkv6's, the shared block once a zamba2 group."""
+    """The attention calls a chunk runs: every layer of a dense or MoE
+    model, none of rwkv6's, the shared block once a zamba2 group, a VLM
+    group's self layers and its cross layer, a whisper decoder layer's self
+    and cross attention.  Whisper's encoder runs once a pass, outside the
+    chunks (``cfg.encoder_layers``)."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return -(-cfg.n_layers // cfg.shared_attn_every)
+    if cfg.family == "vlm":
+        return -(-cfg.n_layers // cfg.cross_attn.every) * (cfg.cross_attn.every + 1)
+    if cfg.family == "audio":
+        return 2 * cfg.n_layers
     return cfg.n_layers
 
 
@@ -1512,7 +1610,7 @@ def compare_grads(grads, ref, plan, ref_plan, label, *, bitwise):
 
 
 def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n_chunks,
-               steps, label, extra=None, grads="keep", packed=None, profiled=True):
+               steps, label, extra=None, grads="keep", packed=None, profiled=True, batch=1):
     """One training plan through ``launch.train.train``, as the CLI runs it,
     counted and timed: each step's kernel launches and host copies, the last
     step under torch.profiler (device busy and idle, kernel groups, copy
@@ -1531,8 +1629,10 @@ def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n
     the batch; each step then launches each kernel once a microbatch more
     (``grad_accum``), and the untimed call is skipped.  ``profiled`` False:
     no step runs under the profiler (a cell whose profile another cell's
-    holds; its row then has no device-time fields).  Returns the launch
-    counts, a summary and that call's gradients."""
+    holds; its row then has no device-time fields).  ``batch``: the rows of
+    an unpacked cell.  A model with an encoder launches each kernel once an
+    encoder layer more a step (``cfg.encoder_layers``: once a pass, no replay).
+    Returns the launch counts, a summary and that call's gradients."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import costmodel as cm
@@ -1554,7 +1654,7 @@ def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n
         return padded(prof["p"])
 
     check(packed is None or grads == "none", "a packed run takes no untimed gradients call")
-    batch = 1 if packed is None else packed.tokens.shape[0]
+    batch = batch if packed is None else packed.tokens.shape[0]
     fa.reset_counts()
     hostmem.reset_counts()
     t0 = time.perf_counter()
@@ -1572,6 +1672,8 @@ def train_plan(fa, hostmem, serve, runner, train_mod, cfg, card, plan, *, seq, n
     per_step = [{k: a[k] - b.get(k, 0) for k in a} for a, b in zip(after, [{}] + after[:-1])]
     n_calls = attention_layers(cfg) * cell.sched.n * cell.plan.grad_accum
     fwd_want = n_calls * (1 if cell.plan.remat == "none" else 2)
+    n_enc = cfg.encoder_layers * cell.plan.grad_accum
+    fwd_want, n_calls = fwd_want + n_enc, n_calls + n_enc
     bytes_want = offload_bytes(cell)
     mom_bytes, mom_copies = moment_copies(cell)
     for step, c in enumerate(per_step):
@@ -3699,12 +3801,16 @@ def recorded_gaps(model_def_cls, gaps: list):
         model_def_cls.head_logits = orig
 
 
-def static_decode(runner, cell_pre, cell_dec, params, prompts, steps, dev, ctx=None):
-    """Prefill ``prompts`` [B, S] and decode ``steps`` greedy tokens on one
-    device (tokens [B, steps])."""
+def static_decode(runner, cell_pre, cell_dec, params, prompts, steps, dev, ctx=None,
+                  context=None):
+    """Prefill ``prompts`` [B, S] (and a cross-attention model's ``context``,
+    [B, N_ctx, d] numpy) and decode ``steps`` greedy tokens on one device
+    (tokens [B, steps])."""
     kw = {} if ctx is None else {"ctx": ctx}
     S = prompts.shape[1]
-    state, _ = runner.make_prefill_step(cell_pre, **kw)(params, torch.from_numpy(prompts).to(dev))
+    cx = None if context is None else torch.from_numpy(context).to(dev)
+    state, _ = runner.make_prefill_step(cell_pre, **kw)(params, torch.from_numpy(prompts).to(dev),
+                                                         cx)
     step = runner.make_serve_step(cell_dec, decode_steps=steps, **kw)
     cur, toks = torch.from_numpy(np.ascontiguousarray(prompts[:, -1:])).to(dev), []
     for i in range(steps):
@@ -4786,7 +4892,7 @@ def mla_cpu_check(fa, hostmem, serve, runner, cfg, card):
     0 offloads every tagged row) with AdamW's bf16 moments in host memory:
     the loss, the gradient norm and every parameter's update within
     GRAD_REL_TOL (relative); the launches by their closed forms; then a
-    prefill and MLA_CHECK_DECODE decode steps: the card's tokens the CPU's
+    prefill and CHECK_DECODE decode steps: the card's tokens the CPU's
     (a tie under TIE_GAP excepted)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import tree
@@ -4794,7 +4900,7 @@ def mla_cpu_check(fa, hostmem, serve, runner, cfg, card):
     from repro_torch.models.model_zoo import ModelDef
 
     rcfg = cfg.reduced()
-    S = MLA_CHECK_SEQ
+    S = CHECK_SEQ
     cell = runner.resolve_cell(rcfg, ShapeConfig("mla_check", S, 1, "train"),
                                overrides=dict(pp=1, dp=1, n_chunks=2), dtype=torch.float32)
     check(cell.plan.opt_dtype == "bfloat16" and cell.plan.offload_moments,
@@ -4854,13 +4960,13 @@ def mla_cpu_check(fa, hostmem, serve, runner, cfg, card):
     params = serve.build_params(pre, "cpu", seed=0)
     prompts = np.random.default_rng(1).integers(2, rcfg.vocab_size, size=(BATCH, S)).astype(np.int32)
     got = static_decode(runner, pre, dec, tree_map(lambda t: t.cuda(), params), prompts,
-                        MLA_CHECK_DECODE, "cuda")
+                        CHECK_DECODE, "cuda")
     gaps = []
     with recorded_gaps(ModelDef, gaps):
-        want_toks = static_decode(runner, pre, dec, params, prompts, MLA_CHECK_DECODE, "cpu")
+        want_toks = static_decode(runner, pre, dec, params, prompts, CHECK_DECODE, "cpu")
     ties = held_against_cpu(got, want_toks, np.stack(gaps, axis=1), f"{MLA_ARCH} reduced fp32 serve")
     print(f"serve [{MLA_ARCH}] reduced fp32 ({card}): {BATCH} rows, prefill {S}, "
-          f"{MLA_CHECK_DECODE} decode steps: tokens as the CPU's ({len(ties)} ties)")
+          f"{CHECK_DECODE} decode steps: tokens as the CPU's ({len(ties)} ties)")
     return rel, card_o["counts"], {"step_rel": rel, "moment_rel_l2": m_rel, "serve_ties": ties}
 
 
@@ -4906,29 +5012,6 @@ def mla_phase(fa, hostmem, serve, runner, ref, card):
 # The SSM family: rwkv6-3b (RWKV6, no attention) and zamba2-7b (Mamba2
 # mixers and the weight-shared attention block at hd 112, G 1)
 # ---------------------------------------------------------------------------
-
-
-def ssm_kernel_shapes(fa, ref, gen, runner, cfg):
-    """zamba2-7b's attention at its main-path shapes (32 heads of hd 112, G
-    1): the serving prefill chunk (B 4, Tq 128 over a 2048-slot prefix) and
-    decode step (Tq 1 over the whole 2176-slot buffer), both forwards held
-    and timed (``measure_shape``); the train cell's first and last chunk (B
-    1, S 8192 in 4 chunks), forwards and backward pairs (``measure_bwd_shape``).
-    Returns (forward rows, backward rows)."""
-    prefill_in, decode_in = serving_shapes(gen, cfg)
-    fwd = [measure_shape(f"{cfg.name} prefill chunk", fa, ref, *prefill_in),
-           measure_shape(f"{cfg.name} decode step", fa, ref, *decode_in)]
-    del prefill_in, decode_in
-    _, train_in = train_chunk_shapes(gen, runner, cfg, n_layers=SSM_TRAIN_LAYERS[cfg.name],
-                                     seq=SSM_SEQ, n_chunks=SSM_CHUNKS)
-    bwd = []
-    for name, args in train_in.items():
-        f, b = measure_bwd_shape(f"{cfg.name} {name}", fa, ref, *args)
-        fwd.append(f)
-        bwd.append(b)
-    del train_in
-    torch.cuda.empty_cache()
-    return fwd, bwd
 
 
 def ssm_serve(fa, hostmem, serve, arch, card):
@@ -4991,7 +5074,7 @@ def ssm_cpu_check(fa, hostmem, serve, runner, arch, card):
     (chunk 0 offloads every tagged row): the loss, the gradient norm, every
     gradient leaf (``loss_and_grads``, relative L2) and every parameter's
     update within GRAD_REL_TOL (relative), the launches by their closed
-    forms, pinned copies; then a prefill and SSM_CHECK_DECODE decode steps:
+    forms, pinned copies; then a prefill and CHECK_DECODE decode steps:
     the card's tokens the CPU's (a tie under TIE_GAP excepted).  AdamW's
     first update is g / (|g| + eps) an element, the sign of g wherever |g|
     >> eps, so the update is held over the elements whose CPU gradient is
@@ -5004,7 +5087,7 @@ def ssm_cpu_check(fa, hostmem, serve, runner, arch, card):
     from repro_torch.models.model_zoo import ModelDef
 
     rcfg = get_config(arch).reduced(n_layers=SSM_CHECK_LAYERS[arch])
-    S = SSM_CHECK_SEQ
+    S = CHECK_SEQ
     cell = runner.resolve_cell(rcfg, ShapeConfig("ssm_check", S, 1, "train"),
                                overrides=dict(pp=1, dp=1, n_chunks=2), dtype=torch.float32)
     check(cell.plan.offload and cell.plan.remat == "sppo",
@@ -5072,14 +5155,14 @@ def ssm_cpu_check(fa, hostmem, serve, runner, arch, card):
     prompts = np.random.default_rng(1).integers(2, rcfg.vocab_size, size=(BATCH, S)).astype(np.int32)
     fa.reset_counts()
     got = static_decode(runner, pre, dec, tree_map(lambda t: t.cuda(), params), prompts,
-                        SSM_CHECK_DECODE, "cuda")
+                        CHECK_DECODE, "cuda")
     serve_counts = fa.counts()
     gaps = []
     with recorded_gaps(ModelDef, gaps):
-        want_toks = static_decode(runner, pre, dec, params, prompts, SSM_CHECK_DECODE, "cpu")
+        want_toks = static_decode(runner, pre, dec, params, prompts, CHECK_DECODE, "cpu")
     ties = held_against_cpu(got, want_toks, np.stack(gaps, axis=1), f"{arch} reduced fp32 serve")
     print(f"serve [{arch}] reduced fp32 ({card}): {BATCH} rows, prefill {S}, "
-          f"{SSM_CHECK_DECODE} decode steps: tokens as the CPU's ({len(ties)} ties); launches "
+          f"{CHECK_DECODE} decode steps: tokens as the CPU's ({len(ties)} ties); launches "
           f"{serve_counts}")
     return card_o["counts"], {"step_rel": rel, "update_all_rel": worst["update_all"][0],
                               "serve_ties": ties}
@@ -5125,6 +5208,422 @@ def ssm_phase(fa, hostmem, serve, runner, train_mod, card):
         summary["seconds"][arch] = {"serve": t1 - t0, "train": t2 - t1, "fp32_check": t3 - t2}
     summary["seconds"]["total"] = time.perf_counter() - t_phase
     print(f"SSM phase took {summary['seconds']['total']:.1f} s "
+          f"({json.dumps({a: {k: round(v, 1) for k, v in d.items()} for a, d in summary['seconds'].items() if a != 'total'})})")
+    return paths, summary
+
+
+# ---------------------------------------------------------------------------
+# The cross-attention families: llama-3.2-vision-11b (gated cross layers
+# over stub patches) and whisper-tiny (a bidirectional encoder, cross
+# attention in every decoder layer): the kernels' non-causal mode
+# ---------------------------------------------------------------------------
+
+
+def cross_inputs(gen, B, Tq, n_ctx, H, Hkv, hd, *, backward=False, self_kv=False):
+    """The kernels' inputs at a cross-attention call as the path passes
+    them: q [B, Tq, H, hd] bf16, the context's K/V [B, n_ctx, Hkv, hd],
+    q_pos zeros (unread: causal=False), each context slot at its index, no
+    window; ``self_kv``: an encoder layer's, q_pos the frames' positions;
+    ``backward``: fp32 do and dl beside."""
+    dev, bf16 = "cuda", torch.bfloat16
+    q = torch.randn(B, Tq, H, hd, generator=gen, device=dev).to(bf16)
+    k = torch.randn(B, n_ctx, Hkv, hd, generator=gen, device=dev).to(bf16)
+    v = torch.randn(B, n_ctx, Hkv, hd, generator=gen, device=dev).to(bf16)
+    kv_pos = torch.arange(n_ctx, dtype=torch.int32, device=dev)
+    q_pos = kv_pos[:Tq] if self_kv else torch.zeros(Tq, dtype=torch.int32, device=dev)
+    if not backward:
+        return q, k, v, q_pos, kv_pos, None
+    do = torch.randn(B, Tq, H, hd, generator=gen, device=dev)
+    dl = torch.randn(B, Tq, H, generator=gen, device=dev)
+    return q, k, v, q_pos, kv_pos, do, dl
+
+
+def xattn_edge_checks(fa, ref, gen):
+    """Untimed, causal=False, at 1e-5 (backward 1e-5 x max |plain|): the
+    VLM's cross decode step (B 4, G 4, hd 128) over 1600 patches and a
+    64-slot PAD tail (the context padded to a model-axis multiple), batch
+    row 1 with a PAD window (a dead row: o = l = 0, m = -1e30 exactly), both
+    forwards; whisper's encoder shape (B 2, 1500 frames, 10 of them PAD past
+    n_valid, G 1, hd 64) and a cross chunk with a dead row given NaN
+    cotangents, both backward pairs (the dead row's dq exactly 0).  Returns
+    (forward's worst error, backward's worst relative error)."""
+    dev = "cuda"
+    q, k, v, q_pos, _, _ = cross_inputs(gen, BATCH, 1, 1664, 32, 8, 128)
+    kv_pos = torch.arange(1664, dtype=torch.int32, device=dev)
+    kv_pos[1600:] = PAD
+    q_start = torch.zeros(BATCH, 1, dtype=torch.int32, device=dev)
+    q_start[1] = PAD
+    fwd_err = 0.0
+    for kind in FWD_KERNELS:
+        err, (o, m, l) = kernel_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, causal=False,
+                                         kernels=kind)
+        dead = ~visible_mask(BATCH, q_pos, kv_pos, q_start, causal=False).any(dim=-1)
+        check_dead_rows(o, m, l, dead[..., None].expand(BATCH, 1, 32), 32,
+                        f"cross decode with a dead row ({kind})")
+        fwd_err = max(fwd_err, err)
+    bwd_rel = 0.0
+    for n_valid, Tq, self_kv in ((1490, 1500, True), (1500, 96, False)):
+        q, k, v, q_pos, kv_pos, do, dl = cross_inputs(gen, 2, Tq, 1500, 6, 6, 64, backward=True,
+                                                      self_kv=self_kv)
+        kv_pos = torch.where(kv_pos < n_valid, kv_pos, PAD).to(torch.int32)
+        if self_kv:
+            q_pos = kv_pos
+        q_start = torch.zeros(2, Tq, dtype=torch.int32, device=dev)
+        q_start[1, -3:] = PAD
+        dead = ~visible_mask(2, q_pos, kv_pos, q_start, causal=False).any(dim=-1)
+        do[dead], dl[dead] = float("nan"), float("nan")
+        for kernels in BWD_PAIRS:
+            _, rel, (dq, _, _) = bwd_vs_plain(fa, ref, q, k, v, q_pos, kv_pos, q_start, do, dl,
+                                              causal=False, kernels=kernels)
+            check(bool((dq[dead] == 0).all()), f"non-causal dead rows' dq is not exactly 0 "
+                                               f"({kernels})")
+            bwd_rel = max(bwd_rel, *rel.values())
+    print(f"cross-attention edge checks (causal=False): PAD context tails, dead rows exact; "
+          f"forward worst {fwd_err:.3e}, backward worst relative {bwd_rel:.3e}")
+    return fwd_err, bwd_rel
+
+
+def xattn_kernel_shapes(fa, ref, gen, runner):
+    """The three kernels, non-causal, at the shapes the cross-attention
+    families' main paths give them, held and timed (``measure_shape``,
+    ``measure_bwd_shape``) beside their bounds and SDPA at the same mask:
+    the VLM's cross layer (32 heads over 8, hd 128) at the serving prefill
+    chunk (B 4, Tq 128 over 1600 patches), the decode step and the train
+    cell's first chunk (B 1, S 8192 in 4 chunks, forward and backward);
+    whisper's encoder (B 4, 1500 x 1500 frames, 6 heads, hd 64, G 1,
+    forward and backward) and its cross attention at the serving prefill
+    chunk, the decode step and the train cell's first chunk (B 4, forward
+    and backward).  Then ``xattn_edge_checks``.  Returns (forward rows,
+    backward rows, edge errors)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.models.model_zoo import build_model
+
+    fwd, bwd = [], []
+    for arch in XATTN_ARCHS:
+        cfg = get_config(arch)
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        n_ctx = build_model(cfg).n_context()
+        tag = arch.split("-")[0]
+        fwd.append(measure_shape(f"{tag} cross prefill chunk", fa, ref,
+                                 *cross_inputs(gen, BATCH, PREFILL_LEN // 16, n_ctx, H, Hkv, hd),
+                                 causal=False))
+        fwd.append(measure_shape(f"{tag} cross decode step", fa, ref,
+                                 *cross_inputs(gen, BATCH, 1, n_ctx, H, Hkv, hd), causal=False))
+        cell = runner.resolve_cell(
+            dataclasses.replace(cfg, n_layers=XATTN_TRAIN_LAYERS[arch]),
+            ShapeConfig("train", XATTN_SEQ, XATTN_TRAIN_BATCH[arch], "train"),
+            overrides=dict(pp=1, dp=1, n_chunks=XATTN_CHUNKS))
+        Tq, B = cell.sched.lengths[0], XATTN_TRAIN_BATCH[arch]
+        q, k, v, q_pos, kv_pos, do, dl = cross_inputs(gen, B, Tq, n_ctx, H, Hkv, hd, backward=True)
+        f, b = measure_bwd_shape(f"{tag} cross first chunk", fa, ref, q, k, v, q_pos, kv_pos,
+                                 do, dl, causal=False)
+        fwd.append(f)
+        bwd.append(b)
+        if cfg.encoder_layers:
+            q, k, v, q_pos, kv_pos, do, dl = cross_inputs(gen, BATCH, n_ctx, n_ctx, H, Hkv, hd,
+                                                          backward=True, self_kv=True)
+            f, b = measure_bwd_shape(f"{tag} encoder", fa, ref, q, k, v, q_pos, kv_pos, do, dl,
+                                     causal=False)
+            fwd.append(f)
+            bwd.append(b)
+        del q, k, v, do, dl
+        torch.cuda.empty_cache()
+    edge = xattn_edge_checks(fa, ref, gen)
+    torch.cuda.empty_cache()
+    return fwd, bwd, edge
+
+
+@contextlib.contextmanager
+def gated(*modules):
+    """Within the block, the ``build_params`` of each module (``launch.serve``
+    and ``launch.train``, whose entry points draw their weights through
+    ``serve.build_params``) sets every VLM slot's cross gates to
+    XATTN_GATES after the seeded draw: at their init of 0 the cross layers
+    add nothing and their leaves get no gradient."""
+    origs = [m.build_params for m in modules]
+
+    def build(*args, **kw):
+        params = origs[0](*args, **kw)
+        for slot in params["stages"]:
+            for name, val in XATTN_GATES.items():
+                if name in slot:
+                    slot[name].fill_(val)
+        return params
+
+    for m in modules:
+        m.build_params = build
+    try:
+        yield
+    finally:
+        for m, orig in zip(modules, origs):
+            m.build_params = orig
+
+
+def xattn_fwd_calls(cfg, B, chunks, cache, decode_steps):
+    """The forward calls of one pass as (B, Tq, S) a call: {"chunked": each
+    chunk (offset, length) of every self layer over its prefix and of every
+    cross layer over the context; "encoder": the encoder's layers once over
+    the frames; "decode": each decode step's self calls over the whole
+    cache and cross calls over the context}."""
+    from repro_torch.models.model_zoo import build_model
+
+    n_ctx = build_model(cfg).n_context()
+    if cfg.family == "vlm":
+        groups = -(-cfg.n_layers // cfg.cross_attn.every)
+        n_self, n_cross = groups * cfg.cross_attn.every, groups
+    else:
+        n_self = n_cross = cfg.n_layers
+    chunked = []
+    for off, ln in chunks:
+        chunked += [(B, ln, off + ln)] * n_self + [(B, ln, n_ctx)] * n_cross
+    return {"chunked": chunked, "encoder": [(B, n_ctx, n_ctx)] * cfg.encoder_layers,
+            "decode": ([(B, 1, cache)] * n_self + [(B, 1, n_ctx)] * n_cross) * decode_steps}
+
+
+def xattn_serve(fa, hostmem, serve, arch, card):
+    """(a) ``arch`` served at full width and full depth through the serve
+    CLI's entry point, bf16, the VLM's gates set (``gated``), XATTN_REPEATS
+    runs of B 4, a 2048-token prompt in 16 chunks and 32 decode steps, the
+    decode loop under sync-debug "error".  The tensor-core forward launched
+    at its closed form (``xattn_fwd_calls``: the VLM 8 x (5 + 1) x (16 +
+    32) = 2304 a run; whisper 4 x 2 x (16 + 32) + 4 encoder calls = 388),
+    the calls whose KV range the geometry splits merging in the launch; no
+    other kernel, no host copy."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(arch)
+    fa.reset_counts()
+    hostmem.reset_counts()
+    with gated(serve):
+        out = serve.main(["--arch", arch, "--prompt-len", str(PREFILL_LEN), "--batch", str(BATCH),
+                          "--decode-steps", str(DECODE_STEPS), "--repeats", str(XATTN_REPEATS),
+                          "--sync-debug", "error"])
+    counts = fa.counts()
+    check(not any(hostmem.counts().values()),
+          f"[{arch}] serving copied to or from host memory: {hostmem.counts()}")
+    n_chunks = out["n_chunks"]
+    check(n_chunks == 16, f"[{arch}] prefill ran {n_chunks} chunks, expected 16")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    G, Hkv = cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads
+    clen = PREFILL_LEN // n_chunks
+    calls = [c for kind in xattn_fwd_calls(cfg, BATCH, [(c * clen, clen) for c in range(n_chunks)],
+                                           PREFILL_LEN + 128, DECODE_STEPS).values() for c in kind]
+    splits = sum(fa._tc_geometry(b, tq, sl, G, Hkv, n_sm)[2] > 1 for b, tq, sl in calls)
+    want = {**{k: 0 for k in counts}, "fwd_tc": XATTN_REPEATS * len(calls),
+            "merged_in_kernel": XATTN_REPEATS * splits}
+    check(counts == want, f"[{arch}] serving launched {counts}, expected {want}")
+    toks = out["tokens"]
+    check(toks.shape == (BATCH, DECODE_STEPS)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"[{arch}] decoded tokens {toks.shape} out of range")
+    check(bool(torch.isfinite(out["last_hidden"]).all()), f"[{arch}] hidden not finite")
+    runs = []
+    for run, (p_s, d_s) in enumerate(zip(out["prefill_s_runs"], out["decode_s_runs"])):
+        runs.append({"prefill_s": p_s, "prefill_tokens_per_s": BATCH * PREFILL_LEN / p_s,
+                     "decode_ms_per_step": 1e3 * d_s / DECODE_STEPS,
+                     "decode_tokens_per_s": BATCH * DECODE_STEPS / d_s})
+        print(f"serve [{arch}] run {run} ({card}): full width and depth, bf16: prefill "
+              f"{p_s:.4f} s, {runs[-1]['prefill_tokens_per_s']:.1f} tokens/s; decode "
+              f"{runs[-1]['decode_ms_per_step']:.3f} ms/step, "
+              f"{runs[-1]['decode_tokens_per_s']:.1f} tokens/s")
+    print(f"serve [{arch}] launches {counts} (expected {want}: {len(calls)} a run), no host "
+          f"sync in the decode loop; peak {out['peak_bytes'] / 2**30:.3f} GiB ({card})")
+    return counts, {"runs": runs, "peak_bytes": out["peak_bytes"], "calls_per_run": len(calls)}
+
+
+def xattn_mfu(row, cell, card):
+    """MFU with the encoder and the cross K/V projections counted where
+    they run: 6 x (N less the encoder's and the xattn K/V leaves') x B x S
+    for the chunks, 6 x N_enc x B x n_frames for the encoder and 6 x N_xkv x
+    B x N_ctx for the K/V projections, over each step's seconds and the bf16
+    peak (the meter's MFU counts every parameter at 6 x N x B x S)."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import tree
+
+    cfg, mdef = cell.cfg, cell.mdef
+    gen = torch.Generator()
+    stage = mdef.init_stage_params(gen, device="meta")
+    glob = mdef.init_globals(gen, device="meta")
+    n_all = cm.count_active_params(mdef, 1)
+    n_enc = sum(t.numel() for t in tree.leaves(glob.get("encoder", {})))
+    n_xkv = sum(s["xattn"][w].numel() for s in stage for w in ("wk", "wv"))
+    n_ctx = mdef.n_context()
+    B, S = cell.shape.global_batch, cell.shape.seq_len
+    flops = 6 * ((n_all - n_enc - n_xkv) * B * S + n_enc * B * n_ctx + n_xkv * B * n_ctx)
+    mfu = [flops / s / BF16_FLOPS for s in row["step_s"]]
+    print(f"  MFU with the encoder ({n_enc} parameters x {n_ctx} frames) and the cross K/V "
+          f"({n_xkv} parameters x {n_ctx} context rows) counted where they run: "
+          + ", ".join(f"{m:.4f}" for m in mfu) + f" (the meter's {row['mfu']}) ({card})")
+    return mfu
+
+
+def xattn_cpu_check(fa, hostmem, serve, runner, arch, card):
+    """(c) The reduced config in fp32 (one VLM group, or 2 whisper decoder
+    and 2 encoder layers: hd 16, G 2, the CUDA-core kernels), gates set, the
+    same weights and stub context on the card and the CPU: one train step at
+    S 256 in 2 chunks under the default plan (chunk 0 offloads every tagged
+    row): the loss, the gradient norm, every gradient leaf and every
+    parameter's update within GRAD_REL_TOL (relative L2; the update over
+    the elements whose CPU gradient is over 1e-3 x its leaf's max, as in
+    ``ssm_cpu_check``), the launches by their closed forms, D2H = H2D at the
+    closed form into pinned buffers; a k bias's gradient, zero up to
+    rounding, is measured against its layer's q bias's, and its update
+    where that is over 1e-3 x the q bias's max; then a prefill and
+    CHECK_DECODE decode steps: the card's tokens the CPU's (a tie
+    under TIE_GAP excepted)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model_zoo import ModelDef
+
+    rcfg = get_config(arch).reduced()
+    S = CHECK_SEQ
+    cell = runner.resolve_cell(rcfg, ShapeConfig("xattn_check", S, 1, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=2), dtype=torch.float32)
+    check(cell.plan.offload and cell.plan.remat == "sppo",
+          f"[{arch}] reduced plan {cell.plan}: expected the default plan")
+    cell = dataclasses.replace(cell, alphas=(1.0, 0.0))
+    n_ctx = cell.mdef.n_context()
+    tokens, labels = (torch.from_numpy(a) for a in SyntheticLM(rcfg.vocab_size, S, 1).sample_step(0))
+    # standard normal, not the stub's x 0.02: the cross path then moves the loss
+    context = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((1, n_ctx, rcfg.d_model)).astype(np.float32))
+    with gated(serve):
+        start = serve.build_params(cell, "cpu", seed=0)
+    step = runner.make_train_step(cell, lr_kwargs=dict(peak=1e-3, warmup=1, total=10))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.clone().to(dev), start)
+        _, grads = runner.loss_and_grads(cell, params, tokens.to(dev), labels.to(dev),
+                                         context=context.to(dev))
+        grads = {p: g.cpu() for p, g in tree.items(grads)}
+        opt = runner.init_opt_state(cell, params)
+        fa.reset_counts()
+        hostmem.reset_counts()
+        params, opt, met = step(params, opt, tokens.to(dev), labels.to(dev),
+                                context=context.to(dev))
+        out[dev] = {"loss": float(met["loss"]), "gnorm": float(met["grad_norm"]),
+                    "params": {p: t.cpu() for p, t in tree.items(params)}, "grads": grads,
+                    "counts": fa.counts(), "copied": hostmem.counts()}
+        del params, opt
+    card_o, cpu_o = out["cuda"], out["cpu"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    G, Hkv = rcfg.n_heads // rcfg.n_kv_heads, rcfg.n_kv_heads
+    calls = xattn_fwd_calls(rcfg, 1, list(zip(cell.sched.offsets, cell.sched.lengths)), S, 0)
+    # the sppo seams run each chunked call twice (forward and replay), the encoder once
+    fwd_calls = 2 * calls["chunked"] + calls["encoder"]
+    n_bwd = len(calls["chunked"]) + len(calls["encoder"])
+    splits = sum(fa._geometry(b, tq, sl, G, Hkv, n_sm)[2] > 1 for b, tq, sl in fwd_calls)
+    want = {**{k: 0 for k in card_o["counts"]}, "fwd": len(fwd_calls), "merge": splits,
+            "bwd_dq": n_bwd, "bwd_dkv": n_bwd}
+    check(card_o["counts"] == want,
+          f"[{arch}] the reduced fp32 step launched {card_o['counts']}, expected {want}")
+    n_bytes = 4 * xattn_offload_elems(cell)
+    check(card_o["copied"]["d2h_bytes"] == card_o["copied"]["h2d_bytes"] == n_bytes
+          and card_o["copied"]["d2h_pinned"] == card_o["copied"]["d2h"] > 0,
+          f"[{arch}] the reduced step copied {card_o['copied']}, expected {n_bytes} pinned "
+          "bytes each way")
+    rel = {"loss": abs(card_o["loss"] - cpu_o["loss"]) / abs(cpu_o["loss"]),
+           "grad_norm": abs(card_o["gnorm"] - cpu_o["gnorm"]) / abs(cpu_o["gnorm"])}
+    worst = {"grad": (0.0, None), "update": (0.0, None), "update_all": (0.0, None)}
+    start = dict(tree.items(start))
+    for p, t in card_o["params"].items():
+        g_card, g_cpu = card_o["grads"][p], cpu_o["grads"][p]
+        d_card, d_cpu = t - start[p], cpu_o["params"][p] - start[p]
+        # a k bias's gradient is zero up to rounding (it shifts every score
+        # of a query alike): measured against its layer's q bias's
+        q = p[:-2] + "bq" if p.endswith("attn/bk") else p
+        g_ref = cpu_o["grads"][q]
+        sure = g_cpu.abs() > 1e-3 * g_ref.abs().max()
+        for key, a, b, n in (("grad", g_card, g_cpu, g_ref.norm()),
+                             ("update", d_card[sure], d_cpu[sure], d_cpu[sure].norm()),
+                             ("update_all", d_card, d_cpu, d_cpu.norm())):
+            if n > 0:
+                worst[key] = max(worst[key], (((a - b).norm() / n).item(), p),
+                                 key=lambda v: v[0])
+    rel.update({k: v[0] for k, v in worst.items() if k != "update_all"})
+    print(f"train [{arch}] reduced fp32 step ({card}), gates {XATTN_GATES}, default plan: loss "
+          f"card {card_o['loss']:.6f} vs CPU {cpu_o['loss']:.6f}; relative "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + f" (worst leaves: gradient {worst['grad'][1]}, update {worst['update'][1]}); the "
+          f"update over every element {worst['update_all'][0]:.3e} ({worst['update_all'][1]}); "
+          f"launches {card_o['counts']}; D2H {n_bytes} bytes")
+    check(all(v <= GRAD_REL_TOL for v in rel.values()),
+          f"[{arch}] the reduced step disagrees card vs CPU: {rel} (tol {GRAD_REL_TOL})")
+    pre = runner.resolve_cell(rcfg, ShapeConfig("xattn_fp32", S, BATCH, "prefill"),
+                              overrides=dict(pp=1, dp=1, n_chunks=S // 64, offload=False,
+                                             remat="none"), dtype=torch.float32)
+    dec = runner.resolve_cell(rcfg, ShapeConfig("xattn_fp32", S, BATCH, "decode"),
+                              overrides=dict(pp=1, dp=1), dtype=torch.float32)
+    with gated(serve):
+        params = serve.build_params(pre, "cpu", seed=0)
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(2, rcfg.vocab_size, size=(BATCH, S)).astype(np.int32)
+    ctx_np = rng.standard_normal((BATCH, n_ctx, rcfg.d_model)).astype(np.float32)
+    fa.reset_counts()
+    got = static_decode(runner, pre, dec, tree_map(lambda t: t.cuda(), params), prompts,
+                        CHECK_DECODE, "cuda", context=ctx_np)
+    serve_counts = fa.counts()
+    gaps = []
+    with recorded_gaps(ModelDef, gaps):
+        want_toks = static_decode(runner, pre, dec, params, prompts, CHECK_DECODE, "cpu",
+                                  context=ctx_np)
+    ties = held_against_cpu(got, want_toks, np.stack(gaps, axis=1), f"{arch} reduced fp32 serve")
+    print(f"serve [{arch}] reduced fp32 ({card}): {BATCH} rows, prefill {S} with its context, "
+          f"{CHECK_DECODE} decode steps: tokens as the CPU's ({len(ties)} ties); launches "
+          f"{serve_counts}")
+    return card_o["counts"], {"step_rel": rel, "update_all_rel": worst["update_all"][0],
+                              "serve_ties": ties}
+
+
+def xattn_phase(fa, hostmem, serve, runner, train_mod, card):
+    """The VLM and audio families (ROADMAP Queue 1 item 7(e)): (a)
+    llama-3.2-vision-11b and whisper-tiny served at full width and depth;
+    (b) trained at full width (the VLM at one group), plans (d) and (b),
+    the losses bitwise equal at every step and D2H = H2D at the closed form
+    of the real tag shapes (``train_plan``: launches with the encoder's once
+    a step, copies; (d)'s last step profiled for the idle share), with the
+    MFU that counts the encoder and the cross K/V where they run; (c) the
+    reduced configs in fp32 against the CPU.  Every cell with the VLM's
+    cross gates set (``gated``).  Returns (launch counts by path, a
+    summary)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+
+    t_phase = time.perf_counter()
+    paths, summary = {}, {"seconds": {}, "gates": XATTN_GATES}
+    for arch in XATTN_ARCHS:
+        key = arch.split("-")[0]
+        t0 = time.perf_counter()
+        paths[f"serve_{key}"], serve_sum = xattn_serve(fa, hostmem, serve, arch, card)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=XATTN_TRAIN_LAYERS[arch])
+        rows = {}
+        for plan in ("d", "b"):
+            with gated(serve, train_mod):
+                paths[f"train_{key}_plan_{plan}"], rows[plan], _ = train_plan(
+                    fa, hostmem, serve, runner, train_mod, cfg, card, plan, seq=XATTN_SEQ,
+                    n_chunks=XATTN_CHUNKS, steps=XATTN_STEPS, batch=XATTN_TRAIN_BATCH[arch],
+                    label=f"{arch} {cfg.n_layers} layers", grads="none", profiled=plan == "d")
+            torch.cuda.empty_cache()
+        check(rows["d"]["losses"] == rows["b"]["losses"],
+              f"[{arch}] plans (d) and (b) losses differ: {rows['d']['losses']} vs "
+              f"{rows['b']['losses']}, expected bitwise equal at every step")
+        print(f"train [{arch}] plans (d) and (b): losses bitwise equal at every step "
+              f"{rows['d']['losses']}")
+        cell = runner.resolve_cell(cfg, ShapeConfig("t", XATTN_SEQ, XATTN_TRAIN_BATCH[arch],
+                                                    "train"),
+                                   overrides=dict(pp=1, dp=1, n_chunks=XATTN_CHUNKS))
+        rows["d"]["mfu_encoder_and_cross_kv"] = xattn_mfu(rows["d"], cell, card)
+        t2 = time.perf_counter()
+        paths[f"train_{key}_fp32"], check_sum = xattn_cpu_check(fa, hostmem, serve, runner, arch,
+                                                                card)
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        summary[arch] = {"serve": serve_sum, "train": rows, "fp32_check": check_sum}
+        summary["seconds"][arch] = {"serve": t1 - t0, "train": t2 - t1, "fp32_check": t3 - t2}
+    summary["seconds"]["total"] = time.perf_counter() - t_phase
+    print(f"cross-attention phase took {summary['seconds']['total']:.1f} s "
           f"({json.dumps({a: {k: round(v, 1) for k, v in d.items()} for a, d in summary['seconds'].items() if a != 'total'})})")
     return paths, summary
 
@@ -5234,9 +5733,29 @@ def main():
     _, moe_decode_in = serving_shapes(gen, moe_cfg)
     moe_decode_rows = measure_shape(f"{MOE_ARCH} decode step", fa, ref, *moe_decode_in)
     del moe_decode_in
-    # zamba2-7b's shared attention block (hd 112, G 1, 32 heads): its serving
-    # prefill chunk and decode step, its train cell's first and last chunk
-    ssm_fwd_rows, ssm_bwd_rows = ssm_kernel_shapes(fa, ref, gen, runner, get_config("zamba2-7b"))
+    # causal self-attention at each later family's serving prefill chunk and
+    # decode step and its train cell's first and last chunk: zamba2-7b's
+    # shared block (hd 112, G 1, 32 heads), llama-3.2-vision-11b's self
+    # layers (hd 128, G 4) and whisper-tiny's decoder (hd 64, G 1)
+    family_cells = {"zamba2-7b": dict(n_layers=SSM_TRAIN_LAYERS["zamba2-7b"], seq=SSM_SEQ,
+                                      n_chunks=SSM_CHUNKS),
+                    **{arch: dict(n_layers=XATTN_TRAIN_LAYERS[arch], seq=XATTN_SEQ,
+                                  n_chunks=XATTN_CHUNKS, batch=XATTN_TRAIN_BATCH[arch])
+                       for arch in XATTN_ARCHS}}
+    self_rows, shape_s = {}, {}
+    for arch, kw in family_cells.items():
+        t0 = time.perf_counter()
+        self_rows[arch.split("-")[0]] = self_attn_kernel_shapes(fa, ref, gen, runner,
+                                                                get_config(arch), **kw)
+        shape_s[f"{arch} self"] = time.perf_counter() - t0
+    # the cross-attention families' shapes, non-causal: the VLM's cross
+    # layer (hd 128, G 4 over 1600 patches), whisper's encoder (1500 x 1500,
+    # hd 64, G 1) and cross layer (over 1500 frames)
+    t0 = time.perf_counter()
+    xattn_fwd_rows, xattn_bwd_rows, xattn_edge = xattn_kernel_shapes(fa, ref, gen, runner)
+    shape_s["cross and encoder"] = time.perf_counter() - t0
+    print(f"the later families' kernel shapes took "
+          f"{json.dumps({k: round(v, 1) for k, v in shape_s.items()})} s")
     # the paged step's shape: 8 rows at their own positions over their
     # gathered 2112 logical slots (bf16, timed as the serving shapes are),
     # and the multi-rank serving phase's fp32 shapes (untimed)
@@ -5339,6 +5858,11 @@ def main():
     # depth, trained at full width
     torch.cuda.empty_cache()
     ssm_counts, ssm_summary = ssm_phase(fa, hostmem, serve, runner, train_mod, card)
+    # ---- the VLM and audio families: llama-3.2-vision-11b and whisper-tiny
+    # served at full width and depth, trained at full width
+    torch.cuda.empty_cache()
+    xattn_counts, xattn_summary = xattn_phase(fa, hostmem, serve, runner, train_mod, card)
+    xattn_summary["seconds"]["kernel_shapes"] = shape_s
 
     tc_rows = [r["tensor_cores"] for r in rows]
     cc_rows = [r["cuda_cores"] for r in rows]
@@ -5356,14 +5880,16 @@ def main():
              "train_pipeline_pp2": pipe_counts["plain"], "train_pipeline_pp2_msp": pipe_counts["msp"],
              **{f"train_pipeline_{k}": c for k, c in pipe_counts.items() if k.startswith("fp32_")},
              **{f"train_model_axis_{k}": c for k, c in ma_counts.items()},
-             **paged_counts, **sr_counts, **moe_counts, **mla_counts, **ssm_counts}
+             **paged_counts, **sr_counts, **moe_counts, **mla_counts, **ssm_counts,
+             **xattn_counts}
     pipe_tc = ("train_pipeline_pp2", "train_pipeline_pp2_msp",
                *(f"train_model_axis_{k}" for k in SP_MODES), "train_moe_plan_d",
-               "train_mla_plan_d", "train_zamba2_plan_d")
+               "train_mla_plan_d", "train_zamba2_plan_d", "train_llama_plan_d",
+               "train_whisper_plan_d")
     pipe_cc = (*(f"train_pipeline_{k}" for k in pipe_counts if k.startswith("fp32_")),
                *(f"train_model_axis_{k}" for k in ma_counts if k.startswith("fp32_")),
                *sr_counts, "train_moe_fp32", "train_moe_ep_sp2", "train_mla_fp32",
-               "train_zamba2_fp32")
+               "train_zamba2_fp32", "train_llama_fp32", "train_whisper_fp32")
 
     def by_path(key):
         return {path: c[key] for path, c in paths.items()}
@@ -5381,14 +5907,17 @@ def main():
          + sum(c["fwd_tc"] for c in full.values()) + packed_counts["packed_d"]["fwd_tc"]
          + sum(paths[p]["fwd_tc"] for p in pipe_tc)
          + paged_counts["serve_paged_continuous"]["fwd_tc"] + moe_counts["serve_moe"]["fwd_tc"]
-         + mla_counts["serve_mla"]["fwd_tc"] + ssm_counts["serve_zamba2"]["fwd_tc"],
+         + mla_counts["serve_mla"]["fwd_tc"] + ssm_counts["serve_zamba2"]["fwd_tc"]
+         + xattn_counts["serve_llama"]["fwd_tc"] + xattn_counts["serve_whisper"]["fwd_tc"],
          "launches_by_path": by_path("fwd_tc"),
          "merged_in_kernel_by_path": by_path("merged_in_kernel"),
          **{key: tc_rows[0][key] for key in common},
          "edge_grid_max_abs_err": grid_err["tensor_cores"],
          "shapes": (tc_rows + [r["tensor_cores"] for r in extra_fwd]
                     + [paged_rows["tensor_cores"], moe_decode_rows["tensor_cores"]]),
-         "zamba2_shapes": [r["tensor_cores"] for r in ssm_fwd_rows],
+         **{f"{tag}_shapes": [r["tensor_cores"] for r in f] for tag, (f, _) in self_rows.items()},
+         "xattn_shapes": [r["tensor_cores"] for r in xattn_fwd_rows],
+         "xattn_edge_max_abs_err": xattn_edge[0],
          "mla_edge_grid_max_abs_err": mla_summary["edge_grid"]["fwd_max_abs_err"],
          "mla_shapes": [r["fwd"] for r in mla_rows.values()]},
         {"name": "flash_attention_partial", "route": "cuda",
@@ -5405,7 +5934,9 @@ def main():
          "serve_fp32_check_shapes_max_abs_err": serve_fp32_err,
          "shapes": cc_rows + [r["cuda_cores"] for r in extra_fwd]
          + [paged_rows["cuda_cores"], moe_decode_rows["cuda_cores"]],
-         "zamba2_shapes": [r["cuda_cores"] for r in ssm_fwd_rows]},
+         **{f"{tag}_shapes": [r["cuda_cores"] for r in f] for tag, (f, _) in self_rows.items()},
+         "xattn_shapes": [r["cuda_cores"] for r in xattn_fwd_rows],
+         "xattn_edge_max_abs_err": xattn_edge[0]},
         # the CUDA-core forward's split-KV merge (decode), launched by the
         # same wrapper call; its output is what the decode shape's check holds
         {"name": "flash_attention_partial_merge", "route": "cuda",
@@ -5442,7 +5973,9 @@ def main():
                                                     fp32_packed_rel}),
             "model_axis_check_shapes_max_rel_err": ma_bwd_rel,
             "shapes": [r[part] for r in bwd_rows + extra_bwd],
-            "zamba2_shapes": [r[part] for r in ssm_bwd_rows],
+            **{f"{tag}_shapes": [r[part] for r in b] for tag, (_, b) in self_rows.items()},
+            "xattn_shapes": [r[part] for r in xattn_bwd_rows],
+            "xattn_edge_max_rel_err": xattn_edge[1],
             **({"mla_edge_grid_max_rel_err": mla_summary["edge_grid"]["bwd_max_rel_err"],
                 "mla_shapes": [r[part[:-3]] for r in mla_rows.values() if part[:-3] in r]}
                if part.endswith("_tc") else {})})
@@ -5456,7 +5989,7 @@ def main():
                "train_chunks": list(train_cell.sched.lengths), "pipeline": pipe_summary,
                "model_axis": ma_summary, "paged_serve": paged_summary,
                "serve_ranks": sr_summary, "moe": moe_summary, "mla": mla_summary,
-               "ssm": ssm_summary,
+               "ssm": ssm_summary, "xattn": xattn_summary,
                "seconds": time.perf_counter() - t_start}
     print("summary:", json.dumps(summary))
     print(card)

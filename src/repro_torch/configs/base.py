@@ -7,7 +7,11 @@ RoPE), ``nemotron-4-15b`` (squared ReLU, LayerNorm), ``starcoder2-3b``
 (GeLU with MLP bias), the MoE ``granite-moe-1b-a400m`` (32 experts,
 top-8, a tied embedding) and ``deepseek-v3-671b`` (MLA), and the SSM
 family: ``rwkv6-3b`` (attention-free RWKV6) and ``zamba2-7b`` (Mamba2
-mixers with a weight-shared attention block).
+mixers with a weight-shared attention block), the VLM
+``llama-3.2-vision-11b`` (a gated cross-attention layer after every 5
+self-attention layers) and the encoder-decoder ``whisper-tiny`` (a
+bidirectional encoder, cross-attention in every decoder layer, learned
+positions).
 """
 from __future__ import annotations
 
@@ -284,5 +288,6 @@ def _load_all() -> None:
     import importlib
 
     for mod in ("qwen2_7b", "sppo_gpt", "glm4_9b", "nemotron_4_15b", "starcoder2_3b",
-                "granite_moe_1b_a400m", "deepseek_v3_671b", "rwkv6_3b", "zamba2_7b"):
+                "granite_moe_1b_a400m", "deepseek_v3_671b", "rwkv6_3b", "zamba2_7b",
+                "llama_3_2_vision_11b", "whisper_tiny"):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -1,6 +1,6 @@
 """Deterministic synthetic LM streams and packed batches (a copy of
-``SyntheticLM``, of the packing half of ``repro/data/pipeline.py`` and of
-its ``shard_batch``, numpy only).
+``SyntheticLM``, of the packing half of ``repro/data/pipeline.py``, of its
+``shard_batch`` and ``make_context_stub``, numpy only).
 
 A seeded Zipfian sampler with document boundaries: the same seed and step
 give the reference's tokens, token for token, so loss curves are
@@ -254,3 +254,14 @@ def shard_batch(tokens: np.ndarray, labels: np.ndarray, *, pods: int,
     if doc_start is not None:
         batch["doc_start"] = lay(doc_start)
     return batch
+
+
+def make_context_stub(*, b_loc: int, pods: int, data_size: int, n_ctx_pad: int,
+                      d_model: int, seed: int = 0) -> np.ndarray:
+    """Stub modality frontend (reference ``make_context_stub``): precomputed
+    patch or frame embeddings, standard normal x 0.02 from ``seed``, [pods,
+    data_size, b_loc, n_ctx_pad, d_model] float32; a data rank takes its
+    [pod, data index] rows."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((pods, data_size, b_loc, n_ctx_pad, d_model))
+    return (x * 0.02).astype(np.float32)

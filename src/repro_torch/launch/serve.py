@@ -13,6 +13,9 @@ the continuous-batching engine, on one device or a mesh of ranks.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
       --prompt-len 2048 --batch 4 --decode-steps 32 --sync-debug error
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --reduced --device cpu --prompt-len 128 --batch 2 --decode-steps 4
+
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
       --reduced --device cpu --mesh 1x2 --prompt-len 128 --batch 2 --decode-steps 4
 
@@ -36,6 +39,11 @@ the reference:
   token streams are bitwise the same, since no row's compute depends on
   the other rows.
 
+A cross-attention model (llama-3.2-vision-11b, whisper-tiny) prefills
+with a stub context, the reference's: standard normal x 0.02 patch or frame
+embeddings from the prompts' generator, in the model's dtype; its prefill
+encodes it (whisper) and projects each slot's K/V once, and decode reads
+them from the state.  The paged engine refuses both families.
 Weights are random, drawn on the device from a seed.  It runs on the CUDA
 card; ``--device cpu`` runs the plain path on the CPU instead.  Under
 ``torchrun --nproc-per-node D*M``, ``--mesh DxM`` serves on D data ranks
@@ -476,6 +484,11 @@ def main(argv=None):
     serve = make_serve_step(dec_cell, decode_steps=args.decode_steps, ctx=ctx)
     row = ctx.data_index()
     tokens = torch.from_numpy(shard_rows(prompts, dp, pp)[0, row]).to(dev)
+    context = None
+    if cfg.cross_attn is not None:
+        # the reference's stub frontend (serve.py:389-395), after the prompts
+        stub = rng.standard_normal((1, data, pre_cell.b_loc, mdef.n_context(), cfg.d_model))
+        context = torch.from_numpy(stub[0, row] * 0.02).to(dev, pre_cell.dtype)
     # step 0 re-feeds the last prompt token at position S
     last = torch.from_numpy(shard_rows(prompts[:, -1:], dp, pp)[0, row]).to(dev)
     prefill_s, decode_s = [], []
@@ -483,7 +496,7 @@ def main(argv=None):
         state = None  # the previous run's cache is freed before the next prefill
         sync()
         t0 = time.perf_counter()
-        state, last_hidden = prefill(params, tokens)
+        state, last_hidden = prefill(params, tokens, context)
         sync()
         prefill_s.append(time.perf_counter() - t0)
         log.info("run %d: prefill %d tokens x %d seqs in %d chunks: %.4fs "

@@ -6,6 +6,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
       --reduced --steps 4 --seq 512 --n-chunks 4 --batch 2 --device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
+      --reduced --steps 4 --seq 512 --n-chunks 4 --batch 2 --device cpu
+
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --reduced --device cpu --mesh 2x1 --pp 2 --msp --seq 512 --n-chunks 4
 
@@ -26,7 +29,10 @@ host memory (DESIGN.md §11; qwen2-7b's 28 layers need 61.1 GB of it, 15.3
 GB under ``--moments-dtype fp8|int8``); ``--moments-mode`` takes "explicit"
 alone.  The reference's synthetic token stream, and TGS (tokens/s per GPU:
 the step's tokens over the ranks) / MFU metering on the H100's peak.
-Weights are random, drawn on the device from a seed.  It runs on the CUDA
+A cross-attention model (llama-3.2-vision-11b, whisper-tiny) reads a stub
+context at every step, the reference's: standard normal x 0.02 patch or
+frame embeddings from the step's seed (``data.pipeline.make_context_stub``)
+in the model's dtype.  Weights are random, drawn on the device from a seed.  It runs on the CUDA
 card; ``--device cpu`` runs the plain path on the CPU instead (the "host"
 copies are then CPU clones).
 
@@ -67,7 +73,7 @@ import torch
 from repro_torch.configs.base import ShapeConfig, get_config
 from repro_torch.core import costmodel as cm
 from repro_torch.core import tree
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import SyntheticLM, make_context_stub
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.serve import build_params, resolve_device
 from repro_torch.models.model_zoo import build_model
@@ -244,10 +250,18 @@ def train(cfg, *, steps: int, seq: int, batch: int, n_chunks=None,
         else:
             tokens, labels, doc_start = (torch.from_numpy(a).to(dev) for a in cell.rows(
                 ctx, packed.tokens, packed.labels, packed.doc_start))
+        context = None
+        if cfg.cross_attn is not None:
+            # the reference's stub frontend at the step's seed (train.py:219-222)
+            stub = make_context_stub(b_loc=cell.b_loc, pods=pods, data_size=cell.data_size,
+                                     n_ctx_pad=mdef.n_context(), d_model=cfg.d_model, seed=step)
+            context = torch.from_numpy(stub[ctx.pod_index(), ctx.data_index()]).to(
+                dev, cell.dtype)
         with step_context(step) if step_context else contextlib.nullcontext():
             sync()
             meter.start()
-            params, opt_state, metrics = step_fn(params, opt_state, tokens, labels, doc_start)
+            params, opt_state, metrics = step_fn(params, opt_state, tokens, labels, doc_start,
+                                                 context)
             sync()
             rec = meter.stop(step, float(metrics["loss"]))
         if on_step is not None:

@@ -51,6 +51,14 @@ copy, so the kernels read the latent once for both; the scale is 1 / sqrt(dn
 + dr), and the values are up-projected per head by ``w_uv`` after the
 attention.  The tag sites are q_eff, k_eff and o_v.  MLA runs at sp = 1
 (``parallel/runner.py::resolve_cell`` refuses more).
+
+Cross-attention (the VLM's image layers, whisper's decoder; reference
+``attention.py:411-438``): ``make_cross_kv`` projects the context (stub
+patches, or whisper's encoder output) to K/V once a pass, each slot at its
+index as position and PAD past the valid count, and ``cross_attention``
+attends a chunk's or a decode step's queries to it with causal=False, the
+same partial kernel; the tag sites are its q and output, never the
+chunk-invariant K/V.  At sp = 1 only.
 """
 from __future__ import annotations
 
@@ -321,14 +329,16 @@ def _proj(x, w, b):
 
 
 def _qkv(x, p, cfg, rope):
-    """q, k after RoPE and v of x [B, T, d], [B, T, heads, hd] each."""
+    """q, k after RoPE and v of x [B, T, d], [B, T, heads, hd] each
+    (``rope`` None: a model without RoPE, whisper's learned positions)."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _proj(x, p["wq"], p.get("bq")).view(B, T, H, hd)
     k = _proj(x, p["wk"], p.get("bk")).view(B, T, Hkv, hd)
     v = _proj(x, p["wv"], p.get("bv")).view(B, T, Hkv, hd)
-    # q and k share positions: one rotation of both
-    q, k = L.rotate(torch.cat([q, k], dim=2), *rope).split([H, Hkv], dim=2)
+    if rope is not None:
+        # q and k share positions: one rotation of both
+        q, k = L.rotate(torch.cat([q, k], dim=2), *rope).split([H, Hkv], dim=2)
     return q, k, v
 
 
@@ -337,7 +347,8 @@ class _SavedQKV(torch.autograd.Function):
     forward returns the saved q, k, v and runs neither the projections nor
     RoPE; the backward is theirs, from the saved input and weights.
 
-    ``apply(rope, x, wq, wk, wv, bq, bk, bv, q, k, v)``; a bias may be None.
+    ``apply(rope, x, wq, wk, wv, bq, bk, bv, q, k, v)``; a bias may be None,
+    and ``rope`` None where the model has no RoPE.
     """
 
     @staticmethod
@@ -349,10 +360,11 @@ class _SavedQKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dq, dk, dv):
         x, *ws = ctx.saved_tensors
-        cos, sin, rot = ctx.rope
-        # RoPE rotates each pair by its angle: its VJP rotates back
-        dq, dk = L.rotate(torch.cat([dq, dk], dim=2), cos, -sin, rot).split(
-            [dq.shape[2], dk.shape[2]], dim=2)
+        if ctx.rope is not None:
+            cos, sin, rot = ctx.rope
+            # RoPE rotates each pair by its angle: its VJP rotates back
+            dq, dk = L.rotate(torch.cat([dq, dk], dim=2), cos, -sin, rot).split(
+                [dq.shape[2], dk.shape[2]], dim=2)
         x2 = x.reshape(-1, x.shape[-1])
         gs = [g.reshape(x2.shape[0], -1) for g in (dq, dk, dv)]
         gq, gk, gv = (g @ w.t() for g, w in zip(gs, ws))
@@ -490,6 +502,56 @@ def gqa_paged_decode_attention(x, p, cfg, pool: PooledKV, pg: PagedMeta, rope, *
     o, m, l = kops.attention_partial(q, k_g, v_g, pg.q_pos[:, None], pg.pos_map, causal=True)
     out = _merge_replicated(o, m, l, ctx).to(x.dtype)
     return out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"], pool
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the VLM's image layers, whisper's decoder): chunk-invariant K/V
+# ---------------------------------------------------------------------------
+
+
+def _check_cross_ctx(ctx):
+    if ctx.sp > 1:
+        raise NotImplementedError("cross-attention at sp > 1 (the context sharded over the "
+                                  "model axis) comes with ROADMAP Queue 1 item 7")
+
+
+def cross_attention(x, p, cfg, xkv, *, name_tag=None, ctx=SINGLE):
+    """x: [B, T, d] a chunk's (or a decode step's) rows; ``xkv`` the
+    context's K/V from ``make_cross_kv`` ({"k", "v": [B, N_ctx, Hkv, hd],
+    "pos": [N_ctx]}), the same for every chunk.  Bidirectional over the
+    context: the partial attention with causal=False and q_pos zeros
+    (unread), PAD slots masked (reference ``attention.py:411-427``).  No
+    bias on q, as in the reference (whisper's ``xattn`` biases go unread).
+    ``name_tag`` tags q and the attention output before ``@ wo``, the
+    reference's sites; a replay tag puts the staged rows in place of the
+    recomputed q.  Returns [B, T, d]."""
+    _check_cross_ctx(ctx)
+    B, T, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["wq"]).view(B, T, H, hd)
+    if name_tag is not None:
+        q = name_tag(q)
+    q_pos = torch.zeros((T,), dtype=torch.int32, device=x.device)
+    out = dist_attention(q, xkv["k"], xkv["v"], q_pos, xkv["pos"], ctx,
+                         causal=False).reshape(B, T, H * hd)
+    if name_tag is not None:
+        out = name_tag(out)
+    return out @ p["wo"]
+
+
+def make_cross_kv(context, p, cfg, n_valid: int, *, ctx=SINGLE):
+    """The cross-attention K/V of ``context`` [B, N_ctx, d] (stub patch or
+    frame embeddings, or whisper's encoder output): k and v by the slot's
+    ``xattn`` projections, no bias, each slot at its index as position and
+    PAD past ``n_valid`` (reference ``attention.py:429-438``).  Computed
+    once a run, outside the chunks; every chunk reads it."""
+    _check_cross_ctx(ctx)
+    B, N, _ = context.shape
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    idx = torch.arange(N, dtype=torch.int32, device=context.device)
+    return {"k": (context @ p["wk"]).view(B, N, Hkv, hd),
+            "v": (context @ p["wv"]).view(B, N, Hkv, hd),
+            "pos": torch.where(idx < n_valid, idx, PAD).to(torch.int32)}
 
 
 # ---------------------------------------------------------------------------

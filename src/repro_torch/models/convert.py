@@ -22,7 +22,11 @@ leaves stay float32, as in the reference (``FP32_LEAVES``).  An MoE slot's
 expert stacks are sharded on their expert dim at sp > 1 (their "keep0"
 markers); a tied embedding's globals have no head.  A hybrid slot's
 Mamba2 leaves keep the reference's [6, ...] mixer stack, and the globals
-its ``shared`` block.
+its ``shared`` block.  A VLM slot's self layers keep the reference's
+[every, ...] stack under "self" beside its ``xattn``, ``xmlp``, ``xln1``,
+``xln2`` and the two cross gates; whisper's slots carry ``xattn`` and
+``xln``, its globals the ``pos`` table, the stacked ``encoder`` layers and
+``enc_final``.
 """
 from __future__ import annotations
 
@@ -37,12 +41,14 @@ from repro_torch.models.model_zoo import (build_model, ghost_slot, marker_dim, p
 
 # leaves the reference keeps in fp32 whatever the model dtype, by their
 # last path component: the gates (a slot's, a hybrid mixer's, the shared
-# block's), an MoE slot's router (``model_zoo._moe``), a Mamba2 mixer's
-# A_log and D (``_mamba``), an RWKV6 layer's lerp, LoRA, decay, bonus and
-# group-norm leaves (``_rwkv_tmix``, ``_rwkv_cmix``)
+# block's, a VLM self layer's, its learned cross gates), an MoE slot's
+# router (``model_zoo._moe``), a Mamba2 mixer's A_log and D (``_mamba``),
+# an RWKV6 layer's lerp, LoRA, decay, bonus and group-norm leaves
+# (``_rwkv_tmix``, ``_rwkv_cmix``)
 FP32_LEAVES = frozenset((
-    "gate", "gate_shared", "router", "A_log", "D", "mu_x", "ddl_a", "ddl_b", "mu_rkvwg",
-    "dec_a", "dec_b", "w0", "u", "ln_x_scale", "ln_x_bias", "mu_k", "mu_r"))
+    "gate", "gate_shared", "xgate_attn", "xgate_mlp", "router", "A_log", "D", "mu_x",
+    "ddl_a", "ddl_b", "mu_rkvwg", "dec_a", "dec_b", "w0", "u", "ln_x_scale", "ln_x_bias",
+    "mu_k", "mu_r"))
 
 
 def _tensor(a, name: str, dtype, device):

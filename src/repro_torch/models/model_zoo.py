@@ -1,5 +1,5 @@
-"""Parameter init and ModelDef for the dense, MoE, SSM and hybrid families
-(port of ``repro/models/model_zoo.py``).
+"""Parameter init and ModelDef for the dense, MoE, SSM, hybrid, VLM and
+audio families (port of ``repro/models/model_zoo.py``).
 
 Parameters are plain dicts of tensors in the reference's names and layouts
 (weights ``[in, out]``).  The stage is a list with one dict per slot; the
@@ -45,6 +45,17 @@ slots hold the mixers; the last slot's mixers past ``n_layers`` carry gate
 0 (zamba2's 81 mixers: 14 slots, 3 ghost mixers).  The slots' state is the
 mixers' fp32 recurrent state (``models/ssm.py``) and, in a hybrid slot,
 the shared block's KV cache under "kv" (the reference's ``shared_kv``).
+
+A VLM slot (llama-3.2-vision-11b) is a group of ``cross_attn.every`` self
+layers, their leaves stacked [every, ...] under "self", then the
+cross-attention layer (``xattn``, ``xln1``, ``xmlp``, ``xln2``) under its
+fp32 tanh gates ``xgate_attn`` / ``xgate_mlp`` (0 at init, as in the
+reference): ⌈n_layers / every⌉ slots.  An audio slot (whisper-tiny) is a
+decoder layer with ``xattn`` and ``xln`` beside its self attention; the
+globals hold the learned ``pos`` table, the stacked ``encoder`` layers and
+``enc_final``.  Their state holds "xkv", the context's K/V by each slot's
+``xattn`` (``init_state(stage_params=, context=)``), beside the self
+caches (a list under "self" for a VLM group).
 """
 from __future__ import annotations
 
@@ -291,13 +302,24 @@ def _shift_spec(spec):
     return tree.map_(f, spec)
 
 
-def _shared_spec(cfg):
+def _layer_spec(cfg):
+    """A dense layer's markers without the gate (a VLM self layer's and a
+    whisper encoder layer's)."""
     return {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg), "attn": _attn_spec(cfg),
             "mlp": _mlp_spec(cfg)}
 
 
 def slot_spec(cfg: ModelConfig):
     """The markers of one slot (reference ``slot_spec``)."""
+    if cfg.family == "vlm":
+        return {"self": _shift_spec({**_layer_spec(cfg), "gate": "rep"}),
+                "xln1": _norm_spec(cfg), "xln2": _norm_spec(cfg), "xattn": _attn_spec(cfg),
+                "xmlp": _mlp_spec(cfg), "xgate_attn": "rep", "xgate_mlp": "rep",
+                "gate": "rep"}
+    if cfg.family == "audio":
+        return {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg), "xln": _norm_spec(cfg),
+                "attn": _attn_spec(cfg), "xattn": _attn_spec(cfg), "mlp": _mlp_spec(cfg),
+                "gate": "rep"}
     if cfg.family == "hybrid":
         mamba = _shift_spec({"ln": _norm_spec(cfg), "mix": _mamba_spec(), "gate": "rep"})
         return {"mamba": mamba, "gate_shared": "rep", "gate": "rep"}
@@ -316,8 +338,13 @@ def globals_spec(cfg: ModelConfig):
     g = {"embed": {"table": keep(0)}, "final_norm": _norm_spec(cfg)}
     if not cfg.tie_embeddings:
         g["head"] = {"w": keep(1)}
+    if cfg.pos_emb == "learned":
+        g["pos"] = {"table": "rep"}
     if cfg.shared_attn_every:
-        g["shared"] = _shared_spec(cfg)
+        g["shared"] = _layer_spec(cfg)
+    if cfg.encoder_layers:
+        g["encoder"] = _shift_spec(_layer_spec(cfg))
+        g["enc_final"] = _norm_spec(cfg)
     return g
 
 
@@ -374,6 +401,20 @@ def init_slot(cfg: ModelConfig, gen, dtype, device, index: int = 0):
     Mamba2 mixers, those past ``cfg.n_layers`` at gate 0), gate 1 (a real
     slot; ``ghost_slot`` pads a pipeline stage)."""
     one = torch.tensor(1.0, dtype=torch.float32, device=device)
+    if cfg.family == "vlm":
+        os_ = _out_scale(cfg)
+        selfs = [{**_layer(gen, cfg, dtype, device, os_), "gate": one.clone()}
+                 for _ in range(cfg.cross_attn.every)]
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        return {"self": tree.map_(lambda *a: torch.stack(a), *selfs),
+                "xln1": _norm(cfg, dtype, device), "xln2": _norm(cfg, dtype, device),
+                "xattn": _attn(gen, cfg, dtype, device, os_),
+                "xmlp": _mlp(gen, cfg, dtype, device, out_scale=os_),
+                "xgate_attn": zero, "xgate_mlp": zero.clone(), "gate": one}
+    if cfg.family == "audio":
+        os_ = _out_scale(cfg)
+        return {**_layer(gen, cfg, dtype, device, os_), "xln": _norm(cfg, dtype, device),
+                "xattn": _attn(gen, cfg, dtype, device, os_), "gate": one}
     if cfg.family == "hybrid":
         n_m = cfg.shared_attn_every
         mixers = [{"ln": _norm(cfg, dtype, device), "mix": _mamba(gen, cfg, dtype, device),
@@ -407,18 +448,35 @@ def ghost_slot(cfg: ModelConfig, dtype, device):
     return slot
 
 
+def _layer(gen, cfg, dtype, device, out_scale):
+    """A dense layer's leaves without the gate: the hybrid family's shared
+    block, a VLM self layer, a whisper layer's self part, an encoder
+    layer."""
+    return {"ln1": _norm(cfg, dtype, device), "ln2": _norm(cfg, dtype, device),
+            "attn": _attn(gen, cfg, dtype, device, out_scale),
+            "mlp": _mlp(gen, cfg, dtype, device, out_scale=out_scale)}
+
+
 def init_globals(cfg: ModelConfig, gen, dtype, device):
+    """The embedding, final norm and head, and by family the learned
+    position table, the hybrid shared block, whisper's encoder layers
+    (stacked [encoder_layers, ...]) and their final norm (reference
+    ``init_globals``)."""
     d = cfg.d_model
     vp = L.pad_vocab(cfg.vocab_size, 2048)
     g = {"embed": {"table": trunc_normal(gen, (vp, d), 0.02, dtype, device)},
          "final_norm": _norm(cfg, dtype, device)}
     if not cfg.tie_embeddings:
         g["head"] = {"w": trunc_normal(gen, (d, vp), 1 / math.sqrt(d), dtype, device)}
+    if cfg.pos_emb == "learned":
+        g["pos"] = {"table": trunc_normal(gen, (cfg.max_position, d), 0.02, dtype, device)}
     if cfg.shared_attn_every:
-        os_ = _out_scale(cfg)
-        g["shared"] = {"ln1": _norm(cfg, dtype, device), "ln2": _norm(cfg, dtype, device),
-                       "attn": _attn(gen, cfg, dtype, device, os_),
-                       "mlp": _mlp(gen, cfg, dtype, device, out_scale=os_)}
+        g["shared"] = _layer(gen, cfg, dtype, device, _out_scale(cfg))
+    if cfg.encoder_layers:
+        encs = [_layer(gen, cfg, dtype, device, _out_scale(cfg))
+                for _ in range(cfg.encoder_layers)]
+        g["encoder"] = tree.map_(lambda *a: torch.stack(a), *encs)
+        g["enc_final"] = _norm(cfg, dtype, device)
     return g
 
 
@@ -463,21 +521,54 @@ class ModelDef:
     def globals_spec(self):
         return globals_spec(self.cfg)
 
-    def embed(self, g, ids, ctx=SINGLE, *, decode: bool = False):
+    def embed(self, g, ids, ctx=SINGLE, *, decode: bool = False, q_pos=None):
         """ids: [B, T] the chunk's token ids (every model rank's); returns
         this rank's sequence shard [B, T / sp, d] (``layers.embed_tokens``).
         With ``decode`` (one token a row, which cannot be sequence-sharded)
         every model rank returns the whole [B, T, d]: the masked lookup in
         its vocab shard, summed over the model group (reference
-        ``model_zoo.py:480-490``)."""
+        ``model_zoo.py:480-490``).  A model with learned positions (whisper)
+        adds the position table's rows at ``q_pos`` ([T], or [B, T] a
+        position a row), clipped to the table (reference
+        ``model_zoo.py:492-496``)."""
         table = g["embed"]["table"]
         if not decode:
-            return L.embed_tokens(ids, table, ctx, out_dtype=table.dtype)
-        vloc = table.shape[0]
-        lo = ctx.model_index() * vloc
-        hit = ((ids >= lo) & (ids < lo + vloc))[..., None]
-        rows = F.embedding((ids - lo).clamp(0, vloc - 1), table)
-        return ctx.psum_model(torch.where(hit, rows, 0).to(table.dtype))
+            x = L.embed_tokens(ids, table, ctx, out_dtype=table.dtype)
+        else:
+            vloc = table.shape[0]
+            lo = ctx.model_index() * vloc
+            hit = ((ids >= lo) & (ids < lo + vloc))[..., None]
+            rows = F.embedding((ids - lo).clamp(0, vloc - 1), table)
+            x = ctx.psum_model(torch.where(hit, rows, 0).to(table.dtype))
+        if self.cfg.pos_emb != "learned":
+            return x
+        if q_pos is None:
+            raise ValueError(f"{self.cfg.name}: learned positions need the chunk's q_pos")
+        pos = q_pos.long().clamp(0, self.cfg.max_position - 1)
+        # F.embedding: a backward that sums repeated rows in a fixed order
+        emb = F.embedding(pos, g["pos"]["table"])
+        return x + (emb if pos.dim() == 2 else emb[None])
+
+    def encode(self, g, frames, ctx=SINGLE):
+        """Whisper's encoder over the stub frame embeddings [B, F, d]: its
+        ``encoder_layers`` bidirectional layers, then ``enc_final`` (reference
+        ``model_zoo.py:515-527``); the frames themselves for a model without
+        one.  It runs once a pass, outside the chunks."""
+        if not self.cfg.encoder_layers:
+            return frames
+        x = frames
+        for i in range(self.cfg.encoder_layers):
+            p = tree.map_(lambda a: a[i], g["encoder"])
+            x = T.encoder_layer(self.cfg, p, x, self.cfg.n_frames, ctx)
+        return L.apply_norm(x, g["enc_final"], self.cfg.norm)
+
+    def n_context(self) -> int:
+        """Rows of the context a cross-attention model reads: whisper's
+        frames, the VLM's patches (0 without cross-attention)."""
+        cfg = self.cfg
+        if cfg.cross_attn is None:
+            return 0
+        return cfg.n_frames if cfg.encoder_layers else cfg.cross_attn.n_context_tokens
 
     def head(self, g):
         """The head [d, Vp / sp]: its own leaf, or the tied table
@@ -503,15 +594,37 @@ class ModelDef:
         return logits[..., :self.cfg.vocab_size]
 
     def init_state(self, batch: int, cache_loc: int, dtype, device, *,
-                   train: bool = False, n_slots=None):
+                   train: bool = False, n_slots=None, stage_params=None, context=None):
         """One state per slot: the model's (``n_slots`` None) or a pipeline
         stage's ``n_slots``; a GQA slot's is the dense KV cache, an MLA
         slot's the latent (``attention.init_latent_cache``), an RWKV6
         slot's its zero recurrent state, a hybrid slot's its mixers' zero
         states and the shared block's KV cache (reference
-        ``init_slot_state``)."""
+        ``init_slot_state``).  A cross-attention slot's also holds "xkv",
+        the K/V of ``context`` ([B, N_ctx, d]: the VLM's patch embeddings,
+        whisper's encoder output) by its own ``xattn`` projections of
+        ``stage_params`` (``attention.make_cross_kv``, PAD past the
+        config's context length), computed once here; a VLM group's self
+        caches are a list under "self"."""
         cfg = self.cfg
         n = self.n_slots if n_slots is None else n_slots
+        if cfg.cross_attn is not None:
+            if stage_params is None or context is None:
+                raise ValueError(f"{cfg.name}: the cross-attention state needs the stage "
+                                 "parameters and the context")
+            n_valid = self.n_context()
+
+            def cache():
+                return A.init_cache(batch, cache_loc, cfg.n_kv_heads, cfg.hd, cfg.hd, dtype,
+                                    device, train=train)
+
+            states = []
+            for p in stage_params[:n]:
+                xkv = A.make_cross_kv(context, p["xattn"], cfg, n_valid)
+                states.append({"self": [cache() for _ in range(cfg.cross_attn.every)],
+                               "xkv": xkv} if cfg.family == "vlm"
+                              else {"kv": cache(), "xkv": xkv})
+            return states
         if cfg.family == "ssm":
             return [{"rwkv": S.rwkv6_init_state(cfg, batch, device)} for _ in range(n)]
         if cfg.family == "hybrid":
@@ -558,17 +671,24 @@ class ModelDef:
 
 
 def build_model(name_or_cfg) -> ModelDef:
+    """The ModelDef of a config: a slot a layer, a zamba2 group a slot
+    (⌈n_layers / shared_attn_every⌉), a VLM group a slot (⌈n_layers /
+    cross_attn.every⌉, reference ``model_zoo.py:587-590``)."""
     cfg = (name_or_cfg if isinstance(name_or_cfg, ModelConfig)
            else get_config(name_or_cfg))
     fam = cfg.family
-    rope_ok = (cfg.pos_emb == "rope" and cfg.rope) or (
-        fam == "ssm" and cfg.pos_emb == "none" and not cfg.rope)
-    if (fam not in ("dense", "moe", "ssm", "hybrid")
-            or (cfg.mla is not None and fam != "moe") or not rope_ok):
+    pos_ok = ((cfg.pos_emb == "rope" and cfg.rope)
+              or (fam == "ssm" and cfg.pos_emb == "none" and not cfg.rope)
+              or (fam == "audio" and cfg.pos_emb == "learned" and not cfg.rope))
+    if (fam not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+            or (cfg.mla is not None and fam != "moe")
+            or ((fam in ("vlm", "audio")) != (cfg.cross_attn is not None)) or not pos_ok):
         raise NotImplementedError(
             f"{cfg.name}: the port runs dense and MoE decoders (GQA or MLA) with RoPE, "
-            "RWKV6 without positions and the Mamba2 hybrid; the VLM and audio families "
-            "come with a later slice (ROADMAP Queue 1, item 7)")
+            "RWKV6 without positions, the Mamba2 hybrid, the cross-attention VLM with RoPE "
+            "and whisper's encoder-decoder with learned positions")
     if fam == "hybrid":
         return ModelDef(cfg, -(-cfg.n_layers // cfg.shared_attn_every))
+    if fam == "vlm":
+        return ModelDef(cfg, -(-cfg.n_layers // cfg.cross_attn.every))
     return ModelDef(cfg, cfg.n_layers)

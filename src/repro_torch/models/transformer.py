@@ -1,13 +1,18 @@
 """Slot programs and the stage engine (port of ``repro/models/transformer.py``).
 
 A model is a sequence of uniform slots: a dense layer, an MoE layer whose
-MLP is ``models/moe.py``'s expert block, an RWKV6 layer (``rwkv_slot``) or
-a zamba2 group of Mamba2 mixers and the weight-shared attention block
+MLP is ``models/moe.py``'s expert block, an RWKV6 layer (``rwkv_slot``), a
+zamba2 group of Mamba2 mixers and the weight-shared attention block
 (``zamba_group_slot``), the block's parameters handed to every slot as
-``extras``.  Each slot returns its MoE balance loss beside its output (0.0
-but for an MoE slot, the block's aux times the gate), and the stack sums
-them (the reference's ``aux`` scan output).  A slot's state is its KV
-cache ("kv"), its mixers' recurrent state, or both.  The
+``extras``, a llama-3.2-vision group of self layers and a gated
+cross-attention layer (``vlm_group_slot``) or a whisper decoder layer
+(``whisper_dec_slot``); whisper's encoder layers (``encoder_layer``) run
+once a pass, before the chunks.  Each slot returns its MoE balance loss
+beside its output (0.0 but for an MoE slot, the block's aux times the
+gate), and the stack sums them (the reference's ``aux`` scan output).  A
+slot's state is its KV cache ("kv", a VLM group's list under "self"), its
+mixers' recurrent state, or both, and a cross-attention slot's context
+K/V ("xkv").  The
 reference scans the slots under SPPO's checkpoint policy
 (``core/offload.py::checkpoint_block``); the port runs them as a loop under
 one of three remat policies (DESIGN.md §10, §12):
@@ -35,7 +40,12 @@ it as inputs, and returns the chunk's K/V and the state it leaves as
 outputs, so that later chunks send their gradients back through both; its
 replay starts from that incoming state.  The shared block's leaves are
 inputs too, and their gradients, like the stage parameters', sum over the
-groups and the chunks in the ``GradSink``.
+groups and the chunks in the ``GradSink``.  A cross-attention slot's
+context K/V ("xkv", made once a pass from the slot's ``xattn`` leaves and
+the context) is a seam input too, never a tagged row: each seam's
+backward returns its gradient, autograd sums it over the chunks and
+carries it once into the K/V projections (and whisper's encoder), and the
+replay reads the same K/V.
 
 At sp > 1 (``ChunkMeta.ctx``) a stage's parameters are this model rank's
 shards: each slot's "ag" leaves are all-gathered at use
@@ -192,8 +202,77 @@ def rwkv_slot(cfg, p, s, x, meta: ChunkMeta, extras=None):
     return x, {"rwkv": st}, 0.0
 
 
-SLOT_FNS = {"dense": dense_slot, "moe": moe_slot, "hybrid": zamba_group_slot,
-            "ssm": rwkv_slot}
+def _gated(gate, delta):
+    """A cross sub-layer's output under its learned gate: tanh in fp32,
+    cast to the activation dtype, then the product (reference
+    ``transformer.py:139, 142``)."""
+    return torch.tanh(gate).to(delta.dtype) * delta
+
+
+def vlm_group_slot(cfg, p, s, x, meta: ChunkMeta, extras=None):
+    """A llama-3.2-vision group (reference ``transformer.py:116-144``):
+    ``cross_attn.every`` self-attention layers, their leaves stacked [every,
+    ...] under "self" and their caches a list under "self", then the
+    cross-attention layer over the context's K/V ("xkv") and its MLP, each
+    under its tanh gate (``xgate_attn``, ``xgate_mlp``) and the slot's."""
+    mctx = meta.ctx or SINGLE
+    kvs = []
+    for i, cache in enumerate(s["self"]):
+        pi = tree.map_(lambda a: a[i], p["self"])
+        h = L.apply_norm(x, pi["ln1"], cfg.norm)
+        a, kv = _attention(cfg, pi, {"kv": cache}, h, meta)
+        x = _res(x, a, pi["gate"])
+        h2 = L.apply_norm(x, pi["ln2"], cfg.norm)
+        m = L.mlp(h2, pi["mlp"], cfg.act, name_tag=meta.tag)
+        x = _res(x, m, pi["gate"])
+        kvs.append(kv)
+    h = L.apply_norm(x, p["xln1"], cfg.norm)
+    a = A.cross_attention(h, p["xattn"], cfg, s["xkv"], name_tag=meta.tag, ctx=mctx)
+    x = _res(x, _gated(p["xgate_attn"], a), p["gate"])
+    h2 = L.apply_norm(x, p["xln2"], cfg.norm)
+    m = L.mlp(h2, p["xmlp"], cfg.act, name_tag=meta.tag)
+    x = _res(x, _gated(p["xgate_mlp"], m), p["gate"])
+    return x, {"self": kvs, "xkv": s["xkv"]}, 0.0
+
+
+def whisper_dec_slot(cfg, p, s, x, meta: ChunkMeta, extras=None):
+    """A whisper decoder layer (reference ``transformer.py:207-225``):
+    causal self-attention on the slot's cache, cross-attention over the
+    encoder output's K/V ("xkv"), the MLP."""
+    h = L.apply_norm(x, p["ln1"], cfg.norm)
+    a, kv = _attention(cfg, p, s, h, meta)
+    x = _res(x, a, p["gate"])
+    hx = L.apply_norm(x, p["xln"], cfg.norm)
+    a2 = A.cross_attention(hx, p["xattn"], cfg, s["xkv"], name_tag=meta.tag,
+                           ctx=meta.ctx or SINGLE)
+    x = _res(x, a2, p["gate"])
+    h2 = L.apply_norm(x, p["ln2"], cfg.norm)
+    m = L.mlp(h2, p["mlp"], cfg.act, name_tag=meta.tag)
+    x = _res(x, m, p["gate"])
+    return x, {"kv": kv, "xkv": s["xkv"]}, 0.0
+
+
+def encoder_layer(cfg, p, x, n_valid: int, ctx=SINGLE):
+    """A whisper encoder layer (reference ``transformer.py:228-248``) over
+    the frames [B, F, d]: bidirectional attention (causal=False), each frame
+    at its index as position and PAD past ``n_valid``, then the MLP; plain
+    residuals, no gate, no tag (the encoder runs once a pass, outside the
+    chunks)."""
+    A._check_cross_ctx(ctx)
+    B, F, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    h = L.apply_norm(x, p["ln1"], cfg.norm)
+    q, k, v = A._qkv(h, p["attn"], cfg, None)
+    idx = torch.arange(F, dtype=torch.int32, device=x.device)
+    pos = torch.where(idx < n_valid, idx, A.PAD).to(torch.int32)
+    out = A.dist_attention(q, k, v, pos, pos, ctx, causal=False)
+    x = x + out.reshape(B, F, H * hd) @ p["attn"]["wo"]
+    h2 = L.apply_norm(x, p["ln2"], cfg.norm)
+    return x + L.mlp(h2, p["mlp"], cfg.act)
+
+
+SLOT_FNS = {"dense": dense_slot, "moe": moe_slot, "vlm": vlm_group_slot,
+            "hybrid": zamba_group_slot, "ssm": rwkv_slot, "audio": whisper_dec_slot}
 
 
 def _slots(cfg, stage_params, state, x, meta: ChunkMeta, extras=None):
@@ -207,10 +286,35 @@ def _slots(cfg, stage_params, state, x, meta: ChunkMeta, extras=None):
     return x, aux
 
 
+# the keys of a slot's state that are not recurrent: its caches ("kv", a
+# VLM group's "self" list) and the cross-attention K/V ("xkv")
+_NOT_RECURRENT = ("kv", "self", "xkv")
+
+
+def _caches(s) -> list:
+    """A slot state's KV caches in a fixed order: its "kv", or a VLM group's
+    self-attention caches."""
+    return [s["kv"]] if "kv" in s else list(s.get("self", ()))
+
+
 def _recurrent(s) -> list:
     """A slot state's recurrent tensors, in a fixed order (none for a
     KV-only slot)."""
-    return [t for k, v in s.items() if k != "kv" for t in tree.leaves(v)]
+    return [t for k, v in s.items() if k not in _NOT_RECURRENT for t in tree.leaves(v)]
+
+
+def _cross(s) -> list:
+    """A slot state's cross-attention k and v (none without "xkv")."""
+    return [s["xkv"]["k"], s["xkv"]["v"]] if "xkv" in s else []
+
+
+def _set_cross(state, tensors) -> None:
+    """Put ``tensors`` (``_cross``'s of every slot, in slot order) in place
+    of the slots' cross-attention k and v."""
+    it = iter(tensors)
+    for i, s in enumerate(state):
+        if "xkv" in s:
+            state[i] = {**s, "xkv": {**s["xkv"], "k": next(it), "v": next(it)}}
 
 
 def _refill(like, it):
@@ -230,7 +334,7 @@ def _set_recurrent(state, tensors) -> None:
     place of the slots' recurrent state."""
     it = iter(tensors)
     for i, s in enumerate(state):
-        state[i] = {k: (v if k == "kv" else _refill(v, it)) for k, v in s.items()}
+        state[i] = {k: (v if k in _NOT_RECURRENT else _refill(v, it)) for k, v in s.items()}
 
 
 REMATS = ("none", "sppo", "full")
@@ -296,7 +400,7 @@ def stage_apply(cfg, stage_params, state, x, meta: ChunkMeta, *,
         x, aux = _slots(cfg, stage_params, state, x, meta, extras)
         return x, state, aux
     extras = {} if extras is None else extras
-    caches = [s["kv"] for s in state if "kv" in s]
+    caches = [c for s in state for c in _caches(s)]
     if any(c.chunks is None for c in caches):
         raise ValueError("the chunk seam needs training caches (init_state(train=True))")
     # the seam's inputs are the chunks before this one (a re-run chunk
@@ -309,7 +413,8 @@ def stage_apply(cfg, stage_params, state, x, meta: ChunkMeta, *,
     params = tree.leaves(stage_params) + tree.leaves(extras)
     prev = [t for c in caches for kv in c.chunks for t in kv]
     rec = [t for s in state for t in _recurrent(s)]
-    y, *outs = _StageSeam.apply(run, x, *params, *prev, *rec)
+    cross = [t for s in state for t in _cross(s)]
+    y, *outs = _StageSeam.apply(run, x, *params, *prev, *rec, *cross)
     # an MoE stack's aux is the seam's last output
     aux = outs.pop() if cfg.family == "moe" else 0.0
     # the chunk's own K/V and the state it leaves, as the seam's outputs:
@@ -366,11 +471,13 @@ class _SeamRun(NamedTuple):
 class _StageSeam(torch.autograd.Function):
     """One chunk's pass through the stack, checkpointed at the chunk.
 
-    ``apply(run, x, *params, *prev, *rec)``: ``params`` are the stage's
-    parameter leaves and the shared block's (``run.extras``), ``prev`` the
-    K/V of every earlier chunk, layer by layer (the seam outputs of those
-    chunks), ``rec`` the slots' recurrent state as the chunk finds it (the
-    previous seam's outputs; zeros at the first chunk).  Returns (y, k_0,
+    ``apply(run, x, *params, *prev, *rec, *cross)``: ``params`` are the
+    stage's parameter leaves and the shared block's (``run.extras``),
+    ``prev`` the K/V of every earlier chunk, layer by layer (the seam
+    outputs of those chunks), ``rec`` the slots' recurrent state as the
+    chunk finds it (the previous seam's outputs; zeros at the first chunk),
+    ``cross`` the slots' context K/V (the same for every chunk; its
+    gradients are returned, never kept as rows).  Returns (y, k_0,
     v_0, ..., k_L, v_L, *rec'), and for an MoE stack its summed aux last:
     the chunk's output, its own K/V of every layer that attends, and the
     recurrent state it leaves.
@@ -396,8 +503,9 @@ class _StageSeam(torch.autograd.Function):
     def forward(ctx, run: _SeamRun, x, *inputs):
         ctx.set_materialize_grads(False)
         n_rec = sum(len(_recurrent(s)) for s in run.state)
-        n_prev = sum(2 * len(s["kv"].chunks) for s in run.state if "kv" in s)
-        n_params = len(inputs) - n_prev - n_rec
+        n_cross = sum(len(_cross(s)) for s in run.state)
+        n_prev = sum(2 * len(c.chunks) for s in run.state for c in _caches(s))
+        n_params = len(inputs) - n_prev - n_rec - n_cross
         stage_p, extras = _rebuild_params(run, inputs[:n_params])
         off = run.offload
         if run.remat == "sppo":
@@ -410,7 +518,8 @@ class _StageSeam(torch.autograd.Function):
             y, aux = _slots(run.cfg, stage_p, run.state, x, run.meta, extras)
         ctx.save_for_backward(x, *inputs)
         ctx.run, ctx.keep, ctx.n_params, ctx.n_rec = run, keep, n_params, n_rec
-        kvs = [t.clone() for s in run.state if "kv" in s for t in s["kv"].chunks[-1]]
+        ctx.n_cross = n_cross
+        kvs = [t.clone() for s in run.state for c in _caches(s) for t in c.chunks[-1]]
         ins = {id(t) for t in inputs}
         rec = [t.clone() if id(t) in ins else t for s in run.state for t in _recurrent(s)]
         outs = (y, *kvs, *rec)
@@ -434,14 +543,16 @@ class _StageSeam(torch.autograd.Function):
             stage_p, extras = _rebuild_params(run, ins[:ctx.n_params])
             # each attending layer's chunk list: the earlier chunks' K/V as
             # leaves (the replay appends this chunk's); the recurrent state
-            # as the chunk found it
-            n_rec = ctx.n_rec
-            prev = iter(ins[ctx.n_params:len(ins) - n_rec])
-            caches = [s["kv"] for s in run.state if "kv" in s]
-            n_prev = (len(ins) - ctx.n_params - n_rec) // max(1, 2 * len(caches))
+            # as the chunk found it; the cross-attention K/V as leaves
+            n_rec, n_cross = ctx.n_rec, ctx.n_cross
+            end = len(ins) - n_cross
+            prev = iter(ins[ctx.n_params:end - n_rec])
+            caches = [c for s in run.state for c in _caches(s)]
+            n_prev = (end - ctx.n_params - n_rec) // max(1, 2 * len(caches))
             for c in caches:
                 c.chunks[:] = [(next(prev), next(prev)) for _ in range(n_prev)]
-            _set_recurrent(run.state, ins[len(ins) - n_rec:])
+            _set_recurrent(run.state, ins[end - n_rec:end])
+            _set_cross(run.state, ins[end:])
             if run.remat == "sppo":
                 y, aux = stage_apply_inject(run.cfg, stage_p, run.state, xl, run.meta,
                                             off.alpha, staged, keep, extras)

@@ -74,6 +74,13 @@ chunk loop hands it from chunk to chunk (through the chunk seams, whose
 replays start from the state each chunk found), prefill returns it and
 each decode step advances it; they run at sp = pp = 1.
 
+The cross-attention families (llama-3.2-vision-11b, whisper-tiny) take a
+context of stub patch or frame embeddings beside the tokens: the chunk
+loop encodes it (whisper) and projects each slot's K/V from it once,
+before the chunks, differentiably where a gradient is wanted; prefill
+leaves that K/V in the state and decode reads it.  They run at sp = pp =
+1, and the paged engine refuses them, as the reference does.
+
 The pod axis is pure data parallelism around the rest: the batch splits
 over pods x dp groups (``data/pipeline.py::shard_batch``), the gradients
 and the loss are also summed over the pods, and under ZeRO-1 (the plan's
@@ -191,10 +198,10 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
     whole chunk, which only a position-tagged cache absorbs, DESIGN.md §2).
     At pp = 1 the boundaries fall on multiples of max(sp, 128), and α sees
     each model rank's share of a chunk's rows (``chunk_act_bytes(sp=)``).
-    An MLA model (deepseek-v3) and the recurrent families (rwkv6, zamba2)
-    run at sp = pp = 1 only: more raises NotImplementedError naming the
-    ROADMAP item that brings it (MSP, which a recurrent state cannot take,
-    a ValueError).
+    An MLA model (deepseek-v3), the recurrent families (rwkv6, zamba2) and
+    the cross-attention families (llama-3.2-vision, whisper) run at sp = pp
+    = 1 only: more raises NotImplementedError naming the ROADMAP item that
+    brings it (MSP, which a recurrent state cannot take, a ValueError).
 
     ``doc_lens`` makes a packed variable-length cell (DESIGN.md §13), as in
     the reference: the documents are packed into rows of S tokens
@@ -214,6 +221,11 @@ def resolve_cell(arch, shape_cfg: ShapeConfig, *, overrides=None,
             f"{cfg.name} at sp = {sp}, pp = {plan.pp}: MLA runs at sp = pp = 1 in the port; "
             "its model-axis shards and pipeline stages come with a later slice (ROADMAP "
             "Queue 1, item 7)")
+    if cfg.cross_attn is not None and (sp > 1 or plan.pp > 1):
+        raise NotImplementedError(
+            f"{cfg.name} at sp = {sp}, pp = {plan.pp}: the {cfg.family} family runs at "
+            "sp = pp = 1 in the port; the context sharded over the model axis and the "
+            "pipeline stages come with a later slice (ROADMAP Queue 1, item 7)")
     if cfg.sub_quadratic and (sp > 1 or plan.pp > 1):
         if plan.msp and plan.pp > 1:
             raise ValueError(f"msp unsupported for family {cfg.family!r}: recurrent "
@@ -425,8 +437,28 @@ def _chunk_meta(cell: Cell, ctx: Ctx, off: int, ln: int, doc_start, dev, *,
                      ctx=ctx if cell.plan.sp > 1 else None)
 
 
+def _cross_state(cell: Cell, stage_p, g, context, B: int, dev, *, train: bool):
+    """The stage's per-slot state: for a cross-attention model the context
+    ([B, N_ctx, d]) is encoded first where the model has an encoder (the
+    reference's ``runner.py:428-433``) and each slot's "xkv" made from it;
+    differentiable where a gradient is wanted, the encoder, the ``xattn``
+    K/V projections and the context's rows then getting the sum of every
+    chunk's gradient through it."""
+    mdef = cell.mdef
+    if mdef.cfg.cross_attn is None:
+        return mdef.init_state(B, cell.cache_loc, cell.dtype, dev, train=train,
+                               n_slots=len(stage_p))
+    n = mdef.n_context()
+    if context is None or tuple(context.shape) != (B, n, mdef.cfg.d_model):
+        raise ValueError(f"{mdef.cfg.name} reads a context of [{B}, {n}, "
+                         f"{mdef.cfg.d_model}], got "
+                         f"{None if context is None else tuple(context.shape)}")
+    return mdef.init_state(B, cell.cache_loc, cell.dtype, dev, train=train,
+                           stage_params=stage_p, context=mdef.encode(g, context.to(cell.dtype)))
+
+
 def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
-                 with_loss: bool = False, doc_start=None, ctx: Ctx = SINGLE):
+                 with_loss: bool = False, doc_start=None, ctx: Ctx = SINGLE, context=None):
     """The chunk loop of this rank.  tokens, labels: [B, S] int (a dp
     group's rows, every model rank's alike).  ``doc_start``: optional [B, S]
     int32 start of each token's document in a packed batch (``PAD_START``
@@ -437,8 +469,12 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
     sentinel: a negative label carries zero weight), and the caches keep
     every chunk's K/V for the backward; where a gradient is wanted, each
     chunk's stack runs through its seam under the plan's remat policy and
-    offload.  Returns dict(loss, denom, aux, state, last_x, link, seed);
-    aux is the chunks' summed MoE balance loss (0.0 for a dense model);
+    offload.  ``context`` ([B, N_ctx, d]): a cross-attention model's stub
+    patch or frame embeddings, encoded (whisper) and projected to each
+    slot's K/V once, before the chunks (``_cross_state``); the chunks of a
+    model with learned positions embed theirs.  Returns dict(loss, denom,
+    aux, state, last_x, link, seed); aux is the chunks' summed MoE balance
+    loss (0.0 for a dense model);
     loss and denom are None without ``with_loss``, link (the step's host
     rows, ``core/offload.py::Link``) None where nothing offloads; ``seed``
     (the first hand-off token) None at pp = 1 (``_run_ticks``)."""
@@ -447,17 +483,16 @@ def run_pipeline(cell: Cell, stage_p, g, tokens, labels=None, *,
                           doc_start=doc_start)
     mdef, plan = cell.mdef, cell.plan
     dev = tokens.device
-    state = mdef.init_state(tokens.shape[0], cell.cache_loc, cell.dtype, dev,
-                            train=with_loss)
+    state = _cross_state(cell, stage_p, g, context, tokens.shape[0], dev, train=with_loss)
     train = with_loss and torch.is_grad_enabled()
     ahead = use_ahead_prefetch(plan, train=train)
     link = ofl.Link(ahead=ahead) if train and plan.offload else None
     loss = denom = x = None
     aux = 0.0
     for c, (off, ln) in enumerate(zip(cell.sched.offsets, cell.sched.lengths)):
-        x = mdef.embed(g, tokens[:, off:off + ln], ctx)
         meta = _chunk_meta(cell, ctx, off, ln, doc_start, dev, cache_off=off // plan.sp,
                            kv_view=(off + ln) // plan.sp)
+        x = mdef.embed(g, tokens[:, off:off + ln], ctx, q_pos=meta.q_pos)
         if train:
             # the chunk's seam (the reference's prefetch_chunk): its backward
             # takes the chunk's reloaded rows from the link and, under
@@ -586,12 +621,15 @@ def make_prefill_step(cell: Cell, ctx: Ctx = SINGLE):
     of every chunk (slots ``[off / sp, (off + T) / sp)``, the
     chunk-contiguous layout ``kvpool.pos_map`` mirrors), attended under the
     plan's schedule, the ring's included."""
-    def prefill_step(params, tokens):
+    def prefill_step(params, tokens, context=None):
         """tokens: [B, S] int (this rank's dp group's rows, every model
-        rank's alike); returns (per-slot caches, last chunk's hidden) of
+        rank's alike); ``context``: a cross-attention model's [B, N_ctx, d]
+        stub embeddings of those rows.  Returns (per-slot caches, the
+        cross-attention K/V beside them, and the last chunk's hidden) of
         this rank's stage and model shard."""
         _check_ctx(cell, ctx)
-        out = run_pipeline(cell, params["stages"], params["globals"], tokens, ctx=ctx)
+        out = run_pipeline(cell, params["stages"], params["globals"], tokens, ctx=ctx,
+                           context=context)
         return out["state"], out["last_x"]
 
     return prefill_step
@@ -599,9 +637,17 @@ def make_prefill_step(cell: Cell, ctx: Ctx = SINGLE):
 
 def trainable(path: str) -> bool:
     """Every parameter is trained except the gates (a slot's, a hybrid
-    mixer's and its shared block's), structural constants (the reference
-    stops their gradients)."""
+    mixer's and its shared block's, a VLM self layer's), structural
+    constants (the reference stops their gradients); a VLM's learned cross
+    gates (``xgate_attn``, ``xgate_mlp``) are trained."""
     return not path.endswith(("gate", "gate_shared"))
+
+
+def unread(cfg, path: str) -> bool:
+    """Leaves the model never reads, whose gradient is zero: the ``xattn``
+    biases of a model with qkv biases (whisper), since the reference's
+    cross-attention projects q, k and v without them."""
+    return cfg.qkv_bias and "xattn/b" in path
 
 
 def _check_ctx(cell: Cell, ctx: Ctx) -> None:
@@ -617,7 +663,7 @@ def _check_ctx(cell: Cell, ctx: Ctx) -> None:
 
 
 def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
-                   ctx: Ctx = SINGLE):
+                   ctx: Ctx = SINGLE, context=None):
     """The loss ``sum / max(count, 1)`` of the chunked pipeline and its
     gradients, a tree like ``params`` (zeros for the gate).
 
@@ -645,12 +691,13 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
     the reference's accumulation scan.  With A = 1 the gradients come in
     the parameters' dtypes.  ``doc_start`` (a packed batch's [B, S] document
     starts) is split as the tokens are and reaches the attention only in a
-    varlen cell (``cell.varlen``), as in the reference."""
+    varlen cell (``cell.varlen``), as in the reference; so is a
+    cross-attention model's ``context`` ([B, N_ctx, d])."""
     _check_ctx(cell, ctx)
     if not cell.varlen:
         doc_start = None
 
-    def one(tok, lab, ds):
+    def one(tok, lab, ds, cx):
         # detached aliases: the caller's tensors are not touched
         alias = tree.map_(lambda t: t.detach(), params)
         leaves = [t.requires_grad_() for p, t in tree.items(alias) if trainable(p)]
@@ -659,7 +706,7 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
         sink = T.GradSink()
         with torch.enable_grad(), T.collect_param_grads(sink):
             out = run_pipeline(cell, alias["stages"], alias["globals"], tok, lab,
-                               with_loss=True, doc_start=ds, ctx=ctx)
+                               with_loss=True, doc_start=ds, ctx=ctx, context=cx)
             if ctx.distributed:
                 den = ctx.psum_loss_all(out["denom"]).clamp_min(1.0)
                 value = ctx.psum_loss_all(out["loss"]) / den
@@ -679,7 +726,9 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
             # on stage 0, the head on the last): the others get zeros
             got = torch.autograd.grad(loss, leaves + extra, allow_unused=True)[:len(leaves)]
         got = [_with_sink(g, sink.take(t)) for g, t in zip(got, leaves)]
-        if not ctx.distributed and any(g is None for g in got):
+        paths = [p for p, _ in tree.items(alias) if trainable(p)]
+        if not ctx.distributed and any(g is None and not unread(cell.cfg, p)
+                                       for g, p in zip(got, paths)):
             raise RuntimeError("a trainable parameter got no gradient on one device")
         grads = iter(got)
         flat = [next(grads) if trainable(p) else None for p, t in tree.items(params)]
@@ -698,7 +747,8 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
         for a in range(A):
             rows = slice(a * bm, (a + 1) * bm)
             l, flat, used = one(tokens[rows], labels[rows],
-                                None if doc_start is None else doc_start[rows])
+                                None if doc_start is None else doc_start[rows],
+                                None if context is None else context[rows])
             if gsum is None:
                 loss, gsum = l, [g.float() for g in flat]
             else:
@@ -707,7 +757,7 @@ def loss_and_grads(cell: Cell, params, tokens, labels, doc_start=None, *,
                     acc.add_(g.float())
         loss, flat = loss / A, [g / A for g in gsum]
     else:
-        loss, flat, used = one(tokens, labels, doc_start)
+        loss, flat, used = one(tokens, labels, doc_start, context)
     it, it_used = iter(flat), iter(used)
     grads = tree.map_(lambda _: next(it), params)
     used = tree.map_(lambda _: next(it_used), params)
@@ -800,12 +850,15 @@ def make_train_step(cell: Cell, *, lr_kwargs=None, ctx: Ctx = SINGLE):
 
     lr_kwargs = lr_kwargs or {}
 
-    def train_step(params, opt_state, tokens, labels, doc_start=None):
+    def train_step(params, opt_state, tokens, labels, doc_start=None, context=None):
         """tokens, labels (and a packed batch's doc_start): [B, S] int on the
-        parameters' device (a dp group's rows over several ranks).  Returns
-        (params, opt_state, metrics); metrics hold tensors (loss,
-        grad_norm, lr) that stay on the device until read."""
-        loss, grads = loss_and_grads(cell, params, tokens, labels, doc_start, ctx=ctx)
+        parameters' device (a dp group's rows over several ranks);
+        ``context``: a cross-attention model's [B, N_ctx, d] stub
+        embeddings of those rows.  Returns (params, opt_state, metrics);
+        metrics hold tensors (loss, grad_norm, lr) that stay on the device
+        until read."""
+        loss, grads = loss_and_grads(cell, params, tokens, labels, doc_start, ctx=ctx,
+                                     context=context)
         lr = adamw.cosine_lr(opt_state.step, **lr_kwargs)
         plan = cell.plan
         params, opt_state, met = adamw.apply_update(
@@ -838,7 +891,10 @@ def make_serve_step(cell: Cell, *, decode_steps=None, ctx: Ctx = SINGLE):
     are host ints, so the others write nothing), attends every rank's cache
     shard and merges, and samples greedily from the gathered logits.  At pp
     > 1 the batch runs as microbatches through the stages
-    (``_decode_ticks``) and every stage returns the last stage's tokens."""
+    (``_decode_ticks``) and every stage returns the last stage's tokens.  A
+    cross-attention model's decode reads the "xkv" its prefill left in the
+    state (reference ``_serve_state``); whisper's token adds its learned
+    position's row."""
     if decode_steps is not None and decode_steps > max_decode_steps(cell):
         raise ValueError(
             f"decode_steps={decode_steps} exceeds the cache's decode budget "
@@ -863,7 +919,7 @@ def make_serve_step(cell: Cell, *, decode_steps=None, ctx: Ctx = SINGLE):
                          ctx=ctx if sp > 1 else None)
         if plan.pp > 1:
             return state, _decode_ticks(cell, ctx, params["stages"], g, state, tokens, meta)
-        x = mdef.embed(g, tokens, ctx, decode=True)
+        x = mdef.embed(g, tokens, ctx, decode=True, q_pos=q_pos)
         x, state, _ = mdef.stage_apply(params["stages"], state, x, meta, g=g)
         return state, mdef.head_logits(g, x, ctx).argmax(dim=-1).to(torch.int32)
 

@@ -21,6 +21,21 @@ TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 WINDOW_DEAD = np.array([[0, 0, 0, 0, 0, 0, 0, 1], [1, 0, 0, 0, 0, 0, 1, 1]], bool)
 
 
+# the VLM's cross gates in every cross-attention test: at their init of 0
+# the cross layers add nothing and their leaves get no gradient
+XATTN_GATES = {"xgate_attn": 0.5, "xgate_mlp": -0.3}
+
+
+def set_cross_gates(params):
+    """Sets the cross gates of every VLM slot of the port's ``params`` to
+    XATTN_GATES, in place; returns ``params``."""
+    for slot in params["stages"]:
+        for name, val in XATTN_GATES.items():
+            if name in slot:
+                slot[name].fill_(val)
+    return params
+
+
 def tol(dtype):
     """The reference's tolerances: 1e-5 for fp32, 2e-2 for bf16 inputs."""
     return 2e-2 if dtype == "bfloat16" else 1e-5

@@ -17,7 +17,9 @@ expert block on the card against the CPU; the wide tensor-core kernels at
 deepseek-v3's MLA widths (hd_k 576, hd_v 512, G = 128, v a view of the
 latent k) and the CUDA-core pair's refusal of them; the narrow kernels at
 zamba2-7b's shared attention block (hd 112, G = 1) and the reduced rwkv6-3b and
-zamba2-7b steps on the card against the CPU.
+zamba2-7b steps on the card against the CPU; the narrow kernels non-causal at
+llama-3.2-vision-11b's cross layer and whisper-tiny's encoder and cross
+layer, and both reduced models' steps on the card against the CPU.
 
 Every test here needs a CUDA card: it is marked ``cuda`` and skips without
 one.  The file imports no JAX, since the machine with the card has none, and
@@ -51,8 +53,8 @@ from repro_torch.launch.serve import build_params
 from repro_torch.parallel import runner
 from repro_torch.runtime import hostmem
 
-from _torch_cases import (SWEEP, WINDOW_DEAD, inputs, sweep_case, to_np,
-                          to_torch, window_case)
+from _torch_cases import (SWEEP, WINDOW_DEAD, inputs, set_cross_gates, sweep_case,
+                          to_np, to_torch, window_case)
 
 TOL = 1e-5  # kernel vs plain version, fp32 and bf16 inputs alike
 
@@ -1306,3 +1308,103 @@ def test_ssm_reduced_step_on_the_card_equals_the_cpu(cuda_device, arch, layers):
         assert torch.isfinite(g).all(), path
         if w.norm() > 0:
             assert ((g - w).norm() / w.norm()).item() <= 1e-4, path
+
+
+# ---------------------------------------------------------------------------
+# the cross-attention families: the narrow kernels non-causal at
+# llama-3.2-vision-11b's cross shape and at whisper-tiny's encoder and cross
+# shapes, and the reduced models' steps on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+XATTN_SHAPES = {  # B, Tq, S, H, Hkv, hd; q_pos zeros (unread), every slot visible
+    "vlm_cross_chunk": (2, 128, 1600, 32, 8, 128),
+    "vlm_cross_decode": (4, 1, 1600, 32, 8, 128),
+    "whisper_encoder": (1, 1500, 1500, 6, 6, 64),
+    "whisper_cross_chunk": (2, 128, 1500, 6, 6, 64),
+    "whisper_cross_decode": (4, 1, 1500, 6, 6, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(XATTN_SHAPES))
+@pytest.mark.parametrize("dtype,kernels", [(d, k) for d in ("float32", "bfloat16")
+                                           for k in _kernels(d)])
+def test_kernels_non_causal_at_the_cross_attention_shapes(cuda_device, shape, dtype, kernels):
+    """causal=False at the VLM's cross layer (hd 128, G 4 over 1600
+    patches) and whisper's encoder (1500 x 1500 frames, its positions as
+    q_pos, 10 PAD frames past n_valid) and cross layer (hd 64, G 1 over 1500
+    frames): the forward, and where Tq > 1 the backward pair, against their
+    plain versions; a batch row with a PAD window is dead, exactly (its dq
+    exactly 0 under NaN cotangents)."""
+    PAD = 2**30
+    B, Tq, S, H, Hkv, hd = XATTN_SHAPES[shape]
+    arrays = inputs(B, Tq, S, H, Hkv, hd, hd, seed=sum(XATTN_SHAPES[shape]))
+    kv_pos = np.arange(S, dtype=np.int32)
+    q_pos = np.zeros(Tq, np.int32)
+    if shape == "whisper_encoder":
+        kv_pos[1490:] = PAD
+        q_pos = kv_pos
+    _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device, causal=False, kernels=kernels)
+    q_start = np.zeros((B, Tq), np.int32)
+    q_start[-1, -1] = PAD
+    o, m, l = _check_kernel(arrays, dtype, q_pos, kv_pos, cuda_device, q_start=q_start,
+                            causal=False, kernels=kernels)
+    dead = torch.from_numpy(q_start == PAD).to(cuda_device)
+    assert (o[dead] == 0).all() and (l[dead] == 0).all() and (m[dead] == -1e30).all()
+    assert (l[~dead] > 0).all()
+    if Tq > 1:
+        _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device, causal=False, kernels=kernels)
+        dq, _, _ = _check_bwd(arrays, dtype, q_pos, kv_pos, cuda_device, q_start=q_start,
+                              causal=False, dead=dead, kernels=kernels)
+        assert (dq[dead] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_xattn_reduced_step_on_the_card_equals_the_cpu(cuda_device, arch):
+    """The reduced config in fp32 (one VLM group; 2 whisper decoder and 2
+    encoder layers), the VLM's cross gates set to XATTN_GATES, the same
+    weights and context, one loss-and-gradients call at S 256 in 2 chunks
+    under the default plan with chunk 0 offloading every tagged row: the
+    loss within 1e-5 and every gradient leaf within 1e-4 relative L2 of the
+    CPU's (a k bias's, zero up to rounding, relative to its layer's q
+    bias's); the CUDA-core kernels launched twice a chunked attention call
+    (the chunk and its replay) and once an encoder layer, the backward pair
+    once each; the rows through pinned host memory."""
+    cfg = get_config(arch).reduced()
+    cell = runner.resolve_cell(cfg, ShapeConfig("xattn", 256, 2, "train"),
+                               overrides=dict(pp=1, dp=1, n_chunks=2), dtype=torch.float32)
+    cell = dataclasses.replace(cell, alphas=(1.0, 0.0))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int64))
+    labels = tokens.roll(-1, 1)
+    context = torch.from_numpy(
+        rng.standard_normal((2, cell.mdef.n_context(), cfg.d_model)).astype(np.float32))
+    params = set_cross_gates(build_params(cell, "cpu", seed=0))
+    want_loss, want = runner.loss_and_grads(cell, params, tokens, labels, context=context)
+    on_card = tree.map_(lambda t: t.to(cuda_device), params)
+    before = fa.counts()
+    hostmem.reset_counts()
+    loss, got = runner.loss_and_grads(cell, on_card, tokens.to(cuda_device),
+                                      labels.to(cuda_device), context=context.to(cuda_device))
+    launched = _launched(before)
+    per_chunk = (cell.mdef.n_slots * (cfg.cross_attn.every + 1) if cfg.family == "vlm"
+                 else 2 * cfg.n_layers)
+    chunked = per_chunk * cell.sched.n
+    assert launched.get("fwd", 0) == 2 * chunked + cfg.encoder_layers
+    assert launched.get("bwd_dq", 0) == launched.get("bwd_dkv", 0) == chunked + cfg.encoder_layers
+    assert launched.get("fwd_tc", 0) == 0
+    copied = hostmem.counts()
+    assert copied["d2h_bytes"] == copied["h2d_bytes"] > 0 and copied["d2h_pinned"] == copied["d2h"]
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    want = dict(tree.items(want))
+    for path, g in tree.items(got):
+        g, w = g.cpu(), want[path]
+        assert torch.isfinite(g).all(), path
+        # a k bias's gradient is zero up to rounding (it shifts every score
+        # of a query alike): measured against its layer's q bias's
+        n = want[path[:-2] + "bq"].norm() if path.endswith("attn/bk") else w.norm()
+        if n > 0:
+            assert ((g - w).norm() / n).item() <= 1e-4, path
+    assert float(got["stages"][0]["xattn"]["wq"].norm()) > 0
